@@ -1,0 +1,152 @@
+"""Build and load the hand-written Hopper kernels.
+
+The CUDA C++ sources under ``dynamic_llava_tpu_torch/csrc/`` are compiled
+with ``nvcc`` for ``sm_90a`` into ONE shared library with a plain C
+interface, at first use, and loaded with ``ctypes``. Tensor pointers and
+the CUDA stream cross the boundary as ``c_void_p``; every entry point
+returns ``cudaGetLastError()`` after its launch and ``check`` raises on a
+non-zero code.
+
+Nothing is compiled, loaded or imported from CUDA when this module is
+imported: the CPU test suite imports every module on machines that have
+neither ``nvcc`` nor a card. The library lands in ``_build/`` beside the
+package (git-ignored), named by a hash of the sources and flags, so an
+edited kernel is rebuilt and an unchanged one is reused within a checkout.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import NamedTuple
+
+import torch
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+# dtype codes shared with the C entry points (see csrc/common.cuh)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class KernelBuildError(RuntimeError):
+    """The kernels cannot be built or loaded on this machine."""
+
+
+class Library(NamedTuple):
+    lib: ctypes.CDLL
+    path: Path
+    build_seconds: float  # 0.0 when a library from an earlier build was reused
+    ptxas_log: str
+
+
+def find_nvcc() -> str:
+    """Path of ``nvcc``: ``$CUDA_HOME/bin``, then ``/usr/local/cuda/bin``,
+    then ``PATH``. Raises ``KernelBuildError`` when there is none."""
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root:
+            cand = Path(root) / "bin" / "nvcc"
+            if cand.is_file() and os.access(cand, os.X_OK):
+                return str(cand)
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    raise KernelBuildError(
+        "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin and "
+        "PATH): the CUDA kernels are built from source at first use and "
+        "need the CUDA toolkit"
+    )
+
+
+def _sources():
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_attention_fwd.argtypes = [
+        p, p, p, p, p, p,  # q, k, v, kv_length, out, lse
+        i, i, i, i, i, i,  # B, Sq, Sk, H, Hkv, D
+        i, i, f, i, p,  # causal, q_offset, scale, dtype, stream
+    ]
+    lib.flash_attention_fwd.restype = i
+    lib.decode_attention_appended.argtypes = [
+        p, p, p, p, p, p, p,  # q, k_cache, v_cache, k_cur, v_cur, length, out
+        i, i, i, i, i,  # B, max_len, H, Hkv, D
+        f, i, p,  # scale, dtype, stream
+    ]
+    lib.decode_attention_appended.restype = i
+    lib.kernel_error_string.argtypes = [i]
+    lib.kernel_error_string.restype = ctypes.c_char_p
+
+
+@functools.cache
+def load_library() -> Library:
+    """Build (if needed) and load the kernel library. Raises
+    ``KernelBuildError`` without building anything when there is no CUDA
+    device or no ``nvcc``."""
+    if not torch.cuda.is_available():
+        raise KernelBuildError(
+            "the CUDA kernels need a CUDA device, and "
+            "torch.cuda.is_available() is False"
+        )
+    nvcc = find_nvcc()
+    sources = [s for s in _sources() if s.suffix == ".cu"]
+    if not sources:
+        raise KernelBuildError(f"no CUDA sources under {CSRC_DIR}")
+    path = BUILD_DIR / f"libdllava_kernels_{_digest()}.so"
+    seconds, log = 0.0, ""
+    if not path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp),
+               *map(str, sources)]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = res.stdout + res.stderr
+        if res.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise KernelBuildError(
+                f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{log}"
+            )
+        os.replace(tmp, path)
+    lib = ctypes.CDLL(str(path))
+    _declare(lib)
+    return Library(lib=lib, path=path, build_seconds=seconds, ptxas_log=log)
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error (its return value is
+    ``cudaGetLastError()`` right after the launch)."""
+    if code != 0:
+        msg = load_library().lib.kernel_error_string(code).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {code} ({msg})")
+
+
+def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())

@@ -1,0 +1,266 @@
+"""Dynamic-LLaVA inference: multimodal composition and sparsification
+(counterpart of ``dynamic_llava_tpu/models/dynamic.py``).
+
+* ``prefill`` -- E1: the vision predictor scores the image tokens entering
+  ``sparse_layer``, a static-budget top-k keeps ``vision_keep_budget`` of
+  them, and the sequence is compacted in stable order; layers below the
+  sparse layer cache the full sequence (pre tier), layers at and above the
+  compacted one (post tier). The E2 instruct-predictor prune is ported too.
+* ``decode_step`` -- E3 in ``"drop"`` mode: the output-text predictor
+  decides, on the hidden state entering the sparse layer, whether the new
+  token persists in the post tier; once that tier's budget is full every
+  further token is force-dropped.
+
+With the predictors off (``DENSE_SPARSE_CONFIG``) both reduce to dense
+LLaVA-1.5.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from ..config import LlavaConfig
+from ..multimodal.fusion import fuse_embeddings
+from ..ops.kv_cache import TieredCache, advance_tiered, init_tiered_cache
+from ..ops.sparsify import gather_tokens, plan_compaction, topk_keep_mask
+from . import clip, llama, projector
+from .predictors import text_predictor, vision_predictor
+
+
+def encode_images(params, cfg: LlavaConfig, pixel_values: torch.Tensor) -> torch.Tensor:
+    """Tower + projector: ``[B, H, W, 3]`` normalized NHWC -> ``[B, N_img, D]``."""
+    feats = clip.vision_tower_features(params["vision_tower"], cfg.vision, pixel_values)
+    return projector.apply_projector(params["mm_projector"], feats)
+
+
+def _span_mask(s: int, start: torch.Tensor, end: torch.Tensor) -> torch.Tensor:
+    pos = torch.arange(s, dtype=torch.int32, device=start.device)[None, :]
+    return (pos >= start[:, None]) & (pos < end[:, None])
+
+
+def _gather_span(x: torch.Tensor, start: torch.Tensor, length: int) -> torch.Tensor:
+    """``[B, S, D] -> [B, length, D]``: the per-sample span starting at
+    ``start``."""
+    b = x.shape[0]
+    idx = start.long()[:, None] + torch.arange(length, device=x.device)[None, :]
+    return x[torch.arange(b, device=x.device)[:, None], idx]
+
+
+class GenState(NamedTuple):
+    cache: TieredCache
+    next_pos: torch.Tensor  # [B] original-position counter for RoPE
+    last_logits: torch.Tensor  # [B, V] fp32 logits of the last processed token
+
+
+class PrefillInfo(NamedTuple):
+    image_keep_mask: Optional[torch.Tensor]  # [B, S] over pre-compaction slots
+    kept_positions: torch.Tensor  # [B, S_c] original positions of compacted slots
+    new_length: torch.Tensor  # [B] post-compaction valid length
+
+
+def prefill(
+    params,
+    cfg: LlavaConfig,
+    plan_token_ids: torch.Tensor,  # [B, S]
+    plan_is_image: torch.Tensor,  # [B, S] bool
+    plan_image_slot: torch.Tensor,  # [B, S]
+    valid_len: torch.Tensor,  # [B] int32
+    image_start: torch.Tensor,  # [B]
+    last_instruct_start: torch.Tensor,  # [B]
+    last_instruct_end: torch.Tensor,  # [B]
+    has_image: torch.Tensor,  # [B] bool
+    pixel_values: Optional[torch.Tensor],  # [B, H, W, 3] or None (text-only)
+    cache: TieredCache,
+    all_have_image: bool = False,
+) -> Tuple[GenState, PrefillInfo]:
+    """``all_have_image`` is the host-known promise that every sample has
+    exactly one image; only then may the compacted sequence be cut to
+    ``S - N_img + K`` (a text-only sample keeps all its tokens)."""
+    tcfg, sparse = cfg.text, cfg.sparse
+    b, s = plan_token_ids.shape
+    n_img = cfg.num_image_tokens
+    dev = plan_token_ids.device
+
+    x = llama.embed_tokens(params["llm"], plan_token_ids)
+    if pixel_values is not None:
+        img_feats = encode_images(params, cfg, pixel_values)
+        x = fuse_embeddings(x, img_feats, plan_is_image, plan_image_slot)
+    positions = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
+
+    sl = sparse.sparse_layer
+    res = llama.run_layers_prefill(
+        params["llm"], tcfg, x, positions, cache.pre, valid_len, lo=0, hi=sl
+    )
+    x, cache_pre = res.x, res.cache
+
+    valid = positions < valid_len[:, None]
+    keep = valid
+    image_keep = None
+    out_len = s
+    if sparse.use_vision_predictor and pixel_values is not None:
+        img_hidden = _gather_span(x, image_start, n_img)  # [B, N_img, D]
+        logits = vision_predictor(
+            params["predictors"]["image_score_predictor"], img_hidden, sparse
+        )
+        scores_img = torch.log_softmax(logits.float(), dim=-1)[..., 0]
+        span_idx = image_start.long()[:, None] + torch.arange(n_img, device=dev)[None, :]
+        scores = torch.zeros((b, s), dtype=torch.float32, device=dev)
+        scores.scatter_(1, span_idx, scores_img)
+        k_budget = sparse.vision_keep_budget(n_img)
+        img_keep = topk_keep_mask(scores, k_budget, plan_is_image & valid)
+        # samples without an image keep their (empty) image span untouched
+        keep = torch.where(has_image[:, None] & plan_is_image, img_keep, keep)
+        image_keep = img_keep
+        if all_have_image:
+            out_len = s - n_img + k_budget
+
+    if sparse.use_instruct_predictor:
+        tp = text_predictor(params["predictors"]["instruct_score_predictor"], x)
+        instr_keep = tp[..., 0] > tp[..., 1]
+        instr_span = _span_mask(s, last_instruct_start, last_instruct_end)
+        is_span_last = (
+            torch.arange(s, dtype=torch.int32, device=dev)[None, :]
+            == (last_instruct_end - 1)[:, None]
+        )
+        keep = torch.where(instr_span & ~is_span_last, keep & instr_keep, keep)
+
+    if sparse.use_vision_predictor or sparse.use_instruct_predictor:
+        comp = plan_compaction(keep, out_len=out_len)
+        x = gather_tokens(x, comp.gather_idx)
+        new_positions = gather_tokens(positions, comp.gather_idx)
+        new_valid = comp.new_length
+    else:
+        new_positions = positions
+        new_valid = valid_len
+
+    # the post tier may be allocated at the pruned budget: cut the padded
+    # compacted sequence to its capacity before writing
+    post_cap = cache.post.max_len
+    if x.shape[1] > post_cap:
+        x = x[:, :post_cap]
+        new_positions = new_positions[:, :post_cap]
+    new_valid = torch.clamp(new_valid, max=x.shape[1]).to(torch.int32)
+    res2 = llama.run_layers_prefill(
+        params["llm"], tcfg, x, new_positions, cache.post, new_valid,
+        lo=sl, hi=tcfg.num_hidden_layers,
+    )
+    x, cache_post = res2.x, res2.cache
+
+    last_hidden = _gather_span(x, new_valid - 1, 1)  # [B, 1, D]
+    logits = llama.lm_head(params["llm"], tcfg, last_hidden)[:, 0]
+    state = GenState(
+        cache=TieredCache(pre=cache_pre, post=cache_post),
+        next_pos=valid_len.to(torch.int32),
+        last_logits=logits,
+    )
+    info = PrefillInfo(
+        image_keep_mask=image_keep,
+        kept_positions=new_positions,
+        new_length=new_valid,
+    )
+    return state, info
+
+
+def decode_step(
+    params,
+    cfg: LlavaConfig,
+    token: torch.Tensor,  # [B] next input token ids
+    state: GenState,
+) -> GenState:
+    """One ``"drop"``-mode decode step. The K/V buffers of both tiers are
+    updated IN PLACE (the JAX version returns rebuilt buffers); lengths and
+    positions come back as new tensors."""
+    tcfg, sparse = cfg.text, cfg.sparse
+    b = token.shape[0]
+    sl = sparse.sparse_layer
+
+    x = llama.embed_tokens(params["llm"], token[:, None])
+    pos = state.next_pos[:, None]
+    d1 = llama.run_layers_decode(
+        params["llm"], tcfg, x, pos, state.cache.pre, lo=0, hi=sl
+    )
+    x = d1.x
+
+    if sparse.use_output_text_predictor:
+        # E3: keep iff logit[keep] > logit[drop] on the hidden entering the
+        # sparse layer
+        tp = text_predictor(
+            params["predictors"]["output_text_score_predictor"], x[:, 0]
+        )
+        keep = (tp[..., 0] > tp[..., 1]).to(torch.int32)
+    else:
+        keep = torch.ones((b,), dtype=torch.int32, device=token.device)
+
+    # the post tier reserves its last slot as scratch for the in-flight
+    # token: once the budget is full, further tokens are force-dropped
+    if state.cache.post.num_layers > 0:
+        post_budget = state.cache.post.max_len - 1
+        keep = keep * (state.cache.post.length[0] < post_budget).to(torch.int32)
+
+    d2 = llama.run_layers_decode(
+        params["llm"], tcfg, x, pos, state.cache.post,
+        lo=sl, hi=tcfg.num_hidden_layers,
+    )
+    cache = advance_tiered(TieredCache(pre=d1.cache, post=d2.cache), keep)
+    logits = llama.lm_head(params["llm"], tcfg, d2.x)[:, 0]
+    return GenState(cache=cache, next_pos=state.next_pos + 1, last_logits=logits)
+
+
+# gen_cache_sizes is a verbatim copy of the JAX function: the post-tier
+# capacity decides when decode tokens are force-dropped, so any sizing
+# difference would break token-exact parity.
+def gen_cache_sizes(cfg: LlavaConfig, prompt_len: int, max_new_tokens: int,
+                    margin: int = 8,
+                    bound_output_budget: bool = True,
+                    all_have_image: bool = True,
+                    bucket: int = 1,
+                    decode_window: Optional[int] = None,
+                    ring: bool = False) -> Tuple[int, int]:
+    """Static cache capacities: the pre tier holds everything; the post tier
+    is sized by the pruned prefill budget + decode headroom
+    (``keep_rate * max_new + margin`` + 1 scratch slot with
+    ``bound_output_budget``). ``all_have_image`` must be False for batches
+    that may contain text-only samples. ``bucket`` rounds both capacities
+    up to a multiple. ``decode_window`` caps the post tier's decode
+    headroom; ``ring`` also caps the pre tier (ring mode only)."""
+    pre_headroom = max_new_tokens
+    if ring and decode_window is not None:
+        pre_headroom = min(max_new_tokens, decode_window)
+    pre = prompt_len + pre_headroom + margin
+    sparse = cfg.sparse
+    post_prefill = prompt_len
+    if sparse.use_vision_predictor and all_have_image:
+        n_img = cfg.num_image_tokens
+        post_prefill = prompt_len - n_img + sparse.vision_keep_budget(n_img)
+    decode_headroom = max_new_tokens
+    if bound_output_budget and sparse.use_output_text_predictor:
+        decode_headroom = int(
+            max_new_tokens * sparse.output_text_keep_rate
+        ) + margin
+    if decode_window is not None:
+        decode_headroom = min(decode_headroom, decode_window)
+    post = post_prefill + decode_headroom + margin + 1
+    if bucket > 1:
+        pre = -(-pre // bucket) * bucket
+        post = -(-post // bucket) * bucket
+    return pre, post
+
+
+def make_gen_cache(
+    cfg: LlavaConfig, batch: int, prompt_len: int, max_new_tokens: int,
+    dtype=torch.bfloat16, bound_output_budget: bool = True,
+    all_have_image: bool = True, bucket: int = 1,
+    decode_window: Optional[int] = None, ring: bool = False,
+    device=None,
+) -> TieredCache:
+    pre, post = gen_cache_sizes(
+        cfg, prompt_len, max_new_tokens,
+        bound_output_budget=bound_output_budget,
+        all_have_image=all_have_image, bucket=bucket,
+        decode_window=decode_window, ring=ring,
+    )
+    return init_tiered_cache(
+        cfg.text, cfg.sparse.sparse_layer, batch, pre, post, dtype, device
+    )

@@ -1,0 +1,138 @@
+"""LLaMA decoder (counterpart of ``dynamic_llava_tpu/models/llama.py``) for
+the bf16, unquantized, LoRA-free case.
+
+Params are the JAX pytree with torch tensors: layer weights stacked along
+a leading ``[L, ...]`` axis, linears stored ``[in, out]`` (forward
+``x @ W``). Python loops over layers replace ``lax.scan``; ``layers[name][i]``
+is a view, so no weights are copied.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..config import LlamaConfig
+from ..ops.attention import self_attend
+from ..ops.decode_attention import decode_attention
+from ..ops.kv_cache import KVCache, write_token_layers
+from ..ops.norm import rms_norm
+from ..ops.rope import apply_rope_for_config
+
+
+def layer_params(layers: dict, i: int) -> dict:
+    """Layer ``i``'s weights as views into the stacked tensors."""
+    return {name: w[i] for name, w in layers.items()}
+
+
+def embed_tokens(params, ids: torch.Tensor) -> torch.Tensor:
+    return F.embedding(ids.long(), params["embed"])
+
+
+def lm_head(params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
+    """Final norm + vocabulary projection; fp32 logits, accumulated in fp32
+    (the JAX ``preferred_element_type=float32``)."""
+    x = rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
+    w = params["embed"].T if cfg.tie_word_embeddings else params["lm_head"]
+    if x.is_cuda and x.dtype != torch.float32:
+        lead = x.shape[:-1]
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return y.reshape(*lead, w.shape[-1])
+    return x.float() @ w.float()
+
+
+def _qkv(lp, cfg: LlamaConfig, h: torch.Tensor, positions: torch.Tensor):
+    b, s, _ = h.shape
+    q = (h @ lp["q"]).reshape(b, s, cfg.num_attention_heads, cfg.head_dim)
+    k = (h @ lp["k"]).reshape(b, s, cfg.num_key_value_heads, cfg.head_dim)
+    v = (h @ lp["v"]).reshape(b, s, cfg.num_key_value_heads, cfg.head_dim)
+    q = apply_rope_for_config(q, positions, cfg)
+    k = apply_rope_for_config(k, positions, cfg)
+    return q, k, v
+
+
+def _mlp(lp, h: torch.Tensor) -> torch.Tensor:
+    return (F.silu(h @ lp["gate"]) * (h @ lp["up"])) @ lp["down"]
+
+
+class PrefillResult(NamedTuple):
+    x: torch.Tensor  # [B, S, D]
+    cache: KVCache
+
+
+def run_layers_prefill(
+    params,
+    cfg: LlamaConfig,
+    x: torch.Tensor,  # [B, S, D] left-aligned (padding at the tail)
+    positions: torch.Tensor,  # [B, S] original positions of each slot
+    cache: KVCache,  # covers exactly layers [lo, hi)
+    valid_len: torch.Tensor,  # [B] int32 real tokens in x
+    *,
+    lo: int = 0,
+    hi: Optional[int] = None,
+) -> PrefillResult:
+    """Prefill layers [lo, hi): causal attention over the (possibly
+    compacted) sequence, K/V written to cache slots [0, S) IN PLACE,
+    ``length = valid_len``. Attention is masked to ``valid_len`` so K1
+    skips padding tiles; padding rows (which the JAX version lets attend
+    the padding too) hold values that are never read."""
+    hi = cfg.num_hidden_layers if hi is None else hi
+    if cache.num_layers != hi - lo:
+        raise ValueError(f"cache has {cache.num_layers} layers for [{lo}, {hi})")
+    length = valid_len.to(torch.int32)[None, :].expand(cache.length.shape).clone()
+    b, s, _ = x.shape
+    for li in range(hi - lo):
+        lp = layer_params(params["layers"], li + lo)
+        h = rms_norm(x, lp["input_ln"], cfg.rms_norm_eps)
+        q, k, v = _qkv(lp, cfg, h, positions)
+        cache.k[li, :, :s] = k.to(cache.k.dtype)
+        cache.v[li, :, :s] = v.to(cache.v.dtype)
+        o = self_attend(q, k, v, valid_len=valid_len)
+        x = x + o.reshape(b, s, -1) @ lp["o"]
+        x = x + _mlp(lp, rms_norm(x, lp["post_ln"], cfg.rms_norm_eps))
+    return PrefillResult(x=x, cache=cache._replace(length=length))
+
+
+class DecodeResult(NamedTuple):
+    x: torch.Tensor  # [B, 1, D]
+    cache: KVCache  # K/V written at the current slots; lengths NOT advanced
+
+
+def run_layers_decode(
+    params,
+    cfg: LlamaConfig,
+    x: torch.Tensor,  # [B, 1, D] current-token hidden
+    positions: torch.Tensor,  # [B, 1] original position of the token
+    cache: KVCache,  # covers exactly layers [lo, hi)
+    *,
+    lo: int = 0,
+    hi: Optional[int] = None,
+) -> DecodeResult:
+    """One decode step through layers [lo, hi). Every layer attends over its
+    persisted rows ``[0, length)`` plus the current K/V appended virtually
+    (kernel K2 on the card); after the loop all layers' K/V are written at
+    slot ``length`` in one pass. The caller advances the lengths."""
+    hi = cfg.num_hidden_layers if hi is None else hi
+    if cache.num_layers != hi - lo:
+        raise ValueError(f"cache has {cache.num_layers} layers for [{lo}, {hi})")
+    if hi == lo:
+        return DecodeResult(x=x, cache=cache)
+    b = x.shape[0]
+    k_new, v_new = [], []
+    for li in range(hi - lo):
+        lp = layer_params(params["layers"], li + lo)
+        h = rms_norm(x, lp["input_ln"], cfg.rms_norm_eps)
+        q, k, v = _qkv(lp, cfg, h, positions)
+        # the current K/V enter unrounded, as in JAX; the cache is read
+        # in its storage dtype
+        o = decode_attention(q, cache.k[li], cache.v[li], k, v, cache.length[li])
+        x = x + o.reshape(b, 1, -1) @ lp["o"]
+        x = x + _mlp(lp, rms_norm(x, lp["post_ln"], cfg.rms_norm_eps))
+        k_new.append(k)
+        v_new.append(v)
+    write_token_layers(
+        cache.k, cache.v, torch.stack(k_new), torch.stack(v_new), cache.length
+    )
+    return DecodeResult(x=x, cache=cache)

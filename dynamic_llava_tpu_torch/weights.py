@@ -1,0 +1,197 @@
+"""Parameters: the bridge from the JAX package's params, and a torch-side
+random init with the same structure.
+
+The port's param tree is the JAX pytree with torch tensors in place of
+arrays: ``{"llm", "vision_tower", "mm_projector", "predictors"}``, layer
+weights stacked ``[L, ...]``, linears ``[in, out]``
+(``dynamic_llava_tpu/models/llama.py:init_llama_params``,
+``clip.py:init_clip_params``, ``projector.py:init_projector_params``,
+``predictors.py:init_predictors``). Both ``init_llava_params`` of the JAX
+package and its HF converter (``models/convert.py``) produce that tree, so
+one bridge serves random and converted weights.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any
+
+import numpy as np
+import torch
+
+from .config import LlavaConfig
+
+
+def params_from_numpy(tree: Any, device=None, dtype: torch.dtype = torch.bfloat16):
+    """Convert a pytree of arrays (numpy, or anything ``np.asarray``
+    accepts) to torch tensors on ``device``: floating leaves in ``dtype``,
+    integer leaves unchanged. Dicts and lists keep their structure."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_numpy(v, device, dtype) for v in tree)
+    arr = np.asarray(tree)
+    if np.issubdtype(arr.dtype, np.floating):
+        return torch.from_numpy(np.array(arr, np.float32)).to(
+            device=device, dtype=dtype
+        )
+    return torch.from_numpy(np.array(arr)).to(device)
+
+
+class _Init:
+    """normal(0, 0.02) sampled directly in the target dtype and on the
+    target device (a 7B bf16 model is never built in fp32 or on the host);
+    ones for norm weights, zeros for biases."""
+
+    def __init__(self, generator: torch.Generator, device, dtype):
+        self.g, self.device, self.dtype = generator, device, dtype
+
+    def normal(self, *shape):
+        t = torch.empty(shape, device=self.device, dtype=self.dtype)
+        return t.normal_(0.0, 0.02, generator=self.g)
+
+    def ones(self, *shape):
+        return torch.ones(shape, device=self.device, dtype=self.dtype)
+
+    def zeros(self, *shape):
+        return torch.zeros(shape, device=self.device, dtype=self.dtype)
+
+    def linear(self, d_in, d_out, bias=True):
+        p = {"w": self.normal(d_in, d_out)}
+        if bias:
+            p["b"] = self.zeros(d_out)
+        return p
+
+    def ln(self, d):
+        return {"w": self.ones(d), "b": self.zeros(d)}
+
+
+def _init_llama(it: _Init, cfg) -> dict:
+    d, f = cfg.hidden_size, cfg.intermediate_size
+    h, kvh, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    n = cfg.num_hidden_layers
+    params = {
+        "embed": it.normal(cfg.vocab_size, d),
+        "layers": {
+            "input_ln": it.ones(n, d),
+            "post_ln": it.ones(n, d),
+            "q": it.normal(n, d, h * hd),
+            "k": it.normal(n, d, kvh * hd),
+            "v": it.normal(n, d, kvh * hd),
+            "o": it.normal(n, h * hd, d),
+            "gate": it.normal(n, d, f),
+            "up": it.normal(n, d, f),
+            "down": it.normal(n, f, d),
+        },
+        "final_ln": it.ones(d),
+    }
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = it.normal(d, cfg.vocab_size)
+    return params
+
+
+def _init_clip(it: _Init, cfg) -> dict:
+    d, f, n = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
+    layers = {}
+    for ln in ("ln1", "ln2"):
+        layers[f"{ln}_w"], layers[f"{ln}_b"] = it.ones(n, d), it.zeros(n, d)
+    for name, (d_in, d_out) in {
+        "q": (d, d), "k": (d, d), "v": (d, d), "o": (d, d),
+        "fc1": (d, f), "fc2": (f, d),
+    }.items():
+        layers[f"{name}_w"] = it.normal(n, d_in, d_out)
+        layers[f"{name}_b"] = it.zeros(n, d_out)
+    return {
+        "class_embedding": it.normal(d),
+        "patch_embedding": it.normal(cfg.patch_size * cfg.patch_size * 3, d),
+        "position_embedding": it.normal(cfg.num_positions, d),
+        "pre_ln": it.ln(d),
+        "layers": layers,
+        "post_ln": it.ln(d),
+    }
+
+
+def _projector_depth(projector_type: str) -> int:
+    """Number of linears (``parse_projector_type`` of the JAX package)."""
+    if projector_type == "identity":
+        return 0
+    if projector_type == "linear":
+        return 1
+    m = re.match(r"^mlp(\d+)x_gelu$", projector_type)
+    if not m:
+        raise ValueError(f"Unknown projector type: {projector_type}")
+    return int(m.group(1))
+
+
+def _init_text_predictor(it: _Init, d_in: int, d: int) -> dict:
+    return {
+        "norm": it.ln(d_in),
+        "fc1": it.linear(d_in, d),
+        "fc2": it.linear(d, d // 2),
+        "fc3": it.linear(d // 2, d // 4),
+        "fc4": it.linear(d // 4, 2),
+    }
+
+
+def _init_predictors(it: _Init, cfg: LlavaConfig) -> dict:
+    sp, d_in, d = cfg.sparse, cfg.text.hidden_size, cfg.sparse.d_model
+    preds = {}
+    if sp.use_vision_predictor:
+        preds["image_score_predictor"] = {
+            "down_norm": it.ln(d_in),
+            "down": it.linear(d_in, d),
+            "blocks": [
+                {
+                    "norm1": it.ln(d),
+                    "qkv": it.linear(d, 3 * d, bias=False),
+                    "proj": it.linear(d, d),
+                    "norm2": it.ln(d),
+                    "fc1": it.linear(d, sp.dim_feedforward),
+                    "fc2": it.linear(sp.dim_feedforward, d),
+                }
+                for _ in range(sp.num_layers)
+            ],
+            "out1": it.linear(d, d // 2),
+            "out2": it.linear(d // 2, d // 4),
+            "out3": it.linear(d // 4, 2),
+        }
+    if sp.use_output_text_predictor:
+        preds["output_text_score_predictor"] = _init_text_predictor(it, d_in, d)
+    if sp.use_instruct_predictor:
+        preds["instruct_score_predictor"] = _init_text_predictor(it, d_in, d)
+    return preds
+
+
+def init_llava_params(
+    cfg: LlavaConfig,
+    generator: torch.Generator,
+    device=None,
+    dtype: torch.dtype = torch.bfloat16,
+) -> dict:
+    """Random params with the structure of the JAX ``init_llava_params``,
+    drawn from ``generator`` (which must live on ``device``). The values
+    differ from the JAX ones for the same seed; tests that compare the two
+    packages bridge the JAX params instead."""
+    it = _Init(generator, device, dtype)
+    dims = [cfg.vision.hidden_size] + [cfg.text.hidden_size] * _projector_depth(
+        cfg.mm_projector_type
+    )
+    params = {
+        "llm": _init_llama(it, cfg.text),
+        "vision_tower": _init_clip(it, cfg.vision),
+        "mm_projector": [it.linear(dims[i], dims[i + 1]) for i in range(len(dims) - 1)],
+    }
+    preds = _init_predictors(it, cfg)
+    if preds:
+        params["predictors"] = preds
+    return params
+
+
+def param_bytes(tree: Any) -> int:
+    """Total bytes of the tensors in a param tree."""
+    if isinstance(tree, dict):
+        return sum(param_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(param_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+

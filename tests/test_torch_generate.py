@@ -1,0 +1,137 @@
+"""The slice as a whole: the port's ``Generator`` against the JAX
+``Generator`` on shared (bridged) weights, fp32, tiny config.
+
+Greedy generation must be token-exact, sparse and dense, on a batch that
+mixes image and text-only samples and on an all-image batch (the two
+``all_have_image`` cases of prefill). Prefill diagnostics and logits must
+agree (logits atol 1e-4), and a decode run past the post tier's budget
+must force-drop at the same step on both sides.
+"""
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from dynamic_llava_tpu.config import DENSE_SPARSE_CONFIG, LlavaConfig
+from dynamic_llava_tpu.constants import IMAGE_TOKEN_INDEX
+from dynamic_llava_tpu.generation.generate import GenerationConfig as JGenCfg
+from dynamic_llava_tpu.generation.generate import Generator as JGen
+from dynamic_llava_tpu.generation.generate import _sample as jsample
+from dynamic_llava_tpu.models import dynamic as jdyn
+from dynamic_llava_tpu.multimodal.fusion import plan_batch
+from dynamic_llava_tpu_torch.generation.generate import GenerationConfig as TGenCfg
+from dynamic_llava_tpu_torch.generation.generate import Generator as TGen
+from dynamic_llava_tpu_torch.generation.generate import _sample as tsample
+from dynamic_llava_tpu_torch.models import dynamic as tdyn
+from dynamic_llava_tpu_torch.weights import params_from_numpy
+
+SPARSE = LlavaConfig.tiny()
+DENSE = LlavaConfig.tiny(sparse=DENSE_SPARSE_CONFIG)
+# a small post-tier budget (decode window 2) so decode overflows it and
+# force-drops; pad_multiple 8 keeps the capacity rounding from hiding that
+GEN = dict(max_new_tokens=12, decode_chunk=4, pad_multiple=8, kv_window=2,
+           eos_token_id=-1)
+
+
+@pytest.fixture(scope="module")
+def weights():
+    jp = jax.jit(jdyn.init_llava_params, static_argnums=(1,))(jax.random.key(0), SPARSE)
+    return jp, params_from_numpy(jax.tree.map(np.asarray, jp), "cpu", torch.float32)
+
+
+def _batch(kind):
+    rng = np.random.default_rng(0)
+    ids = []
+    for i in range(3):
+        head, tail = rng.integers(3, 500, 4 + i), rng.integers(3, 500, 6)
+        with_image = kind == "all_image" or i != 1
+        ids.append(np.concatenate([head, [IMAGE_TOKEN_INDEX], tail]) if with_image
+                   else np.concatenate([head, tail]))
+    size = SPARSE.vision.image_size
+    return ids, rng.normal(size=(3, size, size, 3)).astype(np.float32)
+
+
+@pytest.mark.parametrize("cfg,kind", [
+    (SPARSE, "mixed"), (SPARSE, "all_image"), (DENSE, "mixed"),
+], ids=["sparse-mixed", "sparse-all_image", "dense-mixed"])
+def test_greedy_generate_is_token_exact(weights, cfg, kind):
+    jp, tp = weights
+    ids, pix = _batch(kind)
+    want = JGen(jp, cfg, JGenCfg(**GEN)).generate(ids, pix)
+    got = TGen(tp, cfg, TGenCfg(**GEN)).generate(ids, pix)
+    assert got == want
+    assert all(len(o) == GEN["max_new_tokens"] for o in got)
+
+
+@pytest.mark.parametrize("kind", ["mixed", "all_image"])
+def test_prefill_and_forced_drop_match_jax(weights, kind):
+    """PrefillInfo, prefill logits and cache capacities; then greedy
+    decode_steps past the post-tier budget: the post-tier lengths agree at
+    every step and saturate at the budget (tokens force-dropped)."""
+    jp, tp = weights
+    ids, pix = _batch(kind)
+    # no capacity rounding and no decode headroom: the post tier's budget
+    # is the longest prefill + 8 margin slots, which 40 steps overflow
+    gen = dict(GEN, pad_multiple=1, kv_window=0)
+    max_new = 40
+    jgen, tgen = JGen(jp, SPARSE, JGenCfg(**gen)), TGen(tp, SPARSE, TGenCfg(**gen))
+    plan = plan_batch(ids, SPARSE.num_image_tokens)
+    jstate, jinfo = jgen.prefill_from_plan(plan, pix, max_new)
+    tstate, tinfo = tgen.prefill_from_plan(plan, pix, max_new)
+    np.testing.assert_array_equal(tinfo.new_length.numpy(), np.asarray(jinfo.new_length))
+    np.testing.assert_array_equal(tinfo.kept_positions.numpy(),
+                                  np.asarray(jinfo.kept_positions))
+    np.testing.assert_array_equal(tinfo.image_keep_mask.numpy(),
+                                  np.asarray(jinfo.image_keep_mask))
+    np.testing.assert_allclose(tstate.last_logits.numpy(), np.asarray(jstate.last_logits),
+                               atol=1e-4, rtol=1e-4)
+    assert tstate.cache.post.max_len == jstate.cache.post.max_len
+    assert tstate.cache.pre.max_len == jstate.cache.pre.max_len
+    budget = tstate.cache.post.max_len - 1
+
+    jstep = jax.jit(jdyn.decode_step, static_argnums=(1,))
+    post = []
+    for _ in range(max_new):
+        jtok = jnp.argmax(jstate.last_logits, axis=-1)
+        ttok = torch.argmax(tstate.last_logits, dim=-1)
+        np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
+        jstate = jstep(jp, SPARSE, jtok, jstate)
+        tstate = tdyn.decode_step(tp, SPARSE, ttok, tstate)
+        jlen = np.asarray(jstate.cache.post.length)
+        np.testing.assert_array_equal(tstate.cache.post.length.numpy(), jlen)
+        np.testing.assert_array_equal(tstate.cache.pre.length.numpy(),
+                                      np.asarray(jstate.cache.pre.length))
+        post.append(jlen[0])
+    post = np.stack(post)  # [steps, B]
+    assert (post[-1] == budget).any(), post  # the budget filled ...
+    full = post == budget
+    assert (post[1:][full[:-1]] == budget).all()  # ... and stayed full
+    np.testing.assert_allclose(tstate.last_logits.numpy(), np.asarray(jstate.last_logits),
+                               atol=1e-4, rtol=1e-4)
+
+
+def test_greedy_sample_takes_the_first_maximum():
+    logits = np.array([[0.0, 3.0, 3.0, 1.0], [5.0, 5.0, 5.0, 5.0]], np.float32)
+    got = tsample(None, torch.from_numpy(logits), 0.0, 1.0)
+    want = jsample(jax.random.key(0), jnp.asarray(logits), 0.0, 1.0)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got.numpy(), [1, 0])
+
+
+def test_top_p_sampling_keeps_the_nucleus():
+    """Temperature/top-p draws come from a torch.Generator (the bits differ
+    from JAX's): they are reproducible from the seed and never leave the
+    top-p nucleus."""
+    logits = torch.tensor([[4.0, 3.9, 0.0, -1.0, -2.0]] * 64)
+    draw = lambda seed: tsample(torch.Generator().manual_seed(seed), logits, 0.7, 0.8)
+    a, b = draw(1), draw(1)
+    torch.testing.assert_close(a, b)
+    assert set(a.tolist()) <= {0, 1} and len(set(a.tolist())) == 2
+
+
+def test_generate_refuses_ring_overflow(weights):
+    with pytest.raises(NotImplementedError):
+        TGen(weights[1], SPARSE, TGenCfg(kv_overflow="ring"))
