@@ -70,7 +70,8 @@ class Generator:
         self.params = params
         self.cfg = cfg
         self.gen_cfg = gen_cfg
-        self.device = params["llm"]["embed"].device
+        # the final norm is a plain tensor; the embed may be a quantized dict
+        self.device = params["llm"]["final_ln"].device
 
     def _tensor(self, a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)

@@ -96,6 +96,19 @@ def _declare(lib: ctypes.CDLL) -> None:
         f, i, p,  # scale, dtype, stream
     ]
     lib.decode_attention_appended.restype = i
+    tail = [i, i, i, i, i, i, p]  # N, rows, K, x/s/y dtype, stream
+    for name in ("q8_gemv", "q4_gemv"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, p, p, *tail]  # x, w, s, y
+        fn.restype = i
+    for name in ("q8_gemv_group", "q4_gemv_group"):
+        fn = getattr(lib, name)
+        fn.argtypes = [
+            p, p, p, p, p, p, p, p, p, p,  # x, w0-2, s0-2, y0-2
+            i, i, i, i,  # n0-2, nw
+            *tail[1:],  # rows, K, x/s/y dtype, stream
+        ]
+        fn.restype = i
     lib.kernel_error_string.argtypes = [i]
     lib.kernel_error_string.restype = ctypes.c_char_p
 

@@ -1,10 +1,12 @@
-"""LLaMA decoder (counterpart of ``dynamic_llava_tpu/models/llama.py``) for
-the bf16, unquantized, LoRA-free case.
+"""LLaMA decoder (counterpart of ``dynamic_llava_tpu/models/llama.py``),
+LoRA-free, with bf16/fp32 or weight-only int8/int4 linears.
 
 Params are the JAX pytree with torch tensors: layer weights stacked along
 a leading ``[L, ...]`` axis, linears stored ``[in, out]`` (forward
 ``x @ W``). Python loops over layers replace ``lax.scan``; ``layers[name][i]``
-is a view, so no weights are copied.
+is a view, so no weights are copied. A quantized weight is a dict leaf
+(``ops.quant``) and every linear goes through ``ops.quant.linear`` /
+``linear_group``.
 """
 
 from __future__ import annotations
@@ -19,42 +21,54 @@ from ..ops.attention import self_attend
 from ..ops.decode_attention import decode_attention
 from ..ops.kv_cache import KVCache, write_token_layers
 from ..ops.norm import rms_norm
+from ..ops.quant import (
+    dequantize_weight, is_quantized, linear, linear_group, matmul, unpack_int4)
 from ..ops.rope import apply_rope_for_config
 
 
 def layer_params(layers: dict, i: int) -> dict:
-    """Layer ``i``'s weights as views into the stacked tensors."""
-    return {name: w[i] for name, w in layers.items()}
+    """Layer ``i``'s weights as views into the stacked tensors; a quantized
+    leaf gives ``{"q"|"q4": w[i], "s": s[i]}``."""
+    return {
+        name: {k: t[i] for k, t in w.items()} if is_quantized(w) else w[i]
+        for name, w in layers.items()
+    }
 
 
 def embed_tokens(params, ids: torch.Tensor) -> torch.Tensor:
-    return F.embedding(ids.long(), params["embed"])
+    emb = params["embed"]
+    if is_quantized(emb):  # gather the rows, unpack int4, then scale
+        ids = ids.long()
+        scale = emb["s"][ids]
+        q = unpack_int4(emb["q4"][ids]) if "q4" in emb else emb["q"][ids]
+        return q.to(scale.dtype) * scale
+    return F.embedding(ids.long(), emb)
 
 
 def lm_head(params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
     """Final norm + vocabulary projection; fp32 logits, accumulated in fp32
-    (the JAX ``preferred_element_type=float32``)."""
+    (the JAX ``preferred_element_type=float32``). An untied quantized head
+    goes through the GEMVs; a tied quantized embedding is dequantized."""
     x = rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
-    w = params["embed"].T if cfg.tie_word_embeddings else params["lm_head"]
-    if x.is_cuda and x.dtype != torch.float32:
-        lead = x.shape[:-1]
-        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
-        return y.reshape(*lead, w.shape[-1])
-    return x.float() @ w.float()
+    if not cfg.tie_word_embeddings:
+        return linear(params, "lm_head", x, out_fp32=True)
+    return matmul(x, dequantize_weight(params["embed"], x.dtype).T, out_fp32=True)
 
 
 def _qkv(lp, cfg: LlamaConfig, h: torch.Tensor, positions: torch.Tensor):
     b, s, _ = h.shape
-    q = (h @ lp["q"]).reshape(b, s, cfg.num_attention_heads, cfg.head_dim)
-    k = (h @ lp["k"]).reshape(b, s, cfg.num_key_value_heads, cfg.head_dim)
-    v = (h @ lp["v"]).reshape(b, s, cfg.num_key_value_heads, cfg.head_dim)
+    q, k, v = linear_group(lp, ("q", "k", "v"), h)
+    q = q.reshape(b, s, cfg.num_attention_heads, cfg.head_dim)
+    k = k.reshape(b, s, cfg.num_key_value_heads, cfg.head_dim)
+    v = v.reshape(b, s, cfg.num_key_value_heads, cfg.head_dim)
     q = apply_rope_for_config(q, positions, cfg)
     k = apply_rope_for_config(k, positions, cfg)
     return q, k, v
 
 
 def _mlp(lp, h: torch.Tensor) -> torch.Tensor:
-    return (F.silu(h @ lp["gate"]) * (h @ lp["up"])) @ lp["down"]
+    g, u = linear_group(lp, ("gate", "up"), h)
+    return linear(lp, "down", F.silu(g) * u)
 
 
 class PrefillResult(NamedTuple):
@@ -90,7 +104,7 @@ def run_layers_prefill(
         cache.k[li, :, :s] = k.to(cache.k.dtype)
         cache.v[li, :, :s] = v.to(cache.v.dtype)
         o = self_attend(q, k, v, valid_len=valid_len)
-        x = x + o.reshape(b, s, -1) @ lp["o"]
+        x = x + linear(lp, "o", o.reshape(b, s, -1))
         x = x + _mlp(lp, rms_norm(x, lp["post_ln"], cfg.rms_norm_eps))
     return PrefillResult(x=x, cache=cache._replace(length=length))
 
@@ -128,7 +142,7 @@ def run_layers_decode(
         # the current K/V enter unrounded, as in JAX; the cache is read
         # in its storage dtype
         o = decode_attention(q, cache.k[li], cache.v[li], k, v, cache.length[li])
-        x = x + o.reshape(b, 1, -1) @ lp["o"]
+        x = x + linear(lp, "o", o.reshape(b, 1, -1))
         x = x + _mlp(lp, rms_norm(x, lp["post_ln"], cfg.rms_norm_eps))
         k_new.append(k)
         v_new.append(v)

@@ -1,0 +1,190 @@
+"""Weight-only int8 / int4 GEMVs: kernels K5-K8 and their plain PyTorch
+versions.
+
+Counterpart of ``dynamic_llava_tpu/ops/quant_matmul.py``:
+
+* K5 ``q8_gemv`` -- ``_q8_gemv_kernel`` (``matmul_q8_pallas``);
+* K6 ``q8_gemv_group`` -- ``_q8_gemv_multi_kernel``
+  (``matmul_q8_multi_pallas``): 1-3 weights sharing ``x`` in one launch;
+* K7 ``q4_gemv`` -- ``_q4_gemv_kernel`` (``matmul_q4_pallas``);
+* K8 ``q4_gemv_group`` -- ``_q4_gemv_multi_kernel``
+  (``matmul_q4_multi_pallas``).
+
+The contract is the Pallas kernels' own: ``y = (x @ q) * s`` with fp32
+accumulation and the per-output-column scale applied once after the
+accumulation; the output is ``x.dtype``, or fp32 with ``out_fp32``. An
+int4 weight is ``quant.pack_int4``'s split-half layout, ``[K, N/2]`` int8
+bytes whose low nibble is column ``j`` and high nibble column ``N/2 + j``,
+so the output is ordered ``[lo | hi]``. The Pallas kernels round ``x`` to
+bf16 before the dot; these read ``x`` in its own dtype (bf16 on the main
+path, so the two agree there, and the CPU tests feed bf16-representable
+fp32 values).
+
+On a CUDA tensor each wrapper launches the hand-written Hopper kernel in
+``csrc/quant_gemv.cu`` (at most ``MAX_ROWS`` rows); on a CPU tensor it
+runs the plain version. There is no fallback from one to the other. Not
+ported, as TPU-only: the stacked-layer index ``li`` (port layers pass a
+contiguous ``[K, N]`` view), the VMEM planners, the lm_head column
+splitting and the ``"mask"`` unpack mode.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+
+from .. import kernels
+
+__all__ = [
+    "MAX_ROWS", "q8_gemv", "q8_gemv_group", "q4_gemv", "q4_gemv_group",
+    "q8_gemv_plain", "q8_gemv_group_plain", "q4_gemv_plain",
+    "q4_gemv_group_plain", "unpack_int4",
+]
+
+MAX_ROWS = 64  # the Pallas kernels' decode row limit (quant_matmul.py:299)
+GROUP_SLOTS = 3  # weight slots of the ``*_group`` C entry points (q/k/v)
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """Split-half nibble pairs -> int8-stored int4 values, last axis
+    doubled ``[lo | hi]``; both shifts are arithmetic (sign-extending), and
+    the left shift keeps the low 8 bits, as in JAX."""
+    return torch.cat([(packed << 4) >> 4, packed >> 4], dim=-1)
+
+
+def _out_dtype(x: torch.Tensor, out_fp32: bool) -> torch.dtype:
+    return torch.float32 if out_fp32 else x.dtype
+
+
+def _scaled(x: torch.Tensor, w_int: torch.Tensor, s: torch.Tensor,
+            out_fp32: bool) -> torch.Tensor:
+    """``(x @ w_int) * s`` in fp32, cast once at the end."""
+    k = w_int.shape[0]
+    acc = x.reshape(-1, k).float() @ w_int.float()
+    y = acc * s.reshape(1, -1).float()
+    return y.to(_out_dtype(x, out_fp32)).reshape(*x.shape[:-1], w_int.shape[1])
+
+
+def q8_gemv_plain(x, q, s, out_fp32: bool = False) -> torch.Tensor:
+    """Plain version of K5: ``x [..., K]``, ``q`` int8 ``[K, N]``, ``s``
+    ``[1, N]`` (or ``[N]``)."""
+    return _scaled(x, q, s, out_fp32)
+
+
+def q4_gemv_plain(x, packed, s, out_fp32: bool = False) -> torch.Tensor:
+    """Plain version of K7: ``packed`` int8 ``[K, N/2]`` split-half nibble
+    pairs, ``s [1, N]``; output ``[..., N]`` ordered ``[lo | hi]``."""
+    return _scaled(x, unpack_int4(packed), s, out_fp32)
+
+
+def q8_gemv_group_plain(x, qs, ss, out_fp32: bool = False) -> Tuple[torch.Tensor, ...]:
+    """Plain version of K6: one ``q8_gemv_plain`` per weight."""
+    return tuple(q8_gemv_plain(x, q, s, out_fp32) for q, s in zip(qs, ss))
+
+
+def q4_gemv_group_plain(x, packs, ss, out_fp32: bool = False) -> Tuple[torch.Tensor, ...]:
+    """Plain version of K8: one ``q4_gemv_plain`` per weight."""
+    return tuple(q4_gemv_plain(x, p, s, out_fp32) for p, s in zip(packs, ss))
+
+
+def _check(what: str, x: torch.Tensor, ws: Sequence[torch.Tensor],
+           ss: Sequence[torch.Tensor], int4: bool):
+    """Validate what the C entry points cannot see (devices, dtypes, shapes
+    and contiguity of the tensors behind the pointers); returns (rows, K,
+    Ns). The numeric limits (rows, K, N, alignment) are checked once, by
+    ``dispatch`` in ``csrc/quant_gemv.cu``, whose refusal ``kernels.check``
+    raises."""
+    if not x.is_cuda:
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    if x.dtype not in kernels.DTYPE_CODES or not x.is_contiguous() or x.dim() < 1:
+        raise ValueError(f"{what}: x must be a contiguous float32/bfloat16 tensor, "
+                         f"got {x.dtype} {tuple(x.shape)}")
+    if not 1 <= len(ws) <= GROUP_SLOTS or len(ws) != len(ss):
+        raise ValueError(f"{what}: need 1-{GROUP_SLOTS} weights with one scale each")
+    k = x.shape[-1]
+    ns = []
+    for w, s in zip(ws, ss):
+        if (w.dtype != torch.int8 or w.dim() != 2 or w.shape[0] != k
+                or not w.is_contiguous() or w.device != x.device):
+            raise ValueError(
+                f"{what}: weight must be a contiguous int8 [K={k}, "
+                f"{'N/2' if int4 else 'N'}] tensor on {x.device}, got {w.dtype} "
+                f"{tuple(w.shape)} on {w.device}")
+        cols = w.shape[-1] * (2 if int4 else 1)
+        if (s.dtype not in kernels.DTYPE_CODES or s.dtype != ss[0].dtype
+                or s.numel() != cols
+                or not s.is_contiguous() or s.device != x.device):
+            raise ValueError(f"{what}: scales must be contiguous float32/bfloat16 "
+                             f"tensors of one dtype, {cols} elements, on {x.device}, got "
+                             f"{s.dtype} {tuple(s.shape)} on {s.device}")
+        ns.append(cols)
+    return (x.numel() // k if k else 0), k, ns
+
+
+def _launch(what: str, x, ws, ss, out_fp32: bool):
+    """Launch C entry point ``what`` (``q8_gemv``, ``q8_gemv_group``,
+    ``q4_gemv`` or ``q4_gemv_group``); returns the outputs."""
+    rows, k, ns = _check(what, x, ws, ss, int4=what.startswith("q4"))
+    out_dtype = _out_dtype(x, out_fp32)
+    ys = [torch.empty(*x.shape[:-1], n, dtype=out_dtype, device=x.device) for n in ns]
+    dtypes = (kernels.DTYPE_CODES[x.dtype], kernels.DTYPE_CODES[ss[0].dtype],
+              kernels.DTYPE_CODES[out_dtype], kernels.stream_of(x))
+    if what.endswith("_group"):  # unused slots repeat the first weight, N = 0
+        pad = GROUP_SLOTS - len(ws)
+        args = [*map(kernels.ptr, list(ws) + [ws[0]] * pad),
+                *map(kernels.ptr, list(ss) + [ss[0]] * pad),
+                *map(kernels.ptr, ys + [ys[0]] * pad), *(ns + [0] * pad), len(ws)]
+    else:
+        args = [kernels.ptr(ws[0]), kernels.ptr(ss[0]), kernels.ptr(ys[0]), ns[0]]
+    code = getattr(kernels.load_library().lib, what)(
+        kernels.ptr(x), *args, rows, k, *dtypes)
+    kernels.check(code, f"{what} (rows {rows}, K {k}, N {ns}: see the shape "
+                        "contract of csrc/quant_gemv.cu)")
+    return ys
+
+
+def q8_gemv(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+            out_fp32: bool = False) -> torch.Tensor:
+    """K5: ``(x @ q) * s`` for one int8 weight ``[K, N]``."""
+    if x.device.type == "cpu":
+        return q8_gemv_plain(x, q, s, out_fp32)
+    (y,) = _launch("q8_gemv", x, [q], [s], out_fp32)
+    q8_gemv.launches += 1
+    return y
+
+
+def q8_gemv_group(x: torch.Tensor, qs: Sequence[torch.Tensor],
+                  ss: Sequence[torch.Tensor], out_fp32: bool = False
+                  ) -> Tuple[torch.Tensor, ...]:
+    """K6: K5 for 1-3 int8 weights sharing ``x``, in ONE launch."""
+    if x.device.type == "cpu":
+        return q8_gemv_group_plain(x, qs, ss, out_fp32)
+    ys = _launch("q8_gemv_group", x, qs, ss, out_fp32)
+    q8_gemv_group.launches += 1
+    return tuple(ys)
+
+
+def q4_gemv(x: torch.Tensor, packed: torch.Tensor, s: torch.Tensor,
+            out_fp32: bool = False) -> torch.Tensor:
+    """K7: ``(x @ unpack(packed)) * s`` for one split-half int4 weight."""
+    if x.device.type == "cpu":
+        return q4_gemv_plain(x, packed, s, out_fp32)
+    (y,) = _launch("q4_gemv", x, [packed], [s], out_fp32)
+    q4_gemv.launches += 1
+    return y
+
+
+def q4_gemv_group(x: torch.Tensor, packs: Sequence[torch.Tensor],
+                  ss: Sequence[torch.Tensor], out_fp32: bool = False
+                  ) -> Tuple[torch.Tensor, ...]:
+    """K8: K7 for 1-3 int4 weights sharing ``x``, in ONE launch."""
+    if x.device.type == "cpu":
+        return q4_gemv_group_plain(x, packs, ss, out_fp32)
+    ys = _launch("q4_gemv_group", x, packs, ss, out_fp32)
+    q4_gemv_group.launches += 1
+    return tuple(ys)
+
+
+for _fn in (q8_gemv, q8_gemv_group, q4_gemv, q4_gemv_group):
+    _fn.launches = 0

@@ -31,7 +31,9 @@ def params_from_numpy(tree: Any, device=None, dtype: torch.dtype = torch.bfloat1
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_numpy(v, device, dtype) for v in tree)
     arr = np.asarray(tree)
-    if np.issubdtype(arr.dtype, np.floating):
+    # floating includes ml_dtypes' bfloat16 (JAX bf16 leaves), which
+    # np.floating does not cover and torch.from_numpy refuses
+    if not (np.issubdtype(arr.dtype, np.integer) or arr.dtype == np.bool_):
         return torch.from_numpy(np.array(arr, np.float32)).to(
             device=device, dtype=dtype
         )

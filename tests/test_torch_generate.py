@@ -3,7 +3,7 @@
 
 Greedy generation must be token-exact, sparse and dense, on a batch that
 mixes image and text-only samples and on an all-image batch (the two
-``all_have_image`` cases of prefill). Prefill diagnostics and logits must
+``all_have_image`` cases of prefill), and with int8 and int4 weights. Prefill diagnostics and logits must
 agree (logits atol 1e-4), and a decode run past the post tier's budget
 must force-drop at the same step on both sides.
 """
@@ -22,6 +22,7 @@ from dynamic_llava_tpu.generation.generate import Generator as JGen
 from dynamic_llava_tpu.generation.generate import _sample as jsample
 from dynamic_llava_tpu.models import dynamic as jdyn
 from dynamic_llava_tpu.multimodal.fusion import plan_batch
+from dynamic_llava_tpu.ops.quant import quantize_llm_params as jquantize
 from dynamic_llava_tpu_torch.generation.generate import GenerationConfig as TGenCfg
 from dynamic_llava_tpu_torch.generation.generate import Generator as TGen
 from dynamic_llava_tpu_torch.generation.generate import _sample as tsample
@@ -39,6 +40,15 @@ GEN = dict(max_new_tokens=12, decode_chunk=4, pad_multiple=8, kv_window=2,
 @pytest.fixture(scope="module")
 def weights():
     jp = jax.jit(jdyn.init_llava_params, static_argnums=(1,))(jax.random.key(0), SPARSE)
+    return jp, params_from_numpy(jax.tree.map(np.asarray, jp), "cpu", torch.float32)
+
+
+@pytest.fixture(scope="module", params=[8, 4], ids=["int8", "int4"])
+def quantized_weights(request):
+    """The same JAX weights with the decoder quantized by the JAX
+    ``quantize_llm_params`` (on a copy: it mutates and donates), bridged."""
+    jp = jax.jit(jdyn.init_llava_params, static_argnums=(1,))(jax.random.key(0), SPARSE)
+    jp = jquantize(jax.tree.map(jnp.array, jp), bits=request.param)
     return jp, params_from_numpy(jax.tree.map(np.asarray, jp), "cpu", torch.float32)
 
 
@@ -60,6 +70,19 @@ def _batch(kind):
 def test_greedy_generate_is_token_exact(weights, cfg, kind):
     jp, tp = weights
     ids, pix = _batch(kind)
+    want = JGen(jp, cfg, JGenCfg(**GEN)).generate(ids, pix)
+    got = TGen(tp, cfg, TGenCfg(**GEN)).generate(ids, pix)
+    assert got == want
+    assert all(len(o) == GEN["max_new_tokens"] for o in got)
+
+
+@pytest.mark.parametrize("cfg", [SPARSE, DENSE], ids=["sparse", "dense"])
+def test_quantized_greedy_generate_is_token_exact(quantized_weights, cfg):
+    """int8 and int4 weight-only serving (decoder linears, embed and
+    lm_head quantized) on a batch that mixes image and text-only samples."""
+    jp, tp = quantized_weights
+    assert isinstance(tp["llm"]["embed"], dict)
+    ids, pix = _batch("mixed")
     want = JGen(jp, cfg, JGenCfg(**GEN)).generate(ids, pix)
     got = TGen(tp, cfg, TGenCfg(**GEN)).generate(ids, pix)
     assert got == want

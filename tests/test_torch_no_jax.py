@@ -1,5 +1,6 @@
 """The port never loads jax: its sources import none of it, and a fresh
-interpreter that imports the package and generates on the CPU ends with
+interpreter that imports the package (the quantized path included) and
+generates on the CPU, with fp32 and then int4 weights, ends with
 ``'jax' not in sys.modules``."""
 
 import os
@@ -18,12 +19,16 @@ import torch
 import dynamic_llava_tpu_torch
 from dynamic_llava_tpu_torch.config import IMAGE_TOKEN_INDEX, LlavaConfig
 from dynamic_llava_tpu_torch.generation.generate import GenerationConfig, Generator
+from dynamic_llava_tpu_torch.ops import quant, quant_matmul
 from dynamic_llava_tpu_torch.weights import init_llava_params
 
 cfg = LlavaConfig.tiny()
 params = init_llava_params(cfg, torch.Generator().manual_seed(0), "cpu", torch.float32)
 ids = [np.array([5, 6, IMAGE_TOKEN_INDEX, 7, 8, 9]), np.array([10, 11, IMAGE_TOKEN_INDEX, 12])]
 pix = np.random.default_rng(0).normal(size=(2, 56, 56, 3)).astype(np.float32)
+out = Generator(params, cfg, GenerationConfig(max_new_tokens=4)).generate(ids, pix)
+assert len(out) == 2 and all(1 <= len(o) <= 4 for o in out), out
+quant.quantize_llm_params(params, bits=4)
 out = Generator(params, cfg, GenerationConfig(max_new_tokens=4)).generate(ids, pix)
 assert len(out) == 2 and all(1 <= len(o) <= 4 for o in out), out
 print("jax loaded:", "jax" in sys.modules)

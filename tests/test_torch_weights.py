@@ -77,6 +77,23 @@ def test_bridge_dtype_and_device(both):
                for _, t in _leaves(tp))
 
 
+def test_bridge_keeps_quantized_leaves_int8():
+    """``q`` / ``q4`` leaves stay int8 bit for bit; scales take the
+    requested dtype."""
+    rng = np.random.default_rng(1)
+    tree = {"w": {"q": rng.integers(-127, 128, (4, 8)).astype(np.int8),
+                  "s": rng.random((1, 8)).astype(np.float32)},
+            "u": {"q4": rng.integers(-128, 128, (4, 4)).astype(np.int8),
+                  "s": np.asarray(jnp.asarray(rng.random((1, 8)), jnp.bfloat16))}}
+    tp = params_from_numpy(tree, "cpu", torch.bfloat16)
+    for name in ("w", "u"):
+        key = "q" if name == "w" else "q4"
+        assert tp[name][key].dtype == torch.int8
+        np.testing.assert_array_equal(tp[name][key].numpy(), tree[name][key])
+        want = torch.from_numpy(np.asarray(tree[name]["s"], np.float32)).bfloat16()
+        torch.testing.assert_close(tp[name]["s"], want, atol=0, rtol=0)
+
+
 def test_torch_init_has_the_jax_structure(both):
     jp, _ = both
     tp = init_llava_params(CFG, torch.Generator().manual_seed(0), "cpu", torch.bfloat16)
