@@ -3,28 +3,35 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. It needs one CUDA card, ``nvcc`` and
-about 25 GB of device memory, and fails (exit code != 0, no result line)
+Run from the root of a checkout. It needs one CUDA card with 80 GB, ``nvcc``
+and about four minutes, and fails (exit code != 0, no result line)
 anywhere else. Phases, each of which raises on failure:
 
 1. print the card's name and power limit (``nvidia-smi``);
 2. build the hand-written kernels from ``dynamic_llava_tpu_torch/csrc``
-   with ``nvcc`` for ``sm_90a`` and print the build time and ``ptxas``
-   resource lines;
+   with ``nvcc`` for ``sm_90a`` (one process per source, in parallel) and
+   print the build time and ``ptxas`` resource lines;
 3. hold each kernel against its plain PyTorch version at the shapes of the
-   main path, timing both with CUDA events on a CUDA-graph replay. K1/K2: bf16 inputs against the
-   plain version in fp32 on the same values, atol = rtol = 2e-2 for bf16
-   output rounding; fp32 inputs at atol = rtol = 1e-4. K5-K8 (int8 / int4
-   GEMVs) at the 7B decoder's shapes and rows 1, 8, 24, 64: max abs error
+   main paths, timing both with CUDA events on a CUDA-graph replay, and
+   beside them the one PyTorch call that computes the same function where
+   there is one (a yardstick timed here and used nowhere in the port).
+   K1/K2: bf16 inputs against the plain version in fp32 on the same
+   values, atol = rtol = 2e-2 for bf16 output rounding; fp32 inputs at
+   atol = rtol = 1e-4. K3 (dq, dk, dv each) and K4 at the training shape
+   (B=4, S=1663, H=32, d=128) the same way, K3 also with GQA and a
+   ``kv_length`` at a small size; ``torch.autograd.grad`` through K1 + K3
+   against autograd through the plain forward. K5-K8 (int8 / int4 GEMVs)
+   at the 7B decoder's shapes and rows 1, 8, 24, 64: max abs error
    relative to max |ref| within 1e-2 for bf16 outputs, 1e-4 for the fp32
    lm_head; the weights rotate through copies larger than the 50 MB L2, as
    a decode step finds them cold;
-4. a small model (head_dim 64, GQA) generated greedily on the card through
-   the kernels, in fp32 with plain, int8 and int4 weights, must give the
-   same tokens as the port's plain CPU path, which the CPU tests hold
-   token-exact against the JAX package;
-5. the main path at LLaVA-1.5-7B width (32 layers, random bf16 weights made
-   on the card from a seed): two batches of 8 requests (one 336x336 image
+4. a small model (head_dim 64, GQA) on the card through the kernels
+   against the port's plain CPU path, which the CPU tests hold against the
+   JAX package: greedy generation in fp32 with plain, int8 and int4
+   weights, token for token; and two train steps in fp32 on shared Gumbel
+   noise, losses within rtol 1e-3 and every parameter within atol 1e-4;
+5. serving at LLaVA-1.5-7B width (32 layers, random bf16 weights made on
+   the card from a seed): two batches of 8 requests (one 336x336 image
    and 60 text tokens each, 64 new tokens, greedy) through
    ``Generator.generate``, sparse and then dense, with the kernels' launch
    counters zeroed before and read after;
@@ -32,17 +39,28 @@ anywhere else. Phases, each of which raises on failure:
    quantized in place to int8 (``quantize_llm_params``), sparse and dense;
    then an int4 decoder made directly (``init_quantized_llama_params``)
    beside the bf16 tower, projector and predictors, sparse. Each path's
-   launch counters are zeroed before it and read after.
+   launch counters are zeroed before it and read after;
+7. training at 7B width (TRAIN_DEPTH decoder layers, fresh random bf16
+   weights): ``Trainer.train`` over TRAIN_STEPS sparse steps (B=4, one
+   336x336 image + 1088 text tokens each, half of them labels, fused
+   S = 1663), then as many dense-stage steps on the same weights; the
+   launch counters of K1, K3 (both kernels) and K4 are zeroed before each
+   and must equal the counts the layer layout implies; the loss must be
+   finite and the parameters changed.
 
-The second batch of each mode is timed (the first carries first-call
-costs: library and cuBLAS set-up); TTFT is the same prefill timed again
-alone, and decode tok/s is ``B * 64 / (batch time - TTFT)``. The last two
-lines of standard output are a JSON object with the kernels' errors, times
-and launch counts, and ``{"ok": true, "device": {...}}``.
+The second serving batch of each mode is timed (the first carries
+first-call costs: library and cuBLAS set-up); TTFT is the same prefill
+timed again alone, and decode tok/s is ``B * 64 / (batch time - TTFT)``.
+A train step is timed on the host clock after ``synchronize``, the first
+apart. The last two lines of standard output are a JSON object with each
+kernel's error, times, bound (the larger of its bytes over 3.35 TB/s and
+its operations over the card's peak for its input type, from this run's
+inputs) and launch count, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -55,6 +73,12 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 BF16_TOL = 2e-2
 FP32_TOL = 1e-4
+TRAIN_DEPTH = 32  # decoder layers of the training phase (width is never cut)
+TRAIN_STEPS = 3  # per mode; the first is timed apart
+TRAIN_BATCH, TRAIN_TEXT_LEN = 4, 1088  # fused S = 1088 - 1 + 576 = 1663
+# published peaks of one H100 SXM (NVIDIA's data sheet)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 
 
 def log(msg: str) -> None:
@@ -93,6 +117,52 @@ def time_ms(fn, iters: int = 20) -> float:
     return ms
 
 
+def time_events_ms(fn, iters: int = 10) -> float:
+    """Mean device time of ``fn`` over ``iters`` eager calls after two
+    warm-up calls (for calls that do not capture into a CUDA graph)."""
+    import torch
+
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(nbytes: float, flops: float, kind: str = "bf16"):
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the peak for the input type.
+    Returns (ms, "bytes" | "operations")."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attended_pairs(b: int, sq: int, sk: int, causal: bool, lens=None) -> int:
+    """(query row, kv column) pairs the masks leave, summed over the batch."""
+    total = 0
+    for i in range(b):
+        n = sk if lens is None else max(0, min(int(lens[i]), sk))
+        if causal:
+            full = max(0, sq - n)  # rows that see all n columns
+            tri = min(sq, n)
+            total += tri * (tri + 1) // 2 + full * n
+        else:
+            total += sq * n
+    return total
+
+
+def sdpa_layout(t):
+    """[B, S, H, d] -> contiguous [B, H, S, d], the library call's layout."""
+    return t.transpose(1, 2).contiguous()
+
+
 def check_kernels(torch):
     """Phase 3: each kernel against its plain version at main-path shapes.
     Returns per-kernel results (max error over all cases, times at the
@@ -101,6 +171,7 @@ def check_kernels(torch):
         decode_attention, decode_attention_plain)
     from dynamic_llava_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_plain)
+    import torch.nn.functional as F
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
@@ -151,9 +222,22 @@ def check_kernels(torch):
             kms = time_ms(lambda: flash_attention(q, k, v, kv_length=kvl, causal=causal))
             pms = time_ms(
                 lambda: flash_attention_plain(q, k, v, kv_length=kvl, causal=causal))
-            log(f"  K1 {label} time: kernel {kms:.4f} ms, plain {pms:.4f} ms")
+            # yardstick: one SDPA call on the same inputs, the masks as a bool mask
+            ql, kl, vl = sdpa_layout(q), sdpa_layout(k), sdpa_layout(v)
+            cols = torch.arange(s, device=dev)
+            mask = torch.ones((b, 1, s, s), dtype=torch.bool, device=dev)
+            if causal:
+                mask = mask & (cols[None, :] <= cols[:, None])
+            if kvl is not None:
+                mask = mask & (cols[None, :] < kvl[:, None])[:, None, None, :]
+            lms = time_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask))
+            pairs = attended_pairs(b, s, s, causal, lens)
+            bms, bby = bound_ms(2 * (2 * q.numel() + 2 * k.numel()), 4 * pairs * d * h)
+            log(f"  K1 {label} time: kernel {kms:.4f} ms, plain {pms:.4f} ms, SDPA "
+                f"{lms:.4f} ms, bound {bms:.4f} ms ({bby})")
             if label == "decoder pre tier":
-                res["flash_attention_fwd"].update(ms=kms, plain_ms=pms)
+                res["flash_attention_fwd"].update(
+                    ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms, bound_by=bby)
 
     # K2: decode over the pre tier (768) and the sparse post tier (256)
     for max_len, h, hkv, dtype in ((768, 32, 32, torch.bfloat16),
@@ -172,13 +256,23 @@ def check_kernels(torch):
         label = f"K2 [B={b} max_len={max_len} H={h} Hkv={hkv} d={d} lengths={length.tolist()} {dtype}]"
         compare("decode_attention_appended", out, ref, tol, label)
         if dtype == torch.bfloat16:
-            live = torch.full((b,), max_len - 1, dtype=torch.int32, device=dev)
-            kms = time_ms(lambda: decode_attention(q, kc, vc, kn, vn, live), 100)
-            pms = time_ms(lambda: decode_attention_plain(q, kc, vc, kn, vn, live), 100)
+            live_len = torch.full((b,), max_len - 1, dtype=torch.int32, device=dev)
+            kms = time_ms(lambda: decode_attention(q, kc, vc, kn, vn, live_len), 100)
+            pms = time_ms(lambda: decode_attention_plain(q, kc, vc, kn, vn, live_len), 100)
+            # yardstick: one SDPA call over the live rows and the current token
+            n_live = max_len - 1
+            ql = sdpa_layout(q)
+            kl = sdpa_layout(torch.cat([kc[:, :n_live], kn], dim=1))
+            vl = sdpa_layout(torch.cat([vc[:, :n_live], vn], dim=1))
+            lms = time_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl), 100)
+            live = b * (n_live + 1)
+            bms, bby = bound_ms(2 * (2 * q.numel() + 2 * live * hkv * d), 4 * live * h * d)
             log(f"  K2 time at max_len={max_len}, every sample at length "
-                f"{max_len - 1}: kernel {kms:.4f} ms, plain {pms:.4f} ms")
+                f"{n_live}: kernel {kms:.4f} ms, plain {pms:.4f} ms, SDPA {lms:.4f} ms, "
+                f"bound {bms:.4f} ms ({bby})")
             if max_len == 768:
-                res["decode_attention_appended"].update(ms=kms, plain_ms=pms)
+                res["decode_attention_appended"].update(
+                    ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms, bound_by=bby)
     torch.cuda.synchronize()
     return res
 
@@ -256,30 +350,314 @@ def check_quant_kernels(torch):
                         "plain version")
                 # the JSON line reports the decode step's largest GEMVs at rows 8
                 if rows == 8 and label == ("gate/up" if group else "down"):
-                    res[name].update(ms=kms, plain_ms=pms, shape=f"{label} rows 8")
+                    io = 2 * sum(sc.numel() for sc in scales) + 2 * x.numel() + \
+                        (4 if out_fp32 else 2) * rows * sum(ns)
+                    bms, bby = bound_ms(nbytes + io, 2 * rows * k * sum(ns))
+                    res[name].update(ms=kms, plain_ms=pms, library_ms=mms, bound_ms=bms,
+                                     bound_by=bby, shape=f"{label} rows 8")
             del weights
     torch.cuda.synchronize()
     return res
+
+
+def check_train_kernels(torch):
+    """Phase 3, K3 and K4: the flash backward (dq, dk, dv each) and the
+    policy attention against their plain versions at the training shape,
+    K3 also with GQA and a ``kv_length`` at a small size, and autograd
+    through K1 + K3 against autograd through the plain forward. Returns
+    per-kernel results (max error over all cases, times at the training
+    shape in bf16)."""
+    import torch.nn.functional as F
+
+    from dynamic_llava_tpu_torch.ops import flash_attention as fa
+    from dynamic_llava_tpu_torch.ops.flash_policy import (
+        flash_policy_attention, flash_policy_attention_plain)
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 1)
+
+    def randn(*shape, dtype):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(
+            dev, dtype)
+
+    names = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv", "flash_policy_attention_fwd")
+    res = {n: {"max_abs_err": 0.0} for n in names}
+
+    def compare(name, got, want, tol, label):
+        got, want = got.float(), want.float()
+        require(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
+        err = (got - want).abs().max().item()
+        ok = torch.allclose(got, want, atol=tol, rtol=tol)
+        log(f"  {label}: max_abs_err={err:.3e} (atol=rtol={tol:g}) {'ok' if ok else 'FAIL'}")
+        require(ok, f"{label}: kernel disagrees with its plain version")
+        res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+
+    s_train = TRAIN_TEXT_LEN - 1 + 576
+    k3_cases = [
+        ("training shape", TRAIN_BATCH, s_train, 32, 32, 128, True, None, torch.bfloat16),
+        ("training shape", TRAIN_BATCH, s_train, 32, 32, 128, True, None, torch.float32),
+        ("gqa kv_length", 2, 200, 8, 2, 64, True, [200, 77], torch.float32),
+        ("gqa non-causal kv_length", 2, 150, 4, 2, 128, False, [0, 150], torch.bfloat16),
+    ]
+    for label, b, s, h, hkv, d, causal, lens, dtype in k3_cases:
+        q, k, v = (randn(b, s, h, d, dtype=dtype), randn(b, s, hkv, d, dtype=dtype),
+                   randn(b, s, hkv, d, dtype=dtype))
+        g = randn(b, s, h, d, dtype=dtype)
+        kvl = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=dev)
+        out, lse = fa.flash_attention(q, k, v, kv_length=kvl, causal=causal, return_lse=True)
+        before = (fa.flash_attention_bwd_dq.launches, fa.flash_attention_bwd_dkv.launches)
+        dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, g, kv_length=kvl, causal=causal)
+        require((fa.flash_attention_bwd_dq.launches, fa.flash_attention_bwd_dkv.launches)
+                == (before[0] + 1, before[1] + 1), "K3 launch counters")
+        # the plain version in fp32 on the same values, from its own forward
+        qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+        rout, rlse = fa.flash_attention_plain(qf, kf, vf, kv_length=kvl, causal=causal,
+                                              return_lse=True)
+        rdq, rdk, rdv = fa.flash_attention_bwd_plain(qf, kf, vf, rout, rlse, gf,
+                                                     kv_length=kvl, causal=causal)
+        tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+        shape = f"B={b} S={s} H={h} Hkv={hkv} d={d} causal={causal} lens={lens} {dtype}"
+        compare("flash_attention_bwd_dq", dq, rdq, tol, f"K3 dq {label} [{shape}]")
+        compare("flash_attention_bwd_dkv", dk, rdk, tol, f"K3 dk {label} [{shape}]")
+        compare("flash_attention_bwd_dkv", dv, rdv, tol, f"K3 dv {label} [{shape}]")
+        del rout, rlse, rdq, rdk, rdv, qf, kf, vf, gf
+        if label == "training shape" and dtype == torch.bfloat16:
+            delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+            dq_ms = time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, g, lse, delta), 5)
+            dkv_ms = time_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta), 5)
+            all_ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, g), 5)
+            pms = time_events_ms(
+                lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, g), 3)
+            # yardstick: the backward of one SDPA call on the same inputs
+            ql, kl, vl = (sdpa_layout(t).requires_grad_(True) for t in (q, k, v))
+            gl = sdpa_layout(g)
+            o = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+            lms = time_events_ms(
+                lambda: torch.autograd.grad(o, (ql, kl, vl), gl, retain_graph=True), 10)
+            del o
+            pairs = attended_pairs(b, s, s, causal)
+            rows = 2 * 4 * b * h * s  # lse and delta, fp32
+            dq_b, dq_by = bound_ms(2 * (3 * q.numel() + 2 * k.numel()) + rows,
+                                   6 * pairs * d * h)
+            dkv_b, dkv_by = bound_ms(2 * (2 * q.numel() + 2 * k.numel()) + rows
+                                     + 2 * 4 * b * s * h * d, 8 * pairs * d * h)
+            log(f"  K3 time at the training shape: dq {dq_ms:.4f} ms (bound {dq_b:.4f} "
+                f"{dq_by}), dkv {dkv_ms:.4f} ms (bound {dkv_b:.4f} {dkv_by}), whole "
+                f"backward with delta and the group sum {all_ms:.4f} ms, plain "
+                f"{pms:.4f} ms, SDPA backward (dq, dk, dv together) {lms:.4f} ms")
+            # plain_ms and library_ms are times of the WHOLE backward (both kernels' work)
+            res["flash_attention_bwd_dq"].update(
+                ms=dq_ms, plain_ms=pms, library_ms=lms, bound_ms=dq_b, bound_by=dq_by)
+            res["flash_attention_bwd_dkv"].update(
+                ms=dkv_ms, plain_ms=pms, library_ms=lms, bound_ms=dkv_b, bound_by=dkv_by)
+
+    k4_cases = [
+        ("training shape", TRAIN_BATCH, s_train, 32, 32, 128, torch.bfloat16),
+        ("training shape", TRAIN_BATCH, s_train, 32, 32, 128, torch.float32),
+        ("gqa", 2, 203, 8, 2, 64, torch.float32),
+    ]
+    for label, b, s, h, hkv, d, dtype in k4_cases:
+        q, k, v = (randn(b, s, h, d, dtype=dtype), randn(b, s, hkv, d, dtype=dtype),
+                   randn(b, s, hkv, d, dtype=dtype))
+        # a hard mask over most columns, soft values on the rest
+        pol = torch.from_numpy(rng.random((b, s), dtype=np.float32)).to(dev)
+        pol = torch.where(pol < 0.5, torch.zeros_like(pol), torch.where(
+            pol < 0.8, torch.ones_like(pol), pol))
+        got = flash_policy_attention(q, k, v, pol)
+        want = flash_policy_attention_plain(q.float(), k.float(), v.float(), pol)
+        tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+        shape = f"B={b} S={s} H={h} Hkv={hkv} d={d} {dtype}"
+        compare("flash_policy_attention_fwd", got, want, tol, f"K4 {label} [{shape}]")
+        del want
+        if label == "training shape" and dtype == torch.bfloat16:
+            kms = time_ms(lambda: flash_policy_attention(q, k, v, pol), 5)
+            pms = time_events_ms(lambda: flash_policy_attention_plain(q, k, v, pol), 3)
+            pairs = attended_pairs(b, s, s, True)
+            bms, bby = bound_ms(2 * (2 * q.numel() + 2 * k.numel()) + 4 * pol.numel(),
+                                4 * pairs * d * h + v.numel())
+            log(f"  K4 time at the training shape: kernel {kms:.4f} ms, plain {pms:.4f} "
+                f"ms, bound {bms:.4f} ms ({bby}); no single library call computes it")
+            res["flash_policy_attention_fwd"].update(
+                ms=kms, plain_ms=pms, library_ms=None, bound_ms=bms, bound_by=bby)
+
+    # autograd through K1 + K3 against autograd through the plain forward
+    b, s, h, hkv, d = 2, 517, 8, 4, 128
+    ins = [randn(b, s, h, d, dtype=torch.float32).requires_grad_(True),
+           randn(b, s, hkv, d, dtype=torch.float32).requires_grad_(True),
+           randn(b, s, hkv, d, dtype=torch.float32).requires_grad_(True)]
+    g = randn(b, s, h, d, dtype=torch.float32)
+    got = torch.autograd.grad(fa.flash_attention_vjp(*ins), ins, g)
+    want = torch.autograd.grad(fa.flash_attention_plain(*ins), ins, g)
+    for name, a, r in zip(("dq", "dk", "dv"), got, want):
+        err = (a - r).abs().max().item()
+        ok = torch.allclose(a, r, atol=FP32_TOL, rtol=FP32_TOL)
+        log(f"  autograd through K1+K3 vs through the plain forward, {name} "
+            f"[B={b} S={s} H={h} Hkv={hkv} d={d} fp32]: max_abs_err={err:.3e} "
+            f"(atol=rtol={FP32_TOL:g}) {'ok' if ok else 'FAIL'}")
+        require(ok, f"autograd {name}: K1+K3 disagree with the plain forward's gradient")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return res
+
+
+def small_config():
+    """A small GQA model (head_dim 64) for the card-against-CPU phases."""
+    from dynamic_llava_tpu_torch.config import (
+        ClipVisionConfig, LlamaConfig, LlavaConfig, SparseConfig)
+
+    return LlavaConfig(
+        text=LlamaConfig.tiny(hidden_size=256, intermediate_size=512,
+                              num_attention_heads=4, num_key_value_heads=2),
+        vision=ClipVisionConfig.tiny(hidden_size=128, intermediate_size=256,
+                                     num_attention_heads=2),
+        sparse=SparseConfig(d_model=64, nhead=2, dim_feedforward=128, num_layers=1,
+                            output_text_len_for_training=8),
+    )
+
+
+def train_batch(cfg, b: int, text_len: int, seed: int = SEED):
+    """``(plan, images)``: ``b`` rows of one image and ``text_len - 1`` text
+    tokens, the second half of each row supervised."""
+    from dynamic_llava_tpu_torch.config import IMAGE_TOKEN_INDEX
+    from dynamic_llava_tpu_torch.constants import IGNORE_INDEX
+    from dynamic_llava_tpu_torch.multimodal.fusion import plan_batch
+
+    rng = np.random.default_rng(seed)
+    ids, labels = [], []
+    for _ in range(b):
+        row = rng.integers(3, cfg.text.vocab_size, size=(text_len,)).astype(np.int64)
+        row[2] = IMAGE_TOKEN_INDEX
+        lab = row.copy()
+        lab[: text_len // 2] = IGNORE_INDEX
+        ids.append(row)
+        labels.append(lab)
+    plan = plan_batch(ids, cfg.num_image_tokens, labels_list=labels)
+    size = cfg.vision.image_size
+    return plan, rng.standard_normal((b, size, size, 3), dtype=np.float32)
+
+
+def check_small_train(torch):
+    """Phase 4, training: two train steps of the small model on the card
+    (kernels K1, K3, K4) against the same two steps on the CPU (plain
+    versions), fp32, from the same weights, batch and Gumbel noise. Adam's
+    eps is 1e-5 on both sides, so that a gradient that is rounding noise
+    around zero does not move its parameter by a whole lr."""
+    from dynamic_llava_tpu_torch.train.optimizer import label_params, make_optimizer
+    from dynamic_llava_tpu_torch.train.step import batch_from_plan, make_train_step
+    from dynamic_llava_tpu_torch.weights import init_llava_params, map_leaves, named_leaves
+
+    cfg = small_config()
+    plan, images = train_batch(cfg, 3, 60)
+    b, s = plan.token_ids.shape
+    gen = torch.Generator().manual_seed(SEED)
+    noises = [[torch.rand(shape, generator=gen).clamp_(min=1e-30)
+               for shape in ((b, cfg.num_image_tokens, 2), (b, s, 2), (b, s, 2))]
+              for _ in range(2)]
+    runs = {}
+    for device in ("cpu", "cuda"):
+        params = init_llava_params(cfg, torch.Generator().manual_seed(SEED), "cpu",
+                                   torch.float32)
+        params = map_leaves(lambda _, t: t.to(device), params)
+        opt = make_optimizer(base_lr=1e-3, predictor_lr=5e-3, weight_decay=0.01, eps=1e-5)
+        step = make_train_step(cfg, opt, labels=label_params(params))
+        state = opt.init(params)
+        batch = batch_from_plan(plan, images, device)
+        losses = []
+        for noise in noises:
+            _, _, metrics = step(params, state, batch, [u.to(device) for u in noise], 0.8)
+            losses.append({k: float(v) for k, v in metrics.items()})
+        runs[device] = (losses, {p: t.cpu() for p, t in named_leaves(params)})
+    for i, (lc, lg) in enumerate(zip(runs["cpu"][0], runs["cuda"][0])):
+        log(f"  small train step {i + 1}: card {lg} | CPU {lc}")
+        for k in lc:
+            require(abs(lg[k] - lc[k]) <= 1e-3 * abs(lc[k]) + 1e-6,
+                    f"small train step {i + 1}: {k} card {lg[k]} != CPU {lc[k]} (rtol 1e-3)")
+    worst = max(((runs["cuda"][1][p] - t).abs().max().item(), p)
+                for p, t in runs["cpu"][1].items())
+    log(f"  small train: max parameter difference after 2 steps {worst[0]:.3e} at "
+        f"{worst[1]} (atol 1e-4)")
+    require(worst[0] <= 1e-4, f"small train: parameters differ by {worst[0]} at {worst[1]}")
+
+
+def train(torch, params, cfg, label, expect):
+    """TRAIN_STEPS steps of ``Trainer.train`` on ``params`` (updated in
+    place) with the launch counters of K1, K3 and K4 zeroed before and held
+    against ``expect`` after. Returns the measurements."""
+    import tempfile
+
+    from dynamic_llava_tpu_torch.ops import flash_attention as fa
+    from dynamic_llava_tpu_torch.ops.flash_policy import flash_policy_attention
+    from dynamic_llava_tpu_torch.train.trainer import Trainer, TrainerConfig
+    from dynamic_llava_tpu_torch.weights import named_leaves
+
+    counters = {"flash_attention_fwd": fa.flash_attention,
+                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+                "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+                "flash_policy_attention_fwd": flash_policy_attention}
+    plan, images = train_batch(cfg, TRAIN_BATCH, TRAIN_TEXT_LEN)
+    b, s = plan.token_ids.shape
+    # leaves that must move. (A norm weight of 1.0 does not, in bf16: the
+    # base lr of 5e-6 is far below half an ulp of 1.0.) The predictors get a
+    # gradient only while they are on.
+    probes = ["llm/layers/q", "llm/embed", "mm_projector/[0]/w"]
+    if cfg.sparse.use_output_text_predictor:
+        probes.append("predictors/output_text_score_predictor/fc1/w")
+    leaves = dict(named_leaves(params))
+    before = {p: leaves[p].float().sum().item() for p in probes}
+    frozen_before = leaves["vision_tower/class_embedding"].clone()
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        # warmup 1 step of 100: the first step runs at lr 0, as in the JAX trainer
+        tc = TrainerConfig(output_dir=out_dir, num_train_steps=100, warmup_ratio=0.01,
+                           logging_steps=1, save_steps=0, report_to="none", seed=SEED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = Trainer(cfg, params, tc)
+        for fn in counters.values():
+            fn.launches = 0
+        times, losses = [], []
+        for _ in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = trainer.train([(plan, images)])
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(metrics)
+        got = {n: fn.launches for n, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        del trainer
+    want = {n: c * TRAIN_STEPS for n, c in expect.items()}
+    require(got == want, f"{label}: launches {got} != {want} (the layer layout's counts)")
+    for i, m in enumerate(losses):
+        require(all(np.isfinite(v) for v in m.values()), f"{label} step {i + 1}: {m}")
+    after = {p: leaves[p].float().sum().item() for p in probes}
+    require(all(after[p] != before[p] for p in probes),
+            f"{label}: parameters did not change: {before} -> {after}")
+    require(torch.equal(leaves["vision_tower/class_embedding"], frozen_before),
+            f"{label}: a frozen leaf changed")
+    step_s = sum(times[1:]) / len(times[1:])
+    r = dict(first_step_s=times[0], step_ms=step_s * 1e3, tok_s=b * s / step_s,
+             peak_gib=peak, depth=cfg.text.num_hidden_layers, launches=got)
+    keys = ("loss", "lm_loss", "image_mask_loss", "output_text_mask_loss", "grad_norm")
+    log(f"  {label}: depth {r['depth']}, B={b}, S={s}; first step {times[0]:.3f} s, then "
+        f"{r['step_ms']:.1f} ms/step ({r['tok_s']:.1f} tok/s), peak {peak:.2f} GiB; "
+        f"launches {got}; "
+        + "; ".join(f"step {i + 1} " + " ".join(f"{k}={m[k]:.4f}" for k in keys if k in m)
+                    for i, m in enumerate(losses)))
+    return r
 
 
 def check_small_model(torch):
     """Phase 4: greedy generation of a small GQA model (head_dim 64) on the
     card (kernels, fp32) must match the port's plain CPU path token for
     token, with plain, int8 and int4 decoder weights."""
-    from dynamic_llava_tpu_torch.config import (
-        IMAGE_TOKEN_INDEX, ClipVisionConfig, LlamaConfig, LlavaConfig, SparseConfig)
+    from dynamic_llava_tpu_torch.config import IMAGE_TOKEN_INDEX
     from dynamic_llava_tpu_torch.generation.generate import (
         GenerationConfig, Generator)
     from dynamic_llava_tpu_torch.ops.quant import quantize_llm_params
     from dynamic_llava_tpu_torch.weights import init_llava_params
 
-    cfg = LlavaConfig(
-        text=LlamaConfig.tiny(hidden_size=256, intermediate_size=512,
-                              num_attention_heads=4, num_key_value_heads=2),
-        vision=ClipVisionConfig.tiny(hidden_size=128, intermediate_size=256,
-                                     num_attention_heads=2),
-        sparse=SparseConfig(d_model=64, nhead=2, dim_feedforward=128, num_layers=1),
-    )
+    cfg = small_config()
     def to_gpu(t):
         if isinstance(t, dict):
             return {k: to_gpu(v) for k, v in t.items()}
@@ -420,10 +798,12 @@ def main() -> int:
 
     log("phase 3: kernels against their plain versions")
     kres = check_kernels(torch)
+    kres.update(check_train_kernels(torch))
     kres.update(check_quant_kernels(torch))
 
     log("phase 4: small model, card against plain CPU path")
     check_small_model(torch)
+    check_small_train(torch)
 
     counters = {"flash_attention_fwd": flash_attention,
                 "decode_attention_appended": decode_attention,
@@ -477,9 +857,46 @@ def main() -> int:
     log(f"  int4: decoder made directly, {param_bytes(params['llm']) / 2**30:.2f} GiB "
         f"(all params {param_bytes(params) / 2**30:.2f} GiB)")
     drive("int4", params, both[:1])
-    require("jax" not in sys.modules, "jax was imported")
+    del params
+    torch.cuda.empty_cache()
+
+    log(f"phase 7: training at LLaVA-1.5-7B width, {TRAIN_DEPTH} decoder layers, "
+        "sparse steps, then dense-stage steps on the same weights")
+    depth = TRAIN_DEPTH
+    train_sparse = dataclasses.replace(
+        cfg_sparse, text=dataclasses.replace(cfg_sparse.text, num_hidden_layers=depth))
+    train_dense = dataclasses.replace(train_sparse, sparse=DENSE_SPARSE_CONFIG)
+    params = init_llava_params(
+        train_sparse, torch.Generator(device=dev).manual_seed(SEED + 1), dev, torch.bfloat16)
+    # per step: the CLIP tower (to layer -2) runs K1 forward only; a decoder
+    # layer under remat runs its attention forward twice and its backward once
+    clip_layers = train_sparse.vision.num_hidden_layers + train_sparse.vision.select_layer + 1
+    sl = train_sparse.sparse.sparse_layer
+    expect = {
+        "sparse": {"flash_attention_fwd": clip_layers + 2 * sl,
+                   "flash_attention_bwd_dq": sl, "flash_attention_bwd_dkv": sl,
+                   "flash_policy_attention_fwd": 2 * (depth - sl)},
+        "dense": {"flash_attention_fwd": clip_layers + 2 * depth,
+                  "flash_attention_bwd_dq": depth, "flash_attention_bwd_dkv": depth,
+                  "flash_policy_attention_fwd": 0},
+    }
+    results["train"] = {
+        "sparse": train(torch, params, train_sparse, "train sparse", expect["sparse"]),
+        "dense": train(torch, params, train_dense, "train dense", expect["dense"]),
+    }
+    # K3 and K4 report their launches on the sparse path, where all three run
+    launches.update({n: results["train"]["sparse"]["launches"][n] for n in
+                     ("flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                      "flash_policy_attention_fwd")})
+    del params
+    require("jax" not in sys.modules and "dynamic_llava_tpu" not in sys.modules,
+            "jax or the JAX package was imported")
     for label, runs in results.items():
         for mode, r in runs.items():
+            if label == "train":
+                log(f"  summary train {mode}: depth {r['depth']}, {r['step_ms']:.1f} ms/step, "
+                    f"{r['tok_s']:.1f} tok/s, peak {r['peak_gib']:.2f} GiB")
+                continue
             log(f"  summary {label} {mode}: TTFT {r['ttft_ms']:.1f} ms, decode "
                 f"{r['decode_tok_s']:.1f} tok/s, peak {r['peak_gib']:.2f} GiB")
 
@@ -494,6 +911,12 @@ def main() -> int:
                                 "dynamic_llava_tpu/ops/flash_attention.py:38"),
         "decode_attention_appended": (csrc + "decode_attention.cu",
                                       "dynamic_llava_tpu/ops/decode_attention.py:29"),
+        "flash_attention_bwd_dkv": (csrc + "flash_attention_bwd.cu",
+                                    "dynamic_llava_tpu/ops/flash_attention.py:303"),
+        "flash_attention_bwd_dq": (csrc + "flash_attention_bwd.cu",
+                                   "dynamic_llava_tpu/ops/flash_attention.py:365"),
+        "flash_policy_attention_fwd": (csrc + "flash_policy_fwd.cu",
+                                       "dynamic_llava_tpu/ops/flash_policy.py:34"),
         "q8_gemv": (csrc + "quant_gemv.cu", "dynamic_llava_tpu/ops/quant_matmul.py:226"),
         "q8_gemv_group": (csrc + "quant_gemv.cu",
                           "dynamic_llava_tpu/ops/quant_matmul.py:376"),
@@ -504,7 +927,9 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], "max_abs_err": kres[name]["max_abs_err"],
-         "ms": kres[name]["ms"], "plain_ms": kres[name]["plain_ms"]}
+         "ms": kres[name]["ms"], "plain_ms": kres[name]["plain_ms"],
+         "bound_ms": kres[name]["bound_ms"], "bound_by": kres[name]["bound_by"],
+         "library_ms": kres[name]["library_ms"]}
         for name, (source, replaces) in table.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

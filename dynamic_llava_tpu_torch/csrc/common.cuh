@@ -60,4 +60,22 @@ __device__ __forceinline__ void load_vec<__nv_bfloat16, 4>(
   out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
 }
 
+// Rows [0, ROWS) of a [rows, D] slice with row stride `row_stride` into
+// shared-memory rows of `stride` floats, times `mul`; rows >= n_valid are 0.
+// Called by all THREADS threads of a block.
+template <typename T, int D, int ROWS, int THREADS>
+__device__ __forceinline__ void load_tile(float* dst, int stride, const T* src,
+                                          size_t row_stride, int n_valid,
+                                          float mul) {
+  constexpr int kVecPerRow = D / 4;
+  for (int idx = threadIdx.x; idx < ROWS * kVecPerRow; idx += THREADS) {
+    const int row = idx / kVecPerRow;
+    const int col = (idx % kVecPerRow) * 4;
+    float f[4] = {0.f, 0.f, 0.f, 0.f};
+    if (row < n_valid) load_vec<T, 4>(src + row * row_stride + col, f);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dst[row * stride + col + e] = f[e] * mul;
+  }
+}
+
 }  // namespace dllava

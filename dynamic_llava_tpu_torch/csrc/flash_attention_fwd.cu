@@ -43,23 +43,6 @@ constexpr size_t smem_bytes() {
           size_t(kBQ) * kPS);
 }
 
-// rows [0, ROWS) of a [rows, D] slice with row stride `row_stride` into
-// shared memory rows of `stride` floats, times `mul`; rows >= n_valid are 0.
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void load_tile(float* dst, int stride, const T* src,
-                                          size_t row_stride, int n_valid,
-                                          float mul) {
-  constexpr int kVecPerRow = D / 4;
-  for (int idx = threadIdx.x; idx < ROWS * kVecPerRow; idx += kThreads) {
-    const int row = idx / kVecPerRow;
-    const int col = (idx % kVecPerRow) * 4;
-    float f[4] = {0.f, 0.f, 0.f, 0.f};
-    if (row < n_valid) load_vec<T, 4>(src + row * row_stride + col, f);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dst[row * stride + col + e] = f[e] * mul;
-  }
-}
-
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -93,7 +76,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + size_t(b) * Sk * kv_stride + size_t(hk) * D;
   const T* vb = v + size_t(b) * Sk * kv_stride + size_t(hk) * D;
 
-  load_tile<T, D, kBQ>(Qs, DP, qb, q_stride, Sq - q0, scale_log2);
+  load_tile<T, D, kBQ, kThreads>(Qs, DP, qb, q_stride, Sq - q0, scale_log2);
 
   float acc[4][DC];
   float m[4], l[4];
@@ -107,9 +90,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = 0; k0 < n_kv; k0 += kBK) {
     __syncthreads();  // the previous tile's Ks/Vs/Ps reads are done
-    load_tile<T, D, kBK>(Ks, DP, kb + size_t(k0) * kv_stride, kv_stride,
+    load_tile<T, D, kBK, kThreads>(Ks, DP, kb + size_t(k0) * kv_stride, kv_stride,
                          n_kv - k0, 1.f);
-    load_tile<T, D, kBK>(Vs, D, vb + size_t(k0) * kv_stride, kv_stride,
+    load_tile<T, D, kBK, kThreads>(Vs, D, vb + size_t(k0) * kv_stride, kv_stride,
                          n_kv - k0, 1.f);
     __syncthreads();
 

@@ -1,8 +1,9 @@
 """Build and load the hand-written Hopper kernels.
 
 The CUDA C++ sources under ``dynamic_llava_tpu_torch/csrc/`` are compiled
-with ``nvcc`` for ``sm_90a`` into ONE shared library with a plain C
-interface, at first use, and loaded with ``ctypes``. Tensor pointers and
+with ``nvcc`` for ``sm_90a`` (one ``nvcc`` per source, all started
+together) and linked into ONE shared library with a plain C interface, at
+first use, and loaded with ``ctypes``. Tensor pointers and
 the CUDA stream cross the boundary as ``c_void_p``; every entry point
 returns ``cudaGetLastError()`` after its launch and ``check`` raises on a
 non-zero code.
@@ -33,7 +34,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -96,6 +97,20 @@ def _declare(lib: ctypes.CDLL) -> None:
         f, i, p,  # scale, dtype, stream
     ]
     lib.decode_attention_appended.restype = i
+    bwd = [
+        p, p, p, p, p, p, p,  # q, k, v, dout, lse, delta, kv_length
+    ]
+    shape = [i, i, i, i, i, i, i, f, i, p]  # B, Sq, Sk, H, Hkv, D, causal, scale, dtype, stream
+    lib.flash_attention_bwd_dq.argtypes = [*bwd, p, *shape]  # + dq
+    lib.flash_attention_bwd_dq.restype = i
+    lib.flash_attention_bwd_dkv.argtypes = [*bwd, p, p, *shape]  # + dk, dv
+    lib.flash_attention_bwd_dkv.restype = i
+    lib.flash_policy_attention_fwd.argtypes = [
+        p, p, p, p, p, p,  # q, k, v, policy, vsum scratch, out
+        i, i, i, i, i,  # B, S, H, Hkv, D
+        f, f, i, p,  # scale, eps, dtype, stream
+    ]
+    lib.flash_policy_attention_fwd.restype = i
     tail = [i, i, i, i, i, i, p]  # N, rows, K, x/s/y dtype, stream
     for name in ("q8_gemv", "q4_gemv"):
         fn = getattr(lib, name)
@@ -111,6 +126,40 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = i
     lib.kernel_error_string.argtypes = [i]
     lib.kernel_error_string.restype = ctypes.c_char_p
+
+
+def _build(nvcc: str, sources, path: Path):
+    """Compile every source to an object file, all ``nvcc`` processes
+    running at once, then link them into ``path``. Returns (seconds, the
+    compilers' output)."""
+    tag = f"{path.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    t0 = time.perf_counter()
+    try:
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources, objs)
+        ]
+        outs = [proc.communicate()[0] for proc in procs]  # reaps every process
+        log = "".join(outs)
+        failed = [(src, proc.returncode) for src, proc in zip(sources, procs)
+                  if proc.returncode != 0]
+        if failed:
+            raise KernelBuildError(f"nvcc failed for {failed}:\n{log}")
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        res = subprocess.run(link, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise KernelBuildError(
+                f"nvcc link failed ({res.returncode}):\n{' '.join(link)}\n"
+                f"{res.stdout}{res.stderr}")
+        os.replace(tmp, path)
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
+    return time.perf_counter() - t0, log
 
 
 @functools.cache
@@ -131,19 +180,7 @@ def load_library() -> Library:
     seconds, log = 0.0, ""
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp),
-               *map(str, sources)]
-        t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = res.stdout + res.stderr
-        if res.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise KernelBuildError(
-                f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{log}"
-            )
-        os.replace(tmp, path)
+        seconds, log = _build(nvcc, sources, path)
     lib = ctypes.CDLL(str(path))
     _declare(lib)
     return Library(lib=lib, path=path, build_seconds=seconds, ptxas_log=log)

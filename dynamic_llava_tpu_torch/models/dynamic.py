@@ -1,5 +1,5 @@
-"""Dynamic-LLaVA inference: multimodal composition and sparsification
-(counterpart of ``dynamic_llava_tpu/models/dynamic.py``).
+"""Dynamic-LLaVA: multimodal composition and sparsification, inference and
+training forward (counterpart of ``dynamic_llava_tpu/models/dynamic.py``).
 
 * ``prefill`` -- E1: the vision predictor scores the image tokens entering
   ``sparse_layer``, a static-budget top-k keeps ``vision_keep_budget`` of
@@ -11,27 +11,37 @@
   token persists in the post tier; once that tier's budget is full every
   further token is force-dropped.
 
-With the predictors off (``DENSE_SPARSE_CONFIG``) both reduce to dense
-LLaVA-1.5.
+* ``forward_train`` -- T1/T2/T3: the full-sequence training forward in
+  which the predictors' Gumbel keep masks become a soft policy over the kv
+  tokens of every layer from the sparse layer on.
+
+With the predictors off (``DENSE_SPARSE_CONFIG``) all three reduce to
+dense LLaVA-1.5.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
 from ..config import LlavaConfig
 from ..multimodal.fusion import fuse_embeddings
+from ..ops.gumbel import gumbel_keep_mask
 from ..ops.kv_cache import TieredCache, advance_tiered, init_tiered_cache
 from ..ops.sparsify import gather_tokens, plan_compaction, topk_keep_mask
 from . import clip, llama, projector
 from .predictors import text_predictor, vision_predictor
 
 
-def encode_images(params, cfg: LlavaConfig, pixel_values: torch.Tensor) -> torch.Tensor:
-    """Tower + projector: ``[B, H, W, 3]`` normalized NHWC -> ``[B, N_img, D]``."""
-    feats = clip.vision_tower_features(params["vision_tower"], cfg.vision, pixel_values)
+def encode_images(params, cfg: LlavaConfig, pixel_values: torch.Tensor,
+                  frozen_tower: bool = False) -> torch.Tensor:
+    """Tower + projector: ``[B, H, W, 3]`` normalized NHWC -> ``[B, N_img, D]``.
+    ``frozen_tower`` stops gradients at the tower features (the tower runs
+    without an autograd graph) and leaves the projector trainable."""
+    with torch.set_grad_enabled(torch.is_grad_enabled() and not frozen_tower):
+        feats = clip.vision_tower_features(
+            params["vision_tower"], cfg.vision, pixel_values)
     return projector.apply_projector(params["mm_projector"], feats)
 
 
@@ -206,6 +216,121 @@ def decode_step(
     cache = advance_tiered(TieredCache(pre=d1.cache, post=d2.cache), keep)
     logits = llama.lm_head(params["llm"], tcfg, d2.x)[:, 0]
     return GenState(cache=cache, next_pos=state.next_pos + 1, last_logits=logits)
+
+
+class TrainForwardOut(NamedTuple):
+    logits: Optional[torch.Tensor]  # [B, S, V] fp32 (None with return_hidden)
+    hidden: Optional[torch.Tensor]  # [B, S, D] final hidden (return_hidden only)
+    image_mask: Optional[torch.Tensor]  # [B, S] gumbel keep over image slots (1 elsewhere)
+    output_text_mask: Optional[torch.Tensor]  # [B, S]
+    instruct_mask: Optional[torch.Tensor]  # [B, S]
+    image_span: Optional[torch.Tensor]  # [B, S] bool
+    answer_span: Optional[torch.Tensor]  # [B, S] bool (only where the predictor applied)
+    instruct_span: Optional[torch.Tensor]  # [B, S] bool
+
+
+def forward_train(
+    params,
+    cfg: LlavaConfig,
+    plan_token_ids: torch.Tensor,
+    plan_is_image: torch.Tensor,
+    plan_image_slot: torch.Tensor,
+    valid_len: torch.Tensor,
+    image_start: torch.Tensor,
+    answer_start: torch.Tensor,
+    answer_end: torch.Tensor,
+    last_instruct_start: torch.Tensor,
+    last_instruct_end: torch.Tensor,
+    has_image: torch.Tensor,
+    pixel_values: Optional[torch.Tensor],
+    noise: Union[torch.Generator, Sequence[torch.Tensor]],
+    gumbel_tau: Union[float, torch.Tensor],
+    remat: bool = True,
+    remat_policy: str = "nothing",
+    return_hidden: bool = False,
+) -> TrainForwardOut:
+    """Full-sequence training forward with Gumbel policy masks (T1/T2/T3).
+
+    ``noise`` is a ``torch.Generator`` on the tensors' device, or the three
+    uniform tensors themselves, for the vision, output-text and instruct
+    predictors: ``[B, N_img, 2]``, ``[B, S, 2]``, ``[B, S, 2]`` (an unused
+    one may be None). ``return_hidden=True`` skips the lm_head and returns
+    the final hidden states, so that the loss can run the blockwise CE
+    without the ``[B, S, V]`` fp32 logits ever existing."""
+    tcfg, sparse = cfg.text, cfg.sparse
+    b, s = plan_token_ids.shape
+    n_img = cfg.num_image_tokens
+    sl = sparse.sparse_layer
+    dev = plan_token_ids.device
+    noises = (noise,) * 3 if isinstance(noise, torch.Generator) else tuple(noise)
+
+    x = llama.embed_tokens(params["llm"], plan_token_ids)
+    if pixel_values is not None:
+        img_feats = encode_images(params, cfg, pixel_values, frozen_tower=True)
+        x = fuse_embeddings(x, img_feats, plan_is_image, plan_image_slot)
+    positions = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
+
+    x = llama.run_layers_nocache(
+        params["llm"], tcfg, x, positions, lo=0, hi=sl, remat=remat,
+        remat_policy=remat_policy,
+    )
+
+    valid = positions < valid_len[:, None]
+    policy = torch.ones((b, s), dtype=torch.float32, device=dev)
+    image_mask = output_text_mask = instruct_mask = None
+    image_span = answer_span = instruct_span = None
+
+    if sparse.use_vision_predictor and pixel_values is not None:
+        # T1: gumbel keep mask over the image tokens
+        img_hidden = _gather_span(x, image_start, n_img)
+        logits = vision_predictor(
+            params["predictors"]["image_score_predictor"], img_hidden, sparse
+        )
+        keep = gumbel_keep_mask(noises[0], logits, gumbel_tau)  # [B, N_img]
+        span_idx = image_start.long()[:, None] + torch.arange(n_img, device=dev)[None, :]
+        mask_full = torch.ones((b, s), dtype=torch.float32, device=dev)
+        mask_full = mask_full.scatter(1, span_idx, keep)
+        image_span = plan_is_image & valid & has_image[:, None]
+        mask_full = torch.where(image_span, mask_full, 1.0)
+        policy = policy * mask_full
+        image_mask = mask_full
+
+    def text_mask(name: str, u, start, end, min_len: int):
+        # T2 / T3: gumbel keep over a span; spans shorter than the training
+        # threshold are force-kept
+        tp = text_predictor(params["predictors"][name], x)
+        keep = gumbel_keep_mask(u, tp, gumbel_tau)  # [B, S]
+        long_enough = (end - start) >= min_len
+        span = _span_mask(s, start, end) & valid & long_enough[:, None]
+        return torch.where(span, keep, 1.0), span
+
+    if sparse.use_output_text_predictor:
+        output_text_mask, answer_span = text_mask(
+            "output_text_score_predictor", noises[1], answer_start, answer_end,
+            sparse.output_text_len_for_training)
+        policy = policy * output_text_mask
+    if sparse.use_instruct_predictor:
+        instruct_mask, instruct_span = text_mask(
+            "instruct_score_predictor", noises[2], last_instruct_start,
+            last_instruct_end, sparse.instruct_len_for_training)
+        policy = policy * instruct_mask
+
+    x = llama.run_layers_nocache(
+        params["llm"], tcfg, x, positions, lo=sl, hi=tcfg.num_hidden_layers,
+        policy=policy if sparse.any_predictor else None,
+        remat=remat, remat_policy=remat_policy,
+    )
+    logits = None if return_hidden else llama.lm_head(params["llm"], tcfg, x)
+    return TrainForwardOut(
+        logits=logits,
+        hidden=x if return_hidden else None,
+        image_mask=image_mask,
+        output_text_mask=output_text_mask,
+        instruct_mask=instruct_mask,
+        image_span=image_span,
+        answer_span=answer_span,
+        instruct_span=instruct_span,
+    )
 
 
 # gen_cache_sizes is a verbatim copy of the JAX function: the post-tier

@@ -15,9 +15,10 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..config import LlamaConfig
-from ..ops.attention import self_attend
+from ..ops.attention import attend, attend_with_policy, self_attend
 from ..ops.decode_attention import decode_attention
 from ..ops.kv_cache import KVCache, write_token_layers
 from ..ops.norm import rms_norm
@@ -28,7 +29,8 @@ from ..ops.rope import apply_rope_for_config
 
 def layer_params(layers: dict, i: int) -> dict:
     """Layer ``i``'s weights as views into the stacked tensors; a quantized
-    leaf gives ``{"q"|"q4": w[i], "s": s[i]}``."""
+    leaf gives ``{"q"|"q4": w[i], "s": s[i]}``. A leaf may also be a list of
+    per-layer tensors (the trainer's gradient-carrying views)."""
     return {
         name: {k: t[i] for k, t in w.items()} if is_quantized(w) else w[i]
         for name, w in layers.items()
@@ -69,6 +71,72 @@ def _qkv(lp, cfg: LlamaConfig, h: torch.Tensor, positions: torch.Tensor):
 def _mlp(lp, h: torch.Tensor) -> torch.Tensor:
     g, u = linear_group(lp, ("gate", "up"), h)
     return linear(lp, "down", F.silu(g) * u)
+
+
+def layer_nocache(
+    lp,
+    cfg: LlamaConfig,
+    x: torch.Tensor,  # [B, S, D]
+    positions: torch.Tensor,  # [B, S]
+    mask: Optional[torch.Tensor] = None,  # [B, 1, S, S] bool, None = plain causal
+    policy: Optional[torch.Tensor] = None,  # [B, S] soft keep mask (training)
+) -> torch.Tensor:
+    """One decoder layer without a KV cache (the training path). With no
+    explicit mask, attention goes through the differentiable kernels (K1
+    with K3, or K4 with a policy); padding is NOT masked, as in the JAX
+    training path."""
+    b, s, _ = x.shape
+    h = rms_norm(x, lp["input_ln"], cfg.rms_norm_eps)
+    q, k, v = _qkv(lp, cfg, h, positions)
+    if mask is not None:
+        if policy is not None:
+            o = attend_with_policy(q, k, v, policy, mask=mask)
+        else:
+            o = attend(q, k, v, mask=mask)
+    else:
+        o = self_attend(q, k, v, policy=policy)
+    x = x + linear(lp, "o", o.reshape(b, s, -1))
+    return x + _mlp(lp, rms_norm(x, lp["post_ln"], cfg.rms_norm_eps))
+
+
+REMAT_POLICIES_WAITING = ("dots", "flash", "flash_dots", "alternate")
+
+
+def run_layers_nocache(
+    params,
+    cfg: LlamaConfig,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    lo: int = 0,
+    hi: Optional[int] = None,
+    mask: Optional[torch.Tensor] = None,
+    policy: Optional[torch.Tensor] = None,
+    remat: bool = False,
+    remat_policy: str = "nothing",
+) -> torch.Tensor:
+    """Run layers [lo, hi) without a KV cache (training and parity paths).
+
+    ``remat=True`` with ``remat_policy="nothing"`` saves only each layer's
+    input and recomputes the whole layer in the backward
+    (``torch.utils.checkpoint``, non-reentrant): the minimum-memory regime
+    of 7B training. The JAX package's other policies (``dots``, ``flash``,
+    ``flash_dots``, ``alternate``) are not ported yet and raise."""
+    hi = cfg.num_hidden_layers if hi is None else hi
+    if remat and remat_policy != "nothing":
+        if remat_policy in REMAT_POLICIES_WAITING:
+            raise NotImplementedError(
+                f"remat_policy={remat_policy!r} is not ported yet; use 'nothing'")
+        raise ValueError(f"unknown remat_policy {remat_policy!r}")
+    layers = params["layers"]
+    for li in range(lo, hi):
+        lp = layer_params(layers, li)
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(layer_nocache, lp, cfg, x, positions, mask, policy,
+                           use_reentrant=False)
+        else:
+            x = layer_nocache(lp, cfg, x, positions, mask, policy)
+    return x
 
 
 class PrefillResult(NamedTuple):

@@ -3,10 +3,13 @@
 Counterpart of ``dynamic_llava_tpu/ops/attention.py``. ``attend`` and
 ``decode_attend_appended`` are the semantically definitive plain versions
 (fp32 scores and softmax) that the hand-written kernels are held against.
-The dispatchers send every CUDA tensor to a kernel: prefill self-attention
-to K1 (``ops.flash_attention``) and decode attention to K2
+The dispatchers send every CUDA tensor to a kernel: causal self-attention
+to K1 (``ops.flash_attention``, whose backward is K3), training-mode
+policy attention to K4 (``ops.flash_policy``) and decode attention to K2
 (``ops.decode_attention``). The TPU size thresholds that chose between XLA
 and Pallas there were measured on a v5e and do not apply on the H100.
+``attend_with_policy`` and ``blockwise_attend`` are the plain
+differentiable policy paths; the second is also K4's backward.
 
 Layouts are the JAX ones: ``[B, S, H, d]``.
 """
@@ -16,6 +19,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -1e30
 
@@ -78,19 +82,123 @@ def attend(
     return torch.einsum("bhqk,bkhd->bqhd", w, v.float()).to(q.dtype)
 
 
+def attend_with_policy(
+    q: torch.Tensor,  # [B, S, H, d]
+    k: torch.Tensor,  # [B, S, Hkv, d]
+    v: torch.Tensor,  # [B, S, Hkv, d]
+    policy: torch.Tensor,  # [B, S] in [0, 1]: soft keep mask over kv tokens
+    *,
+    mask: Optional[torch.Tensor] = None,  # [B, 1, S, S] bool
+    scale: Optional[float] = None,
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """Training-mode policy attention:
+    ``w = (exp(logits - max) * policy_kv + eps/N) / (sum + eps)``, where the
+    kv policy has its diagonal forced to 1 (every token may attend itself)
+    and masked logits contribute ``exp(-inf) = 0``. The whole
+    renormalization runs in fp32 whatever the input dtype."""
+    n_rep = q.shape[2] // k.shape[2]
+    k = repeat_kv_heads(k, n_rep)
+    v = repeat_kv_heads(v, n_rep)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    s = q.shape[1]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if mask is not None:
+        logits = torch.where(mask, logits, -torch.inf)
+    pol = policy.float()[:, None, None, :]
+    eye = torch.eye(s, dtype=torch.float32, device=q.device)[None, None]
+    pol = pol + (1.0 - pol) * eye
+    m = logits.amax(dim=-1, keepdim=True)
+    # a fully masked row (a padding query) has max = -inf
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    w = torch.exp(logits - m) * pol
+    w = (w + eps / s) / (w.sum(dim=-1, keepdim=True) + eps)
+    return torch.einsum("bhqk,bkhd->bqhd", w, v.float()).to(q.dtype)
+
+
+def blockwise_attend(
+    q: torch.Tensor,  # [B, S, H, d]
+    k: torch.Tensor,  # [B, S, Hkv, d]
+    v: torch.Tensor,  # [B, S, Hkv, d]
+    *,
+    policy: Optional[torch.Tensor] = None,  # [B, S]
+    kv_length: Optional[torch.Tensor] = None,  # [B]
+    scale: Optional[float] = None,
+    block_q: int = 256,
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """Causal (policy) attention computed one q block at a time, each block
+    under ``torch.utils.checkpoint``: peak memory is O(block_q x S) instead
+    of O(S^2) in the forward and in the backward. The plain differentiable
+    path, and the gradient recompute behind kernel K4."""
+    b, s, h, d = q.shape
+    n_rep = h // k.shape[2]
+    # fp32 K^T [B, H, d, S] and V [B, H, S, d], laid out once for every block
+    kt = repeat_kv_heads(k, n_rep).float().permute(0, 2, 3, 1).contiguous()
+    vt = repeat_kv_heads(v, n_rep).float().permute(0, 2, 1, 3).contiguous()
+    if scale is None:
+        scale = d**-0.5
+    block_q = min(block_q, s)
+    cols = torch.arange(s, dtype=torch.int32, device=q.device)
+    polf = None if policy is None else policy.float()
+
+    def block(qi, kt, vt, polf, start: int):
+        rows = start + torch.arange(qi.shape[1], dtype=torch.int32, device=q.device)
+        logits = torch.matmul(qi.float().transpose(1, 2), kt) * scale  # [B, H, bq, S]
+        mask = (rows[:, None] >= cols[None, :])[None, None]
+        if kv_length is not None:
+            mask = mask & (cols[None, None, None, :] < kv_length[:, None, None, None])
+        if polf is None:
+            w = torch.softmax(torch.where(mask, logits, NEG_INF), dim=-1)
+        else:
+            logits = torch.where(mask, logits, -torch.inf)
+            diag = (rows[:, None] == cols[None, :])[None, None]
+            pol = torch.where(diag, 1.0, polf[:, None, None, :])
+            m = logits.amax(dim=-1, keepdim=True)
+            m = torch.where(torch.isfinite(m), m, 0.0)
+            e = torch.exp(logits - m) * pol
+            w = (e + eps / s) / (e.sum(dim=-1, keepdim=True) + eps)
+        return torch.matmul(w, vt).transpose(1, 2).to(q.dtype)  # [B, bq, H, d]
+
+    need_grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (q, k, v, policy))
+    outs = []
+    for start in range(0, s, block_q):
+        qi = q[:, start:start + block_q]
+        if need_grad:
+            outs.append(checkpoint(block, qi, kt, vt, polf, start, use_reentrant=False))
+        else:
+            outs.append(block(qi, kt, vt, polf, start))
+    return torch.cat(outs, dim=1)
+
+
 def self_attend(
     q: torch.Tensor,  # [B, S, H, d]
     k: torch.Tensor,  # [B, S, Hkv, d]
     v: torch.Tensor,  # [B, S, Hkv, d]
     *,
     valid_len: Optional[torch.Tensor] = None,  # [B] int32: kv cols >= valid_len masked
+    policy: Optional[torch.Tensor] = None,  # [B, S] soft keep mask (training)
 ) -> torch.Tensor:
-    """Causal prefill self-attention: kernel K1 on a CUDA tensor, its plain
-    version on a CPU tensor. Rows past ``valid_len`` are padding and never
-    read downstream."""
-    from .flash_attention import flash_attention
+    """Causal self-attention dispatcher, differentiable on every route.
+    Without a policy: kernel K1 (backward K3) on a CUDA tensor, their plain
+    versions on a CPU tensor; rows past ``valid_len`` are padding and never
+    read downstream. With a policy and no ``valid_len``: kernel K4 (backward
+    by blockwise recompute), plain on the CPU; with both, the plain
+    ``attend_with_policy`` under the combined mask, as in the JAX package."""
+    if policy is None:
+        from .flash_attention import flash_attention_vjp
 
-    return flash_attention(q, k, v, kv_length=valid_len, causal=True)
+        return flash_attention_vjp(q, k, v, kv_length=valid_len, causal=True)
+    if valid_len is None:
+        from .flash_policy import flash_policy_attention_vjp
+
+        return flash_policy_attention_vjp(q, k, v, policy)
+    b, s = q.shape[:2]
+    mask = make_attention_mask(s, s, causal=True, kv_length=valid_len, batch=b,
+                               device=q.device)
+    return attend_with_policy(q, k, v, policy, mask=mask)
 
 
 def decode_attend_appended(

@@ -1,11 +1,18 @@
-"""Fused prefill attention: kernel K1 and its plain PyTorch version.
+"""Fused attention, forward and backward: kernels K1 and K3 and their
+plain PyTorch versions.
 
 Counterpart of ``dynamic_llava_tpu/ops/flash_attention.py``
-(``flash_attention`` over the Pallas ``_flash_kernel``). On a CUDA tensor
-``flash_attention`` launches the hand-written Hopper kernel
-``csrc/flash_attention_fwd.cu``; on a CPU tensor it runs
-``flash_attention_plain``, which computes the same function with plain
+(``flash_attention`` over the Pallas ``_flash_kernel``, ``flash_attention_bwd``
+over ``_flash_bwd_dkv_kernel`` and ``_flash_bwd_dq_kernel``, and
+``flash_attention_vjp``). On a CUDA tensor ``flash_attention`` launches the
+hand-written Hopper kernel ``csrc/flash_attention_fwd.cu`` and
+``flash_attention_bwd`` the two kernels of ``csrc/flash_attention_bwd.cu``;
+on a CPU tensor they run ``flash_attention_plain`` and
+``flash_attention_bwd_plain``, which compute the same functions with plain
 tensor ops. There is no fallback from one to the other.
+``flash_attention_vjp`` is the differentiable entry: a
+``torch.autograd.Function`` whose forward is K1 (saving the logsumexp) and
+whose backward is K3.
 
 Semantics (both versions): q ``[B, Sq, H, d]``, k/v ``[B, Sk, Hkv, d]``;
 query row i may attend kv column j when ``j < kv_length[b]`` and, if
@@ -76,6 +83,36 @@ def _check(name: str, t: torch.Tensor, dtype, ndim: int, align: int = 16) -> Non
         raise ValueError(f"flash_attention: {name} must be {align}-byte aligned")
 
 
+def check_qkv(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """What every attention kernel here asks of its CUDA inputs: one
+    supported dtype, contiguous 4-d tensors on one device, matching shapes,
+    head_dim 64 or 128, H a multiple of Hkv."""
+    if q.dtype not in kernels.DTYPE_CODES:
+        raise ValueError(f"{what}: unsupported dtype {q.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check(name, t, q.dtype, 4)
+        if t.device != q.device:
+            raise ValueError(f"{what}: {name} is on {t.device}")
+    b, _, h, d = q.shape
+    hkv = k.shape[2]
+    if v.shape != k.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(
+            f"{what}: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+            f"v {tuple(v.shape)} do not match"
+        )
+    if d not in (64, 128) or hkv == 0 or h % hkv:
+        raise ValueError(
+            f"{what}: head_dim must be 64 or 128 and H a multiple "
+            f"of Hkv, got d={d} H={h} Hkv={hkv}"
+        )
+
+
+def _check_kv_length(kv_length: torch.Tensor, q: torch.Tensor) -> None:
+    _check("kv_length", kv_length, torch.int32, 1, align=4)
+    if kv_length.shape[0] != q.shape[0] or kv_length.device != q.device:
+        raise ValueError("flash_attention: kv_length must be [B] on q's device")
+
+
 def flash_attention(
     q: torch.Tensor,  # [B, Sq, H, d]
     k: torch.Tensor,  # [B, Sk, Hkv, d]
@@ -97,28 +134,11 @@ def flash_attention(
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     b, sq, h, d = q.shape
     _, sk, hkv, _ = k.shape
-    if q.dtype not in kernels.DTYPE_CODES:
-        raise ValueError(f"flash_attention: unsupported dtype {q.dtype}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _check(name, t, q.dtype, 4)
-        if t.device != q.device:
-            raise ValueError(f"flash_attention: {name} is on {t.device}")
-    if v.shape != k.shape or k.shape[0] != b or k.shape[3] != d:
-        raise ValueError(
-            f"flash_attention: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
-            f"v {tuple(v.shape)} do not match"
-        )
-    if d not in (64, 128) or hkv == 0 or h % hkv:
-        raise ValueError(
-            f"flash_attention: head_dim must be 64 or 128 and H a multiple "
-            f"of Hkv, got d={d} H={h} Hkv={hkv}"
-        )
+    check_qkv("flash_attention", q, k, v)
     if q_offset < 0:
         raise ValueError("flash_attention: q_offset must be >= 0")
     if kv_length is not None:
-        _check("kv_length", kv_length, torch.int32, 1, align=4)
-        if kv_length.shape[0] != b or kv_length.device != q.device:
-            raise ValueError("flash_attention: kv_length must be [B] on q's device")
+        _check_kv_length(kv_length, q)
     if scale is None:
         scale = d**-0.5
     out = torch.empty_like(q)
@@ -138,3 +158,193 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Backward (kernel K3)
+# ---------------------------------------------------------------------------
+
+
+def _delta(out: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``rowsum(dO * O)`` as ``[B, H, Sq]`` fp32 (computed outside the
+    kernels, as in the JAX wrapper)."""
+    return (g.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
+
+
+def _sum_groups(dx_h: torch.Tensor, hkv: int, dtype) -> torch.Tensor:
+    """Per-query-head fp32 ``[B, Sk, H, d]`` -> ``[B, Sk, Hkv, d]``: the sum
+    over each GQA group, then the cast."""
+    b, sk, h, d = dx_h.shape
+    if h == hkv:
+        return dx_h.to(dtype)
+    return dx_h.reshape(b, sk, hkv, h // hkv, d).sum(dim=3).to(dtype)
+
+
+def flash_attention_bwd_plain(
+    q: torch.Tensor,  # [B, Sq, H, d]
+    k: torch.Tensor,  # [B, Sk, Hkv, d]
+    v: torch.Tensor,  # [B, Sk, Hkv, d]
+    out: torch.Tensor,  # [B, Sq, H, d] the forward's output
+    lse: torch.Tensor,  # [B, H, Sq] fp32 the forward's logsumexp
+    g: torch.Tensor,  # [B, Sq, H, d] gradient of the output
+    *,
+    kv_length: Optional[torch.Tensor] = None,
+    causal: bool = True,
+    scale: Optional[float] = None,
+):
+    """``(dq, dk, dv)`` from the saved logsumexp, the arithmetic of the K3
+    kernels with plain tensor ops (the S x S matrices do exist here)."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    n_rep = h // hkv
+    if scale is None:
+        scale = d**-0.5
+    qf, gf = q.float(), g.float()
+    kf = repeat_kv_heads(k, n_rep).float()
+    vf = repeat_kv_heads(v, n_rep).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    cols = torch.arange(sk, device=q.device)
+    mask = torch.ones((b, 1, sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        rows = torch.arange(sq, device=q.device)
+        mask = mask & (cols[None, :] <= rows[:, None])[None, None]
+    if kv_length is not None:
+        mask = mask & (cols[None, :] < kv_length[:, None])[:, None, None, :]
+    # the mask comes before the exponential: a fully masked row has
+    # lse = NEG_INF and exp(s - lse) would overflow
+    p = torch.exp(torch.where(mask, s - lse[..., None], -torch.inf))
+    dv_h = torch.einsum("bhqk,bqhd->bkhd", p, gf)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    ds = p * (dp - _delta(out, g)[..., None]) * scale
+    dk_h = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf).to(q.dtype)
+    return dq, _sum_groups(dk_h, hkv, k.dtype), _sum_groups(dv_h, hkv, v.dtype)
+
+
+def _bwd_args(q, k, v, g, lse, delta, kv_length, causal):
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    check_qkv("flash_attention_bwd", q, k, v)
+    _check("g", g, q.dtype, 4)
+    if g.shape != q.shape or g.device != q.device:
+        raise ValueError("flash_attention_bwd: g must have q's shape and device")
+    for name, t in (("lse", lse), ("delta", delta)):
+        _check(name, t, torch.float32, 3, align=4)
+        if t.shape != (b, h, sq) or t.device != q.device:
+            raise ValueError(f"flash_attention_bwd: {name} must be [B, H, Sq] on q's device")
+    if kv_length is not None:
+        _check_kv_length(kv_length, q)
+    if causal and sq != sk:
+        raise ValueError("flash_attention_bwd: the causal backward needs Sq == Sk")
+    return [
+        kernels.ptr(q), kernels.ptr(k), kernels.ptr(v), kernels.ptr(g),
+        kernels.ptr(lse), kernels.ptr(delta),
+        None if kv_length is None else kernels.ptr(kv_length),
+    ]
+
+
+def flash_attention_bwd_dq(q, k, v, g, lse, delta, *, kv_length=None,
+                           causal=True, scale=None) -> torch.Tensor:
+    """Kernel K3, dq half (CUDA tensors only): ``dq = ds k`` per q tile."""
+    if not q.is_cuda:
+        raise ValueError(f"flash_attention_bwd_dq: not a CUDA tensor ({q.device})")
+    head = _bwd_args(q, k, v, g, lse, delta, kv_length, causal)
+    b, sq, h, d = q.shape
+    dq = torch.empty_like(q)
+    code = kernels.load_library().lib.flash_attention_bwd_dq(
+        *head, kernels.ptr(dq), b, sq, k.shape[1], h, k.shape[2], d, int(causal),
+        float(d**-0.5 if scale is None else scale),
+        kernels.DTYPE_CODES[q.dtype], kernels.stream_of(q),
+    )
+    kernels.check(code, "flash_attention_bwd_dq")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, g, lse, delta, *, kv_length=None,
+                            causal=True, scale=None):
+    """Kernel K3, dk/dv half (CUDA tensors only): ``dv = p^T dO`` and
+    ``dk = ds^T q`` per kv tile, per QUERY head in fp32 ``[B, Sk, H, d]``."""
+    if not q.is_cuda:
+        raise ValueError(f"flash_attention_bwd_dkv: not a CUDA tensor ({q.device})")
+    head = _bwd_args(q, k, v, g, lse, delta, kv_length, causal)
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    dk_h = torch.empty((b, sk, h, d), dtype=torch.float32, device=q.device)
+    dv_h = torch.empty_like(dk_h)
+    code = kernels.load_library().lib.flash_attention_bwd_dkv(
+        *head, kernels.ptr(dk_h), kernels.ptr(dv_h), b, sq, sk, h, k.shape[2], d,
+        int(causal), float(d**-0.5 if scale is None else scale),
+        kernels.DTYPE_CODES[q.dtype], kernels.stream_of(q),
+    )
+    kernels.check(code, "flash_attention_bwd_dkv")
+    flash_attention_bwd_dkv.launches += 1
+    return dk_h, dv_h
+
+
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    g: torch.Tensor,
+    *,
+    kv_length: Optional[torch.Tensor] = None,
+    causal: bool = True,
+    scale: Optional[float] = None,
+):
+    """Flash backward ``(dq, dk, dv)`` (see ``flash_attention_bwd_plain``):
+    the two K3 kernels on CUDA tensors, the plain version on CPU tensors."""
+    args = dict(kv_length=kv_length, causal=causal, scale=scale)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, g, **args)
+    g = g.contiguous()
+    delta = _delta(out, g)
+    dq = flash_attention_bwd_dq(q, k, v, g, lse, delta, **args)
+    dk_h, dv_h = flash_attention_bwd_dkv(q, k, v, g, lse, delta, **args)
+    hkv = k.shape[2]
+    return dq, _sum_groups(dk_h, hkv, k.dtype), _sum_groups(dv_h, hkv, v.dtype)
+
+
+class _FlashAttentionFn(torch.autograd.Function):
+    """K1 forward (saving q, k, v, kv_length, out, lse), K3 backward. Both
+    are deterministic, so a layer re-run under activation checkpointing
+    reproduces its first run."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_length, causal):
+        out, lse = flash_attention(q, k, v, kv_length=kv_length, causal=causal,
+                                   return_lse=True)
+        ctx.save_for_backward(q, k, v, kv_length, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, kv_length, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g, kv_length=kv_length,
+                                         causal=ctx.causal)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_vjp(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    kv_length: Optional[torch.Tensor] = None,
+    causal: bool = True,
+) -> torch.Tensor:
+    """Differentiable fused attention: ``flash_attention`` whose gradient is
+    ``flash_attention_bwd``. Without anything to differentiate it is
+    ``flash_attention`` itself."""
+    if not (torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                         or v.requires_grad)):
+        return flash_attention(q, k, v, kv_length=kv_length, causal=causal)
+    return _FlashAttentionFn.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                                   kv_length, causal)

@@ -174,12 +174,32 @@ def _rows(x: torch.Tensor) -> int:
     return x.numel() // x.shape[-1]
 
 
+class _MmFp32Out(torch.autograd.Function):
+    """``x @ w`` of low-precision CUDA operands with an fp32 result (the JAX
+    ``preferred_element_type=float32``), which ``torch.mm(out_dtype=)``
+    computes but does not differentiate. The backward rounds the incoming
+    gradient to the operands' dtype and runs the two transposed products."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        dx = g @ w.T if ctx.needs_input_grad[0] else None
+        dw = x.T @ g if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
 def matmul(x: torch.Tensor, w, out_fp32: bool = False) -> torch.Tensor:
     """``x @ w`` for a plain or quantized weight ``[K, N]``; fp32 output
     with ``out_fp32`` (accumulation is fp32 either way)."""
     if not is_quantized(w):
         if out_fp32 and x.is_cuda and x.dtype != torch.float32:
-            y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+            y = _MmFp32Out.apply(x.reshape(-1, x.shape[-1]), w)
             return y.reshape(*x.shape[:-1], w.shape[-1])
         return x.float() @ w.float() if out_fp32 else x @ w
     if _rows(x) <= MAX_ROWS:

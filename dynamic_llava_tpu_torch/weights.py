@@ -14,7 +14,7 @@ one bridge serves random and converted weights.
 from __future__ import annotations
 
 import re
-from typing import Any
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +38,71 @@ def params_from_numpy(tree: Any, device=None, dtype: torch.dtype = torch.bfloat1
             device=device, dtype=dtype
         )
     return torch.from_numpy(np.array(arr)).to(device)
+
+
+def params_to_numpy(tree: Any):
+    """The inverse of ``params_from_numpy``: the same structure with numpy
+    arrays (floating leaves as float32, integer leaves unchanged)."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_to_numpy(v) for v in tree)
+    t = tree.detach().cpu()
+    return (t.float() if t.is_floating_point() else t).numpy()
+
+
+def named_leaves(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    """``(path, leaf)`` for every leaf, dict keys sorted and list items in
+    order (the order of ``jax.tree.leaves``). A path joins the keys with
+    ``/``; a list index appears as ``[i]``, as in the JAX key paths the
+    optimizer's labels are matched on."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from named_leaves(tree[k], f"{prefix}{k}/")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from named_leaves(v, f"{prefix}[{i}]/")
+    else:
+        yield prefix[:-1], tree
+
+
+def map_leaves(fn, tree: Any, prefix: str = ""):
+    """The tree with ``fn(path, leaf)`` in place of every leaf."""
+    if isinstance(tree, dict):
+        return {k: map_leaves(fn, v, f"{prefix}{k}/") for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_leaves(fn, v, f"{prefix}[{i}]/") for i, v in enumerate(tree))
+    return fn(prefix[:-1], tree)
+
+
+STACKED_PREFIXES = ("llm/layers/", "vision_tower/layers/")
+
+
+def trainable_view(params: Any, grads: Dict[str, torch.Tensor]):
+    """The param tree for one differentiated forward: every leaf whose path
+    is in ``grads`` becomes an autograd leaf (``requires_grad``) that shares
+    the parameter's storage and whose ``.grad`` IS the buffer
+    ``grads[path]``, so ``backward()`` accumulates in place into the
+    buffers the optimizer holds; every other leaf stays a plain tensor and
+    gets no gradient at all. A stacked ``[L, ...]`` layer leaf becomes a
+    list of L per-layer leaves whose ``.grad`` are the slices
+    ``grads[path][i]``: indexing the stacked tensor under autograd would
+    instead build a full-size zero tensor for every layer's gradient."""
+
+    def leaf_of(t: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+        leaf = t.detach().requires_grad_(True)
+        leaf.grad = g
+        return leaf
+
+    def view(path: str, t: torch.Tensor):
+        g: Optional[torch.Tensor] = grads.get(path)
+        if g is None:
+            return t
+        if path.startswith(STACKED_PREFIXES):
+            return [leaf_of(t[i], g[i]) for i in range(t.shape[0])]
+        return leaf_of(t, g)
+
+    return map_leaves(view, params)
 
 
 class _Init:

@@ -29,6 +29,8 @@ from dynamic_llava_tpu_torch.generation.generate import _sample as tsample
 from dynamic_llava_tpu_torch.models import dynamic as tdyn
 from dynamic_llava_tpu_torch.weights import params_from_numpy
 
+from test_torch_config import port_config
+
 SPARSE = LlavaConfig.tiny()
 DENSE = LlavaConfig.tiny(sparse=DENSE_SPARSE_CONFIG)
 # a small post-tier budget (decode window 2) so decode overflows it and
@@ -71,7 +73,7 @@ def test_greedy_generate_is_token_exact(weights, cfg, kind):
     jp, tp = weights
     ids, pix = _batch(kind)
     want = JGen(jp, cfg, JGenCfg(**GEN)).generate(ids, pix)
-    got = TGen(tp, cfg, TGenCfg(**GEN)).generate(ids, pix)
+    got = TGen(tp, port_config(cfg), TGenCfg(**GEN)).generate(ids, pix)
     assert got == want
     assert all(len(o) == GEN["max_new_tokens"] for o in got)
 
@@ -84,7 +86,7 @@ def test_quantized_greedy_generate_is_token_exact(quantized_weights, cfg):
     assert isinstance(tp["llm"]["embed"], dict)
     ids, pix = _batch("mixed")
     want = JGen(jp, cfg, JGenCfg(**GEN)).generate(ids, pix)
-    got = TGen(tp, cfg, TGenCfg(**GEN)).generate(ids, pix)
+    got = TGen(tp, port_config(cfg), TGenCfg(**GEN)).generate(ids, pix)
     assert got == want
     assert all(len(o) == GEN["max_new_tokens"] for o in got)
 

@@ -19,6 +19,8 @@ from dynamic_llava_tpu_torch.ops import norm as tnorm
 from dynamic_llava_tpu_torch.ops import rope as trope
 from dynamic_llava_tpu_torch.ops import sparsify as tsp
 
+from test_torch_config import port_config
+
 ATOL, RTOL = 1e-5, 1e-4
 
 
@@ -112,7 +114,7 @@ def test_apply_rope_for_config_matches_jax():
     cfg = LlamaConfig.tiny(rope_theta=500000.0)
     x = _np((2, 9, 4, 16), 10)
     pos = np.tile(np.arange(9, dtype=np.int32), (2, 1))
-    _close(trope.apply_rope_for_config(torch.from_numpy(x), torch.from_numpy(pos), cfg),
+    _close(trope.apply_rope_for_config(torch.from_numpy(x), torch.from_numpy(pos), port_config(cfg)),
            jrope.apply_rope_for_config(jnp.asarray(x), jnp.asarray(pos), cfg))
 
 

@@ -35,8 +35,11 @@ from dynamic_llava_tpu_torch.ops import quant_matmul as tqm
 from dynamic_llava_tpu_torch.ops.kv_cache import init_cache as tinit_cache
 from dynamic_llava_tpu_torch.weights import params_from_numpy
 
+from test_torch_config import port_config
+
 ATOL, RTOL = 1e-5, 1e-4
 CFG = LlamaConfig.tiny(num_key_value_heads=2)
+TCFG = port_config(CFG)  # the port's own dataclass, same field values
 
 
 def _np(shape, seed, scale=1.0):
@@ -118,7 +121,7 @@ def test_init_quantized_params_shapes_and_the_embed_scale_fault(bits):
     embed scale, which is per row ``[V, 1]``: JAX gives ``[1, D]``, so the
     JAX ``embed_tokens`` gathers scale rows out of bounds (NaN) for every
     id >= 1 -- a fault of the reference that the port does not copy."""
-    tp = tq.init_quantized_llama_params(CFG, torch.Generator().manual_seed(0), "cpu", bits)
+    tp = tq.init_quantized_llama_params(TCFG, torch.Generator().manual_seed(0), "cpu", bits)
     jp = jq.init_quantized_llama_params(jax.random.key(0), CFG, bits=bits)
     jshapes = {k: tuple(v.shape) for k, v in _leaves(jp)}
     tshapes = {k: tuple(v.shape) for k, v in _leaves(tp)}
@@ -283,10 +286,10 @@ def test_quantized_decoder_matches_jax(quantized):
     pos = np.tile(np.arange(s, dtype=np.int32), (b, 1))
     valid = np.array([10, 6], np.int32)
     jc = jinit_cache(CFG, b, 16, jnp.float32, num_layers=hi - lo)
-    tc = tinit_cache(CFG, b, 16, torch.float32, num_layers=hi - lo)
+    tc = tinit_cache(TCFG, b, 16, torch.float32, num_layers=hi - lo)
     jr = jllama.run_layers_prefill(jp, CFG, jnp.asarray(x), jnp.asarray(pos), jc,
                                    jnp.asarray(valid), lo=lo, hi=hi)
-    tr = tllama.run_layers_prefill(tp, CFG, torch.from_numpy(x), torch.from_numpy(pos), tc,
+    tr = tllama.run_layers_prefill(tp, TCFG, torch.from_numpy(x), torch.from_numpy(pos), tc,
                                    torch.from_numpy(valid), lo=lo, hi=hi)
     for i, n in enumerate(valid):
         np.testing.assert_allclose(tr.x[i, :n].numpy(), np.asarray(jr.x[i, :n]),
@@ -296,7 +299,7 @@ def test_quantized_decoder_matches_jax(quantized):
     xd = _np((b, 1, CFG.hidden_size), 12)
     jd = jllama.run_layers_decode(jp, CFG, jnp.asarray(xd), jnp.asarray(valid[:, None]),
                                   jr.cache, lo=lo, hi=hi)
-    td = tllama.run_layers_decode(tp, CFG, torch.from_numpy(xd),
+    td = tllama.run_layers_decode(tp, TCFG, torch.from_numpy(xd),
                                   torch.from_numpy(valid[:, None]), tr.cache, lo=lo, hi=hi)
     np.testing.assert_allclose(td.x.numpy(), np.asarray(jd.x), atol=ATOL, rtol=RTOL)
 
@@ -304,7 +307,7 @@ def test_quantized_decoder_matches_jax(quantized):
     np.testing.assert_allclose(
         tllama.embed_tokens(tp, torch.from_numpy(ids)).numpy(),
         np.asarray(jllama.embed_tokens(jp, jnp.asarray(ids))), atol=0, rtol=0)
-    got = tllama.lm_head(tp, CFG, td.x)
+    got = tllama.lm_head(tp, TCFG, td.x)
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(jllama.lm_head(jp, CFG, jd.x)),
                                atol=ATOL, rtol=RTOL)

@@ -24,6 +24,8 @@ from dynamic_llava_tpu_torch.models import projector as tproj
 from dynamic_llava_tpu_torch.ops.kv_cache import init_cache as tinit_cache
 from dynamic_llava_tpu_torch.weights import init_llava_params, params_from_numpy
 
+from test_torch_config import port_config
+
 ATOL, RTOL = 1e-5, 1e-4
 
 # GQA decoder (4 query heads over 2 kv heads) so the K/V head grouping runs
@@ -33,6 +35,8 @@ CFG = LlavaConfig(
     sparse=SparseConfig(d_model=32, nhead=2, dim_feedforward=64, num_layers=2,
                         use_instruct_predictor=True),
 )
+
+TCFG = port_config(CFG)  # the port's own dataclasses, same field values
 
 
 @pytest.fixture(scope="module")
@@ -96,7 +100,7 @@ def test_bridge_keeps_quantized_leaves_int8():
 
 def test_torch_init_has_the_jax_structure(both):
     jp, _ = both
-    tp = init_llava_params(CFG, torch.Generator().manual_seed(0), "cpu", torch.bfloat16)
+    tp = init_llava_params(TCFG, torch.Generator().manual_seed(0), "cpu", torch.bfloat16)
     jshapes = {k: tuple(v.shape) for k, v in _leaves(jp)}
     tshapes = {k: tuple(v.shape) for k, v in _leaves(tp)}
     assert jshapes == tshapes
@@ -111,7 +115,7 @@ def test_embed_and_lm_head_match_jax(both):
     _close(tllama.embed_tokens(tp["llm"], torch.from_numpy(ids)),
            jllama.embed_tokens(jp["llm"], jnp.asarray(ids)), atol=0, rtol=0)
     x = _np((2, 3, CFG.text.hidden_size), 1)
-    got = tllama.lm_head(tp["llm"], CFG.text, torch.from_numpy(x))
+    got = tllama.lm_head(tp["llm"], TCFG.text, torch.from_numpy(x))
     assert got.dtype == torch.float32
     _close(got, jllama.lm_head(jp["llm"], CFG.text, jnp.asarray(x)))
 
@@ -129,10 +133,10 @@ def test_decoder_prefill_and_decode_match_jax(both):
     pos = np.tile(np.arange(s, dtype=np.int32), (b, 1))
     valid = np.array([12, 7], np.int32)
     jc = jinit_cache(tcfg, b, 16, jnp.float32, num_layers=hi - lo)
-    tc = tinit_cache(tcfg, b, 16, torch.float32, num_layers=hi - lo)
+    tc = tinit_cache(TCFG.text, b, 16, torch.float32, num_layers=hi - lo)
     jr = jllama.run_layers_prefill(jp["llm"], tcfg, jnp.asarray(x), jnp.asarray(pos), jc,
                                    jnp.asarray(valid), lo=lo, hi=hi)
-    tr = tllama.run_layers_prefill(tp["llm"], tcfg, torch.from_numpy(x),
+    tr = tllama.run_layers_prefill(tp["llm"], TCFG.text, torch.from_numpy(x),
                                    torch.from_numpy(pos), tc, torch.from_numpy(valid),
                                    lo=lo, hi=hi)
     for i, n in enumerate(valid):
@@ -145,7 +149,7 @@ def test_decoder_prefill_and_decode_match_jax(both):
     posd = valid[:, None]
     jd = jllama.run_layers_decode(jp["llm"], tcfg, jnp.asarray(xd), jnp.asarray(posd),
                                   jr.cache, lo=lo, hi=hi)
-    td = tllama.run_layers_decode(tp["llm"], tcfg, torch.from_numpy(xd),
+    td = tllama.run_layers_decode(tp["llm"], TCFG.text, torch.from_numpy(xd),
                                   torch.from_numpy(posd), tr.cache, lo=lo, hi=hi)
     _close(td.x, jd.x)
     for i, n in enumerate(valid):  # persisted rows and the new slot
@@ -156,7 +160,7 @@ def test_decoder_prefill_and_decode_match_jax(both):
 def test_clip_tower_matches_jax(both):
     jp, tp = both
     pix = _np((2, CFG.vision.image_size, CFG.vision.image_size, 3), 4)
-    got = tclip.vision_tower_features(tp["vision_tower"], CFG.vision, torch.from_numpy(pix))
+    got = tclip.vision_tower_features(tp["vision_tower"], TCFG.vision, torch.from_numpy(pix))
     want = jclip.vision_tower_features(jp["vision_tower"], CFG.vision, jnp.asarray(pix))
     assert got.shape == (2, CFG.vision.num_patches, CFG.vision.hidden_size)
     _close(got, want)
@@ -182,7 +186,7 @@ def test_vision_predictor_matches_jax(both):
     pol = pol.astype(np.float32)
     for policy in (None, pol):
         got = tpred.vision_predictor(
-            tp["predictors"]["image_score_predictor"], torch.from_numpy(x), CFG.sparse,
+            tp["predictors"]["image_score_predictor"], torch.from_numpy(x), TCFG.sparse,
             None if policy is None else torch.from_numpy(policy))
         want = jpred.vision_predictor(
             jp["predictors"]["image_score_predictor"], jnp.asarray(x), CFG.sparse,
