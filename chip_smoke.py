@@ -24,11 +24,18 @@ anywhere else. Phases, each of which raises on failure:
    at the 7B decoder's shapes and rows 1, 8, 24, 64: max abs error
    relative to max |ref| within 1e-2 for bf16 outputs, 1e-4 for the fp32
    lm_head; the weights rotate through copies larger than the 50 MB L2, as
-   a decode step finds them cold;
+   a decode step finds them cold. K9 (the fused int4 MLP) at the 7B and
+   13B MLP shapes and the same rows, bf16 x and fp32 x with fp32 out (1e-2
+   / 1e-3 of max |ref|), beside the two-kernel path it fuses and three
+   bf16 matmuls on the dequantized weights. K2 again on int8 storage with
+   scales, on fp8 storage and with a sliding window, also at 40 heads,
+   beside SDPA on the dequantized bf16 cache;
 4. a small model (head_dim 64, GQA) on the card through the kernels
    against the port's plain CPU path, which the CPU tests hold against the
    JAX package: greedy generation in fp32 with plain, int8 and int4
-   weights, token for token; and two train steps in fp32 on shared Gumbel
+   weights, token for token; the lean modes (int8 and fp8 KV, ring
+   overflow, int4 with the fused MLP) by their logits under teacher
+   forcing; and two train steps in fp32 on shared Gumbel
    noise, losses within rtol 1e-3 and every parameter within atol 1e-4;
 5. serving at LLaVA-1.5-7B width (32 layers, random bf16 weights made on
    the card from a seed): two batches of 8 requests (one 336x336 image
@@ -40,7 +47,18 @@ anywhere else. Phases, each of which raises on failure:
    then an int4 decoder made directly (``init_quantized_llama_params``)
    beside the bf16 tower, projector and predictors, sparse. Each path's
    launch counters are zeroed before it and read after;
-7. training at 7B width (TRAIN_DEPTH decoder layers, fresh random bf16
+7. lean-memory serving at 7B width on the int4 decoder, the same batches,
+   within one process so that the modes can be compared: bf16 KV with the
+   fused MLP (K9, ``DYNAMIC_LLAVA_Q4_MLP=1``) off, on, on, off; fused with
+   an int8 KV cache, sparse and dense; fused with an fp8 cache, sparse;
+   then ring overflow (int8 KV, 256 new tokens at a decode window of 64,
+   so both tiers wrap). K9 must launch once per layer and decode step with
+   the switch on and never with it off; K2 once per layer and step in
+   every mode. Cache bytes and peak memory are printed;
+8. LLaVA-1.5-13B width (40 layers, hidden 5120, ffn 13824), an int4
+   decoder made directly, fused MLP, B=1, 256 new tokens, sparse and dense
+   (one batch each);
+9. training at 7B width (TRAIN_DEPTH decoder layers, fresh random bf16
    weights): ``Trainer.train`` over TRAIN_STEPS sparse steps (B=4, one
    336x336 image + 1088 text tokens each, half of them labels, fused
    S = 1663), then as many dense-stage steps on the same weights; the
@@ -360,6 +378,195 @@ def check_quant_kernels(torch):
     return res
 
 
+# K9 cases: (label, K = D, F) of the 7B and the 13B decoder's MLP
+MLP_CASES = [("7B", 4096, 11008), ("13B", 5120, 13824)]
+# bf16 / fp32 output, relative to max |ref|. The fp32 figure is not 1e-4: the
+# kernel's and the plain version's fp32 sums run in different orders, so about
+# one h in a thousand rounds to the other bf16 neighbour, and each moves an
+# output by 2^-8 of one of its F terms (the float64 reference printed beside
+# the fp32 cases shows the plain version as far from it as the kernel).
+MLP_TOL = {False: 1e-2, True: 1e-3}
+
+
+def check_mlp_kernel(torch):
+    """Phase 3, K9: the fused int4 MLP against ``q4_mlp_plain`` on the same
+    x, packed weights and bf16 scales at every MLP_CASES shape and
+    QUANT_ROWS row count, bf16 x (bf16 out) and fp32 x (fp32 out: the
+    kernel rounds x to bf16 as the plain version does, so only the order of
+    the fp32 sums and the rare h that rounds the other way differ; both are
+    also held against the same arithmetic in float64). Times
+    rotate through weight copies of more than 256 MB. Beside the kernel:
+    the two-kernel path it fuses (K8 gate/up + ``silu * mul`` + K7 down)
+    and three ``@`` on dequantized bf16 weights + ``silu * mul``."""
+    import torch.nn.functional as F
+
+    from dynamic_llava_tpu_torch.ops import quant_matmul as qm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    res = {"max_abs_err": 0.0, "max_err_rel": 0.0, "shapes": {}}
+    for label, k, f in MLP_CASES:
+        nbytes = 3 * k * f // 2
+        copies = max(2, -(-(256 << 20) // nbytes))
+
+        def packed(r, c):
+            return torch.randint(-128, 128, (r, c), generator=gen, device=dev,
+                                 dtype=torch.int8)
+
+        weights = [(packed(k, f // 2), packed(k, f // 2), packed(f, k // 2))
+                   for _ in range(copies)]
+        scales = [torch.rand(1, n, generator=gen, device=dev).mul_(0.02 / 7).bfloat16()
+                  for n in (f, f, k)]
+
+        def two_kernels(x, ws):
+            g, u = qm.q4_gemv_group(x, ws[:2], scales[:2])
+            return qm.q4_gemv(F.silu(g) * u, ws[2], scales[2])
+
+        def float64(x, ws):  # q4_mlp_plain's steps in float64
+            xb, (sg, su, sd) = x.bfloat16().double(), (sc.double() for sc in scales)
+            g = (xb @ qm.unpack_int4(ws[0]).double()) * sg
+            u = (xb @ qm.unpack_int4(ws[1]).double()) * su
+            h = (F.silu(g) * u).float().bfloat16().double()
+            return (h @ qm.unpack_int4(ws[2]).double()) * sd
+
+        for rows in QUANT_ROWS:
+            for dtype in (torch.bfloat16, torch.float32):
+                x = torch.randn(rows, k, generator=gen, device=dev).to(dtype)
+                fp32 = dtype == torch.float32
+                got = qm.q4_mlp(x, *weights[0], *scales, out_fp32=fp32)
+                want = qm.q4_mlp_plain(x, *weights[0], *scales, out_fp32=fp32)
+                require(bool(torch.isfinite(got).all()), f"q4_mlp {label}: non-finite")
+                require(got.dtype == want.dtype and got.shape == want.shape,
+                        f"q4_mlp {label}: output {got.dtype} {tuple(got.shape)}")
+                err = (got.float() - want.float()).abs().max().item()
+                rel = err / want.float().abs().max().item()
+                tol = MLP_TOL[fp32]
+                res["max_abs_err"] = max(res["max_abs_err"], err)
+                res["max_err_rel"] = max(res["max_err_rel"], rel)
+                line = (f"  q4_mlp {label} [K={k} F={f} rows={rows} {dtype}]: max_abs_err="
+                        f"{err:.3e}, /max|ref| {rel:.3e} (tol {tol:g}) "
+                        f"{'ok' if rel <= tol else 'FAIL'}")
+                if fp32:
+                    r64 = float64(x, weights[0])
+                    top = r64.abs().max().item()
+                    line += (f"; against float64 /max|ref|: kernel "
+                             f"{(got.double() - r64).abs().max().item() / top:.3e}, plain "
+                             f"{(want.double() - r64).abs().max().item() / top:.3e}")
+                    del r64
+                if fp32 and rows != 8:
+                    log(line)
+                    require(rel <= tol, f"q4_mlp {label} rows={rows} fp32: kernel "
+                            "disagrees with its plain version")
+                    continue
+                kms = time_ms([lambda ws=ws: qm.q4_mlp(x, *ws, *scales, out_fp32=fp32)
+                               for ws in weights], 30)
+                log(line + f"; kernel {kms:.4f} ms ({nbytes / kms / 1e6:.0f} GB/s of weights)")
+                require(rel <= tol, f"q4_mlp {label} rows={rows}: kernel disagrees with "
+                        "its plain version")
+                if fp32:
+                    continue
+                two_ms = time_ms([lambda ws=ws: two_kernels(x, ws) for ws in weights], 30)
+                log(f"    K8 gate/up + silu*mul + K7 down on the same inputs: {two_ms:.4f} ms")
+                if rows != 8:
+                    continue
+                pms = time_ms([lambda ws=ws: qm.q4_mlp_plain(x, *ws, *scales)
+                               for ws in weights[:2]], 5)
+                deq = [qm.unpack_int4(w).bfloat16() for w in weights[0]]
+                mms = time_ms(lambda: (F.silu(x @ deq[0]) * (x @ deq[1])) @ deq[2], 10)
+                del deq
+                io = 2 * sum(sc.numel() for sc in scales) + 2 * x.numel() + 2 * rows * k
+                bms, bby = bound_ms(nbytes + io, 6 * rows * k * f)
+                log(f"    rows 8: plain {pms:.4f} ms, three bf16 matmuls on the "
+                    f"dequantized weights (one copy) + silu*mul {mms:.4f} ms, bound "
+                    f"{bms:.4f} ms ({bby})")
+                res["shapes"][label] = dict(ms=kms, plain_ms=pms, library_ms=mms,
+                                            two_kernel_ms=two_ms, bound_ms=bms, bound_by=bby)
+        del weights
+    res.update(res["shapes"]["7B"])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_decode_storage(torch):
+    """Phase 3, K2 widened: int8 storage with per-vector scales, fp8
+    storage, and a sliding window, against the plain version in fp32 on the
+    same stored values, at the shapes of the bf16 checks and with 40 heads
+    (the 13B decoder). The bound passed as ``length`` is the attend bound,
+    which the ring policy saturates below the persisted length. Returns
+    ``{"int8": {...}, "fp8": {...}}``: max errors over all cases, times at
+    max_len 768 with every sample at length 767, the library time being one
+    SDPA call on the dequantized bf16 cache."""
+    import torch.nn.functional as F
+
+    from dynamic_llava_tpu_torch.ops.decode_attention import (
+        decode_attention, decode_attention_plain)
+    from dynamic_llava_tpu_torch.ops.kv_cache import dequantize_kv, quantize_kv, to_storage
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 3)
+
+    def randn(*shape, dtype):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, dtype)
+
+    res = {"int8": {"max_abs_err": 0.0}, "fp8": {"max_abs_err": 0.0}}
+    cases = [(768, 32, 32, 128, torch.bfloat16, None), (256, 32, 32, 128, torch.bfloat16, None),
+             (768, 40, 40, 128, torch.bfloat16, None), (256, 8, 2, 64, torch.float32, None),
+             (768, 32, 32, 128, torch.bfloat16, 100), (256, 8, 2, 128, torch.float32, 7)]
+    for max_len, h, hkv, d, dtype, window in cases:
+        b = 4
+        q = randn(b, 1, h, d, dtype=dtype)
+        kf, vf = randn(b, max_len, hkv, d, dtype=dtype), randn(b, max_len, hkv, d, dtype=dtype)
+        kn, vn = randn(b, 1, hkv, d, dtype=dtype), randn(b, 1, hkv, d, dtype=dtype)
+        length = torch.tensor([0, 1, max_len // 2, max_len - 1], dtype=torch.int32, device=dev)
+        q_pos = None if window is None else length + 3  # a dense cache: position >= slot
+        tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+        stores = {"int8": quantize_kv(kf) + quantize_kv(vf),
+                  "fp8": (to_storage(kf, torch.float8_e4m3fn), None,
+                          to_storage(vf, torch.float8_e4m3fn), None)}
+        if window is not None:  # the window also on the cache in q's own type
+            stores["own"] = (kf, None, vf, None)
+        for name, (kc, ks, vc, vs) in stores.items():
+            kw = dict(window=window, q_pos=q_pos, k_scale=ks, v_scale=vs)
+            out = decode_attention(q, kc, vc, kn, vn, length, **kw)
+            ref = decode_attention_plain(q.float(), kc, vc, kn.float(), vn.float(), length,
+                                         **kw)
+            require(bool(torch.isfinite(out).all()), f"K2 {name}: non-finite output")
+            err = (out.float() - ref).abs().max().item()
+            ok = torch.allclose(out.float(), ref, atol=tol, rtol=tol)
+            log(f"  K2 {name} cache [B={b} max_len={max_len} H={h} Hkv={hkv} d={d} "
+                f"bounds={length.tolist()} window={window} q {dtype}]: max_abs_err="
+                f"{err:.3e} (atol=rtol={tol:g}) {'ok' if ok else 'FAIL'}")
+            require(ok, f"K2 {name} cache: kernel disagrees with its plain version")
+            if name in res:
+                res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+            if (max_len, h, window) != (768, 32, None) or name == "own":
+                continue
+            n_live = max_len - 1
+            live_len = torch.full((b,), n_live, dtype=torch.int32, device=dev)
+            kw = dict(k_scale=ks, v_scale=vs)
+            kms = time_ms(lambda: decode_attention(q, kc, vc, kn, vn, live_len, **kw), 100)
+            pms = time_ms(lambda: decode_attention_plain(q, kc, vc, kn, vn, live_len, **kw),
+                          100)
+            kd = dequantize_kv(kc, ks, dtype) if ks is not None else kc.to(dtype)
+            vd = dequantize_kv(vc, vs, dtype) if vs is not None else vc.to(dtype)
+            ql = sdpa_layout(q)
+            kl = sdpa_layout(torch.cat([kd[:, :n_live], kn], dim=1))
+            vl = sdpa_layout(torch.cat([vd[:, :n_live], vn], dim=1))
+            lms = time_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl), 100)
+            # bytes: the live cache rows at one byte an element (and their
+            # bf16 scales), q, the current K/V and the output in q's type
+            cache = 2 * b * n_live * hkv * (d + (2 if ks is not None else 0))
+            bms, bby = bound_ms(cache + 2 * (2 * q.numel() + 2 * b * hkv * d),
+                                4 * b * (n_live + 1) * h * d)
+            log(f"  K2 {name} cache time at max_len={max_len}, every sample at length "
+                f"{n_live}: kernel {kms:.4f} ms, plain {pms:.4f} ms, SDPA on the "
+                f"dequantized bf16 cache {lms:.4f} ms, bound {bms:.4f} ms ({bby})")
+            res[name].update(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms, bound_by=bby)
+    torch.cuda.synchronize()
+    return res
+
+
 def check_train_kernels(torch):
     """Phase 3, K3 and K4: the flash backward (dq, dk, dv each) and the
     policy attention against their plain versions at the training shape,
@@ -650,47 +857,118 @@ def train(torch, params, cfg, label, expect):
 def check_small_model(torch):
     """Phase 4: greedy generation of a small GQA model (head_dim 64) on the
     card (kernels, fp32) must match the port's plain CPU path token for
-    token, with plain, int8 and int4 decoder weights."""
+    token, with plain, int8 and int4 decoder weights; then the lean modes
+    (int8 and fp8 KV caches, ring overflow past both tiers' wrap, int4
+    weights with the fused MLP, and that with an int8 cache). In a lean
+    mode a stored byte or a bf16 ``h`` may round the other way on the card
+    (its fp32 sums run in another order), so there the logits of every step
+    are held under teacher forcing with the CPU's tokens (atol 5e-2; ring
+    with its fp32 cache 1e-3 and token for token), and whether the free
+    runs agree token for token is logged."""
+    import os
+
     from dynamic_llava_tpu_torch.config import IMAGE_TOKEN_INDEX
     from dynamic_llava_tpu_torch.generation.generate import (
         GenerationConfig, Generator)
+    from dynamic_llava_tpu_torch.models.dynamic import decode_step
+    from dynamic_llava_tpu_torch.multimodal.fusion import plan_batch
     from dynamic_llava_tpu_torch.ops.quant import quantize_llm_params
-    from dynamic_llava_tpu_torch.weights import init_llava_params
+    from dynamic_llava_tpu_torch.weights import init_llava_params, map_leaves
 
     cfg = small_config()
-    def to_gpu(t):
-        if isinstance(t, dict):
-            return {k: to_gpu(v) for k, v in t.items()}
-        if isinstance(t, list):
-            return [to_gpu(v) for v in t]
-        return t.cuda()
-
     rng = np.random.default_rng(SEED)
     ids = [np.concatenate([rng.integers(3, 500, 7), [IMAGE_TOKEN_INDEX],
                            rng.integers(3, 500, 9 + i)]) for i in range(3)]
     pix = rng.standard_normal((3, 56, 56, 3), dtype=np.float32)
-    gc = GenerationConfig(max_new_tokens=16, cache_dtype="float32",
-                          pad_multiple=8, decode_chunk=8, eos_token_id=-1)
-    for bits in (None, 8, 4):
+    base = dict(max_new_tokens=16, cache_dtype="float32", pad_multiple=8, decode_chunk=8,
+                eos_token_id=-1)
+
+    def make(bits):
         cpu_params = init_llava_params(cfg, torch.Generator().manual_seed(SEED), "cpu",
                                        torch.float32)
         if bits:
             quantize_llm_params(cpu_params, bits=bits)
+        return cpu_params, map_leaves(lambda _, t: t.cuda(), cpu_params)
+
+    for bits in (None, 8, 4):
+        cpu_params, gpu_params = make(bits)
+        gc = GenerationConfig(**base)
         want = Generator(cpu_params, cfg, gc).generate(ids, pix)
-        got = Generator(to_gpu(cpu_params), cfg, gc).generate(ids, pix)
+        got = Generator(gpu_params, cfg, gc).generate(ids, pix)
         kind = f"int{bits}" if bits else "fp32"
         log(f"  small model ({kind} weights) tokens (card): {got}")
         require(got == want,
                 f"small model {kind}: card tokens {got} != plain CPU {want}")
         log(f"  small model ({kind} weights): card == plain CPU path, token for token")
 
+    def forced_logits(gen, gc, tokens):
+        """Prefill and one decode step per token of ``tokens`` (teacher
+        forcing): the logits of every step, on the host."""
+        plan = plan_batch(ids, cfg.num_image_tokens, pad_multiple=gc.pad_multiple)
+        steps = len(tokens[0])
+        with torch.inference_mode():
+            state, _ = gen.prefill_from_plan(plan, pix, steps)
+            logits = [state.last_logits]
+            for i in range(steps):
+                tok = torch.tensor([o[i] for o in tokens], device=gen.device)
+                state = decode_step(gen.params, cfg, tok, state, kv_overflow=gc.kv_overflow)
+                logits.append(state.last_logits)
+        return torch.stack(logits).float().cpu()
 
-def serve(torch, params, modes, counters, label, b=8, max_new=64, n_text=60):
-    """Two batches of ``b`` requests (one image and ``n_text`` text tokens
-    each, the same prompts for every call) through ``Generator.generate``
-    for each ``(mode, cfg)`` of ``modes`` on the same weights; the second
-    is timed. Every kernel in ``counters`` (name -> wrapper) must launch in
-    each mode. Returns the per-mode measurements."""
+    lean = [
+        ("int8 KV", None, dict(cache_dtype="int8"), False, 5e-2),
+        ("fp8 KV", None, dict(cache_dtype="float8_e4m3fn"), False, 5e-2),
+        ("ring overflow", None, dict(kv_overflow="ring", kv_window=2, max_new_tokens=40),
+         False, 1e-3),
+        ("int4 weights, fused MLP", 4, {}, True, 5e-2),
+        ("int4 weights, fused MLP, int8 KV", 4, dict(cache_dtype="int8"), True, 5e-2),
+    ]
+    for label, bits, over, fused, tol in lean:
+        cpu_params, gpu_params = make(bits)
+        gc = GenerationConfig(**dict(base, **over))
+        os.environ.pop(Q4_MLP_SWITCH, None)
+        if fused:
+            os.environ[Q4_MLP_SWITCH] = "1"
+        try:
+            cpu_gen, gpu_gen = Generator(cpu_params, cfg, gc), Generator(gpu_params, cfg, gc)
+            want = cpu_gen.generate(ids, pix)
+            got = gpu_gen.generate(ids, pix)
+            ref, out = forced_logits(cpu_gen, gc, want), forced_logits(gpu_gen, gc, want)
+        finally:
+            os.environ.pop(Q4_MLP_SWITCH, None)
+        err = (out - ref).abs().max().item()
+        same = got == want
+        log(f"  small model ({label}): logits of {out.shape[0]} steps card vs plain CPU "
+            f"path max_abs_err={err:.3e} (atol {tol:g}); free-running tokens "
+            f"{'equal' if same else 'differ'}: {got}")
+        require(bool(torch.isfinite(out).all()) and err <= tol,
+                f"small model {label}: logits differ by {err} (atol {tol})")
+        require(same or tol > 1e-3, f"small model {label}: card tokens {got} != CPU {want}")
+
+
+Q4_MLP_SWITCH = "DYNAMIC_LLAVA_Q4_MLP"
+
+
+def cache_bytes(cache) -> int:
+    """Bytes of a tiered KV cache: K, V and the int8 mode's scales."""
+    return sum(t.numel() * t.element_size()
+               for tier in (cache.pre, cache.post)
+               for t in (tier.k, tier.v, tier.k_scale, tier.v_scale) if t is not None)
+
+
+def serve(torch, params, modes, counters, label, b=8, max_new=64, n_text=60, batches=2):
+    """``batches`` batches of ``b`` requests (one image and ``n_text`` text
+    tokens each, the same prompts for every call) through
+    ``Generator.generate`` for each mode of ``modes`` on the same weights;
+    the last is timed. A mode is ``(name, cfg)`` or ``(name, cfg, opts)``:
+    ``opts["gen"]`` are ``GenerationConfig`` fields (``cache_dtype``,
+    ``kv_overflow``, ``kv_window``), ``opts["fused"]`` switches the fused
+    int4 MLP (K9) on for the mode. Every kernel in ``counters`` (name ->
+    wrapper) must launch in each mode: K2 once per layer and decode step,
+    K9 as often with the switch on and never with it off. Returns the
+    per-mode measurements."""
+    import os
+
     from dynamic_llava_tpu_torch.config import IMAGE_TOKEN_INDEX
     from dynamic_llava_tpu_torch.generation.generate import GenerationConfig, Generator
     from dynamic_llava_tpu_torch.models.dynamic import gen_cache_sizes
@@ -703,40 +981,58 @@ def serve(torch, params, modes, counters, label, b=8, max_new=64, n_text=60):
                            rng.integers(3, vocab, n_text - n_text // 2)])
            for _ in range(b)]
     pix = rng.standard_normal((b, size, size, 3), dtype=np.float32)
-    # eos -1: every request runs to max_new, so each run does the same work
-    gc = GenerationConfig(max_new_tokens=max_new, temperature=0.0, eos_token_id=-1)
-    plan = plan_batch(ids, cfg0.num_image_tokens, pad_multiple=gc.pad_multiple)
     results = {}
-    for mode, cfg in modes:
+    for mode, cfg, *rest in modes:
+        opts = rest[0] if rest else {}
+        fused = bool(opts.get("fused"))
+        # eos -1: every request runs to max_new, so each run does the same work
+        gc = GenerationConfig(max_new_tokens=max_new, temperature=0.0, eos_token_id=-1,
+                              **opts.get("gen", {}))
+        plan = plan_batch(ids, cfg0.num_image_tokens, pad_multiple=gc.pad_multiple)
+        chunk = max(1, min(gc.decode_chunk, max_new))
+        steps = -(-max_new // chunk) * chunk  # decode steps of one generate call
         gen = Generator(params, cfg, gc)
-        sizes = gen_cache_sizes(cfg, plan.seq_len, max_new, bucket=gc.pad_multiple)
-        before = {name: fn.launches for name, fn in counters.items()}
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        outs = []
-        for _ in range(2):  # the second batch is timed, past first-call costs
+        sizes = gen_cache_sizes(cfg, plan.seq_len, steps, bucket=gc.pad_multiple,
+                                decode_window=gc.kv_window, ring=gc.kv_overflow == "ring")
+        os.environ.pop(Q4_MLP_SWITCH, None)
+        if fused:
+            os.environ[Q4_MLP_SWITCH] = "1"
+        try:
+            before = {name: fn.launches for name, fn in counters.items()}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            outs = []
+            for _ in range(batches):  # the last batch is timed, past first-call costs
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs.append(gen.generate(ids, pix))
+                torch.cuda.synchronize()
+                e2e = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            rose = {name: fn.launches - before[name] for name, fn in counters.items()}
+            # TTFT: the same prefill, timed alone
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            outs.append(gen.generate(ids, pix))
+            with torch.inference_mode():
+                state, info = gen.prefill_from_plan(plan, pix, steps)
             torch.cuda.synchronize()
-            e2e = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        rose = {name: fn.launches - before[name] for name, fn in counters.items()}
-        require(all(r > 0 for r in rose.values()),
-                f"{label} {mode}: kernel launch counters did not rise {rose}")
-        out = outs[1]
-        require(outs[0] == out, f"{label} {mode}: two batches of the same prompts differ")
+            ttft = time.perf_counter() - t0
+        finally:
+            os.environ.pop(Q4_MLP_SWITCH, None)
+        per_layer = batches * steps * cfg.text.num_hidden_layers
+        want = {"decode_attention_appended": per_layer,
+                "q4_mlp": per_layer if fused else 0}
+        for name, r in rose.items():
+            require(r == want[name] if name in want else r > 0,
+                    f"{label} {mode}: {name} launched {r} times"
+                    + (f", not {want[name]}" if name in want else "") + f" ({rose})")
+        out = outs[-1]
+        require(all(o == out for o in outs),
+                f"{label} {mode}: batches of the same prompts differ")
         require(len(out) == b and all(len(o) == max_new for o in out),
                 f"{label} {mode}: wrong output lengths")
         require(all(0 <= t < vocab for o in out for t in o),
                 f"{label} {mode}: token id out of range")
-        # TTFT: the same prefill, timed alone
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with torch.inference_mode():
-            state, info = gen.prefill_from_plan(plan, pix, max_new)
-        torch.cuda.synchronize()
-        ttft = time.perf_counter() - t0
         require(bool(torch.isfinite(state.last_logits).all()),
                 f"{label} {mode}: non-finite prefill logits")
         new_len = info.new_length.tolist()
@@ -744,12 +1040,16 @@ def serve(torch, params, modes, counters, label, b=8, max_new=64, n_text=60):
                     for v in plan.valid_len]
         require(new_len == want_len,
                 f"{label} {mode}: new_length {new_len} != {want_len}")
-        require(state.cache.post.max_len == sizes[1], "post tier capacity")
+        require((state.cache.pre.max_len, state.cache.post.max_len) == sizes,
+                f"{label} {mode}: tier capacities")
         tok_s = b * max_new / (e2e - ttft)
+        kv_gib = cache_bytes(state.cache) / 2**30
         results[mode] = dict(e2e_s=e2e, ttft_ms=ttft * 1e3, decode_tok_s=tok_s,
-                             peak_gib=peak, pre=sizes[0], post=sizes[1])
-        log(f"  {label} {mode}: B={b}, prompt length {plan.seq_len}, tier capacities "
-            f"pre={sizes[0]} post={sizes[1]}; generate {e2e:.3f} s, TTFT "
+                             peak_gib=peak, kv_gib=kv_gib, pre=sizes[0], post=sizes[1],
+                             launches=rose)
+        log(f"  {label} {mode}: B={b}, prompt length {plan.seq_len}, {max_new} new tokens, "
+            f"tier capacities pre={sizes[0]} post={sizes[1]}, KV cache "
+            f"{state.cache.pre.k.dtype} {kv_gib:.3f} GiB; generate {e2e:.3f} s, TTFT "
             f"{ttft * 1e3:.1f} ms, decode {tok_s:.1f} tok/s, peak {peak:.2f} GiB, "
             f"new_length {new_len[:2]}... (prompt {plan.valid_len.tolist()[:2]}...), "
             f"launches {rose}, first tokens {out[0][:8]}")
@@ -779,7 +1079,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from dynamic_llava_tpu_torch import kernels
-    from dynamic_llava_tpu_torch.config import DENSE_SPARSE_CONFIG, LlavaConfig
+    from dynamic_llava_tpu_torch.config import (
+        DENSE_SPARSE_CONFIG, LlamaConfig, LlavaConfig)
     from dynamic_llava_tpu_torch.ops.decode_attention import decode_attention
     from dynamic_llava_tpu_torch.ops import quant_matmul as qm
     from dynamic_llava_tpu_torch.ops.flash_attention import flash_attention
@@ -800,6 +1101,8 @@ def main() -> int:
     kres = check_kernels(torch)
     kres.update(check_train_kernels(torch))
     kres.update(check_quant_kernels(torch))
+    kres["q4_mlp"] = check_mlp_kernel(torch)
+    kres["decode_attention_appended"].update(check_decode_storage(torch))
 
     log("phase 4: small model, card against plain CPU path")
     check_small_model(torch)
@@ -808,21 +1111,29 @@ def main() -> int:
     counters = {"flash_attention_fwd": flash_attention,
                 "decode_attention_appended": decode_attention,
                 "q8_gemv": qm.q8_gemv, "q8_gemv_group": qm.q8_gemv_group,
-                "q4_gemv": qm.q4_gemv, "q4_gemv_group": qm.q4_gemv_group}
+                "q4_gemv": qm.q4_gemv, "q4_gemv_group": qm.q4_gemv_group,
+                "q4_mlp": qm.q4_mlp}
     # the kernels each path must launch; the JSON line reports each
     # kernel's launches in the path named here
     paths = {"bf16": ("flash_attention_fwd", "decode_attention_appended"),
              "int8": ("q8_gemv", "q8_gemv_group"),
-             "int4": ("q4_gemv", "q4_gemv_group")}
+             "int4": ("q4_gemv", "q4_gemv_group", "q4_mlp"),
+             "lean": ("q4_gemv", "q4_gemv_group", "q4_mlp"),
+             "ring": ("q4_gemv", "q4_gemv_group", "q4_mlp"),
+             "13b": ("q4_gemv", "q4_gemv_group", "q4_mlp")}
+    # the JSON line reports a kernel's launches in the path named here
+    reported = {"bf16": ("flash_attention_fwd", "decode_attention_appended"),
+                "int8": ("q8_gemv", "q8_gemv_group"), "int4": ("q4_gemv", "q4_gemv_group"),
+                "lean": ("q4_mlp",)}
     launches, results = {}, {}
 
-    def drive(label, params, modes):
+    def drive(label, params, modes, **kw):
         for fn in counters.values():
             fn.launches = 0
         need = {n: counters[n] for n in
                 ("flash_attention_fwd", "decode_attention_appended") + paths[label]}
-        results[label] = serve(torch, params, modes, need, label)
-        launches.update({n: counters[n].launches for n in paths[label]})
+        results[label] = serve(torch, params, modes, need, label, **kw)
+        launches.update({n: counters[n].launches for n in reported.get(label, ())})
         log(f"  {label} path launches: "
             f"{ {n: fn.launches for n, fn in counters.items()} }")
 
@@ -857,10 +1168,49 @@ def main() -> int:
     log(f"  int4: decoder made directly, {param_bytes(params['llm']) / 2**30:.2f} GiB "
         f"(all params {param_bytes(params) / 2**30:.2f} GiB)")
     drive("int4", params, both[:1])
+
+    log("phase 7: lean-memory serving at 7B width on the int4 decoder: the fused MLP "
+        "(K9) off and on, int8 and fp8 KV caches, ring overflow")
+    int8kv, fp8kv = dict(cache_dtype="int8"), dict(cache_dtype="float8_e4m3fn")
+    # two-kernel, fused, fused, two-kernel: the host's pace drifts within a call
+    drive("lean", params, [
+        ("sparse bf16-KV two-kernel MLP", cfg_sparse),
+        ("sparse bf16-KV fused MLP", cfg_sparse, dict(fused=True)),
+        ("sparse bf16-KV fused MLP, again", cfg_sparse, dict(fused=True)),
+        ("sparse bf16-KV two-kernel MLP, again", cfg_sparse),
+        ("sparse int8-KV fused MLP", cfg_sparse, dict(fused=True, gen=int8kv)),
+        ("dense int8-KV fused MLP", cfg_dense, dict(fused=True, gen=int8kv)),
+        ("sparse fp8-KV fused MLP", cfg_sparse, dict(fused=True, gen=fp8kv)),
+    ])
+    # 256 new tokens at a decode window of 64: both tiers wrap
+    ring = dict(cache_dtype="int8", kv_overflow="ring", kv_window=64)
+    drive("ring", params, [("sparse int8-KV fused MLP, 256 new tokens", cfg_sparse,
+                            dict(fused=True, gen=ring))], max_new=256)
+    del params["llm"]
+    torch.cuda.empty_cache()
+
+    log("phase 8: LLaVA-1.5-13B width (40 layers, hidden 5120, ffn 13824), int4 decoder "
+        "made directly, fused MLP, B=1, 256 new tokens")
+    text13 = LlamaConfig.llama_13b()
+    cfg13 = LlavaConfig(text=text13)
+    # tower, projector and predictors at the 13B decoder's width, without a
+    # bf16 decoder (26 GB that the int4 path never holds)
+    params = init_llava_params(
+        dataclasses.replace(cfg13, text=dataclasses.replace(text13, num_hidden_layers=0)),
+        torch.Generator(device=dev).manual_seed(SEED + 2), dev, torch.bfloat16)
+    params["llm"] = init_quantized_llama_params(
+        text13, torch.Generator(device=dev).manual_seed(SEED + 2), dev, bits=4)
+    torch.cuda.synchronize()
+    log(f"  13B int4: decoder {param_bytes(params['llm']) / 2**30:.2f} GiB (all params "
+        f"{param_bytes(params) / 2**30:.2f} GiB)")
+    drive("13b", params, [
+        ("sparse", cfg13, dict(fused=True)),
+        ("dense", LlavaConfig(text=text13, sparse=DENSE_SPARSE_CONFIG), dict(fused=True)),
+    ], b=1, max_new=256, batches=1)
     del params
     torch.cuda.empty_cache()
 
-    log(f"phase 7: training at LLaVA-1.5-7B width, {TRAIN_DEPTH} decoder layers, "
+    log(f"phase 9: training at LLaVA-1.5-7B width, {TRAIN_DEPTH} decoder layers, "
         "sparse steps, then dense-stage steps on the same weights")
     depth = TRAIN_DEPTH
     train_sparse = dataclasses.replace(
@@ -898,7 +1248,8 @@ def main() -> int:
                     f"{r['tok_s']:.1f} tok/s, peak {r['peak_gib']:.2f} GiB")
                 continue
             log(f"  summary {label} {mode}: TTFT {r['ttft_ms']:.1f} ms, decode "
-                f"{r['decode_tok_s']:.1f} tok/s, peak {r['peak_gib']:.2f} GiB")
+                f"{r['decode_tok_s']:.1f} tok/s, peak {r['peak_gib']:.2f} GiB, KV cache "
+                f"{r['kv_gib']:.3f} GiB")
 
     for name in ("q8_gemv", "q8_gemv_group", "q4_gemv", "q4_gemv_group"):
         r = kres[name]
@@ -923,13 +1274,19 @@ def main() -> int:
         "q4_gemv": (csrc + "quant_gemv.cu", "dynamic_llava_tpu/ops/quant_matmul.py:46"),
         "q4_gemv_group": (csrc + "quant_gemv.cu",
                           "dynamic_llava_tpu/ops/quant_matmul.py:538"),
+        "q4_mlp": (csrc + "quant_mlp.cu", "dynamic_llava_tpu/ops/quant_matmul.py:706"),
     }
+    # beside the required keys: K2's int8 and fp8 storage readings, and K9's
+    # two-kernel time (K8 + silu*mul + K7) and 13B-shape readings
+    extra = {"decode_attention_appended": ("int8", "fp8"),
+             "q4_mlp": ("two_kernel_ms", "shapes")}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], "max_abs_err": kres[name]["max_abs_err"],
          "ms": kres[name]["ms"], "plain_ms": kres[name]["plain_ms"],
          "bound_ms": kres[name]["bound_ms"], "bound_by": kres[name]["bound_by"],
-         "library_ms": kres[name]["library_ms"]}
+         "library_ms": kres[name]["library_ms"],
+         **{k: kres[name][k] for k in extra.get(name, ())}}
         for name, (source, replaces) in table.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

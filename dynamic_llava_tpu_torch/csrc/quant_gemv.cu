@@ -60,7 +60,7 @@ namespace {
 
 namespace cg = cooperative_groups;
 
-constexpr int kTileCols = 64;    // output columns per cluster
+// kTileCols = 64 output columns per cluster (common.cuh)
 constexpr int kSlabRows = 2048;  // K rows of weights a block holds
 constexpr int kGroupRows = 256;  // K rows per mbarrier, and the unit of the K split
 constexpr int kMaxGroups = kSlabRows / kGroupRows;
@@ -74,71 +74,6 @@ struct Group {
   int n[kMaxGroup];  // output columns of each weight
   int nw;
 };
-
-// bytes of one tile row of the weight, and its padded stride in the slice
-template <bool INT4>
-constexpr int kTileBytes = INT4 ? kTileCols / 2 : kTileCols;
-template <bool INT4>
-constexpr int kRowStride = kTileBytes<INT4> + 16;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar) {  // phase 0
-  uint32_t done;
-  do {
-    asm volatile(
-        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0; "
-        "selp.u32 %0, 1, 0, p; }"
-        : "=r"(done) : "r"(smem_addr(bar)) : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)),
-               "l"(src) : "memory");
-}
-
-// arrives on `bar` once every cp.async this thread issued so far has landed
-__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
-                   smem_addr(bar)) : "memory");
-}
-
-// Byte i of `biased` (an unsigned value v < 256) as the float 2^23 + v.
-__device__ __forceinline__ float magic_float(uint32_t biased, int i) {
-  return __int_as_float(__byte_perm(biased, 0x4B000000u, 0x7440 | i));
-}
-// int8 byte i of u, exactly: b xor 0x80 is b + 128
-__device__ __forceinline__ float s8_at(uint32_t u, int i) {
-  return magic_float(u ^ 0x80808080u, i) - 8388736.f;  // 2^23 + 128
-}
-// int4 low / high nibble of byte i of u, exactly: n xor 8 is n + 8
-__device__ __forceinline__ float lo4_at(uint32_t u, int i) {
-  return magic_float((u & 0x0F0F0F0Fu) ^ 0x08080808u, i) - 8388616.f;  // 2^23 + 8
-}
-__device__ __forceinline__ float hi4_at(uint32_t u, int i) {
-  return magic_float(((u >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, i) - 8388616.f;
-}
-
-__device__ __forceinline__ float load_scale(const void* s, int col, int dtype) {
-  return dtype == kBFloat16
-             ? __bfloat162float(static_cast<const __nv_bfloat16*>(s)[col])
-             : static_cast<const float*>(s)[col];
-}
-
-__device__ __forceinline__ void store_out(void* y, size_t idx, float v, int dtype) {
-  if (dtype == kBFloat16)
-    static_cast<__nv_bfloat16*>(y)[idx] = __float2bfloat16(v);
-  else
-    static_cast<float*>(y)[idx] = v;
-}
 
 // ----------------------------------------------------------------------------
 // Shared by both kernels: where the block's tile and K slice are, the copy of
@@ -249,19 +184,6 @@ struct TcShape {
   static constexpr int kMidBytes = kSlabBytes > kPartBytes ? kSlabBytes : kPartBytes;
   static constexpr int kSmemBytes = kXBytes + kMidBytes + 8 * kMaxGroups;
 };
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // exact for |v| <= 256
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 template <int MT, bool INT4>
 __global__ void __launch_bounds__(TcShape<MT, INT4>::Threads, 1)
@@ -524,16 +446,6 @@ gemv_fma_kernel(const float* __restrict__ x, Group g, int rows, int K,
 
 // ----------------------------------------------------------------------------
 // Launch.
-
-int sm_count() {
-  static int count = [] {
-    int dev = 0, n = 132;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    return n;
-  }();
-  return count;
-}
 
 // Blocks per tile: at least K / kSlabRows, and the smallest power of two
 // that fills at least 85% of the last wave of one block per SM.

@@ -7,6 +7,12 @@ from the JAX package), runs ``dynamic.prefill``, then a Python loop of
 next step directly; the host syncs once per ``decode_chunk`` tokens to
 resolve EOS and stopping, and the returned lists are cut exactly at the
 stop point. CUDA graphs of the decode step are left to a later version.
+
+Lean-memory options, as in the JAX package: ``cache_dtype`` stores the KV
+cache in bf16 / fp32, scaled int8 (``"int8"``) or fp8
+(``"float8_e4m3fn"``); ``kv_overflow="ring"`` with ``kv_window`` bounds
+both tiers for long generations (each new token past the budget evicts the
+oldest decode entry).
 """
 
 from __future__ import annotations
@@ -22,9 +28,11 @@ from ..multimodal.fusion import FusionPlan, plan_batch
 
 
 class GenerationConfig(NamedTuple):
-    """Same fields and defaults as the JAX ``GenerationConfig``. This port
-    supports ``cache_dtype="bfloat16"`` (or ``"float32"``) and
-    ``kv_overflow="drop"`` only."""
+    """Same fields and defaults as the JAX ``GenerationConfig``.
+    ``cache_dtype`` is one of ``CACHE_DTYPES``; ``kv_overflow`` is ``"drop"``
+    (force-drop once the post tier's budget fills) or ``"ring"`` (evict the
+    oldest decode entry; incompatible with a sliding-window model);
+    ``kv_window`` caps the decode headroom (the ring's window size)."""
 
     max_new_tokens: int = 128
     temperature: float = 0.0
@@ -37,6 +45,10 @@ class GenerationConfig(NamedTuple):
     seed: int = 0
     kv_overflow: str = "drop"
     kv_window: Optional[int] = None
+
+
+CACHE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+                "int8": torch.int8, "float8_e4m3fn": torch.float8_e4m3fn}
 
 
 def _sample(generator: Optional[torch.Generator], logits: torch.Tensor,
@@ -63,10 +75,12 @@ class Generator:
 
     def __init__(self, params, cfg: LlavaConfig,
                  gen_cfg: GenerationConfig = GenerationConfig()):
-        if gen_cfg.kv_overflow != "drop":
-            raise NotImplementedError(
-                f"kv_overflow={gen_cfg.kv_overflow!r}: only 'drop' is ported"
-            )
+        if gen_cfg.kv_overflow not in ("drop", "ring"):
+            raise ValueError(
+                f"kv_overflow must be 'drop' or 'ring', got {gen_cfg.kv_overflow!r}")
+        if gen_cfg.cache_dtype not in CACHE_DTYPES:
+            raise ValueError(f"cache_dtype must be one of {sorted(CACHE_DTYPES)}, "
+                             f"got {gen_cfg.cache_dtype!r}")
         self.params = params
         self.cfg = cfg
         self.gen_cfg = gen_cfg
@@ -83,11 +97,12 @@ class Generator:
         )
         cache = dynamic.make_gen_cache(
             self.cfg, plan.batch, plan.seq_len, max_new_tokens,
-            getattr(torch, gc.cache_dtype),
+            CACHE_DTYPES[gc.cache_dtype],
             bound_output_budget=gc.bound_kv_budget,
             all_have_image=all_have_image,
             bucket=gc.pad_multiple,
             decode_window=gc.kv_window,
+            ring=gc.kv_overflow == "ring",
             device=self.device,
         )
         pix = None if pixel_values is None else self._tensor(pixel_values)
@@ -105,7 +120,12 @@ class Generator:
             pix,
             cache,
             all_have_image=all_have_image,
+            ring_mode=gc.kv_overflow == "ring",
         )
+
+    def cache_lengths(self, state: dynamic.GenState) -> np.ndarray:
+        """Per-layer persisted KV lengths ``[L, B]``, pre tier then post."""
+        return torch.cat([state.cache.pre.length, state.cache.post.length]).cpu().numpy()
 
     @torch.inference_mode()
     def generate(
@@ -146,7 +166,8 @@ class Generator:
             toks = []
             for _ in range(chunk):
                 tok = _sample(generator, state.last_logits, gc.temperature, gc.top_p)
-                state = dynamic.decode_step(self.params, self.cfg, tok, state)
+                state = dynamic.decode_step(self.params, self.cfg, tok, state,
+                                            kv_overflow=gc.kv_overflow)
                 toks.append(tok)
             toks_np = torch.stack(toks).cpu().numpy()  # ONE host sync per chunk
             for i in range(b):

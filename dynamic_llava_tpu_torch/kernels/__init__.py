@@ -92,9 +92,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     ]
     lib.flash_attention_fwd.restype = i
     lib.decode_attention_appended.argtypes = [
-        p, p, p, p, p, p, p,  # q, k_cache, v_cache, k_cur, v_cur, length, out
+        p, p, p, p, p, p,  # q, k_cache, v_cache, k_cur, v_cur, bound
+        p, p, p, p,  # k_scale, v_scale, q_pos (each may be null), out
         i, i, i, i, i,  # B, max_len, H, Hkv, D
-        f, i, p,  # scale, dtype, stream
+        f, i, i, i, p,  # scale, window (0 = none), q dtype, storage code, stream
     ]
     lib.decode_attention_appended.restype = i
     bwd = [
@@ -124,6 +125,15 @@ def _declare(lib: ctypes.CDLL) -> None:
             *tail[1:],  # rows, K, x/s/y dtype, stream
         ]
         fn.restype = i
+    ll = ctypes.c_longlong
+    lib.q4_mlp_scratch_bytes.argtypes = [i, i, i, i, i]  # rows, K, F, D, x dtype
+    lib.q4_mlp_scratch_bytes.restype = ll
+    lib.q4_mlp.argtypes = [
+        p, p, p, p, p, p, p, p,  # x, gate, up, down, gate/up/down scales, y
+        p, ll,  # scratch, its bytes
+        i, i, i, i, i, i, i, p,  # rows, K, F, D, x/s/y dtype, stream
+    ]
+    lib.q4_mlp.restype = i
     lib.kernel_error_string.argtypes = [i]
     lib.kernel_error_string.restype = ctypes.c_char_p
 

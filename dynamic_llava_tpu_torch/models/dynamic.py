@@ -6,10 +6,11 @@ training forward (counterpart of ``dynamic_llava_tpu/models/dynamic.py``).
   them, and the sequence is compacted in stable order; layers below the
   sparse layer cache the full sequence (pre tier), layers at and above the
   compacted one (post tier). The E2 instruct-predictor prune is ported too.
-* ``decode_step`` -- E3 in ``"drop"`` mode: the output-text predictor
-  decides, on the hidden state entering the sparse layer, whether the new
-  token persists in the post tier; once that tier's budget is full every
-  further token is force-dropped.
+* ``decode_step`` -- E3: the output-text predictor decides, on the hidden
+  state entering the sparse layer, whether the new token persists in the
+  post tier. Once that tier's budget is full, ``kv_overflow="drop"``
+  force-drops every further token and ``"ring"`` lets each new token evict
+  the oldest decode entry (both tiers wrap, the prefill region protected).
 
 * ``forward_train`` -- T1/T2/T3: the full-sequence training forward in
   which the predictors' Gumbel keep masks become a soft policy over the kv
@@ -62,6 +63,10 @@ class GenState(NamedTuple):
     cache: TieredCache
     next_pos: torch.Tensor  # [B] original-position counter for RoPE
     last_logits: torch.Tensor  # [B, V] fp32 logits of the last processed token
+    # ring-overflow mode only: each tier's prefill length per sample, the
+    # protected region the decode ring never evicts; None in drop mode
+    ring_base: Optional[torch.Tensor] = None  # [B] int32 (post tier)
+    ring_base_pre: Optional[torch.Tensor] = None  # [B] int32 (pre tier)
 
 
 class PrefillInfo(NamedTuple):
@@ -84,6 +89,7 @@ def prefill(
     pixel_values: Optional[torch.Tensor],  # [B, H, W, 3] or None (text-only)
     cache: TieredCache,
     all_have_image: bool = False,
+    ring_mode: bool = False,  # records the ring bases for kv_overflow="ring"
 ) -> Tuple[GenState, PrefillInfo]:
     """``all_have_image`` is the host-known promise that every sample has
     exactly one image; only then may the compacted sequence be cut to
@@ -164,6 +170,8 @@ def prefill(
         cache=TieredCache(pre=cache_pre, post=cache_post),
         next_pos=valid_len.to(torch.int32),
         last_logits=logits,
+        ring_base=new_valid if ring_mode else None,
+        ring_base_pre=valid_len.to(torch.int32) if ring_mode else None,
     )
     info = PrefillInfo(
         image_keep_mask=image_keep,
@@ -173,23 +181,71 @@ def prefill(
     return state, info
 
 
+def _ring_slots(
+    length: torch.Tensor,  # [B] persisted count (may exceed the budget)
+    base: torch.Tensor,  # [B] protected prefill region bound
+    budget: int,  # tier capacity minus the scratch slot
+    active: Optional[torch.Tensor],
+):
+    """Shared ring arithmetic: ``(attend_bound, write_slot, wrapped)``.
+    Below the budget this is the append-at-length protocol exactly; past it
+    the write slot rotates over ``[base, budget)``, so each new token evicts
+    the oldest decode-region entry, and the attend bound saturates at the
+    budget. Frozen samples write to the scratch slot (never attended)."""
+    cap = torch.clamp(budget - base, min=1)
+    wrapped = length >= budget
+    slot = torch.where(
+        wrapped, base + torch.remainder(length - base, cap), length
+    ).to(torch.int32)
+    if active is not None:
+        slot = torch.where(active, slot, budget)
+    return torch.clamp(length, max=budget), slot, wrapped
+
+
 def decode_step(
     params,
     cfg: LlavaConfig,
     token: torch.Tensor,  # [B] next input token ids
     state: GenState,
+    active: Optional[torch.Tensor] = None,  # [B] bool -- False freezes the sample
+    kv_overflow: str = "drop",  # "drop" | "ring"
 ) -> GenState:
-    """One ``"drop"``-mode decode step. The K/V buffers of both tiers are
-    updated IN PLACE (the JAX version returns rebuilt buffers); lengths and
-    positions come back as new tensors."""
+    """One decode step. The K/V buffers of both tiers are updated IN PLACE
+    (the JAX version returns rebuilt buffers); lengths and positions come
+    back as new tensors.
+
+    ``active=False`` samples are frozen: the token's K/V lands in a slot
+    that is never persisted, lengths and positions do not advance, and
+    ``last_logits`` keeps its previous value. ``kv_overflow`` picks the
+    full-budget policy: ``"drop"`` force-drops further tokens (they attend
+    from the scratch slot this step and are never persisted); ``"ring"``
+    persists EVERY token past the wrap by overwriting the oldest
+    decode-region entry, in both tiers, each at its own budget
+    (``state.ring_base`` / ``ring_base_pre`` from ``prefill(ring_mode=True)``
+    protect the prefill region)."""
     tcfg, sparse = cfg.text, cfg.sparse
     b = token.shape[0]
     sl = sparse.sparse_layer
+    if kv_overflow not in ("drop", "ring"):
+        raise ValueError(f"kv_overflow must be 'drop' or 'ring', got {kv_overflow!r}")
+    if kv_overflow == "ring" and tcfg.sliding_window is not None:
+        # a wrapped ring breaks the slot == position invariant of the window
+        # mask, and a sliding window already is a recency ring
+        raise ValueError("kv_overflow='ring' is incompatible with sliding_window")
 
     x = llama.embed_tokens(params["llm"], token[:, None])
     pos = state.next_pos[:, None]
+
+    pre_bound = pre_slot = None
+    if (kv_overflow == "ring" and state.ring_base_pre is not None
+            and state.cache.pre.num_layers > 0):
+        pre_bound, pre_slot, _ = _ring_slots(
+            state.cache.pre.length[0], state.ring_base_pre,
+            state.cache.pre.max_len - 1, active,
+        )
     d1 = llama.run_layers_decode(
-        params["llm"], tcfg, x, pos, state.cache.pre, lo=0, hi=sl
+        params["llm"], tcfg, x, pos, state.cache.pre, lo=0, hi=sl,
+        attend_bound=pre_bound, write_slot=pre_slot,
     )
     x = d1.x
 
@@ -204,18 +260,37 @@ def decode_step(
         keep = torch.ones((b,), dtype=torch.int32, device=token.device)
 
     # the post tier reserves its last slot as scratch for the in-flight
-    # token: once the budget is full, further tokens are force-dropped
+    # token; once the budget is full the kv_overflow policy applies
+    attend_bound = write_slot = None  # default: append at length
     if state.cache.post.num_layers > 0:
         post_budget = state.cache.post.max_len - 1
-        keep = keep * (state.cache.post.length[0] < post_budget).to(torch.int32)
+        cur_len = state.cache.post.length[0]
+        if kv_overflow == "ring" and state.ring_base is not None:
+            attend_bound, write_slot, wrapped = _ring_slots(
+                cur_len, state.ring_base, post_budget, active
+            )
+            # past the wrap every token persists (evicting the oldest); the
+            # predictor's decision still applies before it
+            keep = torch.where(wrapped, 1, keep).to(torch.int32)
+        else:
+            keep = keep * (cur_len < post_budget).to(torch.int32)
+    if active is not None:
+        keep = keep * active.to(torch.int32)
 
     d2 = llama.run_layers_decode(
         params["llm"], tcfg, x, pos, state.cache.post,
         lo=sl, hi=tcfg.num_hidden_layers,
+        attend_bound=attend_bound, write_slot=write_slot,
     )
-    cache = advance_tiered(TieredCache(pre=d1.cache, post=d2.cache), keep)
+    cache = advance_tiered(TieredCache(pre=d1.cache, post=d2.cache), keep, active=active)
     logits = llama.lm_head(params["llm"], tcfg, d2.x)[:, 0]
-    return GenState(cache=cache, next_pos=state.next_pos + 1, last_logits=logits)
+    if active is not None:
+        pos_inc = active.to(state.next_pos.dtype)
+        logits = torch.where(active[:, None], logits, state.last_logits)
+    else:
+        pos_inc = 1
+    return state._replace(cache=cache, next_pos=state.next_pos + pos_inc,
+                          last_logits=logits)
 
 
 class TrainForwardOut(NamedTuple):

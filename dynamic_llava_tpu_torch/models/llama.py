@@ -20,10 +20,12 @@ from torch.utils.checkpoint import checkpoint
 from ..config import LlamaConfig
 from ..ops.attention import attend, attend_with_policy, self_attend
 from ..ops.decode_attention import decode_attention
-from ..ops.kv_cache import KVCache, write_token_layers
+from ..ops.kv_cache import (
+    KVCache, quantize_kv, write_prefill, write_token_layers, write_token_scales)
 from ..ops.norm import rms_norm
 from ..ops.quant import (
-    dequantize_weight, is_quantized, linear, linear_group, matmul, unpack_int4)
+    dequantize_weight, is_quantized, linear, linear_group, matmul, matmul_q4_mlp,
+    unpack_int4)
 from ..ops.rope import apply_rope_for_config
 
 
@@ -69,6 +71,11 @@ def _qkv(lp, cfg: LlamaConfig, h: torch.Tensor, positions: torch.Tensor):
 
 
 def _mlp(lp, h: torch.Tensor) -> torch.Tensor:
+    # a fully int4 MLP at decode rows may run as ONE kernel (K9, opt-in);
+    # None means not eligible or not switched on
+    y = matmul_q4_mlp(h, lp)
+    if y is not None:
+        return y
     g, u = linear_group(lp, ("gate", "up"), h)
     return linear(lp, "down", F.silu(g) * u)
 
@@ -156,21 +163,27 @@ def run_layers_prefill(
     hi: Optional[int] = None,
 ) -> PrefillResult:
     """Prefill layers [lo, hi): causal attention over the (possibly
-    compacted) sequence, K/V written to cache slots [0, S) IN PLACE,
-    ``length = valid_len``. Attention is masked to ``valid_len`` so K1
-    skips padding tiles; padding rows (which the JAX version lets attend
-    the padding too) hold values that are never read."""
+    compacted) sequence, K/V written to cache slots [0, S) IN PLACE (cast
+    to the storage dtype, or quantized to int8 with their scales),
+    ``length = valid_len``. Attention runs on the unrounded K/V and is
+    masked to ``valid_len`` so K1 skips padding tiles; padding rows (which
+    the JAX version lets attend the padding too) hold values that are
+    never read. The Mistral prefill window mask is not ported: a prompt
+    longer than ``cfg.sliding_window`` raises."""
     hi = cfg.num_hidden_layers if hi is None else hi
     if cache.num_layers != hi - lo:
         raise ValueError(f"cache has {cache.num_layers} layers for [{lo}, {hi})")
     length = valid_len.to(torch.int32)[None, :].expand(cache.length.shape).clone()
     b, s, _ = x.shape
+    if cfg.sliding_window is not None and s > cfg.sliding_window:
+        raise NotImplementedError(
+            f"prefill of {s} tokens with sliding_window={cfg.sliding_window}: "
+            "the prefill window mask is not ported yet")
     for li in range(hi - lo):
         lp = layer_params(params["layers"], li + lo)
         h = rms_norm(x, lp["input_ln"], cfg.rms_norm_eps)
         q, k, v = _qkv(lp, cfg, h, positions)
-        cache.k[li, :, :s] = k.to(cache.k.dtype)
-        cache.v[li, :, :s] = v.to(cache.v.dtype)
+        write_prefill(cache, li, k, v)
         o = self_attend(q, k, v, valid_len=valid_len)
         x = x + linear(lp, "o", o.reshape(b, s, -1))
         x = x + _mlp(lp, rms_norm(x, lp["post_ln"], cfg.rms_norm_eps))
@@ -191,30 +204,51 @@ def run_layers_decode(
     *,
     lo: int = 0,
     hi: Optional[int] = None,
+    attend_bound: Optional[torch.Tensor] = None,  # [B] valid-slot bound override
+    write_slot: Optional[torch.Tensor] = None,  # [B] write-slot override
 ) -> DecodeResult:
     """One decode step through layers [lo, hi). Every layer attends over its
-    persisted rows ``[0, length)`` plus the current K/V appended virtually
+    persisted rows ``[0, bound)`` plus the current K/V appended virtually
     (kernel K2 on the card); after the loop all layers' K/V are written at
-    slot ``length`` in one pass. The caller advances the lengths."""
+    the write slot in one pass. The caller advances the lengths.
+
+    ``attend_bound`` / ``write_slot`` default to the tier length (append at
+    length); the ring-overflow mode passes a bound saturated at the budget
+    and a slot that wraps over the decode region. An int8 cache rides RAW
+    with its scales into the attention, an fp8 cache as stored; the current
+    token's K/V enter unrounded and are quantized only for the write."""
     hi = cfg.num_hidden_layers if hi is None else hi
     if cache.num_layers != hi - lo:
         raise ValueError(f"cache has {cache.num_layers} layers for [{lo}, {hi})")
     if hi == lo:
         return DecodeResult(x=x, cache=cache)
     b = x.shape[0]
+    i32 = torch.int32
+    bound = None if attend_bound is None else attend_bound.to(i32).contiguous()
+    slots = (cache.length if write_slot is None
+             else write_slot.to(i32)[None, :].expand(cache.length.shape))
+    q_pos = (None if cfg.sliding_window is None
+             else positions[:, 0].to(i32).contiguous())
     k_new, v_new = [], []
     for li in range(hi - lo):
         lp = layer_params(params["layers"], li + lo)
         h = rms_norm(x, lp["input_ln"], cfg.rms_norm_eps)
         q, k, v = _qkv(lp, cfg, h, positions)
-        # the current K/V enter unrounded, as in JAX; the cache is read
-        # in its storage dtype
-        o = decode_attention(q, cache.k[li], cache.v[li], k, v, cache.length[li])
+        o = decode_attention(
+            q, cache.k[li], cache.v[li], k, v,
+            cache.length[li] if bound is None else bound,
+            window=cfg.sliding_window, q_pos=q_pos,
+            k_scale=cache.k_scale[li] if cache.quantized else None,
+            v_scale=cache.v_scale[li] if cache.quantized else None,
+        )
         x = x + linear(lp, "o", o.reshape(b, 1, -1))
         x = x + _mlp(lp, rms_norm(x, lp["post_ln"], cfg.rms_norm_eps))
         k_new.append(k)
         v_new.append(v)
-    write_token_layers(
-        cache.k, cache.v, torch.stack(k_new), torch.stack(v_new), cache.length
-    )
+    k_new, v_new = torch.stack(k_new), torch.stack(v_new)
+    if cache.quantized:
+        k_new, ks_new = quantize_kv(k_new)
+        v_new, vs_new = quantize_kv(v_new)
+        write_token_scales(cache.k_scale, cache.v_scale, ks_new, vs_new, slots)
+    write_token_layers(cache.k, cache.v, k_new, v_new, slots)
     return DecodeResult(x=x, cache=cache)

@@ -8,7 +8,9 @@ to K1 (``ops.flash_attention``, whose backward is K3), training-mode
 policy attention to K4 (``ops.flash_policy``) and decode attention to K2
 (``ops.decode_attention``). The TPU size thresholds that chose between XLA
 and Pallas there were measured on a v5e and do not apply on the H100.
-``attend_with_policy`` and ``blockwise_attend`` are the plain
+``decode_attend_appended`` also serves the int8 (scale-folding) and fp8
+caches and the sliding window. ``attend_with_policy`` and
+``blockwise_attend`` are the plain
 differentiable policy paths; the second is also K4's backward.
 
 Layouts are the JAX ones: ``[B, S, H, d]``.
@@ -201,21 +203,53 @@ def self_attend(
     return attend_with_policy(q, k, v, policy, mask=mask)
 
 
+def sliding_window_mask(
+    q_pos: torch.Tensor,  # [B, Sq] int32 query positions
+    k_pos: torch.Tensor,  # [B, Sk] or [Sk] int32 key positions
+    window: int,
+) -> torch.Tensor:
+    """``[B, 1, Sq, Sk]`` True where ``q_pos - k_pos < window`` (Mistral
+    semantics: a token attends itself and the previous ``window - 1``
+    POSITIONS; combine with a causal mask for the lower bound)."""
+    if k_pos.dim() == 1:
+        k_pos = k_pos[None]
+    return (q_pos[:, :, None] - k_pos[:, None, :] < window)[:, None]
+
+
+def _fold_kv_scales(scales: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """``[B, max_len, Hkv]`` per-vector int8-KV scales -> ``[B, H, 1,
+    max_len]`` fp32 multiplier over the score / probability row."""
+    s = repeat_kv_heads(scales[..., None], n_rep)[..., 0]
+    return s.float().permute(0, 2, 1)[:, :, None, :]
+
+
 def decode_attend_appended(
     q: torch.Tensor,  # [B, 1, H, d] current-step query
     k_cache: torch.Tensor,  # [B, max_len, Hkv, d] persisted tokens (read-only)
     v_cache: torch.Tensor,  # [B, max_len, Hkv, d]
     k_cur: torch.Tensor,  # [B, 1, Hkv, d] current token's key (NOT in the cache)
     v_cur: torch.Tensor,  # [B, 1, Hkv, d]
-    kv_length: torch.Tensor,  # [B] int32 persisted length
+    kv_length: torch.Tensor,  # [B] int32 attend bound (the persisted length)
     *,
     scale: Optional[float] = None,
+    window: Optional[int] = None,  # sliding window; needs q_pos (dense cache)
+    q_pos: Optional[torch.Tensor] = None,  # [B] current token's position
+    k_scale: Optional[torch.Tensor] = None,  # [B, max_len, Hkv] int8-KV scales
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Decode attention with the current token appended virtually: the
     same as writing it at slot ``kv_length`` and attending over
     ``[0, kv_length + 1)``, but the cache is only read. Plain version of
-    kernel K2 (bf16 storage; the int8 scale folding and the sliding window
-    of the JAX function are not ported yet)."""
+    kernel K2.
+
+    The cache may be stored in q's dtype, in fp8 (a plain cast to q's dtype
+    on read) or in scaled int8 with ``k_scale`` / ``v_scale``, which are
+    folded algebraically and never dequantize the cache:
+    ``q . (k_i s_i) == (q . k_i) s_i`` applies the K scale to the fp32
+    score row after the product, and ``sum p_i (v_i s_i) == sum (p_i s_i)
+    v_i`` folds the V scale into the probabilities. With ``window`` a cache
+    column ``j`` (slot = position in a dense cache) is visible iff
+    ``q_pos - j < window``; the current token always is."""
     n_rep = q.shape[2] // k_cache.shape[2]
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -224,14 +258,21 @@ def decode_attend_appended(
     kc = repeat_kv_heads(k_cache.to(q.dtype), n_rep).float()
     vc = repeat_kv_heads(v_cache.to(q.dtype), n_rep).float()
     logits_cache = torch.einsum("bqhd,bkhd->bhqk", qf, kc) * scale
-    cols = torch.arange(max_len, device=q.device)
+    if k_scale is not None:
+        logits_cache = logits_cache * _fold_kv_scales(k_scale, n_rep)
+    cols = torch.arange(max_len, dtype=torch.int32, device=q.device)
     mask = cols[None, None, None, :] < kv_length[:, None, None, None]
+    if window is not None:
+        mask = mask & sliding_window_mask(q_pos[:, None], cols, window)
     logits_cache = torch.where(mask, logits_cache, NEG_INF)
     kn = repeat_kv_heads(k_cur, n_rep).float()
     vn = repeat_kv_heads(v_cur, n_rep).float()
     logit_cur = torch.einsum("bqhd,bkhd->bhqk", qf, kn) * scale  # always visible
     w = torch.softmax(torch.cat([logits_cache, logit_cur], dim=-1), dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", w[..., :max_len], vc) + torch.einsum(
+    w_cache = w[..., :max_len]
+    if v_scale is not None:
+        w_cache = w_cache * _fold_kv_scales(v_scale, n_rep)
+    out = torch.einsum("bhqk,bkhd->bqhd", w_cache, vc) + torch.einsum(
         "bhqk,bkhd->bqhd", w[..., max_len:], vn
     )
     return out.to(q.dtype)

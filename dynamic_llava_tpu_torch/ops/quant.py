@@ -13,21 +13,26 @@ GEMVs K5-K8 (``ops.quant_matmul``: the CUDA kernels on a CUDA tensor, their
 plain versions on a CPU tensor); larger (prefill) row counts dequantize the
 layer's weight and run one ``torch.matmul``, as the JAX package leaves that
 product to an XLA einsum. A plain tensor weight is ``x @ w``.
+``matmul_q4_mlp`` is the JAX dispatch of the same name: the whole SwiGLU
+MLP as ONE kernel (K9) when gate, up and down are all int4, at decode rows,
+opt-in through ``DYNAMIC_LLAVA_Q4_MLP=1``.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import os
+from typing import Optional, Sequence, Tuple
 
 import torch
 
+from ..weights import resolve_device
 from .quant_matmul import (
-    MAX_ROWS, q4_gemv, q4_gemv_group, q8_gemv, q8_gemv_group, unpack_int4)
+    MAX_ROWS, q4_gemv, q4_gemv_group, q4_mlp, q8_gemv, q8_gemv_group, unpack_int4)
 
 __all__ = [
     "QUANT_TARGETS", "pack_int4", "unpack_int4", "quantize_weight",
     "quantize_llm_params", "init_quantized_llama_params", "dequantize_weight",
-    "is_quantized", "linear", "linear_group", "matmul",
+    "is_quantized", "linear", "linear_group", "matmul", "matmul_q4_mlp",
 ]
 
 QUANT_TARGETS = ("q", "k", "v", "o", "gate", "up", "down")
@@ -121,7 +126,8 @@ def quantize_llm_params(params: dict, bits: int = 8) -> dict:
 def init_quantized_llama_params(cfg, generator: torch.Generator, device=None,
                                 bits: int = 8) -> dict:
     """A random decoder made DIRECTLY in int8 or packed int4 on ``device``
-    (``generator`` must live there), for models whose full-precision
+    (default: the card, ``weights.resolve_device``; ``generator`` must live
+    there), for models whose full-precision
     weights need not exist: every ``QUANT_TARGETS`` weight, the embedding
     and the untied lm_head hold uniform integers in [-qmax, qmax] with a
     bf16 scale that gives the dequantized weights a std of 0.02, as
@@ -132,6 +138,7 @@ def init_quantized_llama_params(cfg, generator: torch.Generator, device=None,
     scale is per row, ``[V, 1]``, as ``quantize_llm_params`` makes it."""
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
+    device = resolve_device(device)
     d, f, n = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
     h, kvh, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     qmax = 127 if bits == 8 else 7
@@ -227,3 +234,37 @@ def linear_group(lp: dict, names: Sequence[str], x: torch.Tensor) -> Tuple[torch
         if all("q4" in w for w in leaves):
             return q4_gemv_group(x, [w["q4"] for w in leaves], [w["s"] for w in leaves])
     return tuple(matmul(x, w) for w in leaves)
+
+
+def matmul_q4_mlp(x: torch.Tensor, lp: dict, out_fp32: bool = False
+                  ) -> Optional[torch.Tensor]:
+    """The whole SwiGLU MLP, ``silu(x @ gate) * (x @ up) @ down``, as ONE
+    kernel launch (K9, ``quant_matmul.q4_mlp``) when all three leaves are
+    packed int4. Returns the MLP output, or None when not eligible (a leaf
+    that is not int4, prefill row counts, inconsistent shapes) or not
+    switched on; the caller then takes the grouped gate/up GEMV (K8) and
+    the down GEMV (K7).
+
+    OPT-IN, as in the JAX package: only with ``DYNAMIC_LLAVA_Q4_MLP`` set to
+    ``1`` / ``true`` in the environment, read at every dispatch so that one
+    process can run both settings in turn. The fused path forms ``h`` from
+    the fp32 gate and up sums, the two-kernel path from their bf16-rounded
+    outputs, so the two agree to bf16 rounding, not bit for bit. (The JAX
+    dispatch also refuses LoRA-adapted leaves; the port has no LoRA yet, so
+    there is nothing to exclude -- the port of ``train/lora.py`` must add
+    that rule here.)"""
+    leaves = [lp.get(n) for n in ("gate", "up", "down")]
+    if not all(is_quantized(l) and "q4" in l for l in leaves):
+        return None
+    if os.environ.get("DYNAMIC_LLAVA_Q4_MLP") not in ("1", "true", "True"):
+        return None
+    g, u, d = leaves
+    if _rows(x) > MAX_ROWS:
+        return None
+    k_dim, half_f = g["q4"].shape[-2:]
+    f_dim = d["q4"].shape[-2]
+    if (g["q4"].dim() != 2 or d["q4"].dim() != 2 or x.shape[-1] != k_dim
+            or tuple(u["q4"].shape) != (k_dim, half_f) or f_dim != 2 * half_f):
+        return None
+    return q4_mlp(x.contiguous(), g["q4"], u["q4"], d["q4"], g["s"], u["s"], d["s"],
+                  out_fp32)

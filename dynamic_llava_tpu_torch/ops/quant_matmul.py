@@ -1,5 +1,5 @@
-"""Weight-only int8 / int4 GEMVs: kernels K5-K8 and their plain PyTorch
-versions.
+"""Weight-only int8 / int4 GEMVs and the fused int4 MLP: kernels K5-K9 and
+their plain PyTorch versions.
 
 Counterpart of ``dynamic_llava_tpu/ops/quant_matmul.py``:
 
@@ -8,9 +8,11 @@ Counterpart of ``dynamic_llava_tpu/ops/quant_matmul.py``:
   (``matmul_q8_multi_pallas``): 1-3 weights sharing ``x`` in one launch;
 * K7 ``q4_gemv`` -- ``_q4_gemv_kernel`` (``matmul_q4_pallas``);
 * K8 ``q4_gemv_group`` -- ``_q4_gemv_multi_kernel``
-  (``matmul_q4_multi_pallas``).
+  (``matmul_q4_multi_pallas``);
+* K9 ``q4_mlp`` -- ``_q4_mlp_kernel`` (``matmul_q4_mlp_pallas``): the whole
+  SwiGLU MLP on three int4 weights in one launch (``csrc/quant_mlp.cu``).
 
-The contract is the Pallas kernels' own: ``y = (x @ q) * s`` with fp32
+The GEMVs' contract is the Pallas kernels' own: ``y = (x @ q) * s`` with fp32
 accumulation and the per-output-column scale applied once after the
 accumulation; the output is ``x.dtype``, or fp32 with ``out_fp32``. An
 int4 weight is ``quant.pack_int4``'s split-half layout, ``[K, N/2]`` int8
@@ -21,7 +23,8 @@ path, so the two agree there, and the CPU tests feed bf16-representable
 fp32 values).
 
 On a CUDA tensor each wrapper launches the hand-written Hopper kernel in
-``csrc/quant_gemv.cu`` (at most ``MAX_ROWS`` rows); on a CPU tensor it
+``csrc/quant_gemv.cu`` or ``csrc/quant_mlp.cu`` (at most ``MAX_ROWS``
+rows); on a CPU tensor it
 runs the plain version. There is no fallback from one to the other. Not
 ported, as TPU-only: the stacked-layer index ``li`` (port layers pass a
 contiguous ``[K, N]`` view), the VMEM planners, the lm_head column
@@ -39,7 +42,7 @@ from .. import kernels
 __all__ = [
     "MAX_ROWS", "q8_gemv", "q8_gemv_group", "q4_gemv", "q4_gemv_group",
     "q8_gemv_plain", "q8_gemv_group_plain", "q4_gemv_plain",
-    "q4_gemv_group_plain", "unpack_int4",
+    "q4_gemv_group_plain", "unpack_int4", "q4_mlp", "q4_mlp_plain",
 ]
 
 MAX_ROWS = 64  # the Pallas kernels' decode row limit (quant_matmul.py:299)
@@ -186,5 +189,81 @@ def q4_gemv_group(x: torch.Tensor, packs: Sequence[torch.Tensor],
     return tuple(ys)
 
 
-for _fn in (q8_gemv, q8_gemv_group, q4_gemv, q4_gemv_group):
+def q4_mlp_plain(x, gate, up, down, gate_s, up_s, down_s,
+                 out_fp32: bool = False) -> torch.Tensor:
+    """Plain version of K9, the kernel's arithmetic step by step: ``x`` is
+    rounded to bf16 whatever its dtype; ``g = (x @ G) * s_g`` and
+    ``u = (x @ U) * s_u`` are summed and scaled in fp32; ``h = silu(g) * u``
+    is formed from those fp32 values and rounded to bf16; ``y = (h @ D) *
+    s_d`` in fp32, returned in ``x.dtype`` (or fp32). ``gate`` / ``up`` are
+    ``[K, F/2]`` and ``down`` ``[F, D/2]`` split-half packed int4; since
+    ``[lo | hi]`` is the original column order, ``h`` meets down's rows in
+    ffn order."""
+    k = gate.shape[0]
+    xb = x.reshape(-1, k).to(torch.bfloat16).float()
+    g = (xb @ unpack_int4(gate).float()) * gate_s.reshape(1, -1).float()
+    u = (xb @ unpack_int4(up).float()) * up_s.reshape(1, -1).float()
+    h = (torch.nn.functional.silu(g) * u).to(torch.bfloat16).float()
+    y = (h @ unpack_int4(down).float()) * down_s.reshape(1, -1).float()
+    return y.to(_out_dtype(x, out_fp32)).reshape(*x.shape[:-1], y.shape[-1])
+
+
+def q4_mlp(x: torch.Tensor, gate: torch.Tensor, up: torch.Tensor,
+           down: torch.Tensor, gate_s: torch.Tensor, up_s: torch.Tensor,
+           down_s: torch.Tensor, out_fp32: bool = False) -> torch.Tensor:
+    """K9: ``silu(x @ gate) * (x @ up) @ down`` on three split-half int4
+    weights in ONE launch (``q4_mlp_plain`` states the arithmetic). The
+    kernel's scratch (``h``, the down phase's partial sums, the bf16 copy of
+    an fp32 ``x``) comes from PyTorch's caching allocator on every call, on
+    the current stream, so the call is safe on any stream and under CUDA
+    graph capture."""
+    if x.device.type == "cpu":
+        return q4_mlp_plain(x, gate, up, down, gate_s, up_s, down_s, out_fp32)
+    rows, k, (f, d) = _check_mlp(x, gate, up, down, gate_s, up_s, down_s)
+    out_dtype = _out_dtype(x, out_fp32)
+    codes = (kernels.DTYPE_CODES[x.dtype], kernels.DTYPE_CODES[gate_s.dtype],
+             kernels.DTYPE_CODES[out_dtype])
+    lib = kernels.load_library().lib
+    what = (f"q4_mlp (rows {rows}, K {k}, F {f}, D {d}: see the shape contract "
+            "of csrc/quant_mlp.cu)")
+    nbytes = lib.q4_mlp_scratch_bytes(rows, k, f, d, codes[0])
+    if nbytes < 0:
+        raise ValueError(f"{what}: shapes the kernel does not take")
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+    y = torch.empty(*x.shape[:-1], d, dtype=out_dtype, device=x.device)
+    code = lib.q4_mlp(
+        kernels.ptr(x), kernels.ptr(gate), kernels.ptr(up), kernels.ptr(down),
+        kernels.ptr(gate_s), kernels.ptr(up_s), kernels.ptr(down_s), kernels.ptr(y),
+        kernels.ptr(scratch), nbytes, rows, k, f, d, *codes, kernels.stream_of(x))
+    kernels.check(code, what)
+    q4_mlp.launches += 1
+    return y
+
+
+def _check_mlp(x, gate, up, down, gate_s, up_s, down_s):
+    """What ``q4_mlp``'s C entry point cannot see; returns (rows, K, (F, D))."""
+    if not x.is_cuda:
+        raise ValueError(f"q4_mlp: unsupported device {x.device}")
+    if x.dtype not in kernels.DTYPE_CODES or not x.is_contiguous() or x.dim() < 1:
+        raise ValueError(f"q4_mlp: x must be a contiguous float32/bfloat16 tensor, "
+                         f"got {x.dtype} {tuple(x.shape)}")
+    k = x.shape[-1]
+    half_f, half_d = gate.shape[-1], down.shape[-1]
+    for name, w, shape in (("gate", gate, (k, half_f)), ("up", up, (k, half_f)),
+                           ("down", down, (2 * half_f, half_d))):
+        if (w.dtype != torch.int8 or tuple(w.shape) != shape or not w.is_contiguous()
+                or w.device != x.device):
+            raise ValueError(f"q4_mlp: {name} must be a contiguous int8 {shape} tensor "
+                             f"on {x.device}, got {w.dtype} {tuple(w.shape)} on {w.device}")
+    for name, s, n in (("gate_s", gate_s, 2 * half_f), ("up_s", up_s, 2 * half_f),
+                       ("down_s", down_s, 2 * half_d)):
+        if (s.dtype not in kernels.DTYPE_CODES or s.dtype != gate_s.dtype
+                or s.numel() != n or not s.is_contiguous() or s.device != x.device):
+            raise ValueError(f"q4_mlp: {name} must be a contiguous float32/bfloat16 "
+                             f"tensor (one dtype for all three) of {n} elements on "
+                             f"{x.device}, got {s.dtype} {tuple(s.shape)} on {s.device}")
+    return (x.numel() // k if k else 0), k, (2 * half_f, 2 * half_d)
+
+
+for _fn in (q8_gemv, q8_gemv_group, q4_gemv, q4_gemv_group, q4_mlp):
     _fn.launches = 0

@@ -22,10 +22,26 @@ import torch
 from .config import LlavaConfig
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card unless the caller names
+    another (``"cpu"``, as the tests do). ``None`` means ``"cuda"``; a
+    machine without a card then raises here instead of serving on the CPU
+    through the plain versions without a word."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} was asked for (the default) and "
+            "torch.cuda.is_available() is False; pass device='cpu' to run the "
+            "plain PyTorch versions on the CPU")
+    return dev
+
+
 def params_from_numpy(tree: Any, device=None, dtype: torch.dtype = torch.bfloat16):
     """Convert a pytree of arrays (numpy, or anything ``np.asarray``
-    accepts) to torch tensors on ``device``: floating leaves in ``dtype``,
-    integer leaves unchanged. Dicts and lists keep their structure."""
+    accepts) to torch tensors on ``device`` (default: the card, see
+    ``resolve_device``): floating leaves in ``dtype``, integer leaves
+    unchanged. Dicts and lists keep their structure."""
+    device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -236,10 +252,11 @@ def init_llava_params(
     dtype: torch.dtype = torch.bfloat16,
 ) -> dict:
     """Random params with the structure of the JAX ``init_llava_params``,
-    drawn from ``generator`` (which must live on ``device``). The values
+    drawn from ``generator`` (which must live on ``device``; default: the
+    card, see ``resolve_device``). The values
     differ from the JAX ones for the same seed; tests that compare the two
     packages bridge the JAX params instead."""
-    it = _Init(generator, device, dtype)
+    it = _Init(generator, resolve_device(device), dtype)
     dims = [cfg.vision.hidden_size] + [cfg.text.hidden_size] * _projector_depth(
         cfg.mm_projector_type
     )

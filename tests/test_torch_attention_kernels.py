@@ -142,9 +142,12 @@ def test_wrappers_run_the_plain_version_on_cpu_tensors():
 @pytest.mark.parametrize("kw", [{"window": 4}, {"k_scale": torch.ones(1, 9, 2)},
                                 {"v_scale": torch.ones(1, 9, 2)}])
 def test_k2_refuses_window_and_scales(kw):
+    """K2 serves a window and int8 scales; what it refuses, before any
+    dispatch: a window without ``q_pos``, and scales that do not come as a
+    pair with an int8 cache."""
     args = [torch.zeros(s) for s in
             [(1, 1, 2, 64), (1, 9, 2, 64), (1, 9, 2, 64), (1, 1, 2, 64), (1, 1, 2, 64)]]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="window|k_scale"):
         decode_attention(*args, torch.tensor([3], dtype=torch.int32), **kw)
 
 

@@ -3,10 +3,14 @@
 
 Greedy generation must be token-exact, sparse and dense, on a batch that
 mixes image and text-only samples and on an all-image batch (the two
-``all_have_image`` cases of prefill), and with int8 and int4 weights. Prefill diagnostics and logits must
-agree (logits atol 1e-4), and a decode run past the post tier's budget
-must force-drop at the same step on both sides.
+``all_have_image`` cases of prefill), with int8 and int4 weights, with the
+KV cache stored in scaled int8 and in fp8, with the ring overflow policy
+past both tiers' wrap, and with a sliding window. Prefill diagnostics and
+logits must agree (logits atol 1e-4), and a decode run past the post tier's
+budget must force-drop at the same step on both sides.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -158,5 +162,115 @@ def test_top_p_sampling_keeps_the_nucleus():
 
 
 def test_generate_refuses_ring_overflow(weights):
-    with pytest.raises(NotImplementedError):
-        TGen(weights[1], SPARSE, TGenCfg(kv_overflow="ring"))
+    """The ring policy is served; what is still refused: a ring on a
+    sliding-window model (a wrapped ring breaks slot == position), an
+    unknown overflow policy and an unknown cache dtype."""
+    TGen(weights[1], port_config(SPARSE), TGenCfg(kv_overflow="ring"))
+    with pytest.raises(ValueError, match="kv_overflow"):
+        TGen(weights[1], port_config(SPARSE), TGenCfg(kv_overflow="evict"))
+    with pytest.raises(ValueError, match="cache_dtype"):
+        TGen(weights[1], port_config(SPARSE), TGenCfg(cache_dtype="float16"))
+    ids, pix = _batch("mixed")
+    gen = TGen(weights[1], port_config(WINDOWED), TGenCfg(**dict(GEN, kv_overflow="ring")))
+    with pytest.raises(ValueError, match="sliding_window"):
+        gen.generate(ids, pix)
+
+
+# ---------------------------------------------------------------------------
+# lean-memory serving: int8 / fp8 KV caches, ring overflow, a sliding window
+# ---------------------------------------------------------------------------
+
+# the dense config with a Mistral-style window of 32 positions: the padded
+# prompt (32) fits it, the 12 generated tokens slide past it
+WINDOWED = dataclasses.replace(
+    DENSE, text=dataclasses.replace(DENSE.text, sliding_window=32))
+# both tiers' decode headroom is 2 + 8 margin slots: 40 new tokens wrap it
+RING = dict(GEN, max_new_tokens=40, decode_chunk=8, kv_overflow="ring")
+
+
+@pytest.mark.parametrize("cfg", [SPARSE, DENSE], ids=["sparse", "dense"])
+@pytest.mark.parametrize("cache_dtype", ["int8", "float8_e4m3fn"])
+def test_lean_kv_greedy_generate_is_token_exact(weights, cache_dtype, cfg):
+    """Scaled-int8 and fp8 KV storage, on a batch that mixes image and
+    text-only samples and force-drops past the post tier's budget."""
+    jp, tp = weights
+    ids, pix = _batch("mixed")
+    gen = dict(GEN, cache_dtype=cache_dtype)
+    want = JGen(jp, cfg, JGenCfg(**gen)).generate(ids, pix)
+    got = TGen(tp, port_config(cfg), TGenCfg(**gen)).generate(ids, pix)
+    assert got == want
+    assert all(len(o) == GEN["max_new_tokens"] for o in got)
+
+
+@pytest.mark.parametrize("cfg,cache_dtype", [
+    (SPARSE, "float32"), (DENSE, "float32"), (SPARSE, "int8"),
+], ids=["sparse", "dense", "sparse-int8kv"])
+def test_ring_overflow_greedy_generate_is_token_exact(weights, cfg, cache_dtype):
+    """``kv_overflow="ring"``: 40 new tokens at a decode window of 2, so
+    both tiers wrap and every later token evicts the oldest decode entry."""
+    jp, tp = weights
+    ids, pix = _batch("mixed")
+    gen = dict(RING, cache_dtype=cache_dtype)
+    want = JGen(jp, cfg, JGenCfg(**gen)).generate(ids, pix)
+    got = TGen(tp, port_config(cfg), TGenCfg(**gen)).generate(ids, pix)
+    assert got == want
+    assert all(len(o) == RING["max_new_tokens"] for o in got)
+
+
+def test_ring_steps_match_jax_past_the_wrap(weights):
+    """Step by step in ring mode: ring bases, tier lengths (which run past
+    the budgets: the ring keeps counting) and the frozen-sample protocol
+    (``active``), then the logits."""
+    jp, tp = weights
+    ids, pix = _batch("all_image")
+    gen = dict(RING, pad_multiple=1)
+    jgen, tgen = JGen(jp, SPARSE, JGenCfg(**gen)), TGen(tp, port_config(SPARSE), TGenCfg(**gen))
+    plan = plan_batch(ids, SPARSE.num_image_tokens)
+    max_new = RING["max_new_tokens"]
+    jstate, _ = jgen.prefill_from_plan(plan, pix, max_new)
+    tstate, _ = tgen.prefill_from_plan(plan, pix, max_new)
+    np.testing.assert_array_equal(tstate.ring_base.numpy(), np.asarray(jstate.ring_base))
+    np.testing.assert_array_equal(tstate.ring_base_pre.numpy(),
+                                  np.asarray(jstate.ring_base_pre))
+    assert (tstate.cache.pre.max_len, tstate.cache.post.max_len) == \
+        (jstate.cache.pre.max_len, jstate.cache.post.max_len)
+    jstep = jax.jit(jdyn.decode_step, static_argnums=(1,), static_argnames=("kv_overflow",))
+    for step in range(30):
+        jtok = jnp.argmax(jstate.last_logits, axis=-1)
+        ttok = torch.argmax(tstate.last_logits, dim=-1)
+        np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
+        active = np.array([True, step % 4 != 1, step < 20])  # sample 2 stops at step 20
+        jstate = jstep(jp, SPARSE, jtok, jstate, jnp.asarray(active), kv_overflow="ring")
+        tstate = tdyn.decode_step(tp, port_config(SPARSE), ttok, tstate,
+                                  torch.from_numpy(active), kv_overflow="ring")
+        np.testing.assert_array_equal(tgen.cache_lengths(tstate), jgen.cache_lengths(jstate))
+        np.testing.assert_array_equal(tstate.next_pos.numpy(), np.asarray(jstate.next_pos))
+    lengths = tgen.cache_lengths(tstate)
+    assert (lengths[0] > tstate.cache.pre.max_len - 1).any()  # the pre tier wrapped ...
+    assert (lengths[-1] > tstate.cache.post.max_len - 1).any()  # ... and the post tier
+    np.testing.assert_allclose(tstate.last_logits.numpy(), np.asarray(jstate.last_logits),
+                               atol=1e-4, rtol=1e-4)
+
+
+def test_quantized_weights_with_int8_kv_generate_is_token_exact(quantized_weights):
+    """int8 / int4 weights and the scaled-int8 KV cache together, sparse."""
+    jp, tp = quantized_weights
+    ids, pix = _batch("mixed")
+    gen = dict(GEN, cache_dtype="int8")
+    want = JGen(jp, SPARSE, JGenCfg(**gen)).generate(ids, pix)
+    got = TGen(tp, port_config(SPARSE), TGenCfg(**gen)).generate(ids, pix)
+    assert got == want
+
+
+@pytest.mark.parametrize("cache_dtype", ["float32", "int8"])
+def test_sliding_window_greedy_generate_is_token_exact(weights, cache_dtype):
+    """A dense model with ``sliding_window=32``: the generated positions
+    run past the window, so decode masks the oldest columns by position."""
+    jp, tp = weights
+    ids, pix = _batch("mixed")
+    gen = dict(GEN, cache_dtype=cache_dtype)
+    want = JGen(jp, WINDOWED, JGenCfg(**gen)).generate(ids, pix)
+    got = TGen(tp, port_config(WINDOWED), TGenCfg(**gen)).generate(ids, pix)
+    assert got == want
+    # the window does change what is generated, or this test would not see it
+    assert want != JGen(jp, DENSE, JGenCfg(**gen)).generate(ids, pix)

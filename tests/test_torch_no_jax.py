@@ -1,7 +1,8 @@
 """The port never loads jax nor the JAX package: its sources (the package,
 ``chip_smoke.py``, ``tools/profile_*.py``) import neither, and a fresh
 interpreter that imports the package (the quantized and the training paths
-included), generates on the CPU with fp32 and then int4 weights, and takes
+included), generates on the CPU with fp32 and then int4 weights (also with
+the fused MLP, an int8 and an fp8 KV cache and the ring policy), and takes
 a train step, ends with neither ``jax`` nor ``dynamic_llava_tpu`` in
 ``sys.modules``."""
 
@@ -15,6 +16,7 @@ ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "dynamic_llava_tpu_torch"
 
 SCRIPT = r"""
+import os
 import sys
 import tempfile
 import numpy as np
@@ -48,6 +50,14 @@ assert "image_mask_loss" in metrics and "output_text_mask_loss" in metrics, metr
 
 quant.quantize_llm_params(params, bits=4)
 out = Generator(params, cfg, GenerationConfig(max_new_tokens=4)).generate(ids, pix)
+assert len(out) == 2 and all(1 <= len(o) <= 4 for o in out), out
+
+os.environ["DYNAMIC_LLAVA_Q4_MLP"] = "1"  # the fused int4 MLP, an int8 cache, the ring
+lean = GenerationConfig(max_new_tokens=12, cache_dtype="int8", kv_overflow="ring", kv_window=2)
+out = Generator(params, cfg, lean).generate(ids, pix)
+assert len(out) == 2 and all(1 <= len(o) <= 12 for o in out), out
+fp8 = GenerationConfig(max_new_tokens=4, cache_dtype="float8_e4m3fn")
+out = Generator(params, cfg, fp8).generate(ids, pix)
 assert len(out) == 2 and all(1 <= len(o) <= 4 for o in out), out
 print("jax loaded:", "jax" in sys.modules)
 print("jax package loaded:", "dynamic_llava_tpu" in sys.modules)

@@ -7,7 +7,9 @@ Run from the root of a checkout on one CUDA card (about 25 GB of device
 memory). At LLaVA-1.5-7B width (random weights from seed 0), sparse, it
 plans the batch ``chip_smoke.py`` serves (8 requests, one 336x336 image and
 60 text tokens each) and, for bf16 weights, the same weights quantized in
-place to int8, and an int4 decoder made directly:
+place to int8, an int4 decoder made directly, that decoder with the fused
+MLP switched on (K9, ``DYNAMIC_LLAVA_Q4_MLP=1``), and fused with the KV cache
+stored in scaled int8:
 
 * times the prefill (``Generator.prefill_from_plan``) three times on the
   host clock after ``synchronize`` and keeps the middle one;
@@ -15,8 +17,8 @@ place to int8, and an int4 decoder made directly:
   ``dynamic.decode_step``) on the host clock: the step wall;
 * records 16 more steps with ``torch.profiler`` (CPU and CUDA activities)
   and sums the device time of every kernel, in buckets by kernel name:
-  K5-K8 (``gemv_tc_kernel`` / ``gemv_fma_kernel``), K2 (``decode_kernel``),
-  K1 (``flash_fwd_kernel``), cuBLAS (``gemm``, ``gemv``, ``nvjet``,
+  K5-K8 (``gemv_tc_kernel`` / ``gemv_fma_kernel``), K9 (``q4_mlp_kernel``),
+  K2 (``decode_kernel``), K1 (``flash_fwd_kernel``), cuBLAS (``gemm``, ``gemv``, ``nvjet``,
   ``cutlass``, ``xmma``, ``splitK`` names that are not the port's own) and
   other. Idle share = 1 - device busy / step wall.
 
@@ -27,6 +29,7 @@ its largest kernels, and one JSON object as the last line.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -42,6 +45,7 @@ WARM, STEPS = 4, 16
 # bucket -> kernel-name fragments; the port's kernels are matched first
 BUCKETS = (
     ("K5-K8", ("gemv_tc_kernel", "gemv_fma_kernel")),
+    ("K9", ("q4_mlp_kernel",)),
     ("K2", ("decode_kernel",)),
     ("K1", ("flash_fwd_kernel",)),
     ("cuBLAS", ("gemm", "gemv", "nvjet", "cutlass", "xmma", "splitK")),
@@ -55,8 +59,9 @@ def bucket(name: str) -> str:
     return "other"
 
 
-def profile(torch, params, cfg, kind):
-    """The measurements of one weight kind (see the module docstring)."""
+def profile(torch, params, cfg, kind, cache_dtype="bfloat16", fused=False):
+    """The measurements of one weight kind (see the module docstring), with
+    the KV cache stored in ``cache_dtype`` and the fused int4 MLP on or off."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -72,7 +77,10 @@ def profile(torch, params, cfg, kind):
                            rng.integers(3, vocab, N_TEXT - N_TEXT // 2)])
            for _ in range(B)]
     pix = rng.standard_normal((B, size, size, 3), dtype=np.float32)
-    gc = GenerationConfig(max_new_tokens=MAX_NEW, eos_token_id=-1)
+    gc = GenerationConfig(max_new_tokens=MAX_NEW, eos_token_id=-1, cache_dtype=cache_dtype)
+    os.environ.pop("DYNAMIC_LLAVA_Q4_MLP", None)
+    if fused:
+        os.environ["DYNAMIC_LLAVA_Q4_MLP"] = "1"
     plan = plan_batch(ids, cfg.num_image_tokens, pad_multiple=gc.pad_multiple)
     gen = Generator(params, cfg, gc)
 
@@ -99,6 +107,7 @@ def profile(torch, params, cfg, kind):
         with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             state = steps(state, STEPS)
             torch.cuda.synchronize()
+    os.environ.pop("DYNAMIC_LLAVA_Q4_MLP", None)
     per_bucket, per_kernel, launches = defaultdict(float), defaultdict(float), defaultdict(int)
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -159,6 +168,9 @@ def main() -> int:
     params["llm"] = init_quantized_llama_params(
         cfg.text, torch.Generator(device=dev).manual_seed(SEED), dev, bits=4)
     out["int4"] = profile(torch, params, cfg, "int4")
+    out["int4 fused MLP"] = profile(torch, params, cfg, "int4 fused MLP", fused=True)
+    out["int4 fused MLP int8 KV"] = profile(torch, params, cfg, "int4 fused MLP int8 KV",
+                                            cache_dtype="int8", fused=True)
     print(json.dumps({"device": smi, "sparse_b8": out}))
     return 0
 
