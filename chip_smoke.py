@@ -10,17 +10,24 @@ anywhere else. Phases, each of which raises on failure:
 1. print the card's name and power limit (``nvidia-smi``);
 2. build the hand-written kernels from ``dynamic_llava_tpu_torch/csrc``
    with ``nvcc`` for ``sm_90a`` (one process per source, in parallel) and
-   print the build time and ``ptxas`` resource lines;
+   print the build time and ``ptxas`` resource lines (a tensor-core
+   attention kernel that spills registers fails the run);
 3. hold each kernel against its plain PyTorch version at the shapes of the
    main paths, timing both with CUDA events on a CUDA-graph replay, and
    beside them the one PyTorch call that computes the same function where
    there is one (a yardstick timed here and used nowhere in the port).
    K1/K2: bf16 inputs against the plain version in fp32 on the same
-   values, atol = rtol = 2e-2 for bf16 output rounding; fp32 inputs at
-   atol = rtol = 1e-4. K3 (dq, dk, dv each) and K4 at the training shape
-   (B=4, S=1663, H=32, d=128) the same way, K3 also with GQA and a
-   ``kv_length`` at a small size; ``torch.autograd.grad`` through K1 + K3
-   against autograd through the plain forward. K5-K8 (int8 / int4 GEMVs)
+   values, atol = rtol = 2e-2 (bf16 output rounding, and in K1 and K3 the
+   probabilities and dS rounded to bf16 for the tensor cores); fp32 inputs
+   at atol = rtol = 1e-4. K3 (dq, dk, dv each, and its delta kernel) and K4
+   at the training shape (B=4, S=1663, H=32, d=128) the same way. K1 and
+   K3 also at the edges of their 64-row tiles (S = 64, 65, 130, 200; GQA
+   with 4 query heads a KV head; a ``kv_length`` of 0 and one in mid-tile;
+   K1 with a ``q_offset`` and Sq < Sk), each launched twice with
+   ``torch.equal`` results; K1 is timed beside SDPA both with the masks as
+   a bool tensor and, at full lengths, with ``is_causal``;
+   ``torch.autograd.grad`` through K1 + K3 against autograd through the
+   plain forward. K5-K8 (int8 / int4 GEMVs)
    at the 7B decoder's shapes and rows 1, 8, 24, 64: max abs error
    relative to max |ref| within 1e-2 for bf16 outputs, 1e-4 for the fp32
    lm_head; the weights rotate through copies larger than the 50 MB L2, as
@@ -62,7 +69,7 @@ anywhere else. Phases, each of which raises on failure:
    weights): ``Trainer.train`` over TRAIN_STEPS sparse steps (B=4, one
    336x336 image + 1088 text tokens each, half of them labels, fused
    S = 1663), then as many dense-stage steps on the same weights; the
-   launch counters of K1, K3 (both kernels) and K4 are zeroed before each
+   launch counters of K1, K3 (all three kernels) and K4 are zeroed before each
    and must equal the counts the layer layout implies; the loss must be
    finite and the parameters changed.
 
@@ -211,31 +218,44 @@ def check_kernels(torch):
         require(ok, f"{label}: kernel disagrees with its plain version")
         res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
 
-    # K1: decoder prefill (pre tier 640, post tier 179), CLIP tower, fp32
+    # K1: decoder prefill (pre tier 640, post tier 179), CLIP tower, fp32, and
+    # the edges of the 64-row tiling: one tile and one row more, a kv_length
+    # of 0 and one in mid-tile, a q_offset with Sq < Sk
+    # (label, B, Sq, Sk, H, Hkv, d, causal, kv_length, q_offset)
     k1_cases = [
-        ("decoder pre tier", 4, 640, 32, 32, 128, True, [640, 613, 401, 1]),
-        ("decoder post tier", 4, 179, 32, 32, 128, True, [179, 175, 90, 1]),
-        ("clip tower", 4, 577, 16, 16, 64, False, None),
-        ("gqa fp32", 2, 200, 8, 2, 64, True, [200, 0]),
+        ("decoder pre tier", 4, 640, 640, 32, 32, 128, True, [640, 613, 401, 1], 0),
+        ("decoder post tier", 4, 179, 179, 32, 32, 128, True, [179, 175, 90, 1], 0),
+        ("clip tower", 4, 577, 577, 16, 16, 64, False, None, 0),
+        ("gqa fp32", 2, 200, 200, 8, 2, 64, True, [200, 0], 0),
+        ("one tile", 2, 64, 64, 4, 4, 128, True, None, 0),
+        ("one tile and a row", 2, 65, 65, 4, 2, 64, True, None, 0),
+        ("gqa kv_length 0 and mid-tile", 3, 200, 200, 8, 2, 64, True, [0, 77, 200], 0),
+        ("q_offset, Sq < Sk", 2, 70, 150, 8, 4, 128, True, [150, 97], 80),
+        ("q_offset fp32", 2, 70, 150, 4, 2, 64, True, [150, 97], 80),
+        ("non-causal Sq < Sk kv_length", 2, 70, 150, 4, 4, 64, False, [33, 150], 0),
     ]
-    for label, b, s, h, hkv, d, causal, lens in k1_cases:
+    for label, b, s, sk, h, hkv, d, causal, lens, q_off in k1_cases:
         dtype = torch.float32 if "fp32" in label else torch.bfloat16
-        q, k, v = randn(b, s, h, d, dtype=dtype), randn(b, s, hkv, d, dtype=dtype), \
-            randn(b, s, hkv, d, dtype=dtype)
+        q, k, v = randn(b, s, h, d, dtype=dtype), randn(b, sk, hkv, d, dtype=dtype), \
+            randn(b, sk, hkv, d, dtype=dtype)
         kvl = None if lens is None else torch.tensor(lens, dtype=torch.int32,
                                                      device=dev)
-        out, lse = flash_attention(q, k, v, kv_length=kvl, causal=causal,
-                                   return_lse=True)
+        kw = dict(kv_length=kvl, causal=causal, q_offset=q_off)
+        out, lse = flash_attention(q, k, v, return_lse=True, **kw)
         ref, ref_lse = flash_attention_plain(
-            q.float(), k.float(), v.float(), kv_length=kvl, causal=causal,
-            return_lse=True)
+            q.float(), k.float(), v.float(), return_lse=True, **kw)
         tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
-        shape = f"B={b} S={s} H={h} Hkv={hkv} d={d} causal={causal} {dtype}"
+        shape = (f"B={b} Sq={s} Sk={sk} H={h} Hkv={hkv} d={d} causal={causal} "
+                 f"lens={lens} q_offset={q_off} {dtype}")
         compare("flash_attention_fwd", out, ref, tol, f"K1 {label} [{shape}]")
         lse_err = (lse - ref_lse).abs().max().item()
         log(f"  K1 {label}: lse max_abs_err={lse_err:.3e}")
         require(torch.allclose(lse, ref_lse, atol=tol, rtol=tol),
                 f"K1 {label}: lse disagrees")
+        # the same bits every launch (a layer re-run under checkpointing)
+        again, lse2 = flash_attention(q, k, v, return_lse=True, **kw)
+        require(torch.equal(out, again) and torch.equal(lse, lse2),
+                f"K1 {label}: two launches differ")
         if label in ("decoder pre tier", "clip tower"):
             kms = time_ms(lambda: flash_attention(q, k, v, kv_length=kvl, causal=causal))
             pms = time_ms(
@@ -249,13 +269,23 @@ def check_kernels(torch):
             if kvl is not None:
                 mask = mask & (cols[None, :] < kvl[:, None])[:, None, None, :]
             lms = time_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask))
+            # the bool mask keeps SDPA off its flash backend: also at full
+            # lengths without a mask tensor, the kernel on the same inputs
+            full_ms = time_ms(lambda: flash_attention(q, k, v, causal=causal))
+            lfull_ms = time_ms(
+                lambda: F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal))
             pairs = attended_pairs(b, s, s, causal, lens)
             bms, bby = bound_ms(2 * (2 * q.numel() + 2 * k.numel()), 4 * pairs * d * h)
             log(f"  K1 {label} time: kernel {kms:.4f} ms, plain {pms:.4f} ms, SDPA "
-                f"{lms:.4f} ms, bound {bms:.4f} ms ({bby})")
+                f"(bool mask) {lms:.4f} ms, bound {bms:.4f} ms ({bby}); every sample at "
+                f"full length: kernel {full_ms:.4f} ms, SDPA is_causal={causal} "
+                f"{lfull_ms:.4f} ms")
+            timing = dict(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms, bound_by=bby,
+                          full_length_ms=full_ms, library_full_length_ms=lfull_ms)
             if label == "decoder pre tier":
-                res["flash_attention_fwd"].update(
-                    ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms, bound_by=bby)
+                res["flash_attention_fwd"].update(timing)
+            else:
+                res["flash_attention_fwd"]["clip"] = timing
 
     # K2: decode over the pre tier (768) and the sparse post tier (256)
     for max_len, h, hkv, dtype in ((768, 32, 32, torch.bfloat16),
@@ -600,22 +630,45 @@ def check_train_kernels(torch):
         res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
 
     s_train = TRAIN_TEXT_LEN - 1 + 576
+    # the training shape, and the edges of the 64-row tiling: GQA with 4 query
+    # heads a KV head at d=64, a kv_length of 0 and one in mid-tile, one tile
+    # and one row more, Sq != Sk without a causal mask
+    # (label, B, Sq, Sk, H, Hkv, d, causal, kv_length, dtype)
     k3_cases = [
-        ("training shape", TRAIN_BATCH, s_train, 32, 32, 128, True, None, torch.bfloat16),
-        ("training shape", TRAIN_BATCH, s_train, 32, 32, 128, True, None, torch.float32),
-        ("gqa kv_length", 2, 200, 8, 2, 64, True, [200, 77], torch.float32),
-        ("gqa non-causal kv_length", 2, 150, 4, 2, 128, False, [0, 150], torch.bfloat16),
+        ("training shape", TRAIN_BATCH, s_train, s_train, 32, 32, 128, True, None,
+         torch.bfloat16),
+        ("training shape", TRAIN_BATCH, s_train, s_train, 32, 32, 128, True, None,
+         torch.float32),
+        ("gqa kv_length", 2, 200, 200, 8, 2, 64, True, [200, 77], torch.float32),
+        ("gqa non-causal kv_length", 2, 150, 150, 4, 2, 128, False, [0, 150], torch.bfloat16),
+        ("gqa n_rep 4", 2, 130, 130, 8, 2, 64, True, None, torch.bfloat16),
+        ("gqa kv_length 0 and mid-tile", 3, 200, 200, 8, 2, 64, True, [0, 77, 200],
+         torch.bfloat16),
+        ("one tile", 2, 64, 64, 4, 4, 128, True, None, torch.bfloat16),
+        ("one tile and a row", 2, 65, 65, 4, 2, 128, True, [65, 64], torch.bfloat16),
+        ("non-causal Sq != Sk", 2, 70, 150, 4, 2, 64, False, [150, 97], torch.bfloat16),
+        ("non-causal Sq != Sk", 2, 150, 70, 4, 2, 64, False, None, torch.float32),
     ]
-    for label, b, s, h, hkv, d, causal, lens, dtype in k3_cases:
-        q, k, v = (randn(b, s, h, d, dtype=dtype), randn(b, s, hkv, d, dtype=dtype),
-                   randn(b, s, hkv, d, dtype=dtype))
+    for label, b, s, sk, h, hkv, d, causal, lens, dtype in k3_cases:
+        q, k, v = (randn(b, s, h, d, dtype=dtype), randn(b, sk, hkv, d, dtype=dtype),
+                   randn(b, sk, hkv, d, dtype=dtype))
         g = randn(b, s, h, d, dtype=dtype)
         kvl = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=dev)
         out, lse = fa.flash_attention(q, k, v, kv_length=kvl, causal=causal, return_lse=True)
-        before = (fa.flash_attention_bwd_dq.launches, fa.flash_attention_bwd_dkv.launches)
+        wrappers = (fa.flash_attention_bwd_delta, fa.flash_attention_bwd_dq,
+                    fa.flash_attention_bwd_dkv)
+        before = [w.launches for w in wrappers]
         dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, g, kv_length=kvl, causal=causal)
-        require((fa.flash_attention_bwd_dq.launches, fa.flash_attention_bwd_dkv.launches)
-                == (before[0] + 1, before[1] + 1), "K3 launch counters")
+        require([w.launches for w in wrappers] == [n + 1 for n in before],
+                "K3 launch counters")
+        require(dk.shape == k.shape and dv.shape == v.shape and dq.shape == q.shape
+                and {dq.dtype, dk.dtype, dv.dtype} == {dtype},
+                f"K3 {label}: dq / dk / dv must have q / k / v's shape and type")
+        # the same bits every launch (a layer re-run under checkpointing)
+        again = fa.flash_attention_bwd(q, k, v, out, lse, g, kv_length=kvl, causal=causal)
+        require(all(torch.equal(a, b2) for a, b2 in zip((dq, dk, dv), again)),
+                f"K3 {label}: two launches differ")
+        del again
         # the plain version in fp32 on the same values, from its own forward
         qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
         rout, rlse = fa.flash_attention_plain(qf, kf, vf, kv_length=kvl, causal=causal,
@@ -623,13 +676,26 @@ def check_train_kernels(torch):
         rdq, rdk, rdv = fa.flash_attention_bwd_plain(qf, kf, vf, rout, rlse, gf,
                                                      kv_length=kvl, causal=causal)
         tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
-        shape = f"B={b} S={s} H={h} Hkv={hkv} d={d} causal={causal} lens={lens} {dtype}"
+        shape = (f"B={b} Sq={s} Sk={sk} H={h} Hkv={hkv} d={d} causal={causal} lens={lens} "
+                 f"{dtype}")
         compare("flash_attention_bwd_dq", dq, rdq, tol, f"K3 dq {label} [{shape}]")
         compare("flash_attention_bwd_dkv", dk, rdk, tol, f"K3 dk {label} [{shape}]")
         compare("flash_attention_bwd_dkv", dv, rdv, tol, f"K3 dv {label} [{shape}]")
-        del rout, rlse, rdq, rdk, rdv, qf, kf, vf, gf
+        # the delta kernel against its plain version on the same out and g
+        # (fp32 sums of d products of bf16 values in another order)
+        delta, rdelta = fa.flash_attention_bwd_delta(out, g), fa._delta(out, g)
+        derr = (delta - rdelta).abs().max().item()
+        dok = torch.allclose(delta, rdelta, atol=FP32_TOL, rtol=FP32_TOL)
+        log(f"  K3 delta {label}: max_abs_err={derr:.3e} (atol=rtol={FP32_TOL:g}) "
+            f"{'ok' if dok else 'FAIL'}")
+        require(dok and delta.shape == (b, h, s), f"K3 delta {label}: kernel disagrees with "
+                "its plain version")
+        res["flash_attention_bwd_dq"]["delta_max_abs_err"] = max(
+            res["flash_attention_bwd_dq"].get("delta_max_abs_err", 0.0), derr)
+        del rout, rlse, rdq, rdk, rdv, qf, kf, vf, gf, rdelta
         if label == "training shape" and dtype == torch.bfloat16:
-            delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+            delta_ms = time_ms(lambda: fa.flash_attention_bwd_delta(out, g), 20)
+            delta_plain_ms = time_ms(lambda: fa._delta(out, g), 5)
             dq_ms = time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, g, lse, delta), 5)
             dkv_ms = time_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta), 5)
             all_ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, g), 5)
@@ -642,19 +708,33 @@ def check_train_kernels(torch):
             lms = time_events_ms(
                 lambda: torch.autograd.grad(o, (ql, kl, vl), gl, retain_graph=True), 10)
             del o
+            # K1 at this shape (its shape in a train step), beside SDPA's forward
+            k1_ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True), 10)
+            with torch.no_grad():
+                k1_lib_ms = time_ms(
+                    lambda: F.scaled_dot_product_attention(ql, kl, vl, is_causal=True), 10)
+            log(f"  K1 time at the training shape: kernel {k1_ms:.4f} ms, SDPA is_causal "
+                f"{k1_lib_ms:.4f} ms")
+            res["flash_attention_fwd_train_shape"] = dict(ms=k1_ms, library_ms=k1_lib_ms)
             pairs = attended_pairs(b, s, s, causal)
             rows = 2 * 4 * b * h * s  # lse and delta, fp32
+            # bytes: dq reads q, dO, k, v and writes dq; dkv reads the same and
+            # writes dk and dv once, in k's type
             dq_b, dq_by = bound_ms(2 * (3 * q.numel() + 2 * k.numel()) + rows,
                                    6 * pairs * d * h)
-            dkv_b, dkv_by = bound_ms(2 * (2 * q.numel() + 2 * k.numel()) + rows
-                                     + 2 * 4 * b * s * h * d, 8 * pairs * d * h)
+            dkv_b, dkv_by = bound_ms(2 * (2 * q.numel() + 4 * k.numel()) + rows,
+                                     8 * pairs * d * h)
+            delta_b, _ = bound_ms(2 * 2 * q.numel() + rows // 2, 2 * q.numel())
             log(f"  K3 time at the training shape: dq {dq_ms:.4f} ms (bound {dq_b:.4f} "
-                f"{dq_by}), dkv {dkv_ms:.4f} ms (bound {dkv_b:.4f} {dkv_by}), whole "
-                f"backward with delta and the group sum {all_ms:.4f} ms, plain "
-                f"{pms:.4f} ms, SDPA backward (dq, dk, dv together) {lms:.4f} ms")
-            # plain_ms and library_ms are times of the WHOLE backward (both kernels' work)
+                f"{dq_by}), dkv {dkv_ms:.4f} ms (bound {dkv_b:.4f} {dkv_by}), delta "
+                f"{delta_ms:.4f} ms (bound {delta_b:.4f} bytes, plain {delta_plain_ms:.4f}), "
+                f"whole backward {all_ms:.4f} ms, plain {pms:.4f} ms, SDPA backward "
+                f"(dq, dk, dv together) {lms:.4f} ms")
+            # plain_ms and library_ms are times of the WHOLE backward (all three kernels' work)
             res["flash_attention_bwd_dq"].update(
-                ms=dq_ms, plain_ms=pms, library_ms=lms, bound_ms=dq_b, bound_by=dq_by)
+                ms=dq_ms, plain_ms=pms, library_ms=lms, bound_ms=dq_b, bound_by=dq_by,
+                delta_ms=delta_ms, delta_plain_ms=delta_plain_ms, delta_bound_ms=delta_b,
+                whole_backward_ms=all_ms)
             res["flash_attention_bwd_dkv"].update(
                 ms=dkv_ms, plain_ms=pms, library_ms=lms, bound_ms=dkv_b, bound_by=dkv_by)
 
@@ -798,6 +878,7 @@ def train(torch, params, cfg, label, expect):
     from dynamic_llava_tpu_torch.weights import named_leaves
 
     counters = {"flash_attention_fwd": fa.flash_attention,
+                "flash_attention_bwd_delta": fa.flash_attention_bwd_delta,
                 "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
                 "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
                 "flash_policy_attention_fwd": flash_policy_attention}
@@ -1093,13 +1174,24 @@ def main() -> int:
     lib = kernels.load_library()
     log(f"  built {lib.path.name} in {lib.build_seconds:.1f} s "
         f"(load_library {time.perf_counter() - t0:.1f} s)")
+    entry, spilled = "", []
     for line in lib.ptxas_log.splitlines():
         if "ptxas info" in line and ("Used" in line or "Compiling" in line):
             log(f"  {line.strip()}")
+            if "Compiling" in line:
+                entry = line.split("'")[1]
+        elif "spill stores" in line:
+            log(f"    {line.strip()}")
+            if "0 bytes spill stores, 0 bytes spill loads" not in line:
+                spilled.append(entry)
+    # the tensor-core attention kernels hold their accumulators in registers
+    require(not [e for e in spilled if "mma_kernel" in e],
+            f"ptxas spilled registers in {spilled}")
 
     log("phase 3: kernels against their plain versions")
     kres = check_kernels(torch)
     kres.update(check_train_kernels(torch))
+    kres["flash_attention_fwd"]["train_shape"] = kres.pop("flash_attention_fwd_train_shape")
     kres.update(check_quant_kernels(torch))
     kres["q4_mlp"] = check_mlp_kernel(torch)
     kres["decode_attention_appended"].update(check_decode_storage(torch))
@@ -1223,10 +1315,11 @@ def main() -> int:
     clip_layers = train_sparse.vision.num_hidden_layers + train_sparse.vision.select_layer + 1
     sl = train_sparse.sparse.sparse_layer
     expect = {
-        "sparse": {"flash_attention_fwd": clip_layers + 2 * sl,
+        "sparse": {"flash_attention_fwd": clip_layers + 2 * sl, "flash_attention_bwd_delta": sl,
                    "flash_attention_bwd_dq": sl, "flash_attention_bwd_dkv": sl,
                    "flash_policy_attention_fwd": 2 * (depth - sl)},
         "dense": {"flash_attention_fwd": clip_layers + 2 * depth,
+                  "flash_attention_bwd_delta": depth,
                   "flash_attention_bwd_dq": depth, "flash_attention_bwd_dkv": depth,
                   "flash_policy_attention_fwd": 0},
     }
@@ -1276,10 +1369,15 @@ def main() -> int:
                           "dynamic_llava_tpu/ops/quant_matmul.py:538"),
         "q4_mlp": (csrc + "quant_mlp.cu", "dynamic_llava_tpu/ops/quant_matmul.py:706"),
     }
-    # beside the required keys: K2's int8 and fp8 storage readings, and K9's
-    # two-kernel time (K8 + silu*mul + K7) and 13B-shape readings
+    # beside the required keys: K2's int8 and fp8 storage readings, K9's
+    # two-kernel time (K8 + silu*mul + K7) and 13B-shape readings, K1's CLIP
+    # shape and full-length readings, K3's delta kernel and whole backward
     extra = {"decode_attention_appended": ("int8", "fp8"),
-             "q4_mlp": ("two_kernel_ms", "shapes")}
+             "q4_mlp": ("two_kernel_ms", "shapes"),
+             "flash_attention_fwd": ("full_length_ms", "library_full_length_ms", "clip",
+                                     "train_shape"),
+             "flash_attention_bwd_dq": ("delta_ms", "delta_plain_ms", "delta_bound_ms",
+                                        "delta_max_abs_err", "whole_backward_ms")}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], "max_abs_err": kres[name]["max_abs_err"],

@@ -171,6 +171,117 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// ----------------------------------------------------------------------------
+// Pieces shared by the tensor-core attention kernels (flash_attention_fwd.cu,
+// flash_attention_bwd.cu): bf16 shared-memory tiles filled by zero-filling
+// cp.async, ldmatrix fragment loads, and reductions over the four lanes that
+// share a row of an mma accumulator.
+//
+// Fragments of mma.m16n8k16 (lane = 4 * g + t): A holds rows g / g + 8 and k
+// columns 2t, 2t + 1 / + 8; B holds k rows 2t, 2t + 1 / + 8 of column g; the
+// accumulator holds rows g / g + 8 and columns 2t, 2t + 1. Two neighbouring
+// accumulator blocks [16 x 8] packed to bf16 are therefore one A fragment
+// [16 x 16] of the next product (frag_from_acc).
+
+// Padding of a bf16 tile row, in elements: rows of D + 8 elements are 16-byte
+// aligned and the 8 rows of one ldmatrix matrix fall into 8 different groups
+// of four banks (the row stride is 4 words mod 32), so ldmatrix is
+// conflict-free.
+constexpr int kTilePad = 8;
+
+// 16-byte (4-byte) async copy; when !valid nothing is read and zeros land
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// waits until at most N of this thread's committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Rows [0, ROWS) of a [rows, D] bf16 slice with row stride `row_stride`
+// (elements) into shared-memory rows of D + kTilePad elements, 16 bytes a
+// copy; rows >= n_valid (n_valid >= 1) are zero-filled and never read.
+// Called by all THREADS threads of a block; the caller commits and waits.
+template <int D, int ROWS, int THREADS>
+__device__ __forceinline__ void cp_async_tile(__nv_bfloat16* dst,
+                                              const __nv_bfloat16* src,
+                                              size_t row_stride, int n_valid) {
+  constexpr int kVecPerRow = D / 8;
+  static_assert((ROWS * kVecPerRow) % THREADS == 0, "tile / threads");
+#pragma unroll
+  for (int idx = threadIdx.x; idx < ROWS * kVecPerRow; idx += THREADS) {
+    const int row = idx / kVecPerRow;
+    const int col = (idx % kVecPerRow) * 8;
+    const bool ok = row < n_valid;
+    cp_async16_zfill(dst + row * (D + kTilePad) + col,
+                     src + (ok ? row * row_stride + col : 0), ok);
+  }
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// The address a lane hands to ldmatrix.x4 for the 16 x 16 block at
+// (row0, col0) of a row-major tile, matrices ordered (rows 0-7, cols 0-7),
+// (rows 8-15, cols 0-7), (rows 0-7, cols 8-15), (rows 8-15, cols 8-15).
+// Plain, on an [m][k] tile: the A fragment a0..a3 of rows row0.. and k
+// columns col0... With .trans, on a [k][n] tile: r[0], r[1] are the B
+// fragment of k rows row0.. and columns col0..col0+7, r[2], r[3] that of
+// columns col0+8..col0+15.
+__device__ __forceinline__ const __nv_bfloat16* frag_ptr(const __nv_bfloat16* tile,
+                                                         int stride, int row0,
+                                                         int col0, int lane) {
+  return tile + (row0 + (lane & 15)) * stride + col0 + (lane >> 4) * 8;
+}
+// The same for a B operand held as an [n][k] tile (plain ldmatrix.x4),
+// matrices ordered (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7),
+// (n 8-15, k 8-15): r[0], r[1] are the B fragment of columns n0..n0+7 and k
+// rows k0.., r[2], r[3] that of columns n0+8..n0+15.
+__device__ __forceinline__ const __nv_bfloat16* frag_ptr_nk(const __nv_bfloat16* tile,
+                                                            int stride, int n0,
+                                                            int k0, int lane) {
+  return tile + (n0 + (lane & 7) + ((lane >> 4) << 3)) * stride + k0 +
+         ((lane >> 3) & 1) * 8;
+}
+
+// Two neighbouring fp32 accumulator blocks (columns 0-7 and 8-15 of a 16-row
+// strip) as the bf16 A fragment of the next product.
+__device__ __forceinline__ void frag_from_acc(uint32_t* a, const float* lo,
+                                              const float* hi) {
+  a[0] = pack_bf16(lo[0], lo[1]);
+  a[1] = pack_bf16(lo[2], lo[3]);
+  a[2] = pack_bf16(hi[0], hi[1]);
+  a[3] = pack_bf16(hi[2], hi[3]);
+}
+
+// over the four lanes (t = 0..3) that hold one accumulator row
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
 inline int sm_count() {
   static int count = [] {
     int dev = 0, n = 132;

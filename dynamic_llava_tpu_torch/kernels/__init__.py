@@ -106,6 +106,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.flash_attention_bwd_dq.restype = i
     lib.flash_attention_bwd_dkv.argtypes = [*bwd, p, p, *shape]  # + dk, dv
     lib.flash_attention_bwd_dkv.restype = i
+    lib.flash_attention_bwd_delta.argtypes = [
+        p, p, p,  # out, dout, delta
+        i, i, i, i, i, p,  # B, Sq, H, D, dtype, stream
+    ]
+    lib.flash_attention_bwd_delta.restype = i
     lib.flash_policy_attention_fwd.argtypes = [
         p, p, p, p, p, p,  # q, k, v, policy, vsum scratch, out
         i, i, i, i, i,  # B, S, H, Hkv, D

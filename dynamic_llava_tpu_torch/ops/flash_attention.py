@@ -6,10 +6,11 @@ Counterpart of ``dynamic_llava_tpu/ops/flash_attention.py``
 over ``_flash_bwd_dkv_kernel`` and ``_flash_bwd_dq_kernel``, and
 ``flash_attention_vjp``). On a CUDA tensor ``flash_attention`` launches the
 hand-written Hopper kernel ``csrc/flash_attention_fwd.cu`` and
-``flash_attention_bwd`` the two kernels of ``csrc/flash_attention_bwd.cu``;
-on a CPU tensor they run ``flash_attention_plain`` and
+``flash_attention_bwd`` the three kernels of ``csrc/flash_attention_bwd.cu``
+(delta, dq, dk/dv); on a CPU tensor they run ``flash_attention_plain`` and
 ``flash_attention_bwd_plain``, which compute the same functions with plain
-tensor ops. There is no fallback from one to the other.
+tensor ops. There is no fallback from one to the other. The C entry points
+run bf16 tensors on the tensor cores and fp32 tensors in full fp32.
 ``flash_attention_vjp`` is the differentiable entry: a
 ``torch.autograd.Function`` whose forward is K1 (saving the logsumexp) and
 whose backward is K3.
@@ -166,8 +167,8 @@ flash_attention.launches = 0
 
 
 def _delta(out: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """``rowsum(dO * O)`` as ``[B, H, Sq]`` fp32 (computed outside the
-    kernels, as in the JAX wrapper)."""
+    """``rowsum(dO * O)`` as ``[B, H, Sq]`` fp32: the plain version of
+    ``flash_attention_bwd_delta``."""
     return (g.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
 
 
@@ -243,6 +244,30 @@ def _bwd_args(q, k, v, g, lse, delta, kv_length, causal):
     ]
 
 
+def flash_attention_bwd_delta(out: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Kernel K3, delta (CUDA tensors only): ``rowsum(dO * O)`` as
+    ``[B, H, Sq]`` fp32, ``out`` and ``g`` read once."""
+    if not out.is_cuda:
+        raise ValueError(f"flash_attention_bwd_delta: not a CUDA tensor ({out.device})")
+    if out.dtype not in kernels.DTYPE_CODES:
+        raise ValueError(f"flash_attention_bwd_delta: unsupported dtype {out.dtype}")
+    _check("out", out, out.dtype, 4)
+    _check("g", g, out.dtype, 4)
+    b, sq, h, d = out.shape
+    if g.shape != out.shape or g.device != out.device or d not in (64, 128):
+        raise ValueError(
+            "flash_attention_bwd_delta: g must have out's shape and device and "
+            f"head_dim must be 64 or 128, got {tuple(out.shape)} {tuple(g.shape)}")
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=out.device)
+    code = kernels.load_library().lib.flash_attention_bwd_delta(
+        kernels.ptr(out), kernels.ptr(g), kernels.ptr(delta), b, sq, h, d,
+        kernels.DTYPE_CODES[out.dtype], kernels.stream_of(out),
+    )
+    kernels.check(code, "flash_attention_bwd_delta")
+    flash_attention_bwd_delta.launches += 1
+    return delta
+
+
 def flash_attention_bwd_dq(q, k, v, g, lse, delta, *, kv_length=None,
                            causal=True, scale=None) -> torch.Tensor:
     """Kernel K3, dq half (CUDA tensors only): ``dq = ds k`` per q tile."""
@@ -264,24 +289,25 @@ def flash_attention_bwd_dq(q, k, v, g, lse, delta, *, kv_length=None,
 def flash_attention_bwd_dkv(q, k, v, g, lse, delta, *, kv_length=None,
                             causal=True, scale=None):
     """Kernel K3, dk/dv half (CUDA tensors only): ``dv = p^T dO`` and
-    ``dk = ds^T q`` per kv tile, per QUERY head in fp32 ``[B, Sk, H, d]``."""
+    ``dk = ds^T q`` per kv tile, summed in fp32 over the query heads of each
+    GQA group inside the kernel (fixed order, no atomics) and written once
+    as ``[B, Sk, Hkv, d]`` in k's dtype."""
     if not q.is_cuda:
         raise ValueError(f"flash_attention_bwd_dkv: not a CUDA tensor ({q.device})")
     head = _bwd_args(q, k, v, g, lse, delta, kv_length, causal)
     b, sq, h, d = q.shape
-    sk = k.shape[1]
-    dk_h = torch.empty((b, sk, h, d), dtype=torch.float32, device=q.device)
-    dv_h = torch.empty_like(dk_h)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
     code = kernels.load_library().lib.flash_attention_bwd_dkv(
-        *head, kernels.ptr(dk_h), kernels.ptr(dv_h), b, sq, sk, h, k.shape[2], d,
+        *head, kernels.ptr(dk), kernels.ptr(dv), b, sq, k.shape[1], h, k.shape[2], d,
         int(causal), float(d**-0.5 if scale is None else scale),
         kernels.DTYPE_CODES[q.dtype], kernels.stream_of(q),
     )
     kernels.check(code, "flash_attention_bwd_dkv")
     flash_attention_bwd_dkv.launches += 1
-    return dk_h, dv_h
+    return dk, dv
 
 
+flash_attention_bwd_delta.launches = 0
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0
 
@@ -299,16 +325,15 @@ def flash_attention_bwd(
     scale: Optional[float] = None,
 ):
     """Flash backward ``(dq, dk, dv)`` (see ``flash_attention_bwd_plain``):
-    the two K3 kernels on CUDA tensors, the plain version on CPU tensors."""
+    the three K3 kernels on CUDA tensors, the plain version on CPU tensors."""
     args = dict(kv_length=kv_length, causal=causal, scale=scale)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, g, **args)
     g = g.contiguous()
-    delta = _delta(out, g)
+    delta = flash_attention_bwd_delta(out, g)
     dq = flash_attention_bwd_dq(q, k, v, g, lse, delta, **args)
-    dk_h, dv_h = flash_attention_bwd_dkv(q, k, v, g, lse, delta, **args)
-    hkv = k.shape[2]
-    return dq, _sum_groups(dk_h, hkv, k.dtype), _sum_groups(dv_h, hkv, v.dtype)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, g, lse, delta, **args)
+    return dq, dk, dv
 
 
 class _FlashAttentionFn(torch.autograd.Function):

@@ -163,6 +163,11 @@ K3_CASES = [
     (2, 33, 4, 1, 16, False, [33, 9]),
     (1, 24, 2, 2, 16, False, None),
     (2, 20, 2, 2, 16, True, [0, 20]),  # a sample with no valid column
+    # the edges of the card kernels' 64-row tiles: two rows past two tiles
+    # with 4 query heads a KV head, a kv_length in mid-tile, a tile and a row
+    (1, 130, 8, 2, 64, True, None),
+    (2, 130, 4, 1, 64, True, [130, 77]),
+    (2, 65, 2, 2, 64, True, [64, 0]),
 ]
 
 
@@ -190,6 +195,10 @@ def test_k3_plain_matches_pallas_interpret(b, s, h, hkv, d, causal, lens):
         assert bool(torch.isfinite(a).all())
         assert torch.equal(a, a2)
         _close(a, r, atol=2e-5, rtol=2e-4)
+    # dk and dv are summed over each GQA group: k's shape, k's type
+    assert got[0].shape == (b, s, h, d)
+    assert got[1].shape == got[2].shape == (b, s, hkv, d)
+    assert all(a.dtype == torch.float32 for a in got)
 
 
 @pytest.mark.parametrize("h,hkv", [(2, 2), (4, 2)])

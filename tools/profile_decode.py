@@ -9,16 +9,19 @@ plans the batch ``chip_smoke.py`` serves (8 requests, one 336x336 image and
 60 text tokens each) and, for bf16 weights, the same weights quantized in
 place to int8, an int4 decoder made directly, that decoder with the fused
 MLP switched on (K9, ``DYNAMIC_LLAVA_Q4_MLP=1``), and fused with the KV cache
-stored in scaled int8:
+stored in scaled int8 (and, with the bf16 weights, once more for the dense
+configuration, whose prefill keeps all 576 image tokens in every layer):
 
 * times the prefill (``Generator.prefill_from_plan``) three times on the
-  host clock after ``synchronize`` and keeps the middle one;
+  host clock after ``synchronize`` and keeps the middle one, then records
+  one more prefill with ``torch.profiler`` and sums its device time in the
+  same buckets as below;
 * after 4 warm-up decode steps, times 16 decode steps (greedy sample +
   ``dynamic.decode_step``) on the host clock: the step wall;
 * records 16 more steps with ``torch.profiler`` (CPU and CUDA activities)
   and sums the device time of every kernel, in buckets by kernel name:
   K5-K8 (``gemv_tc_kernel`` / ``gemv_fma_kernel``), K9 (``q4_mlp_kernel``),
-  K2 (``decode_kernel``), K1 (``flash_fwd_kernel``), cuBLAS (``gemm``, ``gemv``, ``nvjet``,
+  K2 (``decode_kernel``), K1 (``flash_fwd_*``), cuBLAS (``gemm``, ``gemv``, ``nvjet``,
   ``cutlass``, ``xmma``, ``splitK`` names that are not the port's own) and
   other. Idle share = 1 - device busy / step wall.
 
@@ -47,7 +50,7 @@ BUCKETS = (
     ("K5-K8", ("gemv_tc_kernel", "gemv_fma_kernel")),
     ("K9", ("q4_mlp_kernel",)),
     ("K2", ("decode_kernel",)),
-    ("K1", ("flash_fwd_kernel",)),
+    ("K1", ("flash_fwd_",)),
     ("cuBLAS", ("gemm", "gemv", "nvjet", "cutlass", "xmma", "splitK")),
 )
 
@@ -59,10 +62,24 @@ def bucket(name: str) -> str:
     return "other"
 
 
+def sum_device_ms(prof, per: int = 1):
+    """``(ms by bucket, ms by kernel name, launches by kernel name)`` of the
+    device activity a profiler recorded, times divided by ``per``."""
+    from torch.autograd import DeviceType
+
+    per_bucket, per_kernel, launches = defaultdict(float), defaultdict(float), defaultdict(int)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms = e.time_range.elapsed_us() / 1e3 / per
+            per_bucket[bucket(e.name)] += ms
+            per_kernel[e.name] += ms
+            launches[e.name] += 1
+    return per_bucket, per_kernel, launches
+
+
 def profile(torch, params, cfg, kind, cache_dtype="bfloat16", fused=False):
     """The measurements of one weight kind (see the module docstring), with
     the KV cache stored in ``cache_dtype`` and the fused int4 MLP on or off."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -98,6 +115,9 @@ def profile(torch, params, cfg, kind, cache_dtype="bfloat16", fused=False):
             state, _ = gen.prefill_from_plan(plan, pix, MAX_NEW)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pre:
+            state, _ = gen.prefill_from_plan(plan, pix, MAX_NEW)
+            torch.cuda.synchronize()
         state = steps(state, WARM)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -108,22 +128,20 @@ def profile(torch, params, cfg, kind, cache_dtype="bfloat16", fused=False):
             state = steps(state, STEPS)
             torch.cuda.synchronize()
     os.environ.pop("DYNAMIC_LLAVA_Q4_MLP", None)
-    per_bucket, per_kernel, launches = defaultdict(float), defaultdict(float), defaultdict(int)
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            ms = e.time_range.elapsed_us() / 1e3 / STEPS
-            per_bucket[bucket(e.name)] += ms
-            per_kernel[e.name] += ms
-            launches[e.name] += 1
+    per_bucket, per_kernel, launches = sum_device_ms(prof, STEPS)
+    pre_bucket = sum_device_ms(pre)[0]
     busy = sum(per_bucket.values())
     require(busy > 0, f"{kind}: the profiler saw no device time")
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
     res = dict(prefill_wall_ms=statistics.median(walls) * 1e3, step_wall_ms=step_ms,
                device_busy_ms=busy, idle_share=max(0.0, 1 - busy / step_ms),
-               buckets_ms=dict(per_bucket),
+               buckets_ms=dict(per_bucket), prefill_device_ms=sum(pre_bucket.values()),
+               prefill_buckets_ms=dict(pre_bucket),
                top=[dict(name=n, ms=ms, launches_per_step=launches[n] / STEPS)
                     for n, ms in top])
-    print(f"{kind} sparse B={B}: prefill wall {res['prefill_wall_ms']:.3f} ms; decode "
+    print(f"{kind} B={B}: prefill wall {res['prefill_wall_ms']:.3f} ms, profiled prefill "
+          f"device busy {res['prefill_device_ms']:.3f} ms ("
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(pre_bucket.items())) + "); decode "
           f"step wall {step_ms:.3f} ms, device busy {busy:.3f} ms, idle share "
           f"{res['idle_share']:.3f}; per step ms "
           + ", ".join(f"{k} {v:.3f}" for k, v in sorted(per_bucket.items())), flush=True)
@@ -151,7 +169,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     from dynamic_llava_tpu_torch import kernels
-    from dynamic_llava_tpu_torch.config import LlavaConfig
+    from dynamic_llava_tpu_torch.config import DENSE_SPARSE_CONFIG, LlavaConfig
     from dynamic_llava_tpu_torch.ops.quant import (
         init_quantized_llama_params, quantize_llm_params)
     from dynamic_llava_tpu_torch.weights import init_llava_params
@@ -160,7 +178,9 @@ def main() -> int:
     cfg, dev = LlavaConfig(), torch.device("cuda")
     params = init_llava_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev,
                                torch.bfloat16)
-    out = {"bf16": profile(torch, params, cfg, "bf16")}
+    out = {"bf16": profile(torch, params, cfg, "bf16"),
+           "bf16 dense": profile(torch, params, LlavaConfig(sparse=DENSE_SPARSE_CONFIG),
+                                 "bf16 dense")}
     quantize_llm_params(params, bits=8)
     out["int8"] = profile(torch, params, cfg, "int8")
     del params["llm"]
@@ -171,7 +191,7 @@ def main() -> int:
     out["int4 fused MLP"] = profile(torch, params, cfg, "int4 fused MLP", fused=True)
     out["int4 fused MLP int8 KV"] = profile(torch, params, cfg, "int4 fused MLP int8 KV",
                                             cache_dtype="int8", fused=True)
-    print(json.dumps({"device": smi, "sparse_b8": out}))
+    print(json.dumps({"device": smi, "b8": out}))
     return 0
 
 

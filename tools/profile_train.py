@@ -15,8 +15,8 @@ and then the dense stage on the same weights, it
   ``GroupedAdamW.update``);
 * records one more step with ``torch.profiler`` (CPU and CUDA activities)
   and sums the device time of every kernel, in buckets by kernel name: K1
-  (``flash_fwd_kernel``), K3 (``flash_bwd_dq_kernel``,
-  ``flash_bwd_dkv_kernel``), K4 (``flash_policy_fwd_kernel``,
+  (``flash_fwd_*``: the tensor-core kernel for bf16, the fp32 one), K3
+  (``flash_bwd_*``: the delta, dq and dkv kernels), K4 (``flash_policy_fwd_kernel``,
   ``policy_vsum_kernel``), fp32 GEMM (``sgemm``, ``simt``, ``f32f32``, ``ffma`` names: the
   blockwise recompute behind K4's backward and the predictors' plain
   attention), GEMM (the other ``gemm``, ``nvjet``, ``cutlass``, ``xmma``
@@ -43,8 +43,8 @@ ROOT = Path(__file__).resolve().parent.parent
 SEED, WARM, TIMED = 0, 2, 2
 # bucket -> kernel-name fragments; the port's kernels are matched first
 BUCKETS = (
-    ("K1", ("flash_fwd_kernel",)),
-    ("K3", ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")),
+    ("K1", ("flash_fwd_",)),
+    ("K3", ("flash_bwd_",)),
     ("K4", ("flash_policy_fwd_kernel", "policy_vsum_kernel")),
     ("fp32 GEMM", ("sgemm", "simt", "f32f32", "ffma")),
     ("GEMM", ("gemm", "nvjet", "cutlass", "xmma", "splitK")),
