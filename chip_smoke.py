@@ -4,14 +4,13 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout. It needs one CUDA card with 80 GB, ``nvcc``
-and about four minutes, and fails (exit code != 0, no result line)
+and about five minutes, and fails (exit code != 0, no result line)
 anywhere else. Phases, each of which raises on failure:
 
 1. print the card's name and power limit (``nvidia-smi``);
 2. build the hand-written kernels from ``dynamic_llava_tpu_torch/csrc``
    with ``nvcc`` for ``sm_90a`` (one process per source, in parallel) and
-   print the build time and ``ptxas`` resource lines (a tensor-core
-   attention kernel that spills registers fails the run);
+   print the build time and ``ptxas`` resource lines;
 3. hold each kernel against its plain PyTorch version at the shapes of the
    main paths, timing both with CUDA events on a CUDA-graph replay, and
    beside them the one PyTorch call that computes the same function where
@@ -27,16 +26,29 @@ anywhere else. Phases, each of which raises on failure:
    ``torch.equal`` results; K1 is timed beside SDPA both with the masks as
    a bool tensor and, at full lengths, with ``is_causal``;
    ``torch.autograd.grad`` through K1 + K3 against autograd through the
-   plain forward. K5-K8 (int8 / int4 GEMVs)
-   at the 7B decoder's shapes and rows 1, 8, 24, 64: max abs error
+   plain forward, and the gradient of an unfrozen CLIP tower on the card
+   against the CPU's. K2 at every ``kernel_cases.DECODE_CASES`` case: bf16,
+   fp32, scaled-int8 and fp8 storage; lengths 0, 1, below / at / above the
+   kernel's tile and split edges, at the capacity and past it; a sliding
+   window, also one that opens inside a split; head_dim 64 and 128; 1-8
+   query heads a KV head; B = 8; each launched twice with ``torch.equal``
+   results; timed at max_len 768 / 256 and B = 4 / 8 beside one SDPA call
+   (for int8 / fp8 storage: on the dequantized bf16 cache). K5-K8 (int8 /
+   int4 GEMVs) at the 7B decoder's shapes (q/k/v, gate/up, down with
+   K = 11008, o, the lm_head with N = 32000) and rows 1, 8, 24, 64, and at
+   the ``kernel_cases.QUANT_EDGE_CASES`` (a three-weight group of unequal
+   widths, widths and K that end inside a tile or a k16 step, the 13B
+   shapes), each launched twice with ``torch.equal`` results: max abs error
    relative to max |ref| within 1e-2 for bf16 outputs, 1e-4 for the fp32
    lm_head; the weights rotate through copies larger than the 50 MB L2, as
-   a decode step finds them cold. K9 (the fused int4 MLP) at the 7B and
+   a decode step finds them cold, and the yardstick (``@`` on the
+   dequantized bf16 weight) is timed on one copy and, at rows 8, rotated
+   the same way. K9 (the fused int4 MLP) at the 7B and
    13B MLP shapes and the same rows, bf16 x and fp32 x with fp32 out (1e-2
    / 1e-3 of max |ref|), beside the two-kernel path it fuses and three
-   bf16 matmuls on the dequantized weights. K2 again on int8 storage with
-   scales, on fp8 storage and with a sliding window, also at 40 heads,
-   beside SDPA on the dequantized bf16 cache;
+   bf16 matmuls on the dequantized weights. A tensor-core attention
+   kernel, the decode-attention kernel or the bf16 GEMV kernel that spills
+   registers fails the run (phase 2);
 4. a small model (head_dim 64, GQA) on the card through the kernels
    against the port's plain CPU path, which the CPU tests hold against the
    JAX package: greedy generation in fp32 with plain, int8 and int4
@@ -189,11 +201,9 @@ def sdpa_layout(t):
 
 
 def check_kernels(torch):
-    """Phase 3: each kernel against its plain version at main-path shapes.
-    Returns per-kernel results (max error over all cases, times at the
-    decoder shape)."""
-    from dynamic_llava_tpu_torch.ops.decode_attention import (
-        decode_attention, decode_attention_plain)
+    """Phase 3, K1: the flash forward against its plain version at main-path
+    shapes and at the edges of its tiles. Returns its results (max error
+    over all cases, times at the decoder shape)."""
     from dynamic_llava_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_plain)
     import torch.nn.functional as F
@@ -205,8 +215,7 @@ def check_kernels(torch):
         return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(
             dev, dtype)
 
-    res = {"flash_attention_fwd": {"max_abs_err": 0.0},
-           "decode_attention_appended": {"max_abs_err": 0.0}}
+    res = {"flash_attention_fwd": {"max_abs_err": 0.0}}
 
     def compare(name, got, want, tol, label):
         got, want = got.float(), want.float()
@@ -287,122 +296,158 @@ def check_kernels(torch):
             else:
                 res["flash_attention_fwd"]["clip"] = timing
 
-    # K2: decode over the pre tier (768) and the sparse post tier (256)
-    for max_len, h, hkv, dtype in ((768, 32, 32, torch.bfloat16),
-                                   (256, 32, 32, torch.bfloat16),
-                                   (256, 8, 2, torch.float32)):
-        b, d = 4, 128
-        q = randn(b, 1, h, d, dtype=dtype)
-        kc, vc = randn(b, max_len, hkv, d, dtype=dtype), randn(b, max_len, hkv, d, dtype=dtype)
-        kn, vn = randn(b, 1, hkv, d, dtype=dtype), randn(b, 1, hkv, d, dtype=dtype)
-        length = torch.tensor([0, 1, max_len // 2, max_len - 1], dtype=torch.int32,
-                              device=dev)
-        out = decode_attention(q, kc, vc, kn, vn, length)
-        ref = decode_attention_plain(q.float(), kc.float(), vc.float(), kn.float(),
-                                     vn.float(), length)
-        tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
-        label = f"K2 [B={b} max_len={max_len} H={h} Hkv={hkv} d={d} lengths={length.tolist()} {dtype}]"
-        compare("decode_attention_appended", out, ref, tol, label)
-        if dtype == torch.bfloat16:
-            live_len = torch.full((b,), max_len - 1, dtype=torch.int32, device=dev)
-            kms = time_ms(lambda: decode_attention(q, kc, vc, kn, vn, live_len), 100)
-            pms = time_ms(lambda: decode_attention_plain(q, kc, vc, kn, vn, live_len), 100)
-            # yardstick: one SDPA call over the live rows and the current token
-            n_live = max_len - 1
-            ql = sdpa_layout(q)
-            kl = sdpa_layout(torch.cat([kc[:, :n_live], kn], dim=1))
-            vl = sdpa_layout(torch.cat([vc[:, :n_live], vn], dim=1))
-            lms = time_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl), 100)
-            live = b * (n_live + 1)
-            bms, bby = bound_ms(2 * (2 * q.numel() + 2 * live * hkv * d), 4 * live * h * d)
-            log(f"  K2 time at max_len={max_len}, every sample at length "
-                f"{n_live}: kernel {kms:.4f} ms, plain {pms:.4f} ms, SDPA {lms:.4f} ms, "
-                f"bound {bms:.4f} ms ({bby})")
-            if max_len == 768:
-                res["decode_attention_appended"].update(
-                    ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms, bound_by=bby)
     torch.cuda.synchronize()
     return res
 
 
-# K5-K8 cases at the 7B decoder's shapes: (label, K, output widths, fp32 out)
-QUANT_CASES = [
-    ("q/k/v", 4096, (4096, 4096, 4096), False),
-    ("gate/up", 4096, (11008, 11008), False),
-    ("down", 11008, (4096,), False),
-    ("o", 4096, (4096,), False),
-    ("lm_head", 4096, (32000,), True),
-]
-QUANT_ROWS = (1, 8, 24, 64)
-QUANT_TOL = {False: 1e-2, True: 1e-4}  # bf16 / fp32 output, relative to max |ref|
+def check_decode_kernel(torch):
+    """Phase 3, K2: every ``kernel_cases.DECODE_CASES`` case (bf16, fp32,
+    scaled-int8 and fp8 storage; lengths 0, 1, at the edges of the kernel's
+    tiles and splits, at the capacity and past it; a window, also inside a
+    split; head_dim 64 and 128; 1-8 query heads a kv head; B = 8) against
+    the plain version in fp32 on the same stored values, each launched twice
+    for equal bits. Times (CUDA events over a graph replay) at max_len 768
+    and 256 with every sample one row short of the capacity, B = 4 (the
+    table's shapes) and B = 8, beside one SDPA call over the live rows (for
+    int8 / fp8 storage: on the dequantized bf16 cache). Returns the kernel's
+    results: max errors, the bf16 times at B = 4, max_len 768, and the other
+    readings under ``int8`` / ``fp8`` / ``shapes``."""
+    import torch.nn.functional as F
+
+    from dynamic_llava_tpu_torch import kernel_cases as kc
+    from dynamic_llava_tpu_torch.ops.decode_attention import (
+        decode_attention, decode_attention_plain)
+    from dynamic_llava_tpu_torch.ops.kv_cache import dequantize_kv
+
+    dev = torch.device("cuda")
+    res = {"max_abs_err": 0.0, "int8": {"max_abs_err": 0.0}, "fp8": {"max_abs_err": 0.0},
+           "shapes": {}}
+    before = decode_attention.launches
+    for case in kc.DECODE_CASES:
+        try:
+            err = kc.check_decode_case(case, dev)
+        except AssertionError as e:
+            raise RuntimeError(str(e)) from e
+        tol = kc.FP32_TOL if case.dtype == torch.float32 else kc.BF16_TOL
+        log(f"  {kc.describe_decode_case(case)}: max_abs_err={err:.3e} (atol=rtol={tol:g}), "
+            "two launches equal: ok")
+        top = res[case.storage] if case.storage in res else res
+        top["max_abs_err"] = max(top["max_abs_err"], err)
+    require(decode_attention.launches == before + 2 * len(kc.DECODE_CASES),
+            "K2 launch counter")
+
+    for b, max_len, storage in [(4, 768, "own"), (4, 768, "int8"), (4, 768, "fp8"),
+                                (4, 256, "own"), (8, 768, "own"), (8, 768, "int8"),
+                                (8, 256, "own"), (8, 256, "int8")]:
+        n_live, h, d, dtype = max_len - 1, 32, 128, torch.bfloat16
+        case = kc.DecodeCase("timing", b, max_len, h, h, d, dtype, storage, (n_live,) * b)
+        (q, kc_, vc, kn, vn, live), kw = kc.make_decode_inputs(case, dev, SEED + 3)
+        kms = time_ms(lambda: decode_attention(q, kc_, vc, kn, vn, live, **kw), 100)
+        pms = time_ms(lambda: decode_attention_plain(q, kc_, vc, kn, vn, live, **kw), 100)
+        ks, vs = kw["k_scale"], kw["v_scale"]
+        kd = dequantize_kv(kc_, ks, dtype) if ks is not None else kc_.to(dtype)
+        vd = dequantize_kv(vc, vs, dtype) if vs is not None else vc.to(dtype)
+        ql = sdpa_layout(q)
+        kl = sdpa_layout(torch.cat([kd[:, :n_live], kn], dim=1))
+        vl = sdpa_layout(torch.cat([vd[:, :n_live], vn], dim=1))
+        lms = time_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl), 100)
+        # bytes: the live cache rows in their storage type (int8: and their
+        # bf16 scales), q, the current K/V and the output in q's type
+        per_elem = 2 if storage == "own" else 1
+        cache = 2 * b * n_live * h * (d * per_elem + (2 if storage == "int8" else 0))
+        bms, bby = bound_ms(cache + 2 * (2 * q.numel() + 2 * b * h * d),
+                            4 * b * (n_live + 1) * h * d)
+        log(f"  K2 time, B={b} max_len={max_len}, {storage} cache, every sample at length "
+            f"{n_live}: kernel {kms:.4f} ms, plain {pms:.4f} ms, SDPA"
+            f"{'' if storage == 'own' else ' on the dequantized bf16 cache'} {lms:.4f} ms, "
+            f"bound {bms:.4f} ms ({bby})")
+        timing = dict(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms, bound_by=bby)
+        if (b, max_len) == (4, 768):
+            (res if storage == "own" else res[storage]).update(timing)
+        else:
+            res["shapes"][f"B={b} max_len={max_len} {storage}"] = timing
+    torch.cuda.synchronize()
+    return res
 
 
 def check_quant_kernels(torch):
     """Phase 3, K5-K8: each GEMV against its plain version on the same
     bf16 x and int8 / packed int4 weights (bf16 scales), at every
-    QUANT_CASES shape and QUANT_ROWS row count. Times (CUDA events) rotate
-    through weight copies of more than 256 MB, so that every call reads its
-    weights from HBM as a decode step does. Returns per-kernel results: max
-    errors over all cases, times at rows 8."""
+    ``kernel_cases.QUANT_CASES`` shape and ``QUANT_ROWS`` row count and at
+    the ``QUANT_EDGE_CASES`` (a three-weight group of unequal widths, widths
+    and K that end inside a tile, a k16 step or a unit, the 13B shapes),
+    each launched twice for equal bits. Times (CUDA events over a graph
+    replay) rotate through weight copies of more than 256 MB, so that every
+    call reads its weights from HBM as a decode step does; beside them the
+    plain version and ``@`` on the dequantized bf16 weight, on one copy (as
+    every earlier run timed it: up to 50 MB of it stay in the L2) and, at
+    rows 8, rotated like the kernel's. Returns per-kernel results: max
+    errors over all cases, times at rows 8 of the largest shape, and every
+    shape's readings under ``shapes``."""
+    from dynamic_llava_tpu_torch import kernel_cases as kc
     from dynamic_llava_tpu_torch.ops import quant_matmul as qm
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    res = {name: {"max_abs_err": 0.0, "max_err_rel": 0.0}
+    res = {name: {"max_abs_err": 0.0, "max_err_rel": 0.0, "shapes": {}}
            for name in ("q8_gemv", "q8_gemv_group", "q4_gemv", "q4_gemv_group")}
+
+    def check(case, bits, rows, weights, scales):
+        name = kc.gemv_functions(bits, len(case.ns) > 1)[0]
+        try:
+            err, rel = kc.check_gemv_case(case, bits, rows, dev, gen, weights, scales)
+        except AssertionError as e:
+            raise RuntimeError(str(e)) from e
+        res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+        res[name]["max_err_rel"] = max(res[name]["max_err_rel"], rel)
+        return (f"  {name} int{bits} {case.label} [K={case.k} N={'+'.join(map(str, case.ns))} "
+                f"rows={rows}{' fp32 out' if case.out_fp32 else ''}]: max_abs_err={err:.3e}, "
+                f"/max|ref| {rel:.3e} (tol {kc.QUANT_TOL[case.out_fp32]:g}), two launches "
+                "equal: ok")
+
     for bits in (8, 4):
-        for label, k, ns, out_fp32 in QUANT_CASES:
-            group = len(ns) > 1
-            name = ("q4_gemv" if bits == 4 else "q8_gemv") + ("_group" if group else "")
-            kernel, plain = getattr(qm, name), getattr(qm, name + "_plain")
-            widths = [n // 2 if bits == 4 else n for n in ns]
-            nbytes = k * sum(widths)
+        for case in kc.QUANT_EDGE_CASES:
+            (weights,), scales = kc.make_gemv_weights(case, bits, dev, gen)
+            for rows in kc.QUANT_EDGE_ROWS:
+                log(check(case, bits, rows, weights, scales))
+        for case in kc.QUANT_CASES:
+            name, kernel, plain = kc.gemv_functions(bits, len(case.ns) > 1)
+            nbytes = case.k * sum(n // 2 if bits == 4 else n for n in case.ns)
             copies = max(2, -(-(256 << 20) // nbytes))
-            qmax = 7 if bits == 4 else 127
-            weights = [[torch.randint(-128, 128, (k, w), generator=gen, device=dev,
-                                      dtype=torch.int8) for w in widths]
-                       for _ in range(copies)]
-            scales = [torch.rand(1, n, generator=gen, device=dev).mul_(0.02 / qmax)
-                      .bfloat16() for n in ns]
+            weights, scales = kc.make_gemv_weights(case, bits, dev, gen, copies)
+            for rows in kc.QUANT_ROWS:
+                line = check(case, bits, rows, weights[0], scales)
+                x = torch.randn(rows, case.k, generator=gen, device=dev).bfloat16()
+                kms = time_ms([lambda ws=ws: kc.call_gemv(kernel, case, x, ws, scales)
+                               for ws in weights], 30)
+                pms = time_ms([lambda ws=ws: kc.call_gemv(plain, case, x, ws, scales)
+                               for ws in weights[:2]], 10)
 
-            def call(fn, x, ws):
-                if group:
-                    return fn(x, ws, scales, out_fp32=out_fp32)
-                return (fn(x, ws[0], scales[0], out_fp32=out_fp32),)
+                def dequantized(ws):
+                    return [(qm.unpack_int4(w) if bits == 4 else w).bfloat16() for w in ws]
 
-            for rows in QUANT_ROWS:
-                x = torch.randn(rows, k, generator=gen, device=dev).bfloat16()
-                got, want = call(kernel, x, weights[0]), call(plain, x, weights[0])
-                err = rel = 0.0
-                for g, w in zip(got, want):
-                    require(bool(torch.isfinite(g).all()), f"{name} {label}: non-finite")
-                    e = (g.float() - w.float()).abs().max().item()
-                    err, rel = max(err, e), max(rel, e / w.float().abs().max().item())
-                tol = QUANT_TOL[out_fp32]
-                ok = rel <= tol
-                res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
-                res[name]["max_err_rel"] = max(res[name]["max_err_rel"], rel)
-                kms = time_ms([lambda ws=ws: call(kernel, x, ws) for ws in weights], 30)
-                pms = time_ms([lambda ws=ws: call(plain, x, ws) for ws in weights[:2]], 10)
-                deq = [(qm.unpack_int4(w) if bits == 4 else w).bfloat16()
-                       for w in weights[0]]
+                deq = dequantized(weights[0])
                 mms = time_ms(lambda: [x @ w for w in deq], 10)
-                del deq
-                log(f"  {name} int{bits} {label} [K={k} N={'+'.join(map(str, ns))} "
-                    f"rows={rows}{' fp32 out' if out_fp32 else ''}]: max_abs_err="
-                    f"{err:.3e}, /max|ref| {rel:.3e} (tol {tol:g}) "
-                    f"{'ok' if ok else 'FAIL'}; kernel {kms:.4f} ms "
-                    f"({nbytes / kms / 1e6:.0f} GB/s of weights), plain {pms:.4f} ms, "
-                    f"bf16 matmul on the dequantized weight (one copy) {mms:.4f} ms")
-                require(ok, f"{name} {label} rows={rows}: kernel disagrees with its "
-                        "plain version")
-                # the JSON line reports the decode step's largest GEMVs at rows 8
-                if rows == 8 and label == ("gate/up" if group else "down"):
+                line += (f"; kernel {kms:.4f} ms ({nbytes / kms / 1e6:.0f} GB/s of weights), "
+                         f"plain {pms:.4f} ms, bf16 matmul on the dequantized weight (one "
+                         f"copy) {mms:.4f} ms")
+                shape = dict(ms=kms, plain_ms=pms, library_ms=mms)
+                if rows == 8:  # the yardstick on cold weights too
+                    deqs = [deq] + [dequantized(ws) for ws in weights[1:]]
+                    cold = time_ms([lambda d=d: [x @ w for w in d] for d in deqs], 30)
+                    del deqs
                     io = 2 * sum(sc.numel() for sc in scales) + 2 * x.numel() + \
-                        (4 if out_fp32 else 2) * rows * sum(ns)
-                    bms, bby = bound_ms(nbytes + io, 2 * rows * k * sum(ns))
-                    res[name].update(ms=kms, plain_ms=pms, library_ms=mms, bound_ms=bms,
-                                     bound_by=bby, shape=f"{label} rows 8")
+                        (4 if case.out_fp32 else 2) * rows * sum(case.ns)
+                    bms, bby = bound_ms(nbytes + io, 2 * rows * case.k * sum(case.ns))
+                    line += (f", rotated through {copies} copies {cold:.4f} ms; bound "
+                             f"{bms:.4f} ms ({bby})")
+                    shape.update(library_cold_ms=cold, bound_ms=bms, bound_by=bby)
+                    # the JSON line's required keys: the decode step's largest GEMVs
+                    if case.label == ("gate/up" if len(case.ns) > 1 else "down"):
+                        res[name].update(shape, shape=f"{case.label} rows 8")
+                del deq
+                log(line)
+                res[name]["shapes"][f"{case.label} rows {rows}"] = shape
             del weights
     torch.cuda.synchronize()
     return res
@@ -421,7 +466,7 @@ MLP_TOL = {False: 1e-2, True: 1e-3}
 def check_mlp_kernel(torch):
     """Phase 3, K9: the fused int4 MLP against ``q4_mlp_plain`` on the same
     x, packed weights and bf16 scales at every MLP_CASES shape and
-    QUANT_ROWS row count, bf16 x (bf16 out) and fp32 x (fp32 out: the
+    ``kernel_cases.QUANT_ROWS`` row count, bf16 x (bf16 out) and fp32 x (fp32 out: the
     kernel rounds x to bf16 as the plain version does, so only the order of
     the fp32 sums and the rare h that rounds the other way differ; both are
     also held against the same arithmetic in float64). Times
@@ -430,6 +475,7 @@ def check_mlp_kernel(torch):
     and three ``@`` on dequantized bf16 weights + ``silu * mul``."""
     import torch.nn.functional as F
 
+    from dynamic_llava_tpu_torch.kernel_cases import QUANT_ROWS
     from dynamic_llava_tpu_torch.ops import quant_matmul as qm
 
     dev = torch.device("cuda")
@@ -515,85 +561,6 @@ def check_mlp_kernel(torch):
     res.update(res["shapes"]["7B"])
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    return res
-
-
-def check_decode_storage(torch):
-    """Phase 3, K2 widened: int8 storage with per-vector scales, fp8
-    storage, and a sliding window, against the plain version in fp32 on the
-    same stored values, at the shapes of the bf16 checks and with 40 heads
-    (the 13B decoder). The bound passed as ``length`` is the attend bound,
-    which the ring policy saturates below the persisted length. Returns
-    ``{"int8": {...}, "fp8": {...}}``: max errors over all cases, times at
-    max_len 768 with every sample at length 767, the library time being one
-    SDPA call on the dequantized bf16 cache."""
-    import torch.nn.functional as F
-
-    from dynamic_llava_tpu_torch.ops.decode_attention import (
-        decode_attention, decode_attention_plain)
-    from dynamic_llava_tpu_torch.ops.kv_cache import dequantize_kv, quantize_kv, to_storage
-
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(SEED + 3)
-
-    def randn(*shape, dtype):
-        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, dtype)
-
-    res = {"int8": {"max_abs_err": 0.0}, "fp8": {"max_abs_err": 0.0}}
-    cases = [(768, 32, 32, 128, torch.bfloat16, None), (256, 32, 32, 128, torch.bfloat16, None),
-             (768, 40, 40, 128, torch.bfloat16, None), (256, 8, 2, 64, torch.float32, None),
-             (768, 32, 32, 128, torch.bfloat16, 100), (256, 8, 2, 128, torch.float32, 7)]
-    for max_len, h, hkv, d, dtype, window in cases:
-        b = 4
-        q = randn(b, 1, h, d, dtype=dtype)
-        kf, vf = randn(b, max_len, hkv, d, dtype=dtype), randn(b, max_len, hkv, d, dtype=dtype)
-        kn, vn = randn(b, 1, hkv, d, dtype=dtype), randn(b, 1, hkv, d, dtype=dtype)
-        length = torch.tensor([0, 1, max_len // 2, max_len - 1], dtype=torch.int32, device=dev)
-        q_pos = None if window is None else length + 3  # a dense cache: position >= slot
-        tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
-        stores = {"int8": quantize_kv(kf) + quantize_kv(vf),
-                  "fp8": (to_storage(kf, torch.float8_e4m3fn), None,
-                          to_storage(vf, torch.float8_e4m3fn), None)}
-        if window is not None:  # the window also on the cache in q's own type
-            stores["own"] = (kf, None, vf, None)
-        for name, (kc, ks, vc, vs) in stores.items():
-            kw = dict(window=window, q_pos=q_pos, k_scale=ks, v_scale=vs)
-            out = decode_attention(q, kc, vc, kn, vn, length, **kw)
-            ref = decode_attention_plain(q.float(), kc, vc, kn.float(), vn.float(), length,
-                                         **kw)
-            require(bool(torch.isfinite(out).all()), f"K2 {name}: non-finite output")
-            err = (out.float() - ref).abs().max().item()
-            ok = torch.allclose(out.float(), ref, atol=tol, rtol=tol)
-            log(f"  K2 {name} cache [B={b} max_len={max_len} H={h} Hkv={hkv} d={d} "
-                f"bounds={length.tolist()} window={window} q {dtype}]: max_abs_err="
-                f"{err:.3e} (atol=rtol={tol:g}) {'ok' if ok else 'FAIL'}")
-            require(ok, f"K2 {name} cache: kernel disagrees with its plain version")
-            if name in res:
-                res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
-            if (max_len, h, window) != (768, 32, None) or name == "own":
-                continue
-            n_live = max_len - 1
-            live_len = torch.full((b,), n_live, dtype=torch.int32, device=dev)
-            kw = dict(k_scale=ks, v_scale=vs)
-            kms = time_ms(lambda: decode_attention(q, kc, vc, kn, vn, live_len, **kw), 100)
-            pms = time_ms(lambda: decode_attention_plain(q, kc, vc, kn, vn, live_len, **kw),
-                          100)
-            kd = dequantize_kv(kc, ks, dtype) if ks is not None else kc.to(dtype)
-            vd = dequantize_kv(vc, vs, dtype) if vs is not None else vc.to(dtype)
-            ql = sdpa_layout(q)
-            kl = sdpa_layout(torch.cat([kd[:, :n_live], kn], dim=1))
-            vl = sdpa_layout(torch.cat([vd[:, :n_live], vn], dim=1))
-            lms = time_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl), 100)
-            # bytes: the live cache rows at one byte an element (and their
-            # bf16 scales), q, the current K/V and the output in q's type
-            cache = 2 * b * n_live * hkv * (d + (2 if ks is not None else 0))
-            bms, bby = bound_ms(cache + 2 * (2 * q.numel() + 2 * b * hkv * d),
-                                4 * b * (n_live + 1) * h * d)
-            log(f"  K2 {name} cache time at max_len={max_len}, every sample at length "
-                f"{n_live}: kernel {kms:.4f} ms, plain {pms:.4f} ms, SDPA on the "
-                f"dequantized bf16 cache {lms:.4f} ms, bound {bms:.4f} ms ({bby})")
-            res[name].update(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms, bound_by=bby)
-    torch.cuda.synchronize()
     return res
 
 
@@ -821,6 +788,47 @@ def train_batch(cfg, b: int, text_len: int, seed: int = SEED):
     plan = plan_batch(ids, cfg.num_image_tokens, labels_list=labels)
     size = cfg.vision.image_size
     return plan, rng.standard_normal((b, size, size, 3), dtype=np.float32)
+
+
+def check_tower_gradient(torch):
+    """Phase 3, K1 + K3 under the CLIP tower: the gradient of
+    ``encode_images(frozen_tower=False)`` with respect to the tower's
+    ``patch_embedding`` on the card (the tower's attention is the autograd
+    Function over K1 and K3) against the same gradient on the CPU (plain
+    versions), fp32, atol = rtol = 1e-4; under ``no_grad`` the tower launches
+    K1 once a layer and K3 never."""
+    from dynamic_llava_tpu_torch.models.dynamic import encode_images
+    from dynamic_llava_tpu_torch.ops import flash_attention as fa
+    from dynamic_llava_tpu_torch.weights import init_llava_params, map_leaves
+
+    cfg = small_config()
+    rng = np.random.default_rng(SEED)
+    size = cfg.vision.image_size
+    pix = torch.from_numpy(rng.standard_normal((2, size, size, 3), dtype=np.float32))
+    g = torch.from_numpy(rng.standard_normal(
+        (2, cfg.num_image_tokens, cfg.text.hidden_size), dtype=np.float32))
+    cpu = init_llava_params(cfg, torch.Generator().manual_seed(SEED), "cpu", torch.float32)
+    grads = {}
+    for device in ("cpu", "cuda"):
+        params = map_leaves(lambda _, t: t.to(device), cpu)
+        leaf = params["vision_tower"]["patch_embedding"].clone().requires_grad_(True)
+        params["vision_tower"] = dict(params["vision_tower"], patch_embedding=leaf)
+        out = encode_images(params, cfg, pix.to(device), frozen_tower=False)
+        grads[device] = torch.autograd.grad((out * g.to(device)).sum(), leaf)[0].cpu()
+    err = (grads["cuda"] - grads["cpu"]).abs().max().item()
+    top = grads["cpu"].abs().max().item()
+    ok = torch.allclose(grads["cuda"], grads["cpu"], atol=FP32_TOL, rtol=FP32_TOL)
+    log(f"  CLIP tower gradient w.r.t. patch_embedding, card (K1 + K3) vs CPU: "
+        f"max_abs_err={err:.3e}, max |grad| {top:.3e} (atol=rtol={FP32_TOL:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    require(ok and top > 0, "the tower's gradient on the card disagrees with the CPU's")
+    layers = cfg.vision.num_hidden_layers + cfg.vision.select_layer + 1
+    before = (fa.flash_attention.launches, fa.flash_attention_bwd_dq.launches)
+    with torch.no_grad():
+        encode_images(map_leaves(lambda _, t: t.cuda(), cpu), cfg, pix.cuda())
+    rose = (fa.flash_attention.launches - before[0], fa.flash_attention_bwd_dq.launches - before[1])
+    require(rose == (layers, 0), f"the tower under no_grad launched K1, K3 {rose} times, not "
+            f"({layers}, 0)")
 
 
 def check_small_train(torch):
@@ -1184,17 +1192,20 @@ def main() -> int:
             log(f"    {line.strip()}")
             if "0 bytes spill stores, 0 bytes spill loads" not in line:
                 spilled.append(entry)
-    # the tensor-core attention kernels hold their accumulators in registers
-    require(not [e for e in spilled if "mma_kernel" in e],
+    # the tensor-core attention kernels, the decode-attention kernel and the
+    # bf16 GEMV kernel hold their accumulators in registers
+    no_spills = ("mma_kernel", "decode_kernel", "gemv_tc_kernel")
+    require(not [e for e in spilled if any(k in e for k in no_spills)],
             f"ptxas spilled registers in {spilled}")
 
     log("phase 3: kernels against their plain versions")
     kres = check_kernels(torch)
+    kres["decode_attention_appended"] = check_decode_kernel(torch)
     kres.update(check_train_kernels(torch))
     kres["flash_attention_fwd"]["train_shape"] = kres.pop("flash_attention_fwd_train_shape")
     kres.update(check_quant_kernels(torch))
     kres["q4_mlp"] = check_mlp_kernel(torch)
-    kres["decode_attention_appended"].update(check_decode_storage(torch))
+    check_tower_gradient(torch)
 
     log("phase 4: small model, card against plain CPU path")
     check_small_model(torch)
@@ -1243,6 +1254,15 @@ def main() -> int:
         f"(decoder {param_bytes(params['llm']) / 2**30:.2f}) in "
         f"{time.perf_counter() - t0:.1f} s")
     drive("bf16", params, both)
+    # K1 once a tower layer and decoder layer per prefill (two batches and the
+    # re-timed prefill, sparse and dense): the differentiable tower costs
+    # serving no launch
+    vis = cfg_sparse.vision
+    per_prefill = (vis.num_hidden_layers + vis.select_layer + 1
+                   + cfg_sparse.text.num_hidden_layers)
+    require(launches["flash_attention_fwd"] == 2 * 3 * per_prefill,
+            f"bf16 path: K1 launched {launches['flash_attention_fwd']} times, not "
+            f"{2 * 3 * per_prefill}")
 
     log("phase 6: quantized serving at 7B width")
     t0 = time.perf_counter()
@@ -1369,10 +1389,13 @@ def main() -> int:
                           "dynamic_llava_tpu/ops/quant_matmul.py:538"),
         "q4_mlp": (csrc + "quant_mlp.cu", "dynamic_llava_tpu/ops/quant_matmul.py:706"),
     }
-    # beside the required keys: K2's int8 and fp8 storage readings, K9's
+    # beside the required keys: K2's int8 and fp8 storage readings and its
+    # other shapes, every GEMV shape's readings by rows, K9's
     # two-kernel time (K8 + silu*mul + K7) and 13B-shape readings, K1's CLIP
     # shape and full-length readings, K3's delta kernel and whole backward
-    extra = {"decode_attention_appended": ("int8", "fp8"),
+    extra = {"decode_attention_appended": ("int8", "fp8", "shapes"),
+             "q8_gemv": ("shapes",), "q8_gemv_group": ("shapes",),
+             "q4_gemv": ("shapes",), "q4_gemv_group": ("shapes",),
              "q4_mlp": ("two_kernel_ms", "shapes"),
              "flash_attention_fwd": ("full_length_ms", "library_full_length_ms", "clip",
                                      "train_shape"),

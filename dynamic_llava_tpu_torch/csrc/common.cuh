@@ -145,10 +145,41 @@ __device__ __forceinline__ float hi4_at(uint32_t u, int i) {
   return magic_float(((u >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, i) - 8388616.f;
 }
 
-__device__ __forceinline__ float load_scale(const void* s, int col, int dtype) {
+// element idx of a bf16 or fp32 array (DType code) as a float
+__device__ __forceinline__ float load_float(const void* p, size_t idx, int dtype) {
   return dtype == kBFloat16
-             ? __bfloat162float(static_cast<const __nv_bfloat16*>(s)[col])
-             : static_cast<const float*>(s)[col];
+             ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[idx])
+             : static_cast<const float*>(p)[idx];
+}
+// Two weights straight to a bf16x2 register (the B operand of mma_bf16 holds
+// K rows 2t and 2t + 1 of a column side by side), exactly and without a trip
+// through fp32: a bf16 with the bits 0x4300 | m is 128 + m for m < 128, and
+// the difference of two such numbers is exact.
+__device__ __forceinline__ uint32_t bf16x2_sub(uint32_t a, uint32_t b) {
+  const __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&a),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&b));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+// byte i (0 or 1) of w's low half into bits 0-7 and byte i of its high half
+// into bits 16-23 (bits 8-15 and 24-31 repeat them and are masked off by the
+// callers)
+__device__ __forceinline__ uint32_t pair_bytes(uint32_t w, int i) {
+  return __byte_perm(w, w, i | (i << 4) | ((2 + i) << 8) | ((2 + i) << 12));
+}
+// int8 bytes of a pair: b = (128 + b[6:0]) - (128 + 128 b[7])
+__device__ __forceinline__ uint32_t s8_pair(uint32_t pair) {
+  return bf16x2_sub((pair & 0x007F007Fu) | 0x43004300u, (pair & 0x00800080u) | 0x43004300u);
+}
+// int4 low / high nibbles of a pair: n = (128 + (n xor 8)) - 136
+__device__ __forceinline__ uint32_t lo4_pair(uint32_t pair) {
+  return bf16x2_sub((pair & 0x000F000Fu) ^ 0x43084308u, 0x43084308u);
+}
+__device__ __forceinline__ uint32_t hi4_pair(uint32_t pair) {
+  return bf16x2_sub(((pair >> 4) & 0x000F000Fu) ^ 0x43084308u, 0x43084308u);
+}
+
+__device__ __forceinline__ float load_scale(const void* s, int col, int dtype) {
+  return load_float(s, col, dtype);
 }
 
 __device__ __forceinline__ void store_out(void* y, size_t idx, float v, int dtype) {
@@ -232,6 +263,13 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
 }
+// two 8 x 8 b16 matrices, transposed: lanes 0-7 hand in the rows of the first,
+// lanes 8-15 those of the second
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
@@ -280,6 +318,22 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Blocks that each wrote a partial result to global memory meet here: called
+// by every thread of a block after its writes, it is true in the last of the
+// n blocks to arrive on *ticket (which starts at 0), and there every other
+// block's writes are visible (read them with __ldcg). That block puts
+// *ticket back to 0 once it is done.
+__device__ __forceinline__ bool last_block_to_arrive(int* ticket, int n) {
+  __shared__ int last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(ticket, 1) == n - 1;
+  __syncthreads();
+  const bool is_last = last != 0;
+  if (is_last) __threadfence();
+  return is_last;
 }
 
 inline int sm_count() {

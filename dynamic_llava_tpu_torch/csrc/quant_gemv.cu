@@ -5,7 +5,7 @@
 //   K6 _q8_gemv_multi_kernel  (matmul_q8_multi_pallas)  -> q8_gemv_group
 //   K7 _q4_gemv_kernel        (matmul_q4_pallas)        -> q4_gemv
 //   K8 _q4_gemv_multi_kernel  (matmul_q4_multi_pallas)  -> q4_gemv_group
-// The four entry points share the kernels below. They compute
+// The four entry points share the two kernels below. They compute
 // y = (x @ q) * s for x [rows <= 64, K] (bf16 or fp32), an int8 weight
 // q [K, N] or a split-half packed int4 weight [K, N/2] (byte j: column j in
 // the low nibble, column N/2 + j in the high nibble), per-output-column
@@ -17,37 +17,51 @@
 // What bounds it on the H100: bytes of weight read per call. At decode row
 // counts a GEMV does `rows` multiply-adds per weight element, far below the
 // card's ~295 flop/byte balance point, so the weight stream from HBM is the
-// cost (int8: K*N bytes, int4: K*N/2). The design reads every weight byte
-// from HBM exactly once, whatever the row count, keeps a whole block's share
-// of it in flight at once, and spends as few instructions per weight as it
-// can:
+// cost (int8: K*N bytes, int4: K*N/2). Both kernels read every weight byte
+// from HBM exactly once, whatever the row count, and turn int8 and int4
+// values into floats by a byte permute into the mantissa of 2^23 and one
+// subtraction (exact, and cheaper than I2F; int4 nibbles sign-extend through
+// `xor 8`).
+//
+// bf16 x (the serving path), gemv_tc_kernel: what it must do is keep HBM
+// busy from the first cycle of a launch to the last, on every SM, in pieces
+// that DRAM serves well.
+// - persistent blocks, one an SM, each walking a fixed list of cells: a
+//   256-column tile (rows of 256 or 128 contiguous bytes) times a slice of K,
+//   in units of 128 or 256 K rows (32 KB of weights). The list is a pure
+//   function of the shapes and the SM count. Cells are ordered slice by
+//   slice and handed out round-robin, so the blocks that run side by side
+//   read neighbouring tiles of the same K rows at the same pace and DRAM sees
+//   whole rows; the number of slices is the one that fills the SMs' waves
+//   best (the o projection's 16 int8 tiles are cut in 8, gate/up's 86 in 3);
+// - a ring of 4-5 shared-memory stages across units: the cp.async copies of
+//   the next units (weights and the matching columns of x, one commit group
+//   a unit) are in flight while this one is multiplied, from one tile into
+//   the next, at the price of one block barrier a unit (an mbarrier that
+//   every thread arrives on costs more than the products of a unit);
+// - tensor cores: mma.sync m16n8k16 with bf16 inputs and fp32 sums. A warp
+//   owns 32 columns of the tile (32 bytes of every int8 row; 16 bytes of an
+//   int4 row, 16 low and 16 high columns), so the 8 warps never share a sum.
+//   One ldmatrix.trans brings a k16 step of them, 2 bytes a lane and row
+//   pair, laid out as the B operand wants them; the cost per weight is the
+//   conversion, not the row count;
+// - an unsliced tile is scaled and stored from registers. A sliced one: each
+//   cell writes its partial tile to an fp32 scratch, and the last of the
+//   tile's blocks to arrive (a ticket, common.cuh) sums the partial tiles in
+//   slice order, so no atomics touch a value and every call gives the same
+//   bits;
+// - the weights go from bytes to bf16 pairs without a trip through fp32
+//   (common.cuh, s8_pair).
+// fp32 x, gemv_fma_kernel: FP32 FMAs on CUDA cores (tensor cores would round
+// x), as first written for this card:
 // - a cluster of 1-8 blocks owns a 64-column tile; each block takes a
-//   slice of at most 2048 K rows, and the blocks' partial tiles are summed
-//   in rank order through distributed shared memory (no global workspace,
-//   no atomics). The split is the larger of what fills the SMs (N = 4096
-//   alone has only 64 tiles) and what fits the slice;
-// - at entry every thread issues its 16-byte cp.async copies of the whole
-//   slice into shared memory (up to 160 KB with the row padding that
-//   spreads banks), in groups of 256 rows, each group completing an
-//   mbarrier; the math on a group starts as soon as it has landed, while
-//   the later groups are still in flight;
-// - int8 and int4 values become floats by a byte permute into the
-//   mantissa of 2^23 and one subtraction (exact, and cheaper than I2F);
-//   int4 nibbles sign-extend through `xor 8`;
-// - bf16 x (the serving path): tensor cores, mma.sync m16n8k16 with bf16
-//   inputs and fp32 sums. A warp converts a 16 x 32-byte block of the
-//   slice to bf16 B fragments (4 ld.shared of 4 bytes a thread, the 4
-//   bytes being 4 n8 tiles, so the physical columns are interleaved) and
-//   multiplies it with every 16-row tile of x; the cost per weight is the
-//   conversion, not the row count. int8 blocks split the tile in two column
-//   groups of 32 (4 warps each along K), int4 blocks take the 32 packed
-//   bytes = 64 columns in one group (8 warps along K);
-// - fp32 x: FP32 FMAs on CUDA cores (tensor cores would round x). Each
-//   weight element is read by one thread and applied to every row of x:
+//   slice of at most 2048 K rows, copied whole at entry (cp.async in groups of
+//   256 rows, each completing an mbarrier), and the blocks' partial tiles are
+//   summed in rank order through distributed shared memory;
+// - each weight element is read by one thread and applied to every row of x:
 //   64 fp32 accumulators a thread (128 at 64 rows), MT rows (x's rows
 //   rounded up to 8, 16, 32 or 64) times 64/MT columns.
-// Left for later: wgmma and TMA tensor copies of the slice, and a larger
-// share of HBM bandwidth (PERF.md).
+// Left for later: wgmma, and TMA copies of the units (PERF.md).
 
 #include <cooperative_groups.h>
 
@@ -164,128 +178,338 @@ __device__ __forceinline__ void finish(float* part, int nparts, const Group& g,
 }
 
 // ----------------------------------------------------------------------------
-// bf16 x: tensor cores.
+// bf16 x: tensor cores, persistent blocks.
+//
+// The work is a list of cells, a pure function of the shapes and the SM
+// count: a cell is a column tile (256 output columns: 256 contiguous bytes of
+// an int8 row, 128 of an int4 row, whose low nibbles are 128 columns of the
+// low half and whose high nibbles the matching 128 of the high half) times a
+// slice of K, `chunks` units of KR rows (a unit is 32 KB of weights). Cell
+// c = slice * tiles + tile, over the tiles of the group's weights in order;
+// block b of the grid (one an SM) takes cells b, b + grid, ...: blocks that run
+// side by side read neighbouring tiles of the same K rows at the same pace,
+// so DRAM sees whole rows, not 256-byte pieces a row stride apart.
+
+constexpr int kItemCols = 256;  // output columns of a column tile
 
 template <int MT, bool INT4>
 struct TcShape {
-  static constexpr int Threads = 256;
-  static constexpr int Warps = Threads / 32;
-  static constexpr int CG = INT4 ? 1 : 2;   // 32-byte column groups of a tile row
-  static constexpr int KLW = Warps / CG;    // warps along K
-  static constexpr int NT = INT4 ? 8 : 4;   // n8 tiles of a warp
+  static constexpr int TB = INT4 ? kItemCols / 2 : kItemCols;  // weight bytes of a tile row
+  static constexpr int Warps = 8;
+  static constexpr int Threads = 32 * Warps;
+  static constexpr int WB = TB / Warps;  // bytes of a row a warp owns: 2 or 1 ldmatrix rows
+  static constexpr int KR = 32768 / TB;  // K rows of a unit: 128 or 256
+  static constexpr int RS = TB + 16;     // padded row stride: ldmatrix without bank conflicts
+  static constexpr int NT = 4;           // n8 tiles of a warp
   static constexpr int MTILES = MT / 16;
-  static constexpr int TK = 16384 / MT;     // K rows of x per staged chunk (32 KB)
-  static constexpr int SX = TK + 8;         // x row stride in elements (bank spread)
-  static_assert(TK % kGroupRows == 0, "chunks of whole groups");
-  // shared memory: [x chunk][weight slice, later the partial tiles][mbarriers]
+  static constexpr int kAccFloats = MTILES * NT * 4;  // accumulators a thread
+  static constexpr int SX = KR + 8;      // x row stride in elements (bank spread)
+  // a stage of the ring: [x chunk MT x SX bf16][weights KR x RS bytes]
   static constexpr int kXBytes = 2 * MT * SX;
-  static constexpr int kSlabBytes = kSlabRows * kRowStride<INT4>;
-  static constexpr int kPartBytes = 4 * KLW * MT * kTileCols;
-  static constexpr int kMidBytes = kSlabBytes > kPartBytes ? kSlabBytes : kPartBytes;
-  static constexpr int kSmemBytes = kXBytes + kMidBytes + 8 * kMaxGroups;
+  static constexpr int kStageBytes = kXBytes + KR * RS;
+  static constexpr int kBudget = 220 * 1024;
+  static constexpr int Stages = kBudget / kStageBytes < 6 ? kBudget / kStageBytes : 6;
+  static constexpr int kSmemBytes = Stages * kStageBytes;
+  // a cell's partial tile in the scratch: the 4 floats of an mma tile a
+  // thread, MT rows times 256 columns in all
+  static constexpr int kPartFloats = kAccFloats * Threads;
+  static_assert(kPartFloats == MT * kItemCols && Stages >= 3, "partial tile; ring depth");
+  static_assert(WB == (INT4 ? 16 : 32), "ldmatrix rows a warp");
 };
+
+// column tiles of all weights of a group
+inline int group_tiles(const Group& g) {
+  int tiles = 0;
+  for (int j = 0; j < g.nw; ++j) tiles += (g.n[j] + kItemCols - 1) / kItemCols;
+  return tiles;
+}
+
+constexpr int kMaxSlices = 16;
+
+struct TcPlan {
+  int tiles;   // column tiles of all weights
+  int slices;  // K slices of a tile: blocks that share one tile's sum
+  int chunks;  // units of a slice (the last slice may have fewer)
+  int grid;    // persistent blocks
+};
+
+// The slices that cost the fewest half unit times: waves of cells over the SMs
+// times two for each unit of a cell, plus one for a cell's partial tile and
+// its share of the sum when the tiles are sliced at all; ties go to fewer
+// slices.
+inline TcPlan tc_plan(int tiles, int K, int unit_rows) {
+  const int nkc = (K + unit_rows - 1) / unit_rows, sms = sm_count();
+  TcPlan best{};
+  long best_cost = -1;
+  for (int want = 1; want <= kMaxSlices && want <= nkc; ++want) {
+    const int chunks = (nkc + want - 1) / want;
+    const int slices = (nkc + chunks - 1) / chunks;
+    const long cells = long(tiles) * slices;
+    const long cost = (cells + sms - 1) / sms * (2 * chunks + (slices > 1 ? 1 : 0));
+    if (best_cost < 0 || cost < best_cost) {
+      best_cost = cost;
+      best = TcPlan{tiles, slices, chunks, static_cast<int>(cells < sms ? cells : sms)};
+    }
+  }
+  return best;
+}
 
 template <int MT, bool INT4>
 __global__ void __launch_bounds__(TcShape<MT, INT4>::Threads, 1)
 gemv_tc_kernel(const __nv_bfloat16* __restrict__ x, Group g, int rows, int K,
-               int s_dtype, int y_dtype) {
+               int s_dtype, int y_dtype, TcPlan plan, float* __restrict__ scratch,
+               int* __restrict__ tickets) {
   using S = TcShape<MT, INT4>;
-  constexpr int RS = kRowStride<INT4>;
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
-  unsigned char* slab = smem + S::kXBytes;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + S::kXBytes + S::kMidBytes);
-  cg::cluster_group cluster = cg::this_cluster();
-  const Slice sl = locate(g, static_cast<int>(cluster.num_blocks()),
-                          static_cast<int>(cluster.block_rank()), K);
-  const int ngroups = copy_slice<INT4, S::Threads>(slab, bars, g, sl);
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int cgi = warp % S::CG, kl = warp / S::CG;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, tq = lane & 3;  // mma fragment coordinates
+  const int G = gridDim.x;
+
+  // x rows past `rows` are never copied: they stay zero
+  for (int s = 0; s < S::Stages; ++s)
+    for (int i = tid; i < S::kXBytes / 16; i += S::Threads)
+      reinterpret_cast<uint4*>(smem + s * S::kStageBytes)[i] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+
+  const int nkc = (K + S::KR - 1) / S::KR;  // units of a tile
+  const int cells = plan.tiles * plan.slices;
+
+  // A position in the block's list of units: unit j of cell c, which is K
+  // rows [k0, k0 + KR) of column tile `tile` of weight `w`. The producer
+  // (copies) and the consumer (products) each walk the list.
+  struct Walk {
+    int c, j, chunks;     // cell, unit in it, units of the cell
+    int w, tile, gtile;   // weight, tile in it, tile over all weights
+    int k0;
+  };
+  auto enter = [&](Walk& p, int c) {  // at unit 0 of cell c (if there is one)
+    p.c = c;
+    p.j = 0;
+    if (c >= cells) return;
+    const int slice = c / plan.tiles;
+    p.gtile = c - slice * plan.tiles;
+    p.chunks = min(plan.chunks, nkc - slice * plan.chunks);
+    p.k0 = slice * plan.chunks * S::KR;
+    p.tile = p.gtile;
+    p.w = 0;
+    for (; p.w < g.nw - 1; ++p.w) {
+      const int t = (g.n[p.w] + kItemCols - 1) / kItemCols;
+      if (p.tile < t) break;
+      p.tile -= t;
+    }
+  };
+  auto advance = [&](Walk& p) {
+    if (++p.j == p.chunks)
+      enter(p, p.c + G);
+    else
+      p.k0 += S::KR;
+  };
+  auto stage_of = [&](uint32_t n) { return smem + (n % S::Stages) * S::kStageBytes; };
+  // this thread's cp.async copies of the unit at `p` into the stage of the
+  // block's n-th unit (the caller commits them as one group)
+  auto send = [&](uint32_t n, const Walk& p) {
+    const int nrows = min(S::KR, K - p.k0);
+    const int ldw = INT4 ? g.n[p.w] / 2 : g.n[p.w];  // bytes of a weight row
+    const int valid = min(S::TB, ldw - p.tile * S::TB) / 16;  // 16-byte pieces of a tile row
+    unsigned char* xd = stage_of(n);
+    unsigned char* wd = xd + S::kXBytes;
+    const int8_t* src = g.w[p.w] + size_t(p.k0) * ldw + size_t(p.tile) * S::TB;
+    constexpr int kPieces = S::TB / 16;  // of a whole tile row
+    const int piece = tid % kPieces;
+    if (piece < valid)
+      for (int row = tid / kPieces; row < nrows; row += S::Threads / kPieces)
+        cp_async16(wd + row * S::RS + piece * 16, src + size_t(row) * ldw + piece * 16);
+    // whole k16 steps of x: a last half step is zero-filled, so the weight
+    // rows past the unit (stale bytes, always finite) meet zeros
+    constexpr int kXPieces = S::KR / 8;  // 16-byte pieces of a whole x row
+    const int xvalid = (nrows + 15) / 16 * 2;
+    __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(xd);
+    for (int c = tid; c < rows * kXPieces; c += S::Threads) {
+      const int r = c / kXPieces, k8 = c % kXPieces * 8;
+      if (k8 >= xvalid * 8) continue;
+      const bool ok = k8 < nrows;
+      cp_async16_zfill(xs + r * S::SX + k8, x + (ok ? size_t(r) * K + p.k0 + k8 : 0), ok);
+    }
+  };
+
   float acc[S::MTILES][S::NT][4];
+  auto zero_acc = [&]() {
 #pragma unroll
-  for (int m = 0; m < S::MTILES; ++m)
+    for (int m = 0; m < S::MTILES; ++m)
+#pragma unroll
+      for (int n = 0; n < S::NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+  };
+  // adds the products of the block's n-th unit (landed) to acc: every warp
+  // walks all k16 steps on its own 16 bytes of the tile's rows
+  auto compute = [&](uint32_t n, int nrows) {
+    const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(stage_of(n));
+    // the row this lane hands to ldmatrix: k row lane % 16 of a step (int8:
+    // lanes 16-31 the warp's second 16 bytes of it)
+    const unsigned char* slab = stage_of(n) + S::kXBytes + (lane & 15) * S::RS +
+                                warp * S::WB + (INT4 ? 0 : (lane >> 4) * 16);
+#pragma unroll(S::MTILES >= 4 ? 1 : 2)  // two steps in flight where registers allow
+    for (int st = 0; st * 16 < nrows; ++st) {
+      // 16 k rows x 16 bytes, transposed by ldmatrix as if they were b16:
+      // w[h] holds bytes 2 gq and 2 gq + 1 of k rows 8 h + 2 tq (low half)
+      // and 8 h + 2 tq + 1 (high half); int8: w[2 + h] the same of the second
+      // 16 bytes. Byte t of both rows, side by side, is the B fragment of an
+      // n8 tile, fragment column gq: int8 tile 2 c + t for 16-byte group c,
+      // int4 tile t (low nibbles) and tile 2 + t (high nibbles).
+      uint32_t w[S::WB / 8];
+      if constexpr (INT4)
+        ldmatrix_x2_trans(w, slab + st * 16 * S::RS);
+      else
+        ldmatrix_x4_trans(w, slab + st * 16 * S::RS);
+      uint32_t b[S::NT][2];
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if constexpr (INT4) {
+            const uint32_t pair = pair_bytes(w[h], t);
+            b[t][h] = lo4_pair(pair);
+            b[2 + t][h] = hi4_pair(pair);
+          } else {
+            b[t][h] = s8_pair(pair_bytes(w[h], t));
+            b[2 + t][h] = s8_pair(pair_bytes(w[2 + h], t));
+          }
+        }
+#pragma unroll
+      for (int m = 0; m < S::MTILES; ++m) {
+        uint32_t af[4];
+        ldmatrix_x4(af, frag_ptr(xs, S::SX, 16 * m, st * 16, lane));
+#pragma unroll
+        for (int n = 0; n < S::NT; ++n) mma_bf16(acc[m][n], af, b[n]);
+      }
+    }
+  };
+  // the output column of accumulator column (n, e) of the tile at `p`, or -1
+  // past a narrower last tile: fragment column 2 tq + e of n8 tile n (int4:
+  // tiles 2, 3 are the high half; int8: the warp's second 16 bytes)
+  auto col_of = [&](const Walk& p, int n, int e) {
+    const int N = g.n[p.w], ldw = INT4 ? N / 2 : N;
+    const int byte = p.tile * S::TB + warp * S::WB + (INT4 ? 0 : (n >> 1) * 16) +
+                     2 * (2 * tq + e) + (n & 1);
+    if (byte >= ldw) return -1;
+    return INT4 && n >= 2 ? N / 2 + byte : byte;
+  };
+  // the scales of this thread's columns, fetched when a cell begins so that
+  // the store at its end does not wait for them
+  float scale[S::NT][2];
+  auto fetch_scales = [&](const Walk& p) {
 #pragma unroll
     for (int n = 0; n < S::NT; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
-
-  int landed = 0;  // groups this thread has waited for
-  for (int c0 = 0; c0 < sl.nrows; c0 += S::TK) {  // slice rows of the x chunk
-    __syncthreads();  // every warp is done with the previous chunk
-    // x rows [0, rows) x K rows [kb + c0, + TK) -> xs[MT][SX], zero-padded,
-    // 16 bytes (8 elements of one row) a load
-    const int kc = min(S::TK, sl.nrows - c0);
-    for (int idx = threadIdx.x; idx < MT * S::TK / 8; idx += S::Threads) {
-      const int r = idx / (S::TK / 8), k8 = idx % (S::TK / 8) * 8;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (r < rows && k8 < kc)
-        v = *reinterpret_cast<const uint4*>(x + size_t(r) * K + sl.kb + c0 + k8);
-      *reinterpret_cast<uint4*>(xs + r * S::SX + k8) = v;
-    }
-    __syncthreads();
-    for (int st = kl; st * 16 < kc; st += S::KLW) {  // k16 steps of this warp
-      const int r0 = c0 + st * 16;  // slice row of the step
-      const int need = min(ngroups, (r0 + 16 + kGroupRows - 1) / kGroupRows);
-      while (landed < need) mbar_wait(&bars[landed++]);
-      // B fragments: rows r0 + 2tq, +1, +8, +9 of the slice, 4 bytes at
-      // column 4 gq of the warp's 32-byte group: byte t is n8 tile t (int4:
-      // its low nibble tile t, its high nibble tile 4 + t), fragment
-      // column gq. Rows past the slice hold stale bytes and meet zeros of x.
-      const unsigned char* wb = slab + (r0 + 2 * tq) * RS + cgi * 32 + 4 * gq;
-      const uint32_t w0 = *reinterpret_cast<const uint32_t*>(wb);
-      const uint32_t w1 = *reinterpret_cast<const uint32_t*>(wb + RS);
-      const uint32_t w8 = *reinterpret_cast<const uint32_t*>(wb + 8 * RS);
-      const uint32_t w9 = *reinterpret_cast<const uint32_t*>(wb + 9 * RS);
-      uint32_t b[S::NT][2];
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        if constexpr (INT4) {
-          b[t][0] = pack_bf16(lo4_at(w0, t), lo4_at(w1, t));
-          b[t][1] = pack_bf16(lo4_at(w8, t), lo4_at(w9, t));
-          b[4 + t][0] = pack_bf16(hi4_at(w0, t), hi4_at(w1, t));
-          b[4 + t][1] = pack_bf16(hi4_at(w8, t), hi4_at(w9, t));
-        } else {
-          b[t][0] = pack_bf16(s8_at(w0, t), s8_at(w1, t));
-          b[t][1] = pack_bf16(s8_at(w8, t), s8_at(w9, t));
-        }
+      for (int e = 0; e < 2; ++e) {
+        const int col = col_of(p, n, e);
+        scale[n][e] = col < 0 ? 0.f : load_scale(g.s[p.w], col, s_dtype);
       }
+  };
+  // scales and stores the tile held in acc: accumulator (m, n, e) is x row
+  // 16 m + gq (+ 8 for e >= 2) and column (n, e % 2)
+  auto store_tile = [&](const Walk& p) {
+    const int N = g.n[p.w];
 #pragma unroll
-      for (int m = 0; m < S::MTILES; ++m) {
-        const __nv_bfloat16* xa = xs + (16 * m + gq) * S::SX + st * 16 + 2 * tq;
-        uint32_t a[4];
-        a[0] = *reinterpret_cast<const uint32_t*>(xa);
-        a[1] = *reinterpret_cast<const uint32_t*>(xa + 8 * S::SX);
-        a[2] = *reinterpret_cast<const uint32_t*>(xa + 8);
-        a[3] = *reinterpret_cast<const uint32_t*>(xa + 8 * S::SX + 8);
+    for (int n = 0; n < S::NT; ++n)
 #pragma unroll
-        for (int n = 0; n < S::NT; ++n) mma_bf16(acc[m][n], a, b[n]);
+      for (int e = 0; e < 2; ++e) {
+        const int col = col_of(p, n, e);
+        if (col < 0) continue;
+#pragma unroll
+        for (int m = 0; m < S::MTILES; ++m)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int row = 16 * m + gq + 8 * half;
+            if (row < rows)
+              store_out(g.y[p.w], size_t(row) * N + col,
+                        acc[m][n][2 * half + e] * scale[n][e], y_dtype);
+          }
+      }
+  };
+  auto part_of = [&](int cell) {
+    return reinterpret_cast<float4*>(scratch + size_t(cell) * S::kPartFloats) + tid;
+  };
+
+  // One cp.async group a unit, Stages - 1 of them in flight (empty groups
+  // past the block's last unit keep the count). Per unit one barrier: past
+  // it this unit's copies of every thread have landed, and every warp is
+  // done with the unit before, whose stage the next copies then take.
+  uint32_t sent = 0, done = 0;
+  Walk producer, cur;
+  enter(producer, blockIdx.x);
+  enter(cur, blockIdx.x);
+  auto send_next = [&]() {
+    if (producer.c < cells) {
+      send(sent, producer);
+      advance(producer);
+    }
+    ++sent;
+    cp_async_commit();
+  };
+  for (int i = 0; i < S::Stages - 1; ++i) send_next();
+  for (; cur.c < cells; advance(cur)) {
+    cp_async_wait<S::Stages - 2>();
+    __syncthreads();
+    send_next();
+    if (cur.j == 0) {
+      zero_acc();
+      fetch_scales(cur);
+    }
+    compute(done++, min(S::KR, K - cur.k0));
+    if (cur.j == cur.chunks - 1) {  // the cell is summed
+      if (plan.slices == 1) {
+        store_tile(cur);
+      } else {
+        // the tile is shared by `slices` cells: the partial tile goes to the
+        // scratch (16 bytes a thread and mma tile, for the m tiles that hold
+        // rows of x), and the last of the tile's blocks to arrive sums the
+        // partial tiles in slice order
+        float4* part = part_of(cur.c);
+#pragma unroll
+        for (int m = 0; m < S::MTILES; ++m)
+          if (16 * m + gq < rows)
+#pragma unroll
+            for (int n = 0; n < S::NT; ++n)
+              part[(m * S::NT + n) * S::Threads] =
+                  make_float4(acc[m][n][0], acc[m][n][1], acc[m][n][2], acc[m][n][3]);
+        if (last_block_to_arrive(&tickets[cur.gtile], plan.slices)) {
+          // kDepth slices' loads in flight at a time (as registers allow): the
+          // sum waits for one L2 round trip a batch, not one a slice
+          constexpr int kDepth = S::kAccFloats >= 64 ? 2 : S::MTILES == 1 ? 8 : 4;
+          zero_acc();
+#pragma unroll
+          for (int m = 0; m < S::MTILES; ++m) {
+            if (16 * m + gq >= rows) continue;
+            for (int s0 = 0; s0 < plan.slices; s0 += kDepth) {
+              float4 buf[kDepth][S::NT];
+#pragma unroll
+              for (int d = 0; d < kDepth; ++d)
+                if (s0 + d < plan.slices) {
+                  const float4* ps = part_of((s0 + d) * plan.tiles + cur.gtile);
+#pragma unroll
+                  for (int n = 0; n < S::NT; ++n)
+                    buf[d][n] = __ldcg(ps + (m * S::NT + n) * S::Threads);
+                }
+#pragma unroll
+              for (int d = 0; d < kDepth; ++d)
+                if (s0 + d < plan.slices)
+#pragma unroll
+                  for (int n = 0; n < S::NT; ++n) {
+                    acc[m][n][0] += buf[d][n].x;
+                    acc[m][n][1] += buf[d][n].y;
+                    acc[m][n][2] += buf[d][n].z;
+                    acc[m][n][3] += buf[d][n].w;
+                  }
+            }
+          }
+          store_tile(cur);
+          if (tid == 0) tickets[cur.gtile] = 0;  // for the next launch (a graph replay too)
+        }
       }
     }
   }
-  while (landed < ngroups) mbar_wait(&bars[landed++]);  // the slab is reused below
-
-  // each K-lane warp writes its partial tile part[kl][MT][kTileCols] over the
-  // consumed slice: accumulator (m, n, e) is row 16 m + gq (+8 for e >= 2),
-  // fragment column 2 tq + e % 2, i.e. tile column 4 (2 tq + e % 2) + n in
-  // the warp's group (int4: n < 4 low half, n >= 4 high half)
-  __syncthreads();
-  float* part = reinterpret_cast<float*>(slab);
-  float* mine = part + kl * MT * kTileCols;
-#pragma unroll
-  for (int m = 0; m < S::MTILES; ++m)
-#pragma unroll
-    for (int n = 0; n < S::NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = 16 * m + gq + (e >= 2 ? 8 : 0);
-        const int fc = 4 * (2 * tq + (e & 1));
-        const int col = INT4 ? (n < 4 ? fc + n : kTileCols / 2 + fc + n - 4)
-                             : cgi * 32 + fc + n;
-        mine[row * kTileCols + col] = acc[m][n][e];
-      }
-  finish<MT, INT4, S::Threads>(part, S::KLW, g, sl, rows, s_dtype, y_dtype, cluster);
 }
 
 // ----------------------------------------------------------------------------
@@ -460,8 +684,8 @@ int pick_split(int tiles, int K) {
   return s > need ? s : need;
 }
 
-template <typename X>
-cudaError_t launch(void (*kernel)(const X*, Group, int, int, int, int),
+// the cluster launch of the fp32-x kernel
+cudaError_t launch(void (*kernel)(const float*, Group, int, int, int, int),
                    int threads, int smem_bytes, const void* x, const Group& g,
                    int rows, int K, int s_dtype, int y_dtype, cudaStream_t stream) {
   int tiles = 0;
@@ -480,22 +704,42 @@ cudaError_t launch(void (*kernel)(const X*, Group, int, int, int, int),
   cluster[0].val.clusterDim.z = 1;
   cfg.attrs = cluster;
   cfg.numAttrs = 1;
-  const X* xp = static_cast<const X*>(x);
+  const float* xp = static_cast<const float*>(x);
   const cudaError_t err =
       cudaLaunchKernelEx(&cfg, kernel, xp, g, rows, K, s_dtype, y_dtype);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+// fp32 scratch of the tensor-core kernel: a partial tile a cell
+struct Scratch {
+  float* p;
+  long long bytes;
+  int* tickets;  // one per column tile, zero between launches
+};
+
+template <int MT, bool INT4>
+long long tc_scratch_bytes(const TcPlan& p) {
+  return p.slices == 1 ? 0 : 4LL * p.tiles * p.slices * TcShape<MT, INT4>::kPartFloats;
+}
+
 template <int MT, bool INT4>
 cudaError_t launch_tc(const void* x, const Group& g, int rows, int K, int s_dtype,
-                      int y_dtype, cudaStream_t stream) {
+                      int y_dtype, const Scratch& sc, cudaStream_t stream) {
   using S = TcShape<MT, INT4>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       gemv_tc_kernel<MT, INT4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       S::kSmemBytes);
   if (attr != cudaSuccess) return attr;
-  return launch<__nv_bfloat16>(gemv_tc_kernel<MT, INT4>, S::Threads, S::kSmemBytes,
-                               x, g, rows, K, s_dtype, y_dtype, stream);
+  const TcPlan plan = tc_plan(group_tiles(g), K, S::KR);
+  if (plan.slices > 1 &&
+      (sc.p == nullptr || sc.tickets == nullptr ||
+       reinterpret_cast<uintptr_t>(sc.p) % 16 != 0 ||
+       sc.bytes < tc_scratch_bytes<MT, INT4>(plan)))
+    return cudaErrorInvalidValue;
+  gemv_tc_kernel<MT, INT4><<<plan.grid, S::Threads, S::kSmemBytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), g, rows, K, s_dtype, y_dtype, plan, sc.p,
+      sc.tickets);
+  return cudaGetLastError();
 }
 
 template <int MT, bool INT4>
@@ -506,17 +750,18 @@ cudaError_t launch_fma(const void* x, const Group& g, int rows, int K, int s_dty
       gemv_fma_kernel<MT, INT4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       S::kSmemBytes);
   if (attr != cudaSuccess) return attr;
-  return launch<float>(gemv_fma_kernel<MT, INT4>, S::Threads, S::kSmemBytes, x, g,
+  return launch(gemv_fma_kernel<MT, INT4>, S::Threads, S::kSmemBytes, x, g,
                        rows, K, s_dtype, y_dtype, stream);
 }
 
 template <bool INT4>
 cudaError_t launch_rows(const void* x, bool bf16, const Group& g, int rows, int K,
-                        int s_dtype, int y_dtype, cudaStream_t stream) {
+                        int s_dtype, int y_dtype, const Scratch& sc,
+                        cudaStream_t stream) {
   if (bf16) {
-    if (rows <= 16) return launch_tc<16, INT4>(x, g, rows, K, s_dtype, y_dtype, stream);
-    if (rows <= 32) return launch_tc<32, INT4>(x, g, rows, K, s_dtype, y_dtype, stream);
-    return launch_tc<64, INT4>(x, g, rows, K, s_dtype, y_dtype, stream);
+    if (rows <= 16) return launch_tc<16, INT4>(x, g, rows, K, s_dtype, y_dtype, sc, stream);
+    if (rows <= 32) return launch_tc<32, INT4>(x, g, rows, K, s_dtype, y_dtype, sc, stream);
+    return launch_tc<64, INT4>(x, g, rows, K, s_dtype, y_dtype, sc, stream);
   }
   if (rows <= 8) return launch_fma<8, INT4>(x, g, rows, K, s_dtype, y_dtype, stream);
   if (rows <= 16) return launch_fma<16, INT4>(x, g, rows, K, s_dtype, y_dtype, stream);
@@ -524,24 +769,30 @@ cudaError_t launch_rows(const void* x, bool bf16, const Group& g, int rows, int 
   return launch_fma<64, INT4>(x, g, rows, K, s_dtype, y_dtype, stream);
 }
 
+bool shapes_ok(const Group& g, int rows, int K) {
+  if (rows < 1 || rows > 64 || K < 8 || K % 8 != 0 || K > kMaxSplit * kSlabRows ||
+      g.nw < 1 || g.nw > kMaxGroup)
+    return false;
+  for (int j = 0; j < g.nw; ++j)
+    if (g.n[j] <= 0 || g.n[j] % kTileCols != 0) return false;
+  return true;
+}
+
 int dispatch(const void* x, const Group& g, int rows, int K, bool int4,
-             int x_dtype, int s_dtype, int y_dtype, void* stream) {
+             int x_dtype, int s_dtype, int y_dtype, const Scratch& sc, void* stream) {
   // the one statement of the shape contract (the Python wrappers check only
   // devices, dtypes, shapes and contiguity, which these pointers cannot show)
-  if (rows < 1 || rows > 64 || K < 8 || K % 8 != 0 || K > kMaxSplit * kSlabRows ||
-      reinterpret_cast<uintptr_t>(x) % 16 != 0 || g.nw < 1 || g.nw > kMaxGroup)
+  if (!shapes_ok(g, rows, K) || reinterpret_cast<uintptr_t>(x) % 16 != 0)
     return cudaErrorInvalidValue;
   for (int j = 0; j < g.nw; ++j)
-    if (g.n[j] <= 0 || g.n[j] % kTileCols != 0 ||
-        reinterpret_cast<uintptr_t>(g.w[j]) % 16 != 0)
-      return cudaErrorInvalidValue;
+    if (reinterpret_cast<uintptr_t>(g.w[j]) % 16 != 0) return cudaErrorInvalidValue;
   const int dtypes[] = {x_dtype, s_dtype, y_dtype};
   for (int dt : dtypes)
     if (dt != kFloat32 && dt != kBFloat16) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool bf16 = x_dtype == kBFloat16;
-  return int4 ? launch_rows<true>(x, bf16, g, rows, K, s_dtype, y_dtype, s)
-              : launch_rows<false>(x, bf16, g, rows, K, s_dtype, y_dtype, s);
+  return int4 ? launch_rows<true>(x, bf16, g, rows, K, s_dtype, y_dtype, sc, s)
+              : launch_rows<false>(x, bf16, g, rows, K, s_dtype, y_dtype, sc, s);
 }
 
 Group one(const void* w, const void* s, void* y, int n) {
@@ -576,42 +827,68 @@ Group many(const void* w0, const void* w1, const void* w2, const void* s0,
 }  // namespace dllava
 
 // C entry points. N is the number of OUTPUT columns (for int4 the packed
-// weight has N/2 bytes per row). Each returns cudaGetLastError() after the
-// launch, or cudaErrorInvalidValue for arguments the kernels do not take.
+// weight has N/2 bytes per row). With bf16 x a launch needs `scratch`
+// (quant_gemv_scratch_bytes, 16-byte aligned, free again once the launch has
+// run) and `tickets`, at least one int32 per 256 output columns of each
+// weight, zero before the launch and zero again after it; with fp32 x both
+// may be null. Each returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for arguments the kernels do not take.
+extern "C" long long quant_gemv_scratch_bytes(int n0, int n1, int n2, int nw, int rows,
+                                              int K, int int4) {
+  using namespace dllava;
+  const Group g = many(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                       nullptr, nullptr, n0, n1, n2, nw);
+  if (!shapes_ok(g, rows, K)) return -1;
+  const TcPlan p = tc_plan(group_tiles(g), K, int4 ? TcShape<16, true>::KR : TcShape<16, false>::KR);
+  if (int4)
+    return rows <= 16   ? tc_scratch_bytes<16, true>(p)
+           : rows <= 32 ? tc_scratch_bytes<32, true>(p)
+                        : tc_scratch_bytes<64, true>(p);
+  return rows <= 16   ? tc_scratch_bytes<16, false>(p)
+         : rows <= 32 ? tc_scratch_bytes<32, false>(p)
+                      : tc_scratch_bytes<64, false>(p);
+}
+
 extern "C" int q8_gemv(const void* x, const void* w, const void* s, void* y,
-                       int N, int rows, int K, int x_dtype, int s_dtype,
-                       int y_dtype, void* stream) {
+                       void* scratch, long long scratch_bytes, int* tickets, int N,
+                       int rows, int K, int x_dtype, int s_dtype, int y_dtype,
+                       void* stream) {
   using namespace dllava;
   return dispatch(x, one(w, s, y, N), rows, K, false, x_dtype, s_dtype, y_dtype,
-                  stream);
+                  Scratch{static_cast<float*>(scratch), scratch_bytes, tickets}, stream);
 }
 
 extern "C" int q4_gemv(const void* x, const void* w, const void* s, void* y,
-                       int N, int rows, int K, int x_dtype, int s_dtype,
-                       int y_dtype, void* stream) {
+                       void* scratch, long long scratch_bytes, int* tickets, int N,
+                       int rows, int K, int x_dtype, int s_dtype, int y_dtype,
+                       void* stream) {
   using namespace dllava;
   return dispatch(x, one(w, s, y, N), rows, K, true, x_dtype, s_dtype, y_dtype,
-                  stream);
+                  Scratch{static_cast<float*>(scratch), scratch_bytes, tickets}, stream);
 }
 
 extern "C" int q8_gemv_group(const void* x, const void* w0, const void* w1,
                              const void* w2, const void* s0, const void* s1,
                              const void* s2, void* y0, void* y1, void* y2,
+                             void* scratch, long long scratch_bytes, int* tickets,
                              int n0, int n1, int n2, int nw, int rows, int K,
                              int x_dtype, int s_dtype, int y_dtype,
                              void* stream) {
   using namespace dllava;
   return dispatch(x, many(w0, w1, w2, s0, s1, s2, y0, y1, y2, n0, n1, n2, nw),
-                  rows, K, false, x_dtype, s_dtype, y_dtype, stream);
+                  rows, K, false, x_dtype, s_dtype, y_dtype,
+                  Scratch{static_cast<float*>(scratch), scratch_bytes, tickets}, stream);
 }
 
 extern "C" int q4_gemv_group(const void* x, const void* w0, const void* w1,
                              const void* w2, const void* s0, const void* s1,
                              const void* s2, void* y0, void* y1, void* y2,
+                             void* scratch, long long scratch_bytes, int* tickets,
                              int n0, int n1, int n2, int nw, int rows, int K,
                              int x_dtype, int s_dtype, int y_dtype,
                              void* stream) {
   using namespace dllava;
   return dispatch(x, many(w0, w1, w2, s0, s1, s2, y0, y1, y2, n0, n1, n2, nw),
-                  rows, K, true, x_dtype, s_dtype, y_dtype, stream);
+                  rows, K, true, x_dtype, s_dtype, y_dtype,
+                  Scratch{static_cast<float*>(scratch), scratch_bytes, tickets}, stream);
 }

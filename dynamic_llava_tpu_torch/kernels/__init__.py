@@ -91,9 +91,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, f, i, p,  # causal, q_offset, scale, dtype, stream
     ]
     lib.flash_attention_fwd.restype = i
+    lib.decode_attention_workspace_bytes.argtypes = [i, i, i, i, i]  # B, H, Hkv, D, n_split
+    lib.decode_attention_workspace_bytes.restype = ctypes.c_longlong
     lib.decode_attention_appended.argtypes = [
         p, p, p, p, p, p,  # q, k_cache, v_cache, k_cur, v_cur, bound
         p, p, p, p,  # k_scale, v_scale, q_pos (each may be null), out
+        p, ctypes.c_longlong, p, i,  # workspace, its bytes, tickets (null at n_split 1), n_split
         i, i, i, i, i,  # B, max_len, H, Hkv, D
         f, i, i, i, p,  # scale, window (0 = none), q dtype, storage code, stream
     ]
@@ -117,20 +120,24 @@ def _declare(lib: ctypes.CDLL) -> None:
         f, f, i, p,  # scale, eps, dtype, stream
     ]
     lib.flash_policy_attention_fwd.restype = i
+    ll = ctypes.c_longlong
     tail = [i, i, i, i, i, i, p]  # N, rows, K, x/s/y dtype, stream
+    scratch = [p, ll, p]  # scratch, its bytes, tickets (bf16 x; else null)
     for name in ("q8_gemv", "q4_gemv"):
         fn = getattr(lib, name)
-        fn.argtypes = [p, p, p, p, *tail]  # x, w, s, y
+        fn.argtypes = [p, p, p, p, *scratch, *tail]  # x, w, s, y
         fn.restype = i
     for name in ("q8_gemv_group", "q4_gemv_group"):
         fn = getattr(lib, name)
         fn.argtypes = [
             p, p, p, p, p, p, p, p, p, p,  # x, w0-2, s0-2, y0-2
+            *scratch,
             i, i, i, i,  # n0-2, nw
             *tail[1:],  # rows, K, x/s/y dtype, stream
         ]
         fn.restype = i
-    ll = ctypes.c_longlong
+    lib.quant_gemv_scratch_bytes.argtypes = [i, i, i, i, i, i, i]  # n0-2, nw, rows, K, int4
+    lib.quant_gemv_scratch_bytes.restype = ll
     lib.q4_mlp_scratch_bytes.argtypes = [i, i, i, i, i]  # rows, K, F, D, x dtype
     lib.q4_mlp_scratch_bytes.restype = ll
     lib.q4_mlp.argtypes = [
@@ -207,6 +214,31 @@ def check(code: int, what: str) -> None:
     if code != 0:
         msg = load_library().lib.kernel_error_string(code).decode()
         raise RuntimeError(f"{what} failed: CUDA error {code} ({msg})")
+
+
+# zeroed int32 tickets by device: a kernel that sums partial results in its
+# last block to arrive (csrc/common.cuh last_block_to_arrive) leaves them
+# zero, so launches in stream order share one buffer
+TICKETS = 4096
+_tickets = {}
+
+
+def tickets(t: torch.Tensor, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 tickets on ``t``'s device. One buffer a
+    device serves every launch, eager or captured in a CUDA graph (the
+    kernels leave it zero), so launches that use it must not overlap: the
+    port launches on one stream a device. Inside a CUDA-graph capture a
+    buffer not yet cached is zeroed anew (a memset node of that graph) and
+    not kept, so no tensor of a graph's private pool outlives its capture
+    here."""
+    if n > TICKETS:
+        raise ValueError(f"{n} tickets asked for, at most {TICKETS}")
+    buf = _tickets.get(t.device)
+    if buf is None:
+        buf = torch.zeros(TICKETS, dtype=torch.int32, device=t.device)
+        if not torch.cuda.is_current_stream_capturing():
+            _tickets[t.device] = buf
+    return buf
 
 
 def stream_of(t: torch.Tensor) -> ctypes.c_void_p:

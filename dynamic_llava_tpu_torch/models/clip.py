@@ -2,7 +2,9 @@
 
 Patch embedding is one matmul over flattened patches; only the layers up
 to the feature tap run (``select_layer=-2`` runs 23 of 24); attention is
-non-causal through kernel K1 on the card.
+non-causal through kernel K1 on the card, differentiable through K3
+(``flash_attention_vjp``: an unfrozen tower gets its gradient on the card as
+on the CPU; under ``no_grad`` it is K1 alone).
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ from typing import Optional
 import torch
 
 from ..config import ClipVisionConfig
-from ..ops.flash_attention import flash_attention
+from ..ops.flash_attention import flash_attention_vjp
 from ..ops.norm import layer_norm
 
 
@@ -36,7 +38,7 @@ def _encoder_layer(lp, cfg: ClipVisionConfig, x: torch.Tensor) -> torch.Tensor:
     q = (h @ lp["q_w"] + lp["q_b"]).reshape(b, n, nh, d // nh)
     k = (h @ lp["k_w"] + lp["k_b"]).reshape(b, n, nh, d // nh)
     v = (h @ lp["v_w"] + lp["v_b"]).reshape(b, n, nh, d // nh)
-    o = flash_attention(q, k, v, causal=False).reshape(b, n, d)
+    o = flash_attention_vjp(q, k, v, causal=False).reshape(b, n, d)
     x = x + o @ lp["o_w"] + lp["o_b"]
     h = layer_norm(x, lp["ln2_w"], lp["ln2_b"], cfg.layer_norm_eps)
     return x + quick_gelu(h @ lp["fc1_w"] + lp["fc1_b"]) @ lp["fc2_w"] + lp["fc2_b"]

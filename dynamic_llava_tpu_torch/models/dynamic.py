@@ -88,12 +88,16 @@ def prefill(
     has_image: torch.Tensor,  # [B] bool
     pixel_values: Optional[torch.Tensor],  # [B, H, W, 3] or None (text-only)
     cache: TieredCache,
+    *,
     all_have_image: bool = False,
     ring_mode: bool = False,  # records the ring bases for kv_overflow="ring"
 ) -> Tuple[GenState, PrefillInfo]:
     """``all_have_image`` is the host-known promise that every sample has
     exactly one image; only then may the compacted sequence be cut to
-    ``S - N_img + K`` (a text-only sample keeps all its tokens)."""
+    ``S - N_img + K`` (a text-only sample keeps all its tokens). Both
+    options are keyword-only: the reference's ``prefill`` has
+    ``image_features`` in the next positional slot, so a positional call
+    written for it raises here instead of misbinding."""
     tcfg, sparse = cfg.text, cfg.sparse
     b, s = plan_token_ids.shape
     n_img = cfg.num_image_tokens

@@ -7,9 +7,10 @@ current token's K/V are appended virtually to the persisted cache rows
 ``[0, length)``, the cache stored in bf16, fp32, fp8 or scaled int8, with
 an optional sliding window. On a CUDA tensor ``decode_attention`` launches the
 hand-written Hopper kernel ``csrc/decode_attention.cu``, which reads only
-the live rows; on a CPU tensor it runs the plain version
-(``ops.attention.decode_attend_appended``). There is no fallback from one
-to the other.
+the live rows and splits them over ``decode_split`` blocks per (kv head,
+sample), merged inside the same launch; on a CPU tensor it runs the plain
+version (``ops.attention.decode_attend_appended``). There is no fallback
+from one to the other.
 """
 
 from __future__ import annotations
@@ -21,12 +22,28 @@ import torch
 from .. import kernels
 from .attention import decode_attend_appended as decode_attention_plain
 
-__all__ = ["decode_attention", "decode_attention_plain"]
+__all__ = ["decode_attention", "decode_attention_plain", "decode_split"]
 
 
 # storage codes of the cache (csrc/common.cuh DType): q's own codes plus the
 # one-byte modes
 STORAGE_CODES = {**kernels.DTYPE_CODES, torch.int8: 2, torch.float8_e4m3fn: 3}
+
+
+# the split of the cache length over blocks (flash-decoding)
+SPLIT_TARGET_BLOCKS = 128  # about a block an SM: more splits bought nothing on the H100
+SPLIT_MIN_ROWS = 64  # cache rows a block owns at least
+MAX_SPLIT = 32  # kMaxSplit of csrc/decode_attention.cu
+
+
+def decode_split(b: int, hkv: int, max_len: int) -> int:
+    """Blocks that share the cache rows of one (kv head, sample): enough for
+    ``SPLIT_TARGET_BLOCKS`` blocks a call, each owning at least
+    ``SPLIT_MIN_ROWS`` rows of the capacity. A function of the shapes alone
+    (the lengths live on the device), so every call with the same shapes
+    sums in the same order."""
+    want = -(-SPLIT_TARGET_BLOCKS // max(1, b * hkv))
+    return max(1, min(want, max_len // SPLIT_MIN_ROWS, MAX_SPLIT))
 
 
 def decode_attention(
@@ -106,13 +123,24 @@ def decode_attention(
         scale = d**-0.5
     out = torch.empty_like(q)
     lib = kernels.load_library().lib
+    n_split = decode_split(b, hkv, max_len)
+    workspace = tickets = None  # None: a null pointer
+    nbytes = lib.decode_attention_workspace_bytes(b, h, hkv, d, n_split)
+    if n_split > 1:
+        # from the caching allocator on every call: safe on any stream and
+        # under CUDA-graph capture
+        workspace = torch.empty(nbytes, dtype=torch.uint8, device=q.device)
+        tickets = kernels.tickets(q, b * hkv)
     code = lib.decode_attention_appended(
         kernels.ptr(q), kernels.ptr(k_cache), kernels.ptr(v_cache),
         kernels.ptr(k_cur), kernels.ptr(v_cur), kernels.ptr(length),
         None if k_scale is None else kernels.ptr(k_scale),  # None: a null pointer
         None if v_scale is None else kernels.ptr(v_scale),
         None if window is None else kernels.ptr(q_pos),
-        kernels.ptr(out), b, max_len, h, hkv, d, float(scale),
+        kernels.ptr(out),
+        None if workspace is None else kernels.ptr(workspace), nbytes,
+        None if tickets is None else kernels.ptr(tickets), n_split,
+        b, max_len, h, hkv, d, float(scale),
         0 if window is None else int(window),
         kernels.DTYPE_CODES[q.dtype], STORAGE_CODES[store], kernels.stream_of(q),
     )

@@ -33,7 +33,8 @@ splitting and the ``"mask"`` unpack mode.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import functools
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -42,11 +43,69 @@ from .. import kernels
 __all__ = [
     "MAX_ROWS", "q8_gemv", "q8_gemv_group", "q4_gemv", "q4_gemv_group",
     "q8_gemv_plain", "q8_gemv_group_plain", "q4_gemv_plain",
-    "q4_gemv_group_plain", "unpack_int4", "q4_mlp", "q4_mlp_plain",
+    "q4_gemv_group_plain", "unpack_int4", "q4_mlp", "q4_mlp_plain", "GemvPlan",
+    "gemv_plan",
 ]
 
 MAX_ROWS = 64  # the Pallas kernels' decode row limit (quant_matmul.py:299)
 GROUP_SLOTS = 3  # weight slots of the ``*_group`` C entry points (q/k/v)
+
+# the bf16-x kernel's work list (csrc/quant_gemv.cu, gemv_tc_kernel)
+ITEM_COLS = 256  # output columns of a column tile
+UNIT_BYTES = 32768  # weight bytes of a unit: 128 K rows of an int8 tile, 256 of an int4 one
+
+
+MAX_SLICES = 16
+
+
+class GemvPlan(NamedTuple):
+    """The work list of one bf16-x GEMV launch, a pure function of the
+    shapes and the SM count (``tc_plan`` in ``csrc/quant_gemv.cu``): every
+    column tile (``ITEM_COLS`` output columns, counted over the group's
+    weights in order) is cut into ``slices`` slices of K, ``chunks`` units
+    of ``unit_rows`` K rows each (the last slice may have fewer); cell
+    ``slice * tiles + tile`` goes to block ``cell % grid``."""
+
+    tiles: int
+    unit_rows: int
+    slices: int
+    chunks: int
+    grid: int
+    scratch_bytes: int
+
+    def cell_units(self, cell: int, k: int) -> range:
+        """The units (of ``unit_rows`` K rows) of ``cell`` for ``k`` K rows."""
+        first = cell // self.tiles * self.chunks
+        return range(first, min(first + self.chunks, -(-k // self.unit_rows)))
+
+    def block_cells(self, b: int) -> range:
+        """The cells of block ``b``, in the order it walks them."""
+        return range(b, self.tiles * self.slices, self.grid)
+
+
+@functools.lru_cache(maxsize=None)  # a decode step asks for the same few plans over and over
+def gemv_plan(rows: int, k: int, ns: Tuple[int, ...], int4: bool, sms: int) -> GemvPlan:
+    """``GemvPlan`` of ``x [rows, k]`` against weights of ``ns`` output
+    columns (a tuple) on a card with ``sms`` SMs: the slices that cost the fewest half
+    unit times, waves of cells over the SMs times two for each unit of a
+    cell, plus one for a cell's partial tile and its share of the sum when
+    the tiles are sliced at all (ties: fewer slices). The scratch holds a
+    partial tile a cell, ``rows`` rounded up to 16, 32 or 64 times
+    ``ITEM_COLS`` floats; an unsliced launch needs none."""
+    tiles = sum(-(-n // ITEM_COLS) for n in ns)
+    unit_rows = UNIT_BYTES // (ITEM_COLS // 2 if int4 else ITEM_COLS)
+    units = -(-k // unit_rows)
+    best = None
+    for want in range(1, min(MAX_SLICES, units) + 1):
+        chunks = -(-units // want)
+        slices = -(-units // chunks)
+        cost = -(-tiles * slices // sms) * (2 * chunks + (slices > 1))
+        if best is None or cost < best[0]:
+            best = (cost, slices, chunks)
+    _, slices, chunks = best
+    mt = 16 if rows <= 16 else 32 if rows <= 32 else 64
+    scratch = 0 if slices == 1 else 4 * tiles * slices * mt * ITEM_COLS
+    return GemvPlan(tiles, unit_rows, slices, chunks, min(sms, tiles * slices), scratch)
 
 
 def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
@@ -125,6 +184,11 @@ def _check(what: str, x: torch.Tensor, ws: Sequence[torch.Tensor],
     return (x.numel() // k if k else 0), k, ns
 
 
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _launch(what: str, x, ws, ss, out_fp32: bool):
     """Launch C entry point ``what`` (``q8_gemv``, ``q8_gemv_group``,
     ``q4_gemv`` or ``q4_gemv_group``); returns the outputs."""
@@ -133,13 +197,24 @@ def _launch(what: str, x, ws, ss, out_fp32: bool):
     ys = [torch.empty(*x.shape[:-1], n, dtype=out_dtype, device=x.device) for n in ns]
     dtypes = (kernels.DTYPE_CODES[x.dtype], kernels.DTYPE_CODES[ss[0].dtype],
               kernels.DTYPE_CODES[out_dtype], kernels.stream_of(x))
+    scratch = (None, 0, None)  # fp32 x: null pointers
+    if x.dtype == torch.bfloat16 and 1 <= rows <= MAX_ROWS and k > 0 and min(ns) > 0:
+        plan = gemv_plan(rows, k, tuple(ns), what.startswith("q4"), _sm_count(x.device))
+        # from the caching allocator on every call: safe on any stream and
+        # under CUDA-graph capture
+        if plan.slices > 1:
+            buf = torch.empty(plan.scratch_bytes, dtype=torch.uint8, device=x.device)
+            scratch = (kernels.ptr(buf), plan.scratch_bytes,
+                       kernels.ptr(kernels.tickets(x, plan.tiles)))
     if what.endswith("_group"):  # unused slots repeat the first weight, N = 0
         pad = GROUP_SLOTS - len(ws)
         args = [*map(kernels.ptr, list(ws) + [ws[0]] * pad),
                 *map(kernels.ptr, list(ss) + [ss[0]] * pad),
-                *map(kernels.ptr, ys + [ys[0]] * pad), *(ns + [0] * pad), len(ws)]
+                *map(kernels.ptr, ys + [ys[0]] * pad), *scratch, *(ns + [0] * pad),
+                len(ws)]
     else:
-        args = [kernels.ptr(ws[0]), kernels.ptr(ss[0]), kernels.ptr(ys[0]), ns[0]]
+        args = [kernels.ptr(ws[0]), kernels.ptr(ss[0]), kernels.ptr(ys[0]), *scratch,
+                ns[0]]
     code = getattr(kernels.load_library().lib, what)(
         kernels.ptr(x), *args, rows, k, *dtypes)
     kernels.check(code, f"{what} (rows {rows}, K {k}, N {ns}: see the shape "

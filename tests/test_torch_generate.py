@@ -274,3 +274,139 @@ def test_sliding_window_greedy_generate_is_token_exact(weights, cache_dtype):
     assert got == want
     # the window does change what is generated, or this test would not see it
     assert want != JGen(jp, DENSE, JGenCfg(**gen)).generate(ids, pix)
+
+
+# ---------------------------------------------------------------------------
+# paths no earlier case reached: the instruct-predictor prune of prefill, an
+# EOS inside a chunk with the stopping and streaming callbacks, and the
+# keyword-only options of the port's prefill
+# ---------------------------------------------------------------------------
+
+INSTRUCT = dataclasses.replace(
+    SPARSE, sparse=dataclasses.replace(SPARSE.sparse, use_instruct_predictor=True))
+USER = (7, 8)  # stands in for the "USER:" token pair inside the tiny vocabulary
+
+
+@pytest.fixture(scope="module")
+def instruct_weights():
+    jp = jax.jit(jdyn.init_llava_params, static_argnums=(1,))(jax.random.key(1), INSTRUCT)
+    return jp, params_from_numpy(jax.tree.map(np.asarray, jp), "cpu", torch.float32)
+
+
+def _instruct_batch():
+    """The mixed batch with a last-instruction span of 9-11 text tokens after
+    the image (or, in the text-only sample, after the head)."""
+    rng = np.random.default_rng(3)
+    ids = []
+    for i in range(3):
+        head = rng.integers(9, 500, 4 + i)
+        instr = np.concatenate([USER, rng.integers(9, 500, 7 + i)])
+        ids.append(np.concatenate([head, [IMAGE_TOKEN_INDEX], instr]) if i != 1
+                   else np.concatenate([head, instr]))
+    size = SPARSE.vision.image_size
+    return ids, rng.normal(size=(3, size, size, 3)).astype(np.float32)
+
+
+def test_instruct_predictor_prune_matches_jax(instruct_weights):
+    """``use_instruct_predictor=True`` (the E2 prune of prefill) on the mixed
+    batch: ``PrefillInfo`` is equal, the prune removed instruction tokens,
+    the prefill logits agree (atol = rtol = 1e-4: fp32 sums in another
+    order) and 12 greedy decode steps are token-exact."""
+    jp, tp = instruct_weights
+    ids, pix = _instruct_batch()
+    n_img = INSTRUCT.num_image_tokens
+    plan = plan_batch(ids, n_img, user_tokens=USER, pad_multiple=GEN["pad_multiple"])
+    spans = plan.spans
+    assert (np.asarray(spans.last_instruct_end) - np.asarray(spans.last_instruct_start)
+            >= 9).all()
+    steps = 12
+    jgen = JGen(jp, INSTRUCT, JGenCfg(**GEN))
+    tgen = TGen(tp, port_config(INSTRUCT), TGenCfg(**GEN))
+    jstate, jinfo = jgen.prefill_from_plan(plan, pix, steps)
+    tstate, tinfo = tgen.prefill_from_plan(plan, pix, steps)
+    np.testing.assert_array_equal(tinfo.new_length.numpy(), np.asarray(jinfo.new_length))
+    np.testing.assert_array_equal(tinfo.kept_positions.numpy(),
+                                  np.asarray(jinfo.kept_positions))
+    np.testing.assert_array_equal(tinfo.image_keep_mask.numpy(),
+                                  np.asarray(jinfo.image_keep_mask))
+    # the instruct prune took something beyond the image prune
+    image_only = np.asarray(plan.valid_len) - np.where(
+        np.asarray(spans.has_image), n_img - INSTRUCT.vision_keep_budget, 0)
+    assert (tinfo.new_length.numpy() < image_only).any()
+    np.testing.assert_allclose(tstate.last_logits.numpy(), np.asarray(jstate.last_logits),
+                               atol=1e-4, rtol=1e-4)
+    jstep = jax.jit(jdyn.decode_step, static_argnums=(1,))
+    for _ in range(steps):
+        jtok = jnp.argmax(jstate.last_logits, axis=-1)
+        ttok = torch.argmax(tstate.last_logits, dim=-1)
+        np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
+        jstate = jstep(jp, INSTRUCT, jtok, jstate)
+        tstate = tdyn.decode_step(tp, port_config(INSTRUCT), ttok, tstate)
+    np.testing.assert_allclose(tstate.last_logits.numpy(), np.asarray(jstate.last_logits),
+                               atol=1e-4, rtol=1e-4)
+
+
+def test_eos_stopping_criteria_and_on_chunk_match_jax(weights):
+    """A reachable ``eos_token_id`` inside a chunk, a ``stopping_criteria``
+    callback and an ``on_chunk`` callback: outputs, the streamed chunks and
+    the sequences the criterion saw are equal to the JAX ``Generator``'s."""
+    jp, tp = weights
+    ids, pix = _batch("mixed")
+    free = JGen(jp, SPARSE, JGenCfg(**GEN)).generate(ids, pix)
+    # sample 0 ends at its 6th token (the 2nd slot of the 2nd chunk of 4) by
+    # EOS; the criterion ends sample 1 once its 7th token is out
+    eos = free[0][5]
+    stop_tok, stop_at = free[1][6], 7
+    assert eos not in free[1][:stop_at] and eos not in free[2]
+    gen = dict(GEN, eos_token_id=int(eos))
+
+    def run(generator):
+        seen, chunks = [], []
+
+        def criterion(seq):
+            seq = [int(t) for t in seq]
+            seen.append(seq)
+            return len(seq) >= stop_at and seq[-1] == stop_tok and seq[-2] == free[1][5]
+
+        out = generator.generate(ids, pix, stopping_criteria=criterion,
+                                 on_chunk=lambda i, new: chunks.append((i, list(map(int, new)))))
+        return out, seen, chunks
+
+    jout, jseen, jchunks = run(JGen(jp, SPARSE, JGenCfg(**gen)))
+    tout, tseen, tchunks = run(TGen(tp, port_config(SPARSE), TGenCfg(**gen)))
+    assert tout == jout
+    assert tchunks == jchunks
+    assert tseen == jseen
+    assert tout[0] == free[0][:free[0].index(eos) + 1] and len(tout[0]) < len(free[0])
+    assert len(tout[1]) < len(free[1]) and tout[1] == free[1][:len(tout[1])]
+    assert tout[2] == free[2]  # the third sample runs to max_new_tokens
+    for i, out in enumerate(tout):  # the chunks are the outputs, in order
+        assert [t for j, new in tchunks if j == i for t in new] == out
+
+
+def test_prefill_options_are_keyword_only(weights):
+    """The reference's ``prefill`` has ``image_features`` where the port had
+    ``all_have_image``: a positional call written for the reference must
+    raise here, not bind a tensor to a flag."""
+    _, tp = weights
+    ids, pix = _batch("all_image")
+    cfg = port_config(SPARSE)
+    plan = plan_batch(ids, SPARSE.num_image_tokens)
+    i32 = torch.int32
+    args = (torch.as_tensor(plan.token_ids, dtype=i32),
+            torch.as_tensor(plan.is_image), torch.as_tensor(plan.image_slot, dtype=i32),
+            torch.as_tensor(plan.valid_len, dtype=i32),
+            torch.as_tensor(plan.spans.image_start, dtype=i32),
+            torch.as_tensor(plan.spans.last_instruct_start, dtype=i32),
+            torch.as_tensor(plan.spans.last_instruct_end, dtype=i32),
+            torch.as_tensor(plan.spans.has_image), torch.from_numpy(pix))
+    cache = tdyn.make_gen_cache(cfg, plan.batch, plan.seq_len, 4, torch.float32,
+                                all_have_image=True, device="cpu")
+    with pytest.raises(TypeError, match="positional"):
+        tdyn.prefill(tp, cfg, *args, cache, None)  # the reference's image_features slot
+    with pytest.raises(TypeError, match="positional"):
+        tdyn.prefill(tp, cfg, *args, cache, True, False)
+    state, info = tdyn.prefill(tp, cfg, *args, cache, all_have_image=True, ring_mode=True)
+    assert state.ring_base is not None
+    assert info.kept_positions.shape[1] == \
+        plan.seq_len - SPARSE.num_image_tokens + SPARSE.vision_keep_budget
