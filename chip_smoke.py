@@ -19,7 +19,14 @@ anywhere else. Phases, each of which raises on failure:
    values, atol = rtol = 2e-2 (bf16 output rounding, and in K1 and K3 the
    probabilities and dS rounded to bf16 for the tensor cores); fp32 inputs
    at atol = rtol = 1e-4. K3 (dq, dk, dv each, and its delta kernel) and K4
-   at the training shape (B=4, S=1663, H=32, d=128) the same way. K1 and
+   at the training shape (B=4, S=1663, H=32, d=128) the same way; K4's bf16
+   error there must also be at most twice that of the output's own bf16
+   rounding, and it is timed beside SDPA with a causal + log(policy) float
+   mask (not the same function: no eps terms) and with its column-sum
+   kernel apart; K4 also at every ``kernel_cases.POLICY_EDGE_CASES`` case
+   (S = 1, 63, 64, 65, 129; 4 query heads a KV head; d 64 and 128; a policy
+   of zeros, ones or soft values; bf16 and fp32), each launched twice with
+   ``torch.equal`` results. K1 and
    K3 also at the edges of their 64-row tiles (S = 64, 65, 130, 200; GQA
    with 4 query heads a KV head; a ``kv_length`` of 0 and one in mid-tile;
    K1 with a ``q_offset`` and Sq < Sk), each launched twice with
@@ -43,12 +50,15 @@ anywhere else. Phases, each of which raises on failure:
    lm_head; the weights rotate through copies larger than the 50 MB L2, as
    a decode step finds them cold, and the yardstick (``@`` on the
    dequantized bf16 weight) is timed on one copy and, at rows 8, rotated
-   the same way. K9 (the fused int4 MLP) at the 7B and
-   13B MLP shapes and the same rows, bf16 x and fp32 x with fp32 out (1e-2
-   / 1e-3 of max |ref|), beside the two-kernel path it fuses and three
-   bf16 matmuls on the dequantized weights. A tensor-core attention
-   kernel, the decode-attention kernel or the bf16 GEMV kernel that spills
-   registers fails the run (phase 2);
+   the same way. K9 (the fused int4 MLP) at the 7B and 13B MLP shapes and
+   the same rows and at ``kernel_cases.MLP_EDGE_CASES`` (F and D that end
+   inside a tile, K inside a unit, unsliced phases) at rows 1, 7, 17, 64,
+   bf16 x and fp32 x with fp32 out (1e-2 / 1e-3 of max |ref|), each
+   launched twice with ``torch.equal`` results, beside the two-kernel path
+   it fuses and three bf16 matmuls on the dequantized weights. A
+   tensor-core attention kernel, the decode-attention kernel, the bf16
+   GEMV kernel or the fused MLP that spills registers fails the run
+   (phase 2);
 4. a small model (head_dim 64, GQA) on the card through the kernels
    against the port's plain CPU path, which the CPU tests hold against the
    JAX package: greedy generation in fp32 with plain, int8 and int4
@@ -170,6 +180,28 @@ def time_events_ms(fn, iters: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_ms_by_name(fn, iters: int = 5) -> dict:
+    """Mean device time a call of ``fn`` spends in each kernel, by kernel
+    name, from ``torch.profiler`` over ``iters`` eager calls after a
+    warm-up call (for a wrapper that launches more than one kernel)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
+    require(out, "the profiler saw no device time")
+    return out
 
 
 def bound_ms(nbytes: float, flops: float, kind: str = "bf16"):
@@ -453,46 +485,49 @@ def check_quant_kernels(torch):
     return res
 
 
-# K9 cases: (label, K = D, F) of the 7B and the 13B decoder's MLP
-MLP_CASES = [("7B", 4096, 11008), ("13B", 5120, 13824)]
-# bf16 / fp32 output, relative to max |ref|. The fp32 figure is not 1e-4: the
-# kernel's and the plain version's fp32 sums run in different orders, so about
-# one h in a thousand rounds to the other bf16 neighbour, and each moves an
-# output by 2^-8 of one of its F terms (the float64 reference printed beside
-# the fp32 cases shows the plain version as far from it as the kernel).
-MLP_TOL = {False: 1e-2, True: 1e-3}
-
-
 def check_mlp_kernel(torch):
     """Phase 3, K9: the fused int4 MLP against ``q4_mlp_plain`` on the same
-    x, packed weights and bf16 scales at every MLP_CASES shape and
-    ``kernel_cases.QUANT_ROWS`` row count, bf16 x (bf16 out) and fp32 x (fp32 out: the
-    kernel rounds x to bf16 as the plain version does, so only the order of
-    the fp32 sums and the rare h that rounds the other way differ; both are
-    also held against the same arithmetic in float64). Times
-    rotate through weight copies of more than 256 MB. Beside the kernel:
-    the two-kernel path it fuses (K8 gate/up + ``silu * mul`` + K7 down)
-    and three ``@`` on dequantized bf16 weights + ``silu * mul``."""
+    x, packed weights and bf16 scales at every ``kernel_cases.MLP_CASES``
+    shape and ``QUANT_ROWS`` row count and at the ``MLP_EDGE_CASES`` (F and D
+    that end inside a tile, K inside a unit, unsliced phases) and
+    ``MLP_EDGE_ROWS``, bf16 x (bf16 out) and fp32 x (fp32 out: the kernel
+    rounds x to bf16 as the plain version does, so only the order of the fp32
+    sums and the rare h that rounds the other way differ; at the main shapes
+    both are also held against the same arithmetic in float64), each launched
+    twice for equal bits. Times rotate through weight copies of more than 256
+    MB. Beside the kernel: the two-kernel path it fuses (K8 gate/up + ``silu
+    * mul`` + K7 down) and three ``@`` on dequantized bf16 weights + ``silu *
+    mul``."""
     import torch.nn.functional as F
 
-    from dynamic_llava_tpu_torch.kernel_cases import QUANT_ROWS
+    from dynamic_llava_tpu_torch import kernel_cases as kc
     from dynamic_llava_tpu_torch.ops import quant_matmul as qm
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     res = {"max_abs_err": 0.0, "max_err_rel": 0.0, "shapes": {}}
-    for label, k, f in MLP_CASES:
+
+    def check(case, rows, fp32, weights, scales):
+        try:
+            err, rel, x = kc.check_mlp_case(case, rows, fp32, dev, gen, weights, scales)
+        except AssertionError as e:
+            raise RuntimeError(str(e)) from e
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        res["max_err_rel"] = max(res["max_err_rel"], rel)
+        return x, (f"  q4_mlp {case.label} [K={case.k} F={case.f} D={case.d} rows={rows} "
+                   f"{x.dtype}]: max_abs_err={err:.3e}, /max|ref| {rel:.3e} (tol "
+                   f"{kc.MLP_TOL[fp32]:g}), two launches equal: ok")
+
+    for case in kc.MLP_EDGE_CASES:
+        (weights,), scales = kc.make_mlp_weights(case, dev, gen)
+        for rows in kc.MLP_EDGE_ROWS:
+            for fp32 in (False, True):
+                log(check(case, rows, fp32, weights, scales)[1])
+    for case in kc.MLP_CASES:
+        k, f = case.k, case.f
         nbytes = 3 * k * f // 2
         copies = max(2, -(-(256 << 20) // nbytes))
-
-        def packed(r, c):
-            return torch.randint(-128, 128, (r, c), generator=gen, device=dev,
-                                 dtype=torch.int8)
-
-        weights = [(packed(k, f // 2), packed(k, f // 2), packed(f, k // 2))
-                   for _ in range(copies)]
-        scales = [torch.rand(1, n, generator=gen, device=dev).mul_(0.02 / 7).bfloat16()
-                  for n in (f, f, k)]
+        weights, scales = kc.make_mlp_weights(case, dev, gen, copies)
 
         def two_kernels(x, ws):
             g, u = qm.q4_gemv_group(x, ws[:2], scales[:2])
@@ -505,58 +540,44 @@ def check_mlp_kernel(torch):
             h = (F.silu(g) * u).float().bfloat16().double()
             return (h @ qm.unpack_int4(ws[2]).double()) * sd
 
-        for rows in QUANT_ROWS:
-            for dtype in (torch.bfloat16, torch.float32):
-                x = torch.randn(rows, k, generator=gen, device=dev).to(dtype)
-                fp32 = dtype == torch.float32
-                got = qm.q4_mlp(x, *weights[0], *scales, out_fp32=fp32)
-                want = qm.q4_mlp_plain(x, *weights[0], *scales, out_fp32=fp32)
-                require(bool(torch.isfinite(got).all()), f"q4_mlp {label}: non-finite")
-                require(got.dtype == want.dtype and got.shape == want.shape,
-                        f"q4_mlp {label}: output {got.dtype} {tuple(got.shape)}")
-                err = (got.float() - want.float()).abs().max().item()
-                rel = err / want.float().abs().max().item()
-                tol = MLP_TOL[fp32]
-                res["max_abs_err"] = max(res["max_abs_err"], err)
-                res["max_err_rel"] = max(res["max_err_rel"], rel)
-                line = (f"  q4_mlp {label} [K={k} F={f} rows={rows} {dtype}]: max_abs_err="
-                        f"{err:.3e}, /max|ref| {rel:.3e} (tol {tol:g}) "
-                        f"{'ok' if rel <= tol else 'FAIL'}")
+        for rows in kc.QUANT_ROWS:
+            for fp32 in (False, True):
+                x, line = check(case, rows, fp32, weights[0], scales)
                 if fp32:
+                    got = qm.q4_mlp(x, *weights[0], *scales, out_fp32=True)
+                    want = qm.q4_mlp_plain(x, *weights[0], *scales, out_fp32=True)
                     r64 = float64(x, weights[0])
                     top = r64.abs().max().item()
                     line += (f"; against float64 /max|ref|: kernel "
                              f"{(got.double() - r64).abs().max().item() / top:.3e}, plain "
                              f"{(want.double() - r64).abs().max().item() / top:.3e}")
-                    del r64
-                if fp32 and rows != 8:
-                    log(line)
-                    require(rel <= tol, f"q4_mlp {label} rows={rows} fp32: kernel "
-                            "disagrees with its plain version")
-                    continue
+                    del r64, got, want
+                    if rows != 8:
+                        log(line)
+                        continue
                 kms = time_ms([lambda ws=ws: qm.q4_mlp(x, *ws, *scales, out_fp32=fp32)
                                for ws in weights], 30)
                 log(line + f"; kernel {kms:.4f} ms ({nbytes / kms / 1e6:.0f} GB/s of weights)")
-                require(rel <= tol, f"q4_mlp {label} rows={rows}: kernel disagrees with "
-                        "its plain version")
                 if fp32:
                     continue
                 two_ms = time_ms([lambda ws=ws: two_kernels(x, ws) for ws in weights], 30)
-                log(f"    K8 gate/up + silu*mul + K7 down on the same inputs: {two_ms:.4f} ms")
-                if rows != 8:
-                    continue
-                pms = time_ms([lambda ws=ws: qm.q4_mlp_plain(x, *ws, *scales)
-                               for ws in weights[:2]], 5)
-                deq = [qm.unpack_int4(w).bfloat16() for w in weights[0]]
-                mms = time_ms(lambda: (F.silu(x @ deq[0]) * (x @ deq[1])) @ deq[2], 10)
-                del deq
-                io = 2 * sum(sc.numel() for sc in scales) + 2 * x.numel() + 2 * rows * k
-                bms, bby = bound_ms(nbytes + io, 6 * rows * k * f)
-                log(f"    rows 8: plain {pms:.4f} ms, three bf16 matmuls on the "
-                    f"dequantized weights (one copy) + silu*mul {mms:.4f} ms, bound "
-                    f"{bms:.4f} ms ({bby})")
-                res["shapes"][label] = dict(ms=kms, plain_ms=pms, library_ms=mms,
-                                            two_kernel_ms=two_ms, bound_ms=bms, bound_by=bby)
+                log(f"    K8 gate/up + silu*mul + K7 down on the same inputs: {two_ms:.4f} ms "
+                    f"(K9 {kms / two_ms:.2f}x)")
+                shape = dict(ms=kms, two_kernel_ms=two_ms)
+                if rows == 8:
+                    pms = time_ms([lambda ws=ws: qm.q4_mlp_plain(x, *ws, *scales)
+                                   for ws in weights[:2]], 5)
+                    deq = [qm.unpack_int4(w).bfloat16() for w in weights[0]]
+                    mms = time_ms(lambda: (F.silu(x @ deq[0]) * (x @ deq[1])) @ deq[2], 10)
+                    del deq
+                    io = 2 * sum(sc.numel() for sc in scales) + 2 * x.numel() + 2 * rows * k
+                    bms, bby = bound_ms(nbytes + io, 6 * rows * k * f)
+                    log(f"    rows 8: plain {pms:.4f} ms, three bf16 matmuls on the "
+                        f"dequantized weights (one copy) + silu*mul {mms:.4f} ms, bound "
+                        f"{bms:.4f} ms ({bby})")
+                    shape.update(plain_ms=pms, library_ms=mms, bound_ms=bms, bound_by=bby)
+                    res["shapes"][case.label] = dict(shape)
+                res["shapes"][f"{case.label} rows {rows}"] = shape
         del weights
     res.update(res["shapes"]["7B"])
     torch.cuda.synchronize()
@@ -573,6 +594,7 @@ def check_train_kernels(torch):
     shape in bf16)."""
     import torch.nn.functional as F
 
+    from dynamic_llava_tpu_torch import kernel_cases as kc
     from dynamic_llava_tpu_torch.ops import flash_attention as fa
     from dynamic_llava_tpu_torch.ops.flash_policy import (
         flash_policy_attention, flash_policy_attention_plain)
@@ -705,34 +727,57 @@ def check_train_kernels(torch):
             res["flash_attention_bwd_dkv"].update(
                 ms=dkv_ms, plain_ms=pms, library_ms=lms, bound_ms=dkv_b, bound_by=dkv_by)
 
-    k4_cases = [
-        ("training shape", TRAIN_BATCH, s_train, 32, 32, 128, torch.bfloat16),
-        ("training shape", TRAIN_BATCH, s_train, 32, 32, 128, torch.float32),
-        ("gqa", 2, 203, 8, 2, 64, torch.float32),
-    ]
-    for label, b, s, h, hkv, d, dtype in k4_cases:
-        q, k, v = (randn(b, s, h, d, dtype=dtype), randn(b, s, hkv, d, dtype=dtype),
-                   randn(b, s, hkv, d, dtype=dtype))
-        # a hard mask over most columns, soft values on the rest
-        pol = torch.from_numpy(rng.random((b, s), dtype=np.float32)).to(dev)
-        pol = torch.where(pol < 0.5, torch.zeros_like(pol), torch.where(
-            pol < 0.8, torch.ones_like(pol), pol))
-        got = flash_policy_attention(q, k, v, pol)
-        want = flash_policy_attention_plain(q.float(), k.float(), v.float(), pol)
-        tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
-        shape = f"B={b} S={s} H={h} Hkv={hkv} d={d} {dtype}"
-        compare("flash_policy_attention_fwd", got, want, tol, f"K4 {label} [{shape}]")
-        del want
-        if label == "training shape" and dtype == torch.bfloat16:
-            kms = time_ms(lambda: flash_policy_attention(q, k, v, pol), 5)
-            pms = time_events_ms(lambda: flash_policy_attention_plain(q, k, v, pol), 3)
-            pairs = attended_pairs(b, s, s, True)
-            bms, bby = bound_ms(2 * (2 * q.numel() + 2 * k.numel()) + 4 * pol.numel(),
-                                4 * pairs * d * h + v.numel())
-            log(f"  K4 time at the training shape: kernel {kms:.4f} ms, plain {pms:.4f} "
-                f"ms, bound {bms:.4f} ms ({bby}); no single library call computes it")
-            res["flash_policy_attention_fwd"].update(
-                ms=kms, plain_ms=pms, library_ms=None, bound_ms=bms, bound_by=bby)
+    # K4: every kernel_cases.POLICY_CASES and POLICY_EDGE_CASES case, twice for
+    # equal bits; at the bf16 training shape the error must be that of the
+    # output's own rounding (at most twice max |bf16(plain) - plain|)
+    name = "flash_policy_attention_fwd"
+    for case in kc.POLICY_CASES + kc.POLICY_EDGE_CASES:
+        try:
+            err, rounding = kc.check_policy_case(case, dev)
+        except AssertionError as e:
+            raise RuntimeError(str(e)) from e
+        tol = FP32_TOL if case.dtype == torch.float32 else BF16_TOL
+        log(f"  {kc.describe_policy_case(case)}: max_abs_err={err:.3e} (atol=rtol={tol:g}), "
+            "two launches equal: ok")
+        res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+        if case.label != "training shape" or case.dtype != torch.bfloat16:
+            continue
+        log(f"  K4 training shape bf16: max |kernel - plain| {err:.3e}, max |bf16(plain) - "
+            f"plain| {rounding:.3e} ({err / rounding:.2f}x, limit 2x)")
+        require(err <= 2 * rounding, "K4 training shape: the error is more than twice that of "
+                "the output's own bf16 rounding")
+        q, k, v, pol = kc.make_policy_inputs(case, dev)
+        b, s, h, d = q.shape
+        kms = time_ms(lambda: flash_policy_attention(q, k, v, pol), 5)
+        pms = time_events_ms(lambda: flash_policy_attention_plain(q, k, v, pol), 3)
+        # the wrapper's two kernels apart: the column sum of v, then the main kernel
+        split = kernel_ms_by_name(lambda: flash_policy_attention(q, k, v, pol), 5)
+        vsum_ms = sum(ms for n, ms in split.items() if "policy_vsum" in n)
+        main_ms = sum(ms for n, ms in split.items() if "flash_policy_fwd" in n)
+        # beside it, not a yardstick of the same function (no eps terms): SDPA
+        # with the causal mask and log(p') as one float mask
+        idx = torch.arange(s, device=dev)
+        keep = pol[:, None, :].expand(b, s, s).clone()
+        keep[:, idx, idx] = 1.0
+        mask = keep.log_().masked_fill_(idx[None, :] > idx[:, None], float("-inf"))
+        mask = mask[:, None].to(q.dtype)
+        del keep
+        ql, kl, vl = sdpa_layout(q), sdpa_layout(k), sdpa_layout(v)
+        sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask), 5)
+        del mask, ql, kl, vl
+        pairs = attended_pairs(b, s, s, True)
+        bms, bby = bound_ms(2 * (2 * q.numel() + 2 * k.numel()) + 4 * pol.numel(),
+                            4 * pairs * d * h + v.numel())
+        k1 = res["flash_attention_fwd_train_shape"]["ms"]
+        log(f"  K4 time at the training shape: kernel {kms:.4f} ms (column sum {vsum_ms:.4f}, "
+            f"main kernel {main_ms:.4f}; {kms / k1:.2f}x K1 at this shape), plain {pms:.4f} "
+            f"ms, bound {bms:.4f} ms ({bby})")
+        log(f"  SDPA with a causal + log(p') float mask, not the same function (no eps terms): "
+            f"{sdpa_ms:.4f} ms")
+        res[name].update(ms=kms, plain_ms=pms, library_ms=None, bound_ms=bms, bound_by=bby,
+                         vsum_ms=vsum_ms, main_ms=main_ms, sdpa_log_policy_mask_ms=sdpa_ms,
+                         bf16_rounding_err=rounding)
+        del q, k, v, pol
 
     # autograd through K1 + K3 against autograd through the plain forward
     b, s, h, hkv, d = 2, 517, 8, 4, 128
@@ -1192,9 +1237,9 @@ def main() -> int:
             log(f"    {line.strip()}")
             if "0 bytes spill stores, 0 bytes spill loads" not in line:
                 spilled.append(entry)
-    # the tensor-core attention kernels, the decode-attention kernel and the
-    # bf16 GEMV kernel hold their accumulators in registers
-    no_spills = ("mma_kernel", "decode_kernel", "gemv_tc_kernel")
+    # the tensor-core attention kernels, the decode-attention kernel, the bf16
+    # GEMV kernel and the fused MLP hold their accumulators in registers
+    no_spills = ("mma_kernel", "decode_kernel", "gemv_tc_kernel", "q4_mlp_kernel")
     require(not [e for e in spilled if any(k in e for k in no_spills)],
             f"ptxas spilled registers in {spilled}")
 
@@ -1397,6 +1442,8 @@ def main() -> int:
              "q8_gemv": ("shapes",), "q8_gemv_group": ("shapes",),
              "q4_gemv": ("shapes",), "q4_gemv_group": ("shapes",),
              "q4_mlp": ("two_kernel_ms", "shapes"),
+             "flash_policy_attention_fwd": ("vsum_ms", "main_ms", "sdpa_log_policy_mask_ms",
+                                            "bf16_rounding_err"),
              "flash_attention_fwd": ("full_length_ms", "library_full_length_ms", "clip",
                                      "train_shape"),
              "flash_attention_bwd_dq": ("delta_ms", "delta_plain_ms", "delta_bound_ms",

@@ -82,10 +82,11 @@ __device__ __forceinline__ void load_tile(float* dst, int stride, const T* src,
 }
 
 // ----------------------------------------------------------------------------
-// Pieces shared by the weight-only GEMVs (quant_gemv.cu) and the fused int4
-// MLP (quant_mlp.cu): the 64-column weight tile and its padded shared-memory
-// row, cp.async copies that complete an mbarrier, the exact integer -> float
-// conversions, and the bf16 tensor-core step.
+// Pieces of the weight-only GEMVs (quant_gemv.cu) and the fused int4 MLP
+// (quant_mlp.cu): the 64-column weight tile of the fp32-x kernel and its
+// padded shared-memory row, cp.async copies that complete an mbarrier, the
+// exact integer -> float and integer -> bf16 pair conversions, and the bf16
+// tensor-core step.
 
 constexpr int kTileCols = 64;  // output columns of one weight tile
 
@@ -344,6 +345,43 @@ inline int sm_count() {
     return n;
   }();
   return count;
+}
+
+// ----------------------------------------------------------------------------
+// The work list of the persistent weight-streaming kernels (gemv_tc_kernel in
+// quant_gemv.cu, both phases of q4_mlp_kernel in quant_mlp.cu): a cell is a
+// column tile times a slice of K, `chunks` units of K rows (a unit is 32 KB of
+// weights); cell c = slice * tiles + tile, and block b takes cells b, b +
+// grid, ... Mirrored by ops/quant_matmul.py (gemv_plan, mlp_plan).
+
+constexpr int kMaxSlices = 16;
+
+struct TcPlan {
+  int tiles;   // column tiles of all weights
+  int slices;  // K slices of a tile: blocks that share one tile's sum
+  int chunks;  // units of a slice (the last slice may have fewer)
+  int grid;    // persistent blocks
+};
+
+// The slices that cost the fewest half unit times: waves of cells over the SMs
+// times two for each unit of a cell, plus `sliced_cost` for a cell's partial
+// tile and its share of the sum when the tiles are sliced at all; ties go to
+// fewer slices.
+inline TcPlan tc_plan(int tiles, int K, int unit_rows, int sliced_cost = 1) {
+  const int nkc = (K + unit_rows - 1) / unit_rows, sms = sm_count();
+  TcPlan best{};
+  long best_cost = -1;
+  for (int want = 1; want <= kMaxSlices && want <= nkc; ++want) {
+    const int chunks = (nkc + want - 1) / want;
+    const int slices = (nkc + chunks - 1) / chunks;
+    const long cells = long(tiles) * slices;
+    const long cost = (cells + sms - 1) / sms * (2 * chunks + (slices > 1 ? sliced_cost : 0));
+    if (best_cost < 0 || cost < best_cost) {
+      best_cost = cost;
+      best = TcPlan{tiles, slices, chunks, static_cast<int>(cells < sms ? cells : sms)};
+    }
+  }
+  return best;
 }
 
 }  // namespace dllava

@@ -224,36 +224,6 @@ inline int group_tiles(const Group& g) {
   return tiles;
 }
 
-constexpr int kMaxSlices = 16;
-
-struct TcPlan {
-  int tiles;   // column tiles of all weights
-  int slices;  // K slices of a tile: blocks that share one tile's sum
-  int chunks;  // units of a slice (the last slice may have fewer)
-  int grid;    // persistent blocks
-};
-
-// The slices that cost the fewest half unit times: waves of cells over the SMs
-// times two for each unit of a cell, plus one for a cell's partial tile and
-// its share of the sum when the tiles are sliced at all; ties go to fewer
-// slices.
-inline TcPlan tc_plan(int tiles, int K, int unit_rows) {
-  const int nkc = (K + unit_rows - 1) / unit_rows, sms = sm_count();
-  TcPlan best{};
-  long best_cost = -1;
-  for (int want = 1; want <= kMaxSlices && want <= nkc; ++want) {
-    const int chunks = (nkc + want - 1) / want;
-    const int slices = (nkc + chunks - 1) / chunks;
-    const long cells = long(tiles) * slices;
-    const long cost = (cells + sms - 1) / sms * (2 * chunks + (slices > 1 ? 1 : 0));
-    if (best_cost < 0 || cost < best_cost) {
-      best_cost = cost;
-      best = TcPlan{tiles, slices, chunks, static_cast<int>(cells < sms ? cells : sms)};
-    }
-  }
-  return best;
-}
-
 template <int MT, bool INT4>
 __global__ void __launch_bounds__(TcShape<MT, INT4>::Threads, 1)
 gemv_tc_kernel(const __nv_bfloat16* __restrict__ x, Group g, int rows, int K,

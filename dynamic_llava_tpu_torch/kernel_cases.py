@@ -1,6 +1,7 @@
-"""Card-side cases of the decode-attention kernel (K2) and the weight-only
-GEMVs (K5-K8): the shapes at which each kernel is held against its plain
-PyTorch version on the same inputs, and the functions that do so.
+"""Card-side cases of the policy attention (K4), the decode-attention kernel
+(K2), the weight-only GEMVs (K5-K8) and the fused int4 MLP (K9): the shapes
+at which each kernel is held against its plain PyTorch version on the same
+inputs, and the functions that do so.
 
 ``chip_smoke.py`` (phase 3) and ``tests/test_torch_card_kernels.py`` both run
 these lists, so the smoke run and the card-side pytest check the same thing
@@ -18,6 +19,7 @@ import torch
 
 from .ops import quant_matmul as qm
 from .ops.decode_attention import decode_attention, decode_attention_plain, decode_split
+from .ops.flash_policy import flash_policy_attention, flash_policy_attention_plain
 from .ops.kv_cache import quantize_kv, to_storage
 
 # atol = rtol against the plain version in fp32 on the same stored values:
@@ -237,3 +239,143 @@ def check_gemv_case(case: GemvCase, bits: int, rows: int, device="cuda", gen=Non
     assert rel <= tol, (f"{name} {case.label} rows={rows}: kernel disagrees with its plain "
                         f"version, max err / max |ref| {rel:.3e} (tol {tol:g})")
     return err, rel
+
+
+class PolicyCase(NamedTuple):
+    label: str
+    b: int
+    s: int
+    h: int
+    hkv: int
+    d: int
+    dtype: torch.dtype  # of q, k, v and out
+    policy: str  # "zeros", "ones", "soft" (uniform in [0, 1)) or "mixed" (below)
+
+
+# the training shape (30 policy layers of a sparse step; chip_smoke.py times
+# the bf16 one), a policy that is 0 on half the columns, 1 on 30% and soft on
+# the rest
+POLICY_CASES = [
+    PolicyCase("training shape", 4, 1663, 32, 32, 128, BF16, "mixed"),
+    PolicyCase("training shape", 4, 1663, 32, 32, 128, FP32, "mixed"),
+    PolicyCase("gqa", 2, 203, 8, 2, 64, FP32, "mixed"),
+]
+# the edges of the 64-row q and kv tiles (one row, a row short of a tile, one
+# tile, a row past it, two tiles and a row), 4 query heads a kv head, head_dim
+# 64 and 128, and a policy that drops every column but the diagonal, keeps
+# every column, or is soft
+POLICY_EDGE_CASES = [
+    PolicyCase(f"S={s} d={d} policy {pol}", 2, s, 8, 2, d, dtype, pol)
+    for s in (1, 63, 64, 65, 129) for d in (64, 128) for pol in ("zeros", "ones", "soft")
+    for dtype in (BF16, FP32)
+]
+
+
+def make_policy_inputs(case: PolicyCase, device, seed: int = 0):
+    """``(q, k, v, policy)`` for ``case``, made from a numpy seed."""
+    rng = np.random.default_rng(seed)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(
+            device, case.dtype)
+
+    q = randn(case.b, case.s, case.h, case.d)
+    k, v = (randn(case.b, case.s, case.hkv, case.d) for _ in range(2))
+    u = rng.random((case.b, case.s), dtype=np.float32)
+    pol = {"zeros": np.zeros_like(u), "ones": np.ones_like(u), "soft": u,
+           "mixed": np.where(u < 0.5, 0.0, np.where(u < 0.8, 1.0, u)).astype(np.float32)
+           }[case.policy]
+    return q, k, v, torch.from_numpy(pol).to(device)
+
+
+def check_policy_case(case: PolicyCase, device="cuda") -> Tuple[float, float]:
+    """Runs K4 on ``case`` twice (equal bits) and holds it against the plain
+    version in fp32 on the same values; returns (max abs error, max abs error
+    of the plain version rounded to the case's dtype), raises
+    ``AssertionError`` on a mismatch."""
+    q, k, v, pol = make_policy_inputs(case, device)
+    out = flash_policy_attention(q, k, v, pol)
+    again = flash_policy_attention(q, k, v, pol)
+    ref = flash_policy_attention_plain(q.float(), k.float(), v.float(), pol)
+    tol = FP32_TOL if case.dtype == torch.float32 else BF16_TOL
+    assert out.dtype == case.dtype and out.shape == q.shape, (out.dtype, out.shape)
+    assert bool(torch.isfinite(out).all()), f"K4 {case.label}: non-finite output"
+    err = (out.float() - ref).abs().max().item()
+    assert torch.allclose(out.float(), ref, atol=tol, rtol=tol), (
+        f"K4 {case.label}: kernel disagrees with its plain version, max_abs_err {err:.3e} "
+        f"(atol=rtol={tol:g})")
+    assert torch.equal(out, again), f"K4 {case.label}: two launches differ"
+    rounding = (ref.to(case.dtype).float() - ref).abs().max().item()
+    return err, rounding
+
+
+def describe_policy_case(case: PolicyCase) -> str:
+    return (f"K4 {case.label} [B={case.b} S={case.s} H={case.h} Hkv={case.hkv} d={case.d} "
+            f"{case.dtype} policy {case.policy}]")
+
+
+class MlpCase(NamedTuple):
+    label: str
+    k: int  # x's columns, the rows of gate and up
+    f: int  # hidden columns, the rows of down
+    d: int  # output columns
+
+
+# the 7B and 13B decoders' MLPs: timed by chip_smoke.py at every QUANT_ROWS
+# row count
+MLP_CASES = [MlpCase("7B", 4096, 11008, 4096), MlpCase("13B", 5120, 13824, 5120)]
+# the edges of the kernel's tiling (256 columns, units of 128 K rows in the
+# gate/up phase and 256 F rows in the down phase): F and D that end inside a
+# tile, K that ends inside a unit with narrow last tiles, both phases
+# unsliced, and gate/up unsliced with two units a cell
+MLP_EDGE_CASES = [
+    MlpCase("F, D not multiples of 256", 384, 640, 320),
+    MlpCase("K inside a unit, narrow last tiles", 4112, 1088, 576),
+    MlpCase("unsliced, one tile", 64, 256, 64),
+    MlpCase("unsliced gate/up, two units a cell", 256, 25600, 128),
+]
+MLP_EDGE_ROWS = (1, 7, 17, 64)
+# bf16 / fp32 output, relative to max |ref|. The fp32 figure is not 1e-4: the
+# kernel's and the plain version's fp32 sums run in different orders, so about
+# one h in a thousand rounds to the other bf16 neighbour, and each moves an
+# output by 2^-8 of one of its F terms.
+MLP_TOL = {False: 1e-2, True: 1e-3}
+
+
+def make_mlp_weights(case: MlpCase, device, gen, copies: int = 1):
+    """``copies`` sets of random packed int4 weights ``(gate, up, down)`` and
+    one set of bf16 scales for ``case``."""
+    def packed(r, c):
+        return torch.randint(-128, 128, (r, c), generator=gen, device=device, dtype=torch.int8)
+
+    weights = [(packed(case.k, case.f // 2), packed(case.k, case.f // 2),
+                packed(case.f, case.d // 2)) for _ in range(copies)]
+    scales = [torch.rand(1, n, generator=gen, device=device).mul_(0.02 / 7).bfloat16()
+              for n in (case.f, case.f, case.d)]
+    return weights, scales
+
+
+def check_mlp_case(case: MlpCase, rows: int, fp32: bool, device="cuda", gen=None,
+                   weights=None, scales=None):
+    """Runs K9 on ``case`` twice (equal bits) with bf16 x and output, or fp32
+    x and output (``fp32``), and holds it against ``q4_mlp_plain``; returns
+    (max abs error, that over max |ref|, x), raises ``AssertionError`` on a
+    mismatch."""
+    if gen is None:
+        gen = torch.Generator(device=device).manual_seed(0)
+    if weights is None:
+        (weights,), scales = make_mlp_weights(case, device, gen)
+    x = torch.randn(rows, case.k, generator=gen, device=device)
+    x = x if fp32 else x.bfloat16()
+    got = qm.q4_mlp(x, *weights, *scales, out_fp32=fp32)
+    again = qm.q4_mlp(x, *weights, *scales, out_fp32=fp32)
+    want = qm.q4_mlp_plain(x, *weights, *scales, out_fp32=fp32)
+    label = f"q4_mlp {case.label} rows={rows}{' fp32' if fp32 else ''}"
+    assert got.dtype == want.dtype and got.shape == want.shape, (got.dtype, got.shape)
+    assert bool(torch.isfinite(got).all()), f"{label}: non-finite output"
+    assert torch.equal(got, again), f"{label}: two launches differ"
+    err = (got.float() - want.float()).abs().max().item()
+    rel = err / want.float().abs().max().item()
+    assert rel <= MLP_TOL[fp32], (f"{label}: kernel disagrees with its plain version, max err "
+                                  f"/ max |ref| {rel:.3e} (tol {MLP_TOL[fp32]:g})")
+    return err, rel, x

@@ -138,11 +138,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = i
     lib.quant_gemv_scratch_bytes.argtypes = [i, i, i, i, i, i, i]  # n0-2, nw, rows, K, int4
     lib.quant_gemv_scratch_bytes.restype = ll
-    lib.q4_mlp_scratch_bytes.argtypes = [i, i, i, i, i]  # rows, K, F, D, x dtype
+    lib.q4_mlp_scratch_bytes.argtypes = [i, i, i, i]  # rows, K, F, D
     lib.q4_mlp_scratch_bytes.restype = ll
     lib.q4_mlp.argtypes = [
         p, p, p, p, p, p, p, p,  # x, gate, up, down, gate/up/down scales, y
-        p, ll,  # scratch, its bytes
+        p, ll, p,  # scratch, its bytes, tickets
         i, i, i, i, i, i, i, p,  # rows, K, F, D, x/s/y dtype, stream
     ]
     lib.q4_mlp.restype = i

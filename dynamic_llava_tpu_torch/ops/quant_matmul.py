@@ -44,7 +44,7 @@ __all__ = [
     "MAX_ROWS", "q8_gemv", "q8_gemv_group", "q4_gemv", "q4_gemv_group",
     "q8_gemv_plain", "q8_gemv_group_plain", "q4_gemv_plain",
     "q4_gemv_group_plain", "unpack_int4", "q4_mlp", "q4_mlp_plain", "GemvPlan",
-    "gemv_plan",
+    "gemv_plan", "MlpPlan", "mlp_plan",
 ]
 
 MAX_ROWS = 64  # the Pallas kernels' decode row limit (quant_matmul.py:299)
@@ -83,29 +83,84 @@ class GemvPlan(NamedTuple):
         return range(b, self.tiles * self.slices, self.grid)
 
 
-@functools.lru_cache(maxsize=None)  # a decode step asks for the same few plans over and over
-def gemv_plan(rows: int, k: int, ns: Tuple[int, ...], int4: bool, sms: int) -> GemvPlan:
-    """``GemvPlan`` of ``x [rows, k]`` against weights of ``ns`` output
-    columns (a tuple) on a card with ``sms`` SMs: the slices that cost the fewest half
-    unit times, waves of cells over the SMs times two for each unit of a
-    cell, plus one for a cell's partial tile and its share of the sum when
-    the tiles are sliced at all (ties: fewer slices). The scratch holds a
-    partial tile a cell, ``rows`` rounded up to 16, 32 or 64 times
-    ``ITEM_COLS`` floats; an unsliced launch needs none."""
-    tiles = sum(-(-n // ITEM_COLS) for n in ns)
-    unit_rows = UNIT_BYTES // (ITEM_COLS // 2 if int4 else ITEM_COLS)
-    units = -(-k // unit_rows)
+# what the end of a sliced cell costs in half unit times: the GEMVs' plan and
+# K9's (``kSlicedCost`` in ``csrc/quant_mlp.cu``, measured)
+GEMV_SLICED_COST, MLP_SLICED_COST = 1, 6
+
+
+def _split(tiles: int, units: int, sms: int, sliced_cost: int) -> Tuple[int, int]:
+    """``(slices, chunks)``: the slices of K that cost the fewest half unit
+    times, waves of cells over the SMs times two for each unit of a cell,
+    plus ``sliced_cost`` for a cell's partial tile and its share of the sum
+    when the tiles are sliced at all (ties: fewer slices); ``tc_plan`` in
+    ``csrc/common.cuh``."""
     best = None
     for want in range(1, min(MAX_SLICES, units) + 1):
         chunks = -(-units // want)
         slices = -(-units // chunks)
-        cost = -(-tiles * slices // sms) * (2 * chunks + (slices > 1))
+        cost = -(-tiles * slices // sms) * (2 * chunks + (sliced_cost if slices > 1 else 0))
         if best is None or cost < best[0]:
             best = (cost, slices, chunks)
-    _, slices, chunks = best
-    mt = 16 if rows <= 16 else 32 if rows <= 32 else 64
-    scratch = 0 if slices == 1 else 4 * tiles * slices * mt * ITEM_COLS
+    return best[1], best[2]
+
+
+def _row_tier(rows: int) -> int:
+    """x's rows rounded up to 16, 32 or 64: the rows of a partial tile."""
+    return 16 if rows <= 16 else 32 if rows <= 32 else 64
+
+
+@functools.lru_cache(maxsize=None)  # a decode step asks for the same few plans over and over
+def gemv_plan(rows: int, k: int, ns: Tuple[int, ...], int4: bool, sms: int) -> GemvPlan:
+    """``GemvPlan`` of ``x [rows, k]`` against weights of ``ns`` output
+    columns (a tuple) on a card with ``sms`` SMs (the slices: ``_split``).
+    The scratch holds a partial tile a cell, ``rows`` rounded up to 16, 32
+    or 64 times ``ITEM_COLS`` floats; an unsliced launch needs none."""
+    tiles = sum(-(-n // ITEM_COLS) for n in ns)
+    unit_rows = UNIT_BYTES // (ITEM_COLS // 2 if int4 else ITEM_COLS)
+    slices, chunks = _split(tiles, -(-k // unit_rows), sms, GEMV_SLICED_COST)
+    scratch = 0 if slices == 1 else 4 * tiles * slices * _row_tier(rows) * ITEM_COLS
     return GemvPlan(tiles, unit_rows, slices, chunks, min(sms, tiles * slices), scratch)
+
+
+def _align256(n: int) -> int:
+    return -(-n // 256) * 256
+
+
+class MlpPlan(NamedTuple):
+    """The work lists of one K9 launch (``make_plan`` in
+    ``csrc/quant_mlp.cu``), a pure function of the shapes and the SM count.
+    ``gate_up`` is phase A: a tile is ``ITEM_COLS`` columns of F in BOTH
+    gate and up (128 packed bytes of each weight's rows), a unit
+    ``unit_rows`` = 128 K rows; ``down`` is phase B, ``q4_gemv``'s list over
+    the down weight (K = F rows, ``ITEM_COLS`` columns of D, units of 256 F
+    rows). Both phases run on one persistent block an SM (``grid`` = the
+    SMs). Each phase's ``scratch_bytes`` is its partial tiles (phase A: two
+    weights' a cell); ``scratch_bytes`` here is ``h`` (``[rows, F]`` bf16)
+    and both, each rounded up to 256 bytes. ``tickets``: one a tile of each
+    phase."""
+
+    gate_up: GemvPlan
+    down: GemvPlan
+    scratch_bytes: int
+    tickets: int
+
+
+@functools.lru_cache(maxsize=None)
+def mlp_plan(rows: int, k: int, f: int, d: int, sms: int) -> MlpPlan:
+    """``MlpPlan`` of ``x [rows, k]`` through an MLP of ``f`` hidden and
+    ``d`` output columns on a card with ``sms`` SMs."""
+    tile = 4 * _row_tier(rows) * ITEM_COLS  # bytes of one weight's partial tile
+    phases = []
+    # (tiles, unit rows, K rows, weights a cell): gate and up, then down
+    for tiles, unit_rows, kk, weights in ((-(-f // ITEM_COLS), UNIT_BYTES // ITEM_COLS, k, 2),
+                                          (-(-d // ITEM_COLS), 2 * UNIT_BYTES // ITEM_COLS, f, 1)):
+        slices, chunks = _split(tiles, -(-kk // unit_rows), sms, MLP_SLICED_COST)
+        part = 0 if slices == 1 else weights * tile * tiles * slices
+        phases.append(GemvPlan(tiles, unit_rows, slices, chunks, sms, part))
+    gate_up, down = phases
+    scratch = _align256(2 * rows * f) + _align256(gate_up.scratch_bytes) + \
+        _align256(down.scratch_bytes)
+    return MlpPlan(gate_up, down, scratch, gate_up.tiles + down.tiles)
 
 
 def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
@@ -288,29 +343,26 @@ def q4_mlp(x: torch.Tensor, gate: torch.Tensor, up: torch.Tensor,
            down_s: torch.Tensor, out_fp32: bool = False) -> torch.Tensor:
     """K9: ``silu(x @ gate) * (x @ up) @ down`` on three split-half int4
     weights in ONE launch (``q4_mlp_plain`` states the arithmetic). The
-    kernel's scratch (``h``, the down phase's partial sums, the bf16 copy of
-    an fp32 ``x``) comes from PyTorch's caching allocator on every call, on
+    kernel's scratch (``h`` and the partial tiles of both phases, sized by
+    ``mlp_plan``) comes from PyTorch's caching allocator on every call, on
     the current stream, so the call is safe on any stream and under CUDA
-    graph capture."""
+    graph capture; its tickets are the device's (``kernels.tickets``)."""
     if x.device.type == "cpu":
         return q4_mlp_plain(x, gate, up, down, gate_s, up_s, down_s, out_fp32)
     rows, k, (f, d) = _check_mlp(x, gate, up, down, gate_s, up_s, down_s)
     out_dtype = _out_dtype(x, out_fp32)
     codes = (kernels.DTYPE_CODES[x.dtype], kernels.DTYPE_CODES[gate_s.dtype],
              kernels.DTYPE_CODES[out_dtype])
-    lib = kernels.load_library().lib
-    what = (f"q4_mlp (rows {rows}, K {k}, F {f}, D {d}: see the shape contract "
-            "of csrc/quant_mlp.cu)")
-    nbytes = lib.q4_mlp_scratch_bytes(rows, k, f, d, codes[0])
-    if nbytes < 0:
-        raise ValueError(f"{what}: shapes the kernel does not take")
-    scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+    plan = mlp_plan(rows, k, f, d, _sm_count(x.device))
+    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8, device=x.device)
     y = torch.empty(*x.shape[:-1], d, dtype=out_dtype, device=x.device)
-    code = lib.q4_mlp(
+    code = kernels.load_library().lib.q4_mlp(
         kernels.ptr(x), kernels.ptr(gate), kernels.ptr(up), kernels.ptr(down),
         kernels.ptr(gate_s), kernels.ptr(up_s), kernels.ptr(down_s), kernels.ptr(y),
-        kernels.ptr(scratch), nbytes, rows, k, f, d, *codes, kernels.stream_of(x))
-    kernels.check(code, what)
+        kernels.ptr(scratch), plan.scratch_bytes, kernels.ptr(kernels.tickets(x, plan.tickets)),
+        rows, k, f, d, *codes, kernels.stream_of(x))
+    kernels.check(code, f"q4_mlp (rows {rows}, K {k}, F {f}, D {d}: see the shape contract "
+                        "of csrc/quant_mlp.cu)")
     q4_mlp.launches += 1
     return y
 

@@ -1,10 +1,11 @@
-"""Card-side checks of the hand-written kernels: K2 (decode attention) and
-K5-K8 (the weight-only GEMVs) against their plain PyTorch versions on the
-same inputs, at the case lists ``chip_smoke.py`` phase 3 runs
+"""Card-side checks of the hand-written kernels: K2 (decode attention), K4
+(policy attention), K5-K8 (the weight-only GEMVs) and K9 (the fused int4
+MLP) against their plain PyTorch versions on the same inputs, at the case
+lists ``chip_smoke.py`` phase 3 runs
 (``dynamic_llava_tpu_torch/kernel_cases.py``), with the same tolerances and
-the same twice-for-equal-bits rule; the GEMV work-list mirror against the
-library's own arithmetic; and the CLIP tower's gradient on the card against
-the CPU's.
+the same twice-for-equal-bits rule; the GEMV and MLP work-list mirrors
+against the library's own arithmetic; and the CLIP tower's gradient on the
+card against the CPU's.
 
 It imports torch and the port only, so it also runs where jax is not
 installed. Every test needs an NVIDIA GPU and ``nvcc`` (the kernels are
@@ -60,6 +61,39 @@ def test_gemv_plan_mirrors_the_library(card, case):
         for rows in (1, 16, 17, 32, 33, 64):
             want = card.lib.quant_gemv_scratch_bytes(*ns, len(case.ns), rows, case.k, bits == 4)
             assert qm.gemv_plan(rows, case.k, case.ns, bits == 4, sms).scratch_bytes == want
+
+
+@pytest.mark.parametrize("case", kc.POLICY_CASES + kc.POLICY_EDGE_CASES,
+                         ids=lambda c: f"{c.label}-{str(c.dtype)[6:]}")
+def test_policy_attention_matches_its_plain_version(case):
+    err, rounding = kc.check_policy_case(case)
+    if case.dtype == torch.bfloat16 and case.label == "training shape":
+        # the error of the output's own bf16 rounding, not of a rounded e
+        assert err <= 2 * rounding
+
+
+def _mlp_params():
+    for cases, rows_list in ((kc.MLP_CASES, kc.QUANT_ROWS), (kc.MLP_EDGE_CASES, kc.MLP_EDGE_ROWS)):
+        for case in cases:
+            for rows in rows_list:
+                for fp32 in (False, True):
+                    yield pytest.param(case, rows, fp32,
+                                       id=f"{case.label}-rows{rows}-{'fp32' if fp32 else 'bf16'}")
+
+
+@pytest.mark.parametrize("case,rows,fp32", list(_mlp_params()))
+def test_q4_mlp_matches_its_plain_version(case, rows, fp32):
+    kc.check_mlp_case(case, rows, fp32)
+
+
+@pytest.mark.parametrize("case", kc.MLP_CASES + kc.MLP_EDGE_CASES, ids=lambda c: c.label)
+def test_mlp_plan_mirrors_the_library(card, case):
+    """``quant_matmul.mlp_plan`` (which sizes the scratch and the tickets)
+    agrees with the plan the C entry point makes, for every row tier."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for rows in (1, 16, 17, 32, 33, 64):
+        want = card.lib.q4_mlp_scratch_bytes(rows, case.k, case.f, case.d)
+        assert qm.mlp_plan(rows, case.k, case.f, case.d, sms).scratch_bytes == want
 
 
 def test_fp32_x_keeps_full_precision():

@@ -16,8 +16,8 @@ and then the dense stage on the same weights, it
 * records one more step with ``torch.profiler`` (CPU and CUDA activities)
   and sums the device time of every kernel, in buckets by kernel name: K1
   (``flash_fwd_*``: the tensor-core kernel for bf16, the fp32 one), K3
-  (``flash_bwd_*``: the delta, dq and dkv kernels), K4 (``flash_policy_fwd_kernel``,
-  ``policy_vsum_kernel``), fp32 GEMM (``sgemm``, ``simt``, ``f32f32``, ``ffma`` names: the
+  (``flash_bwd_*``: the delta, dq and dkv kernels), K4 (``flash_policy_fwd_*``:
+  the tensor-core kernel for bf16, the fp32 one; ``policy_vsum_kernel``), fp32 GEMM (``sgemm``, ``simt``, ``f32f32``, ``ffma`` names: the
   blockwise recompute behind K4's backward and the predictors' plain
   attention), GEMM (the other ``gemm``, ``nvjet``, ``cutlass``, ``xmma``
   names: the bf16 linears) and other (elementwise, reductions, copies,
@@ -45,7 +45,7 @@ SEED, WARM, TIMED = 0, 2, 2
 BUCKETS = (
     ("K1", ("flash_fwd_",)),
     ("K3", ("flash_bwd_",)),
-    ("K4", ("flash_policy_fwd_kernel", "policy_vsum_kernel")),
+    ("K4", ("flash_policy_fwd_", "policy_vsum_kernel")),
     ("fp32 GEMM", ("sgemm", "simt", "f32f32", "ffma")),
     ("GEMM", ("gemm", "nvjet", "cutlass", "xmma", "splitK")),
 )
