@@ -27,11 +27,13 @@ anywhere else. Phases, each of which raises on failure:
    (S = 1, 63, 64, 65, 129; 4 query heads a KV head; d 64 and 128; a policy
    of zeros, ones or soft values; bf16 and fp32), each launched twice with
    ``torch.equal`` results. K1 and
-   K3 also at the edges of their 64-row tiles (S = 64, 65, 130, 200; GQA
+   K3 at every ``kernel_cases.FLASH_FWD_CASES`` / ``FLASH_BWD_CASES`` case,
+   the edges of their 64-row tiles among them (S = 64, 65, 130, 200; GQA
    with 4 query heads a KV head; a ``kv_length`` of 0 and one in mid-tile;
-   K1 with a ``q_offset`` and Sq < Sk), each launched twice with
-   ``torch.equal`` results; K1 is timed beside SDPA both with the masks as
-   a bool tensor and, at full lengths, with ``is_causal``;
+   K1 with a ``q_offset`` and Sq < Sk; bf16 and fp32), each launched twice
+   with ``torch.equal`` results; K1 is timed beside SDPA both with the masks
+   as a bool tensor and, at full lengths, with ``is_causal``; K3's delta
+   kernel beside ``torch.linalg.vecdot`` on the fp32 values it forms;
    ``torch.autograd.grad`` through K1 + K3 against autograd through the
    plain forward, and the gradient of an unfrozen CLIP tower on the card
    against the CPU's. K2 at every ``kernel_cases.DECODE_CASES`` case: bf16,
@@ -69,24 +71,31 @@ anywhere else. Phases, each of which raises on failure:
 5. serving at LLaVA-1.5-7B width (32 layers, random bf16 weights made on
    the card from a seed): two batches of 8 requests (one 336x336 image
    and 60 text tokens each, 64 new tokens, greedy) through
-   ``Generator.generate``, sparse and then dense, with the kernels' launch
-   counters zeroed before and read after;
+   ``Generator.generate``, sparse and then dense: the main path. Decode
+   replays a CUDA graph of the step (captured in the first call), whose
+   replays launch their kernels without a wrapper call; so in each
+   serving mode of phases 5-8 the wrappers' counters (host calls: eager
+   launches and the capture's) are zeroed just before the two calls and
+   read just after, and the serving kernels' launches on the card are
+   counted by name in a ``torch.profiler`` trace of the same two calls
+   (``kernel_cases.device_launches``). Those must equal twice the wrapper
+   calls of an eager loop of ``argmax`` + ``decode_step`` written here
+   (``eager_decode``) over the same prefill and steps, and the graph's
+   tokens the eager loop's;
 6. quantized serving at 7B width, the same batches: the phase-5 weights
    quantized in place to int8 (``quantize_llm_params``), sparse and dense;
    then an int4 decoder made directly (``init_quantized_llama_params``)
-   beside the bf16 tower, projector and predictors, sparse. Each path's
-   launch counters are zeroed before it and read after;
+   beside the bf16 tower, projector and predictors, sparse;
 7. lean-memory serving at 7B width on the int4 decoder, the same batches,
    within one process so that the modes can be compared: bf16 KV with the
    fused MLP (K9, ``DYNAMIC_LLAVA_Q4_MLP=1``) off, on, on, off; fused with
    an int8 KV cache, sparse and dense; fused with an fp8 cache, sparse;
    then ring overflow (int8 KV, 256 new tokens at a decode window of 64,
-   so both tiers wrap). K9 must launch once per layer and decode step with
-   the switch on and never with it off; K2 once per layer and step in
-   every mode. Cache bytes and peak memory are printed;
+   so both tiers wrap). On the card K9 must launch once per layer and
+   decode step with the switch on and never with it off, K2 once per layer
+   and step in every mode. Cache bytes and peak memory are printed;
 8. LLaVA-1.5-13B width (40 layers, hidden 5120, ffn 13824), an int4
-   decoder made directly, fused MLP, B=1, 256 new tokens, sparse and dense
-   (one batch each);
+   decoder made directly, fused MLP, B=1, 256 new tokens, sparse and dense;
 9. training at 7B width (TRAIN_DEPTH decoder layers, fresh random bf16
    weights): ``Trainer.train`` over TRAIN_STEPS sparse steps (B=4, one
    336x336 image + 1088 text tokens each, half of them labels, fused
@@ -95,20 +104,29 @@ anywhere else. Phases, each of which raises on failure:
    and must equal the counts the layer layout implies; the loss must be
    finite and the parameters changed.
 
-The second serving batch of each mode is timed (the first carries
-first-call costs: library and cuBLAS set-up); TTFT is the same prefill
-timed again alone, and decode tok/s is ``B * 64 / (batch time - TTFT)``.
-A train step is timed on the host clock after ``synchronize``, the first
-apart. The last two lines of standard output are a JSON object with each
-kernel's error, times, bound (the larger of its bytes over 3.35 TB/s and
-its operations over the card's peak for its input type, from this run's
-inputs) and launch count, and ``{"ok": true, "device": {...}}``.
+After the main path of each serving mode, outside its counts and trace,
+TIMED more batches are timed (the graph is reused), each followed by its
+prefill timed again alone; with the medians of both, TTFT is the prefill's
+and decode tok/s is ``B * 64 / (batch time - TTFT)``. The
+decode step walls of the graph and of the eager loop are both host clock
+around the decode steps alone after a prefill (``graph_decode``,
+``eager_decode``). A train step is timed on the host clock after
+``synchronize``, the first apart. The last two lines of standard output
+are a JSON object with each kernel's error, times, bound (the larger of
+its bytes over 3.35 TB/s and its operations over the card's peak for its
+input type, from this run's inputs), launches (on the card, from the
+trace: a GEMV wrapper and its group form launch one kernel, whose count
+both report) and wrapper calls, and ``{"ok": true, "device": {...}}``.
+Before them a ``decode_graph`` line gives, per serving mode, the decode
+step wall of the eager loop and of the graph, the capture's ms and
+whether the tokens were equal.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -123,6 +141,7 @@ FP32_TOL = 1e-4
 TRAIN_DEPTH = 32  # decoder layers of the training phase (width is never cut)
 TRAIN_STEPS = 3  # per mode; the first is timed apart
 TRAIN_BATCH, TRAIN_TEXT_LEN = 4, 1088  # fused S = 1088 - 1 + 576 = 1663
+TIMED = 3  # timed generate calls and prefills a serving mode
 # published peaks of one H100 SXM (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
@@ -233,100 +252,61 @@ def sdpa_layout(t):
 
 
 def check_kernels(torch):
-    """Phase 3, K1: the flash forward against its plain version at main-path
-    shapes and at the edges of its tiles. Returns its results (max error
-    over all cases, times at the decoder shape)."""
+    """Phase 3, K1: the flash forward against its plain version at every
+    ``kernel_cases.FLASH_FWD_CASES`` case (main-path shapes and the edges of
+    its tiles, bf16 and fp32), each launched twice for equal bits; timed at
+    the decoder's pre-tier and the CLIP tower's shapes. Returns its results
+    (max error over all cases, times at the decoder shape)."""
+    from dynamic_llava_tpu_torch import kernel_cases as kc
     from dynamic_llava_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_plain)
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
-    rng = np.random.default_rng(SEED)
-
-    def randn(*shape, dtype):
-        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(
-            dev, dtype)
-
     res = {"flash_attention_fwd": {"max_abs_err": 0.0}}
-
-    def compare(name, got, want, tol, label):
-        got, want = got.float(), want.float()
-        require(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
-        err = (got - want).abs().max().item()
-        ok = torch.allclose(got, want, atol=tol, rtol=tol)
-        log(f"  {label}: max_abs_err={err:.3e} (atol=rtol={tol:g}) "
-            f"{'ok' if ok else 'FAIL'}")
-        require(ok, f"{label}: kernel disagrees with its plain version")
-        res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
-
-    # K1: decoder prefill (pre tier 640, post tier 179), CLIP tower, fp32, and
-    # the edges of the 64-row tiling: one tile and one row more, a kv_length
-    # of 0 and one in mid-tile, a q_offset with Sq < Sk
-    # (label, B, Sq, Sk, H, Hkv, d, causal, kv_length, q_offset)
-    k1_cases = [
-        ("decoder pre tier", 4, 640, 640, 32, 32, 128, True, [640, 613, 401, 1], 0),
-        ("decoder post tier", 4, 179, 179, 32, 32, 128, True, [179, 175, 90, 1], 0),
-        ("clip tower", 4, 577, 577, 16, 16, 64, False, None, 0),
-        ("gqa fp32", 2, 200, 200, 8, 2, 64, True, [200, 0], 0),
-        ("one tile", 2, 64, 64, 4, 4, 128, True, None, 0),
-        ("one tile and a row", 2, 65, 65, 4, 2, 64, True, None, 0),
-        ("gqa kv_length 0 and mid-tile", 3, 200, 200, 8, 2, 64, True, [0, 77, 200], 0),
-        ("q_offset, Sq < Sk", 2, 70, 150, 8, 4, 128, True, [150, 97], 80),
-        ("q_offset fp32", 2, 70, 150, 4, 2, 64, True, [150, 97], 80),
-        ("non-causal Sq < Sk kv_length", 2, 70, 150, 4, 4, 64, False, [33, 150], 0),
-    ]
-    for label, b, s, sk, h, hkv, d, causal, lens, q_off in k1_cases:
-        dtype = torch.float32 if "fp32" in label else torch.bfloat16
-        q, k, v = randn(b, s, h, d, dtype=dtype), randn(b, sk, hkv, d, dtype=dtype), \
-            randn(b, sk, hkv, d, dtype=dtype)
-        kvl = None if lens is None else torch.tensor(lens, dtype=torch.int32,
-                                                     device=dev)
-        kw = dict(kv_length=kvl, causal=causal, q_offset=q_off)
-        out, lse = flash_attention(q, k, v, return_lse=True, **kw)
-        ref, ref_lse = flash_attention_plain(
-            q.float(), k.float(), v.float(), return_lse=True, **kw)
-        tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
-        shape = (f"B={b} Sq={s} Sk={sk} H={h} Hkv={hkv} d={d} causal={causal} "
-                 f"lens={lens} q_offset={q_off} {dtype}")
-        compare("flash_attention_fwd", out, ref, tol, f"K1 {label} [{shape}]")
-        lse_err = (lse - ref_lse).abs().max().item()
-        log(f"  K1 {label}: lse max_abs_err={lse_err:.3e}")
-        require(torch.allclose(lse, ref_lse, atol=tol, rtol=tol),
-                f"K1 {label}: lse disagrees")
-        # the same bits every launch (a layer re-run under checkpointing)
-        again, lse2 = flash_attention(q, k, v, return_lse=True, **kw)
-        require(torch.equal(out, again) and torch.equal(lse, lse2),
-                f"K1 {label}: two launches differ")
-        if label in ("decoder pre tier", "clip tower"):
-            kms = time_ms(lambda: flash_attention(q, k, v, kv_length=kvl, causal=causal))
-            pms = time_ms(
-                lambda: flash_attention_plain(q, k, v, kv_length=kvl, causal=causal))
-            # yardstick: one SDPA call on the same inputs, the masks as a bool mask
-            ql, kl, vl = sdpa_layout(q), sdpa_layout(k), sdpa_layout(v)
-            cols = torch.arange(s, device=dev)
-            mask = torch.ones((b, 1, s, s), dtype=torch.bool, device=dev)
-            if causal:
-                mask = mask & (cols[None, :] <= cols[:, None])
-            if kvl is not None:
-                mask = mask & (cols[None, :] < kvl[:, None])[:, None, None, :]
-            lms = time_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask))
-            # the bool mask keeps SDPA off its flash backend: also at full
-            # lengths without a mask tensor, the kernel on the same inputs
-            full_ms = time_ms(lambda: flash_attention(q, k, v, causal=causal))
-            lfull_ms = time_ms(
-                lambda: F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal))
-            pairs = attended_pairs(b, s, s, causal, lens)
-            bms, bby = bound_ms(2 * (2 * q.numel() + 2 * k.numel()), 4 * pairs * d * h)
-            log(f"  K1 {label} time: kernel {kms:.4f} ms, plain {pms:.4f} ms, SDPA "
-                f"(bool mask) {lms:.4f} ms, bound {bms:.4f} ms ({bby}); every sample at "
-                f"full length: kernel {full_ms:.4f} ms, SDPA is_causal={causal} "
-                f"{lfull_ms:.4f} ms")
-            timing = dict(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms, bound_by=bby,
-                          full_length_ms=full_ms, library_full_length_ms=lfull_ms)
-            if label == "decoder pre tier":
-                res["flash_attention_fwd"].update(timing)
-            else:
-                res["flash_attention_fwd"]["clip"] = timing
+    for case in kc.FLASH_FWD_CASES:
+        try:
+            err, lse_err = kc.check_flash_fwd_case(case, dev)
+        except AssertionError as e:
+            raise RuntimeError(str(e)) from e
+        tol = kc.FP32_TOL if case.dtype == torch.float32 else kc.BF16_TOL
+        log(f"  K1 {case.label} {kc.describe_flash_case(case)}: max_abs_err={err:.3e}, lse "
+            f"{lse_err:.3e} (atol=rtol={tol:g}), two launches equal: ok")
+        res["flash_attention_fwd"]["max_abs_err"] = max(
+            res["flash_attention_fwd"]["max_abs_err"], err)
+        if case.label not in ("decoder pre tier", "clip tower"):
+            continue
+        q, k, v, _, kvl = kc.make_flash_inputs(case, dev)
+        b, s, h, d = q.shape
+        causal, lens = case.causal, case.lengths
+        kms = time_ms(lambda: flash_attention(q, k, v, kv_length=kvl, causal=causal))
+        pms = time_ms(lambda: flash_attention_plain(q, k, v, kv_length=kvl, causal=causal))
+        # yardstick: one SDPA call on the same inputs, the masks as a bool mask
+        ql, kl, vl = sdpa_layout(q), sdpa_layout(k), sdpa_layout(v)
+        cols = torch.arange(s, device=dev)
+        mask = torch.ones((b, 1, s, s), dtype=torch.bool, device=dev)
+        if causal:
+            mask = mask & (cols[None, :] <= cols[:, None])
+        if kvl is not None:
+            mask = mask & (cols[None, :] < kvl[:, None])[:, None, None, :]
+        lms = time_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask))
+        # the bool mask keeps SDPA off its flash backend: also at full
+        # lengths without a mask tensor, the kernel on the same inputs
+        full_ms = time_ms(lambda: flash_attention(q, k, v, causal=causal))
+        lfull_ms = time_ms(
+            lambda: F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal))
+        pairs = attended_pairs(b, s, s, causal, lens)
+        bms, bby = bound_ms(2 * (2 * q.numel() + 2 * k.numel()), 4 * pairs * d * h)
+        log(f"  K1 {case.label} time: kernel {kms:.4f} ms, plain {pms:.4f} ms, SDPA "
+            f"(bool mask) {lms:.4f} ms, bound {bms:.4f} ms ({bby}); every sample at "
+            f"full length: kernel {full_ms:.4f} ms, SDPA is_causal={causal} "
+            f"{lfull_ms:.4f} ms")
+        timing = dict(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms, bound_by=bby,
+                      full_length_ms=full_ms, library_full_length_ms=lfull_ms)
+        if case.label == "decoder pre tier":
+            res["flash_attention_fwd"].update(timing)
+        else:
+            res["flash_attention_fwd"]["clip"] = timing
 
     torch.cuda.synchronize()
     return res
@@ -609,123 +589,79 @@ def check_train_kernels(torch):
     names = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv", "flash_policy_attention_fwd")
     res = {n: {"max_abs_err": 0.0} for n in names}
 
-    def compare(name, got, want, tol, label):
-        got, want = got.float(), want.float()
-        require(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
-        err = (got - want).abs().max().item()
-        ok = torch.allclose(got, want, atol=tol, rtol=tol)
-        log(f"  {label}: max_abs_err={err:.3e} (atol=rtol={tol:g}) {'ok' if ok else 'FAIL'}")
-        require(ok, f"{label}: kernel disagrees with its plain version")
-        res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
-
-    s_train = TRAIN_TEXT_LEN - 1 + 576
-    # the training shape, and the edges of the 64-row tiling: GQA with 4 query
-    # heads a KV head at d=64, a kv_length of 0 and one in mid-tile, one tile
-    # and one row more, Sq != Sk without a causal mask
-    # (label, B, Sq, Sk, H, Hkv, d, causal, kv_length, dtype)
-    k3_cases = [
-        ("training shape", TRAIN_BATCH, s_train, s_train, 32, 32, 128, True, None,
-         torch.bfloat16),
-        ("training shape", TRAIN_BATCH, s_train, s_train, 32, 32, 128, True, None,
-         torch.float32),
-        ("gqa kv_length", 2, 200, 200, 8, 2, 64, True, [200, 77], torch.float32),
-        ("gqa non-causal kv_length", 2, 150, 150, 4, 2, 128, False, [0, 150], torch.bfloat16),
-        ("gqa n_rep 4", 2, 130, 130, 8, 2, 64, True, None, torch.bfloat16),
-        ("gqa kv_length 0 and mid-tile", 3, 200, 200, 8, 2, 64, True, [0, 77, 200],
-         torch.bfloat16),
-        ("one tile", 2, 64, 64, 4, 4, 128, True, None, torch.bfloat16),
-        ("one tile and a row", 2, 65, 65, 4, 2, 128, True, [65, 64], torch.bfloat16),
-        ("non-causal Sq != Sk", 2, 70, 150, 4, 2, 64, False, [150, 97], torch.bfloat16),
-        ("non-causal Sq != Sk", 2, 150, 70, 4, 2, 64, False, None, torch.float32),
-    ]
-    for label, b, s, sk, h, hkv, d, causal, lens, dtype in k3_cases:
-        q, k, v = (randn(b, s, h, d, dtype=dtype), randn(b, sk, hkv, d, dtype=dtype),
-                   randn(b, sk, hkv, d, dtype=dtype))
-        g = randn(b, s, h, d, dtype=dtype)
-        kvl = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=dev)
-        out, lse = fa.flash_attention(q, k, v, kv_length=kvl, causal=causal, return_lse=True)
-        wrappers = (fa.flash_attention_bwd_delta, fa.flash_attention_bwd_dq,
-                    fa.flash_attention_bwd_dkv)
-        before = [w.launches for w in wrappers]
-        dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, g, kv_length=kvl, causal=causal)
-        require([w.launches for w in wrappers] == [n + 1 for n in before],
-                "K3 launch counters")
-        require(dk.shape == k.shape and dv.shape == v.shape and dq.shape == q.shape
-                and {dq.dtype, dk.dtype, dv.dtype} == {dtype},
-                f"K3 {label}: dq / dk / dv must have q / k / v's shape and type")
-        # the same bits every launch (a layer re-run under checkpointing)
-        again = fa.flash_attention_bwd(q, k, v, out, lse, g, kv_length=kvl, causal=causal)
-        require(all(torch.equal(a, b2) for a, b2 in zip((dq, dk, dv), again)),
-                f"K3 {label}: two launches differ")
-        del again
-        # the plain version in fp32 on the same values, from its own forward
-        qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
-        rout, rlse = fa.flash_attention_plain(qf, kf, vf, kv_length=kvl, causal=causal,
-                                              return_lse=True)
-        rdq, rdk, rdv = fa.flash_attention_bwd_plain(qf, kf, vf, rout, rlse, gf,
-                                                     kv_length=kvl, causal=causal)
-        tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
-        shape = (f"B={b} Sq={s} Sk={sk} H={h} Hkv={hkv} d={d} causal={causal} lens={lens} "
-                 f"{dtype}")
-        compare("flash_attention_bwd_dq", dq, rdq, tol, f"K3 dq {label} [{shape}]")
-        compare("flash_attention_bwd_dkv", dk, rdk, tol, f"K3 dk {label} [{shape}]")
-        compare("flash_attention_bwd_dkv", dv, rdv, tol, f"K3 dv {label} [{shape}]")
-        # the delta kernel against its plain version on the same out and g
-        # (fp32 sums of d products of bf16 values in another order)
-        delta, rdelta = fa.flash_attention_bwd_delta(out, g), fa._delta(out, g)
-        derr = (delta - rdelta).abs().max().item()
-        dok = torch.allclose(delta, rdelta, atol=FP32_TOL, rtol=FP32_TOL)
-        log(f"  K3 delta {label}: max_abs_err={derr:.3e} (atol=rtol={FP32_TOL:g}) "
-            f"{'ok' if dok else 'FAIL'}")
-        require(dok and delta.shape == (b, h, s), f"K3 delta {label}: kernel disagrees with "
-                "its plain version")
+    # K3: every kernel_cases.FLASH_BWD_CASES case (the training shape and the
+    # edges of the 64-row tiles, bf16 and fp32), twice for equal bits, with
+    # the delta kernel against _delta; timed at the bf16 training shape
+    require(kc.TRAIN_SHAPE.sq == TRAIN_TEXT_LEN - 1 + 576 and kc.TRAIN_SHAPE.b == TRAIN_BATCH,
+            "kernel_cases.TRAIN_SHAPE is not phase 9's shape")
+    for case in kc.FLASH_BWD_CASES:
+        try:
+            errs = kc.check_flash_bwd_case(case, dev)
+        except AssertionError as e:
+            raise RuntimeError(str(e)) from e
+        tol = FP32_TOL if case.dtype == torch.float32 else BF16_TOL
+        log(f"  K3 {case.label} {kc.describe_flash_case(case)}: max_abs_err dq "
+            f"{errs['dq']:.3e}, dk {errs['dk']:.3e}, dv {errs['dv']:.3e} (atol=rtol={tol:g}), "
+            f"delta {errs['delta']:.3e} (atol=rtol={FP32_TOL:g}), two launches equal: ok")
+        for name, key in (("flash_attention_bwd_dq", "dq"), ("flash_attention_bwd_dkv", "dk"),
+                          ("flash_attention_bwd_dkv", "dv")):
+            res[name]["max_abs_err"] = max(res[name]["max_abs_err"], errs[key])
         res["flash_attention_bwd_dq"]["delta_max_abs_err"] = max(
-            res["flash_attention_bwd_dq"].get("delta_max_abs_err", 0.0), derr)
-        del rout, rlse, rdq, rdk, rdv, qf, kf, vf, gf, rdelta
-        if label == "training shape" and dtype == torch.bfloat16:
-            delta_ms = time_ms(lambda: fa.flash_attention_bwd_delta(out, g), 20)
-            delta_plain_ms = time_ms(lambda: fa._delta(out, g), 5)
-            dq_ms = time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, g, lse, delta), 5)
-            dkv_ms = time_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta), 5)
-            all_ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, g), 5)
-            pms = time_events_ms(
-                lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, g), 3)
-            # yardstick: the backward of one SDPA call on the same inputs
-            ql, kl, vl = (sdpa_layout(t).requires_grad_(True) for t in (q, k, v))
-            gl = sdpa_layout(g)
-            o = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
-            lms = time_events_ms(
-                lambda: torch.autograd.grad(o, (ql, kl, vl), gl, retain_graph=True), 10)
-            del o
-            # K1 at this shape (its shape in a train step), beside SDPA's forward
-            k1_ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True), 10)
-            with torch.no_grad():
-                k1_lib_ms = time_ms(
-                    lambda: F.scaled_dot_product_attention(ql, kl, vl, is_causal=True), 10)
-            log(f"  K1 time at the training shape: kernel {k1_ms:.4f} ms, SDPA is_causal "
-                f"{k1_lib_ms:.4f} ms")
-            res["flash_attention_fwd_train_shape"] = dict(ms=k1_ms, library_ms=k1_lib_ms)
-            pairs = attended_pairs(b, s, s, causal)
-            rows = 2 * 4 * b * h * s  # lse and delta, fp32
-            # bytes: dq reads q, dO, k, v and writes dq; dkv reads the same and
-            # writes dk and dv once, in k's type
-            dq_b, dq_by = bound_ms(2 * (3 * q.numel() + 2 * k.numel()) + rows,
-                                   6 * pairs * d * h)
-            dkv_b, dkv_by = bound_ms(2 * (2 * q.numel() + 4 * k.numel()) + rows,
-                                     8 * pairs * d * h)
-            delta_b, _ = bound_ms(2 * 2 * q.numel() + rows // 2, 2 * q.numel())
-            log(f"  K3 time at the training shape: dq {dq_ms:.4f} ms (bound {dq_b:.4f} "
-                f"{dq_by}), dkv {dkv_ms:.4f} ms (bound {dkv_b:.4f} {dkv_by}), delta "
-                f"{delta_ms:.4f} ms (bound {delta_b:.4f} bytes, plain {delta_plain_ms:.4f}), "
-                f"whole backward {all_ms:.4f} ms, plain {pms:.4f} ms, SDPA backward "
-                f"(dq, dk, dv together) {lms:.4f} ms")
-            # plain_ms and library_ms are times of the WHOLE backward (all three kernels' work)
-            res["flash_attention_bwd_dq"].update(
-                ms=dq_ms, plain_ms=pms, library_ms=lms, bound_ms=dq_b, bound_by=dq_by,
-                delta_ms=delta_ms, delta_plain_ms=delta_plain_ms, delta_bound_ms=delta_b,
-                whole_backward_ms=all_ms)
-            res["flash_attention_bwd_dkv"].update(
-                ms=dkv_ms, plain_ms=pms, library_ms=lms, bound_ms=dkv_b, bound_by=dkv_by)
+            res["flash_attention_bwd_dq"].get("delta_max_abs_err", 0.0), errs["delta"])
+        if case != kc.TRAIN_SHAPE:
+            continue
+        q, k, v, g, _ = kc.make_flash_inputs(case, dev, seed=1)
+        b, s, h, d = q.shape
+        out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+        delta = fa.flash_attention_bwd_delta(out, g)
+        delta_ms = time_ms(lambda: fa.flash_attention_bwd_delta(out, g), 20)
+        delta_plain_ms = time_ms(lambda: fa._delta(out, g), 5)
+        # yardstick of the delta kernel: rowsum(dO * O) as one PyTorch call, on
+        # the fp32 values the kernel forms from its bf16 inputs
+        of, gf = out.float(), g.float()
+        delta_lib_ms = time_ms(lambda: torch.linalg.vecdot(gf, of, dim=-1), 20)
+        del of, gf
+        dq_ms = time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, g, lse, delta), 5)
+        dkv_ms = time_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta), 5)
+        all_ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, g), 5)
+        pms = time_events_ms(
+            lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, g), 3)
+        # yardstick: the backward of one SDPA call on the same inputs
+        ql, kl, vl = (sdpa_layout(t).requires_grad_(True) for t in (q, k, v))
+        gl = sdpa_layout(g)
+        o = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+        lms = time_events_ms(
+            lambda: torch.autograd.grad(o, (ql, kl, vl), gl, retain_graph=True), 10)
+        del o
+        # K1 at this shape (its shape in a train step), beside SDPA's forward
+        k1_ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True), 10)
+        with torch.no_grad():
+            k1_lib_ms = time_ms(
+                lambda: F.scaled_dot_product_attention(ql, kl, vl, is_causal=True), 10)
+        log(f"  K1 time at the training shape: kernel {k1_ms:.4f} ms, SDPA is_causal "
+            f"{k1_lib_ms:.4f} ms")
+        res["flash_attention_fwd_train_shape"] = dict(ms=k1_ms, library_ms=k1_lib_ms)
+        pairs = attended_pairs(b, s, s, True)
+        rows = 2 * 4 * b * h * s  # lse and delta, fp32
+        # bytes: dq reads q, dO, k, v and writes dq; dkv reads the same and
+        # writes dk and dv once, in k's type
+        dq_b, dq_by = bound_ms(2 * (3 * q.numel() + 2 * k.numel()) + rows, 6 * pairs * d * h)
+        dkv_b, dkv_by = bound_ms(2 * (2 * q.numel() + 4 * k.numel()) + rows,
+                                 8 * pairs * d * h)
+        delta_b, _ = bound_ms(2 * 2 * q.numel() + rows // 2, 2 * q.numel())
+        log(f"  K3 time at the training shape: dq {dq_ms:.4f} ms (bound {dq_b:.4f} "
+            f"{dq_by}), dkv {dkv_ms:.4f} ms (bound {dkv_b:.4f} {dkv_by}), delta "
+            f"{delta_ms:.4f} ms (bound {delta_b:.4f} bytes, plain {delta_plain_ms:.4f}, "
+            f"torch.linalg.vecdot on fp32 {delta_lib_ms:.4f}), whole backward {all_ms:.4f} "
+            f"ms, plain {pms:.4f} ms, SDPA backward (dq, dk, dv together) {lms:.4f} ms")
+        # plain_ms and library_ms are times of the WHOLE backward (all three kernels' work)
+        res["flash_attention_bwd_dq"].update(
+            ms=dq_ms, plain_ms=pms, library_ms=lms, bound_ms=dq_b, bound_by=dq_by,
+            delta_ms=delta_ms, delta_plain_ms=delta_plain_ms, delta_bound_ms=delta_b,
+            delta_library_ms=delta_lib_ms, whole_backward_ms=all_ms)
+        res["flash_attention_bwd_dkv"].update(
+            ms=dkv_ms, plain_ms=pms, library_ms=lms, bound_ms=dkv_b, bound_by=dkv_by)
+        del q, k, v, g, out, lse, delta, ql, kl, vl, gl
 
     # K4: every kernel_cases.POLICY_CASES and POLICY_EDGE_CASES case, twice for
     # equal bits; at the bf16 training shape the error must be that of the
@@ -1090,19 +1026,80 @@ def cache_bytes(cache) -> int:
                for t in (tier.k, tier.v, tier.k_scale, tier.v_scale) if t is not None)
 
 
-def serve(torch, params, modes, counters, label, b=8, max_new=64, n_text=60, batches=2):
-    """``batches`` batches of ``b`` requests (one image and ``n_text`` text
+def eager_decode(torch, gen, plan, pix, steps):
+    """The graph's reference: prefill, then ``steps`` greedy decode steps as
+    an eager loop of ``argmax`` + ``decode_step`` on the card, one launch at
+    a time. Returns (``[steps, B]`` tokens, step wall ms, the serving
+    kernels' wrapper calls of the prefill and the steps by
+    ``kernel_cases.SERVING_KERNELS`` label)."""
+    from dynamic_llava_tpu_torch import kernel_cases as kc
+    from dynamic_llava_tpu_torch.models.dynamic import decode_step
+
+    before = kc.read_counters()
+    with torch.inference_mode():
+        state, _ = gen.prefill_from_plan(plan, pix, steps)
+        toks = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            tok = torch.argmax(state.last_logits, dim=-1)
+            state = decode_step(gen.params, gen.cfg, tok, state,
+                                kv_overflow=gen.gen_cfg.kv_overflow)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    calls = kc.wrapper_calls(before, kc.read_counters())
+    return torch.stack(toks).cpu().numpy(), step_ms, calls
+
+
+def graph_decode(torch, gen, plan, pix, steps):
+    """The graph side, timed as ``eager_decode`` times the eager loop:
+    prefill into the ``Generator``'s runner, then the host clock around its
+    chunks (replays of the captured step; chunk k+1 enqueued before chunk
+    k's tokens are read, as ``generate`` does) up to the last chunk's
+    tokens. Returns (``[steps, B]`` tokens, step wall ms)."""
+    with torch.inference_mode():
+        state, _ = gen.prefill_from_plan(plan, pix, steps)
+        runner = gen.runner(plan, pix, steps)
+        runner.load(state, 0)
+        del state
+        n = steps // runner.chunk
+        toks = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pending = runner.run_chunk()
+        for ci in range(n):
+            following = runner.run_chunk() if ci + 1 < n else None
+            toks.append(pending.tokens())
+            pending = following
+        step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    return np.concatenate(toks), step_ms
+
+
+def serve(torch, params, modes, counters, need, label, b=8, max_new=64, n_text=60,
+          batches=2):
+    """For each mode of ``modes`` on the same weights, the main path:
+    ``batches`` batches of ``b`` requests (one image and ``n_text`` text
     tokens each, the same prompts for every call) through
-    ``Generator.generate`` for each mode of ``modes`` on the same weights;
-    the last is timed. A mode is ``(name, cfg)`` or ``(name, cfg, opts)``:
-    ``opts["gen"]`` are ``GenerationConfig`` fields (``cache_dtype``,
-    ``kv_overflow``, ``kv_window``), ``opts["fused"]`` switches the fused
-    int4 MLP (K9) on for the mode. Every kernel in ``counters`` (name ->
-    wrapper) must launch in each mode: K2 once per layer and decode step,
-    K9 as often with the switch on and never with it off. Returns the
-    per-mode measurements."""
+    ``Generator.generate``, with every wrapper's count in ``counters``
+    (name -> wrapper) zeroed just before and read just after, and the
+    serving kernels' launches on the card counted in a profiler trace of
+    those calls (``kernel_cases.device_launches``). A mode is ``(name,
+    cfg)`` or ``(name, cfg, opts)``: ``opts["gen"]`` are
+    ``GenerationConfig`` fields (``cache_dtype``, ``kv_overflow``,
+    ``kv_window``), ``opts["fused"]`` switches the fused int4 MLP (K9) on
+    for the mode. Every wrapper named in ``need`` must be called in each
+    mode (K9 only with the switch on); on the card K2 must launch once per
+    layer and decode step, K9 as often with the switch on and never with it
+    off, and every serving kernel as often as the wrappers of an eager loop
+    (``eager_decode``) launch it for the same prefill and steps. Then, apart
+    from the counts and the trace: ``TIMED`` more ``generate`` calls timed, the prefill
+    timed alone (TTFT), the graph's and the eager loop's step walls, and the
+    graph's tokens held against the eager loop's. Returns the per-mode
+    measurements."""
     import os
 
+    from dynamic_llava_tpu_torch import kernel_cases as kc
     from dynamic_llava_tpu_torch.config import IMAGE_TOKEN_INDEX
     from dynamic_llava_tpu_torch.generation.generate import GenerationConfig, Generator
     from dynamic_llava_tpu_torch.models.dynamic import gen_cache_sizes
@@ -1132,34 +1129,62 @@ def serve(torch, params, modes, counters, label, b=8, max_new=64, n_text=60, bat
         if fused:
             os.environ[Q4_MLP_SWITCH] = "1"
         try:
-            before = {name: fn.launches for name, fn in counters.items()}
+            for fn in counters.values():
+                fn.launches = 0
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            outs = []
-            for _ in range(batches):  # the last batch is timed, past first-call costs
+            # the main path (the first call captures the decode step); one
+            # trace a call keeps the profiler's buffers small
+            outs, per_call = [], []
+            for _ in range(batches):
+                out, seen = kc.device_launches(lambda: gen.generate(ids, pix))
+                outs.append(out)
+                per_call.append(seen)
+            device = {k: sum(c[k] for c in per_call) for k in kc.SERVING_KERNELS}
+            calls = {name: fn.launches for name, fn in counters.items()}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            runner = gen.decode_runner
+            # timed apart from the trace: TIMED calls and as many prefills
+            # alone, the median of each kept (the host's pace varies)
+            e2es, ttfts = [], []
+            for _ in range(TIMED):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 outs.append(gen.generate(ids, pix))
                 torch.cuda.synchronize()
-                e2e = time.perf_counter() - t0
-            peak = torch.cuda.max_memory_allocated() / 2**30
-            rose = {name: fn.launches - before[name] for name, fn in counters.items()}
-            # TTFT: the same prefill, timed alone
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            with torch.inference_mode():
-                state, info = gen.prefill_from_plan(plan, pix, steps)
-            torch.cuda.synchronize()
-            ttft = time.perf_counter() - t0
+                e2es.append(time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                with torch.inference_mode():
+                    state, info = gen.prefill_from_plan(plan, pix, steps)
+                torch.cuda.synchronize()
+                ttfts.append(time.perf_counter() - t0)
+            e2e, ttft = statistics.median(e2es), statistics.median(ttfts)
+            require(bool(torch.isfinite(state.last_logits).all()),
+                    f"{label} {mode}: non-finite prefill logits")
+            kv_gib, kv_dtype = cache_bytes(state.cache) / 2**30, state.cache.pre.k.dtype
+            tiers = (state.cache.pre.max_len, state.cache.post.max_len)
+            del state
+            # the graph's tokens and step wall against the eager loop's, all steps
+            require(gen.decode_runner is runner and runner.graph is not None,
+                    f"{label} {mode}: decode took no CUDA graph, or not one graph")
+            graph_toks, graph_ms = graph_decode(torch, gen, plan, pix, steps)
+            eager_toks, eager_ms, eager_calls = eager_decode(torch, gen, plan, pix, steps)
         finally:
             os.environ.pop(Q4_MLP_SWITCH, None)
+        for name in need:
+            wanted = fused or name != "q4_mlp"
+            require((calls[name] > 0) == wanted,
+                    f"{label} {mode}: {name}'s wrapper called {calls[name]} times ({calls})")
         per_layer = batches * steps * cfg.text.num_hidden_layers
-        want = {"decode_attention_appended": per_layer,
-                "q4_mlp": per_layer if fused else 0}
-        for name, r in rose.items():
-            require(r == want[name] if name in want else r > 0,
-                    f"{label} {mode}: {name} launched {r} times"
-                    + (f", not {want[name]}" if name in want else "") + f" ({rose})")
+        require(device["decode_kernel"] == per_layer,
+                f"{label} {mode}: K2 launched {device['decode_kernel']} times on the card, "
+                f"not {per_layer} (by call {per_call}; eager loop {eager_calls})")
+        require(device["q4_mlp_kernel"] == (per_layer if fused else 0),
+                f"{label} {mode}: K9 launched {device['q4_mlp_kernel']} times on the card "
+                f"with the switch {'on' if fused else 'off'} (by call {per_call})")
+        require(all(c == eager_calls for c in per_call),
+                f"{label} {mode}: launches on the card by call {per_call} != the eager "
+                f"loop's wrapper calls {eager_calls}")
         out = outs[-1]
         require(all(o == out for o in outs),
                 f"{label} {mode}: batches of the same prompts differ")
@@ -1167,27 +1192,32 @@ def serve(torch, params, modes, counters, label, b=8, max_new=64, n_text=60, bat
                 f"{label} {mode}: wrong output lengths")
         require(all(0 <= t < vocab for o in out for t in o),
                 f"{label} {mode}: token id out of range")
-        require(bool(torch.isfinite(state.last_logits).all()),
-                f"{label} {mode}: non-finite prefill logits")
         new_len = info.new_length.tolist()
         want_len = [int(v) - (cfg.num_image_tokens - cfg.vision_keep_budget)
                     for v in plan.valid_len]
         require(new_len == want_len,
                 f"{label} {mode}: new_length {new_len} != {want_len}")
-        require((state.cache.pre.max_len, state.cache.post.max_len) == sizes,
-                f"{label} {mode}: tier capacities")
+        require(tiers == sizes, f"{label} {mode}: tier capacities")
         tok_s = b * max_new / (e2e - ttft)
-        kv_gib = cache_bytes(state.cache) / 2**30
+        same = bool(np.array_equal(np.asarray(out).T, eager_toks[:max_new])
+                    and np.array_equal(graph_toks, eager_toks))
+        graph = dict(eager_step_ms=eager_ms, graph_step_ms=graph_ms,
+                     capture_ms=runner.capture_ms, tokens_equal=same)
+        require(same, f"{label} {mode}: graph tokens differ from the eager loop's")
         results[mode] = dict(e2e_s=e2e, ttft_ms=ttft * 1e3, decode_tok_s=tok_s,
                              peak_gib=peak, kv_gib=kv_gib, pre=sizes[0], post=sizes[1],
-                             launches=rose)
+                             launches=calls, device_launches=device, graph=graph)
         log(f"  {label} {mode}: B={b}, prompt length {plan.seq_len}, {max_new} new tokens, "
             f"tier capacities pre={sizes[0]} post={sizes[1]}, KV cache "
-            f"{state.cache.pre.k.dtype} {kv_gib:.3f} GiB; generate {e2e:.3f} s, TTFT "
+            f"{kv_dtype} {kv_gib:.3f} GiB; generate {e2e:.3f} s, TTFT "
             f"{ttft * 1e3:.1f} ms, decode {tok_s:.1f} tok/s, peak {peak:.2f} GiB, "
             f"new_length {new_len[:2]}... (prompt {plan.valid_len.tolist()[:2]}...), "
-            f"launches {rose}, first tokens {out[0][:8]}")
-        del state, info
+            f"wrapper calls {calls}, launches on the card {device}, "
+            f"first tokens {out[0][:8]}")
+        log(f"  {label} {mode}: decode step wall {eager_ms:.3f} ms eager, "
+            f"{graph_ms:.3f} ms graph (capture {runner.capture_ms:.1f} ms); "
+            "graph tokens == eager loop's")
+        del gen, runner, info
     return results
 
 
@@ -1273,17 +1303,23 @@ def main() -> int:
     reported = {"bf16": ("flash_attention_fwd", "decode_attention_appended"),
                 "int8": ("q8_gemv", "q8_gemv_group"), "int4": ("q4_gemv", "q4_gemv_group"),
                 "lean": ("q4_mlp",)}
-    launches, results = {}, {}
+    # a serving wrapper -> the kernel it launches (kernel_cases.SERVING_KERNELS);
+    # a GEMV wrapper and its group form launch the same kernel
+    kernel_of = {"flash_attention_fwd": "flash_fwd", "decode_attention_appended": "decode_kernel",
+                 "q8_gemv": "gemv int8", "q8_gemv_group": "gemv int8",
+                 "q4_gemv": "gemv int4", "q4_gemv_group": "gemv int4",
+                 "q4_mlp": "q4_mlp_kernel"}
+    launches, calls, results = {}, {}, {}
 
     def drive(label, params, modes, **kw):
-        for fn in counters.values():
-            fn.launches = 0
-        need = {n: counters[n] for n in
-                ("flash_attention_fwd", "decode_attention_appended") + paths[label]}
-        results[label] = serve(torch, params, modes, need, label, **kw)
-        launches.update({n: counters[n].launches for n in reported.get(label, ())})
-        log(f"  {label} path launches: "
-            f"{ {n: fn.launches for n, fn in counters.items()} }")
+        need = ("flash_attention_fwd", "decode_attention_appended") + paths[label]
+        results[label] = serve(torch, params, modes, counters, need, label, **kw)
+        runs = results[label].values()
+        host = {n: sum(r["launches"][n] for r in runs) for n in counters}
+        device = {k: sum(r["device_launches"][k] for r in runs) for k in set(kernel_of.values())}
+        for n in reported.get(label, ()):
+            launches[n], calls[n] = device[kernel_of[n]], host[n]
+        log(f"  {label} path: wrapper calls {host}, launches on the card {device}")
 
     cfg_sparse = LlavaConfig()
     cfg_dense = LlavaConfig(sparse=DENSE_SPARSE_CONFIG)
@@ -1299,15 +1335,15 @@ def main() -> int:
         f"(decoder {param_bytes(params['llm']) / 2**30:.2f}) in "
         f"{time.perf_counter() - t0:.1f} s")
     drive("bf16", params, both)
-    # K1 once a tower layer and decoder layer per prefill (two batches and the
-    # re-timed prefill, sparse and dense): the differentiable tower costs
-    # serving no launch
+    # K1 once a tower layer and decoder layer per prefill (two batches, sparse
+    # and dense): the differentiable tower costs serving no launch
     vis = cfg_sparse.vision
     per_prefill = (vis.num_hidden_layers + vis.select_layer + 1
                    + cfg_sparse.text.num_hidden_layers)
-    require(launches["flash_attention_fwd"] == 2 * 3 * per_prefill,
-            f"bf16 path: K1 launched {launches['flash_attention_fwd']} times, not "
-            f"{2 * 3 * per_prefill}")
+    require(launches["flash_attention_fwd"] == calls["flash_attention_fwd"]
+            == 2 * 2 * per_prefill,
+            f"bf16 path: K1 launched {launches['flash_attention_fwd']} times "
+            f"({calls['flash_attention_fwd']} wrapper calls), not {2 * 2 * per_prefill}")
 
     log("phase 6: quantized serving at 7B width")
     t0 = time.perf_counter()
@@ -1363,7 +1399,7 @@ def main() -> int:
     drive("13b", params, [
         ("sparse", cfg13, dict(fused=True)),
         ("dense", LlavaConfig(text=text13, sparse=DENSE_SPARSE_CONFIG), dict(fused=True)),
-    ], b=1, max_new=256, batches=1)
+    ], b=1, max_new=256)
     del params
     torch.cuda.empty_cache()
 
@@ -1393,9 +1429,9 @@ def main() -> int:
         "dense": train(torch, params, train_dense, "train dense", expect["dense"]),
     }
     # K3 and K4 report their launches on the sparse path, where all three run
-    launches.update({n: results["train"]["sparse"]["launches"][n] for n in
-                     ("flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-                      "flash_policy_attention_fwd")})
+    # (eager: one launch a wrapper call)
+    for n in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv", "flash_policy_attention_fwd"):
+        launches[n] = calls[n] = results["train"]["sparse"]["launches"][n]
     del params
     require("jax" not in sys.modules and "dynamic_llava_tpu" not in sys.modules,
             "jax or the JAX package was imported")
@@ -1447,13 +1483,21 @@ def main() -> int:
              "flash_attention_fwd": ("full_length_ms", "library_full_length_ms", "clip",
                                      "train_shape"),
              "flash_attention_bwd_dq": ("delta_ms", "delta_plain_ms", "delta_bound_ms",
-                                        "delta_max_abs_err", "whole_backward_ms")}
+                                        "delta_library_ms", "delta_max_abs_err",
+                                        "whole_backward_ms")}
+    # the launches of a GEMV wrapper and its group form are one kernel's
+    shared = {"q8_gemv": "q8_gemv_group", "q8_gemv_group": "q8_gemv",
+              "q4_gemv": "q4_gemv_group", "q4_gemv_group": "q4_gemv"}
+    print("decode_graph " + json.dumps({
+        f"{label} {mode}": r["graph"] for label, runs in results.items() if label != "train"
+        for mode, r in runs.items()}))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], "max_abs_err": kres[name]["max_abs_err"],
          "ms": kres[name]["ms"], "plain_ms": kres[name]["plain_ms"],
          "bound_ms": kres[name]["bound_ms"], "bound_by": kres[name]["bound_by"],
-         "library_ms": kres[name]["library_ms"],
+         "library_ms": kres[name]["library_ms"], "wrapper_calls": calls[name],
+         **({"launches_shared_with": shared[name]} if name in shared else {}),
          **{k: kres[name][k] for k in extra.get(name, ())}}
         for name, (source, replaces) in table.items()
     ]}))

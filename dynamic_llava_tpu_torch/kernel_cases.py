@@ -1,22 +1,32 @@
-"""Card-side cases of the policy attention (K4), the decode-attention kernel
-(K2), the weight-only GEMVs (K5-K8) and the fused int4 MLP (K9): the shapes
-at which each kernel is held against its plain PyTorch version on the same
-inputs, and the functions that do so.
+"""Card-side cases of the flash forward (K1) and backward (K3, with its delta
+kernel), the policy attention (K4), the decode-attention kernel (K2), the
+weight-only GEMVs (K5-K8) and the fused int4 MLP (K9): the shapes at which
+each kernel is held against its plain PyTorch version on the same inputs,
+and the functions that do so.
 
 ``chip_smoke.py`` (phase 3) and ``tests/test_torch_card_kernels.py`` both run
 these lists, so the smoke run and the card-side pytest check the same thing
 with the same tolerances. Every case launches its kernel twice and asks for
 equal bits (the kernels sum in an order fixed by the shapes). Nothing here
 touches CUDA when the module is imported.
+
+``device_launches`` counts the serving path's kernels by the names the card
+reports, in a ``torch.profiler`` trace: the launches of a CUDA graph's
+replays, which no wrapper sees (``chip_smoke.py`` phases 5-8 and
+``tests/test_torch_card_graph.py``).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Tuple
+import re
+import time
+from collections import Counter
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .ops import flash_attention as fa
 from .ops import quant_matmul as qm
 from .ops.decode_attention import decode_attention, decode_attention_plain, decode_split
 from .ops.flash_policy import flash_policy_attention, flash_policy_attention_plain
@@ -28,6 +38,145 @@ BF16_TOL = 2e-2
 FP32_TOL = 1e-4
 # GEMVs: max abs error relative to max |ref|, bf16 / fp32 output
 QUANT_TOL = {False: 1e-2, True: 1e-4}
+
+
+class FlashCase(NamedTuple):
+    label: str
+    b: int
+    sq: int
+    sk: int
+    h: int
+    hkv: int
+    d: int
+    causal: bool
+    lengths: Optional[Tuple[int, ...]]  # kv_length per sample; None: every column
+    dtype: torch.dtype  # of q, k, v, dout and out
+    q_offset: int = 0  # K1 only
+
+
+BF16, FP32 = torch.bfloat16, torch.float32
+# K1: the decoder's prefill (pre tier 640, post tier 179; chip_smoke.py times
+# the pre tier) and the CLIP tower (timed too), and the edges of the 64-row
+# tiles: one tile and one row more, a kv_length of 0 and one in mid-tile, GQA
+# with 4 query heads a kv head, a q_offset with Sq < Sk, bf16 and fp32
+FLASH_FWD_CASES = [
+    FlashCase("decoder pre tier", 4, 640, 640, 32, 32, 128, True, (640, 613, 401, 1), BF16),
+    FlashCase("decoder post tier", 4, 179, 179, 32, 32, 128, True, (179, 175, 90, 1), BF16),
+    FlashCase("clip tower", 4, 577, 577, 16, 16, 64, False, None, BF16),
+    FlashCase("gqa", 2, 200, 200, 8, 2, 64, True, (200, 0), FP32),
+    FlashCase("one tile", 2, 64, 64, 4, 4, 128, True, None, BF16),
+    FlashCase("one tile and a row", 2, 65, 65, 4, 2, 64, True, None, BF16),
+    FlashCase("one tile and a row", 2, 65, 65, 4, 2, 128, True, (65, 30), FP32),
+    FlashCase("gqa kv_length 0 and mid-tile", 3, 200, 200, 8, 2, 64, True, (0, 77, 200), BF16),
+    FlashCase("q_offset, Sq < Sk", 2, 70, 150, 8, 4, 128, True, (150, 97), BF16, 80),
+    FlashCase("q_offset, Sq < Sk", 2, 70, 150, 4, 2, 64, True, (150, 97), FP32, 80),
+    FlashCase("non-causal Sq < Sk kv_length", 2, 70, 150, 4, 4, 64, False, (33, 150), BF16),
+]
+# K3: the training shape (chip_smoke.py times the bf16 one) and the edges of
+# the 64-row tiles: GQA with 4 query heads a kv head at d 64, a kv_length of
+# 0 and one in mid-tile, one tile and one row more, Sq != Sk without a causal
+# mask, bf16 and fp32
+TRAIN_SHAPE = FlashCase("training shape", 4, 1663, 1663, 32, 32, 128, True, None, BF16)
+FLASH_BWD_CASES = [
+    TRAIN_SHAPE,
+    TRAIN_SHAPE._replace(dtype=FP32),
+    FlashCase("gqa kv_length", 2, 200, 200, 8, 2, 64, True, (200, 77), FP32),
+    FlashCase("gqa non-causal kv_length", 2, 150, 150, 4, 2, 128, False, (0, 150), BF16),
+    FlashCase("gqa n_rep 4", 2, 130, 130, 8, 2, 64, True, None, BF16),
+    FlashCase("gqa kv_length 0 and mid-tile", 3, 200, 200, 8, 2, 64, True, (0, 77, 200), BF16),
+    FlashCase("one tile", 2, 64, 64, 4, 4, 128, True, None, BF16),
+    FlashCase("one tile and a row", 2, 65, 65, 4, 2, 128, True, (65, 64), BF16),
+    FlashCase("non-causal Sq != Sk", 2, 70, 150, 4, 2, 64, False, (150, 97), BF16),
+    FlashCase("non-causal Sq != Sk", 2, 150, 70, 4, 2, 64, False, None, FP32),
+]
+
+
+def make_flash_inputs(case: FlashCase, device, seed: int = 0):
+    """``(q, k, v, dout, kv_length)`` for ``case``, made from a numpy seed."""
+    rng = np.random.default_rng(seed)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(
+            device, case.dtype)
+
+    q = randn(case.b, case.sq, case.h, case.d)
+    k, v = (randn(case.b, case.sk, case.hkv, case.d) for _ in range(2))
+    g = randn(case.b, case.sq, case.h, case.d)
+    kvl = (None if case.lengths is None
+           else torch.tensor(case.lengths, dtype=torch.int32, device=device))
+    return q, k, v, g, kvl
+
+
+def _close(name: str, got, want, tol: float) -> float:
+    got, want = got.float(), want.float()
+    assert bool(torch.isfinite(got).all()), f"{name}: non-finite output"
+    err = (got - want).abs().max().item()
+    assert torch.allclose(got, want, atol=tol, rtol=tol), (
+        f"{name}: kernel disagrees with its plain version, max_abs_err {err:.3e} "
+        f"(atol=rtol={tol:g})")
+    return err
+
+
+def check_flash_fwd_case(case: FlashCase, device="cuda") -> Tuple[float, float]:
+    """Runs K1 on ``case`` twice (equal bits) and holds output and lse
+    against the plain version in fp32 on the same values; returns (max abs
+    error of the output, of the lse), raises ``AssertionError`` on a
+    mismatch."""
+    q, k, v, _, kvl = make_flash_inputs(case, device)
+    kw = dict(kv_length=kvl, causal=case.causal, q_offset=case.q_offset)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    again, lse2 = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    ref, ref_lse = fa.flash_attention_plain(q.float(), k.float(), v.float(), return_lse=True,
+                                            **kw)
+    tol = FP32_TOL if case.dtype == torch.float32 else BF16_TOL
+    assert out.dtype == case.dtype and out.shape == q.shape, (out.dtype, out.shape)
+    err = _close(f"K1 {case.label}", out, ref, tol)
+    lse_err = _close(f"K1 {case.label} lse", lse, ref_lse, tol)
+    # the same bits every launch (a layer re-run under checkpointing)
+    assert torch.equal(out, again) and torch.equal(lse, lse2), \
+        f"K1 {case.label}: two launches differ"
+    return err, lse_err
+
+
+def check_flash_bwd_case(case: FlashCase, device="cuda") -> dict:
+    """Runs K3 (delta, dq and dkv: one launch each) on ``case`` twice (equal
+    bits) and holds dq, dk and dv against the plain backward in fp32 from its
+    own forward, and the delta kernel against ``_delta`` on the same out and
+    dout (fp32 sums of d products in another order: 1e-4); returns the max
+    abs errors by ``dq`` / ``dk`` / ``dv`` / ``delta``, raises
+    ``AssertionError`` on a mismatch."""
+    q, k, v, g, kvl = make_flash_inputs(case, device, seed=1)
+    kw = dict(kv_length=kvl, causal=case.causal)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    wrappers = (fa.flash_attention_bwd_delta, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv)
+    before = [w.launches for w in wrappers]
+    got = fa.flash_attention_bwd(q, k, v, out, lse, g, **kw)
+    assert [w.launches for w in wrappers] == [n + 1 for n in before], "K3 launch counters"
+    assert [t.shape for t in got] == [q.shape, k.shape, v.shape] and \
+        {t.dtype for t in got} == {case.dtype}, \
+        f"K3 {case.label}: dq / dk / dv must have q / k / v's shape and type"
+    # the same bits every launch (a layer re-run under checkpointing)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, g, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+        f"K3 {case.label}: two launches differ"
+    del again
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+    rout, rlse = fa.flash_attention_plain(qf, kf, vf, return_lse=True, **kw)
+    want = fa.flash_attention_bwd_plain(qf, kf, vf, rout, rlse, gf, **kw)
+    tol = FP32_TOL if case.dtype == torch.float32 else BF16_TOL
+    errs = {name: _close(f"K3 {name} {case.label}", a, b, tol)
+            for name, a, b in zip(("dq", "dk", "dv"), got, want)}
+    delta = fa.flash_attention_bwd_delta(out, g)
+    assert delta.shape == (case.b, case.h, case.sq), delta.shape
+    errs["delta"] = _close(f"K3 delta {case.label}", delta, fa._delta(out, g), FP32_TOL)
+    return errs
+
+
+def describe_flash_case(case: FlashCase) -> str:
+    return (f"[B={case.b} Sq={case.sq} Sk={case.sk} H={case.h} Hkv={case.hkv} d={case.d} "
+            f"causal={case.causal} lens={None if case.lengths is None else list(case.lengths)} "
+            f"q_offset={case.q_offset} {case.dtype}]")
 
 
 class DecodeCase(NamedTuple):
@@ -47,7 +196,6 @@ def _lens(*values):
     return tuple(values)
 
 
-BF16, FP32 = torch.bfloat16, torch.float32
 # a tile of the kernel is 64-256 cache rows (by storage type, head_dim and
 # query heads a kv head) and a split owns ceil(max_len / decode_split) rows:
 # the lengths sit below, at and above those edges, at 0 and 1, at the capacity
@@ -379,3 +527,65 @@ def check_mlp_case(case: MlpCase, rows: int, fp32: bool, device="cuda", gen=None
     assert rel <= MLP_TOL[fp32], (f"{label}: kernel disagrees with its plain version, max err "
                                   f"/ max |ref| {rel:.3e} (tol {MLP_TOL[fp32]:g})")
     return err, rel, x
+
+
+# the serving path's kernels: a pattern of the name the card reports
+# (demangled, or mangled as the compiler emits it) and the wrappers that
+# launch the kernel (a GEMV wrapper and its group form share one kernel)
+SERVING_KERNELS = {
+    "flash_fwd": (r"flash_fwd_(?:mma_)?kernel[<I]", (fa.flash_attention,)),
+    "decode_kernel": (r"decode_kernel[<I]", (decode_attention,)),
+    "gemv int8": (r"gemv_(?:tc|fma)_kernel(?:<\d+, false>|ILi\d+ELb0E)",
+                  (qm.q8_gemv, qm.q8_gemv_group)),
+    "gemv int4": (r"gemv_(?:tc|fma)_kernel(?:<\d+, true>|ILi\d+ELb1E)",
+                  (qm.q4_gemv, qm.q4_gemv_group)),
+    "q4_mlp_kernel": (r"q4_mlp_kernel[<I]", (qm.q4_mlp,)),
+}
+
+
+TRACE_MARGIN_S = 0.1
+
+
+def serving_kernel(name: str) -> Optional[str]:
+    """The ``SERVING_KERNELS`` label of a kernel name, or None."""
+    for label, (pattern, _) in SERVING_KERNELS.items():
+        if re.search(pattern, name):
+            return label
+    return None
+
+
+def device_launches(fn: Callable):
+    """``(fn(), launches)``: the serving kernels' launches on the card while
+    ``fn`` runs, by ``SERVING_KERNELS`` label, counted in a ``torch.profiler``
+    trace of the CUDA activity (a graph replay's kernels are recorded one by
+    one). The card is idle for ``TRACE_MARGIN_S`` at each end of the trace:
+    the profiler drops the events it places outside its window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_MARGIN_S)
+        out = fn()
+        torch.cuda.synchronize()
+        time.sleep(TRACE_MARGIN_S)
+    names = Counter(e.name() for e in prof.profiler.kineto_results.events()
+                    if e.device_type() == DeviceType.CUDA)
+    launches: Dict[str, int] = dict.fromkeys(SERVING_KERNELS, 0)
+    for name, n in names.items():
+        label = serving_kernel(name)
+        if label is not None:
+            launches[label] += n
+    return out, launches
+
+
+def wrapper_calls(before: Dict, after: Dict) -> Dict[str, int]:
+    """Host calls of each serving kernel's wrappers between two readings of
+    ``{wrapper: wrapper.launches}``, by ``SERVING_KERNELS`` label."""
+    return {label: sum(after[fn] - before[fn] for fn in fns)
+            for label, (_, fns) in SERVING_KERNELS.items()}
+
+
+def read_counters() -> Dict:
+    """``{wrapper: wrapper.launches}`` of the serving kernels' wrappers."""
+    return {fn: fn.launches for _, fns in SERVING_KERNELS.values() for fn in fns}

@@ -62,10 +62,11 @@ def quantize_kv(x: torch.Tensor):
     per-vector quantization. The scale is ``max(amax, 1e-8) * (1/127)``
     rounded to bf16, and the division uses that ROUNDED scale (what the
     reader multiplies by); ``torch.round`` rounds half to even like
-    ``jnp.round``."""
+    ``jnp.round``. The fp32 ``1/127`` is made by a fill on ``x``'s device,
+    not copied from the host, so a decode step captures into a CUDA graph."""
     xf = x.float()
     amax = xf.abs().amax(dim=-1)
-    inv = torch.tensor(1.0 / 127.0, dtype=torch.float32, device=x.device)
+    inv = torch.full((), 1.0 / 127.0, dtype=torch.float32, device=x.device)
     scale = (torch.clamp(amax, min=1e-8) * inv).to(torch.bfloat16)
     q = torch.clamp(torch.round(xf / scale.float()[..., None]), -127.0, 127.0)
     return q.to(torch.int8), scale

@@ -32,7 +32,7 @@ from .quant_matmul import (
 __all__ = [
     "QUANT_TARGETS", "pack_int4", "unpack_int4", "quantize_weight",
     "quantize_llm_params", "init_quantized_llama_params", "dequantize_weight",
-    "is_quantized", "linear", "linear_group", "matmul", "matmul_q4_mlp",
+    "is_quantized", "linear", "linear_group", "matmul", "matmul_q4_mlp", "q4_mlp_enabled",
 ]
 
 QUANT_TARGETS = ("q", "k", "v", "o", "gate", "up", "down")
@@ -236,6 +236,12 @@ def linear_group(lp: dict, names: Sequence[str], x: torch.Tensor) -> Tuple[torch
     return tuple(matmul(x, w) for w in leaves)
 
 
+def q4_mlp_enabled() -> bool:
+    """Whether ``DYNAMIC_LLAVA_Q4_MLP`` switches the fused int4 MLP on, as
+    read at this moment (``matmul_q4_mlp`` reads it at every dispatch)."""
+    return os.environ.get("DYNAMIC_LLAVA_Q4_MLP") in ("1", "true", "True")
+
+
 def matmul_q4_mlp(x: torch.Tensor, lp: dict, out_fp32: bool = False
                   ) -> Optional[torch.Tensor]:
     """The whole SwiGLU MLP, ``silu(x @ gate) * (x @ up) @ down``, as ONE
@@ -256,7 +262,7 @@ def matmul_q4_mlp(x: torch.Tensor, lp: dict, out_fp32: bool = False
     leaves = [lp.get(n) for n in ("gate", "up", "down")]
     if not all(is_quantized(l) and "q4" in l for l in leaves):
         return None
-    if os.environ.get("DYNAMIC_LLAVA_Q4_MLP") not in ("1", "true", "True"):
+    if not q4_mlp_enabled():
         return None
     g, u, d = leaves
     if _rows(x) > MAX_ROWS:

@@ -1,6 +1,7 @@
-"""Card-side checks of the hand-written kernels: K2 (decode attention), K4
-(policy attention), K5-K8 (the weight-only GEMVs) and K9 (the fused int4
-MLP) against their plain PyTorch versions on the same inputs, at the case
+"""Card-side checks of the hand-written kernels: K1 and K3 (the flash forward
+and backward, with K3's delta kernel), K2 (decode attention), K4 (policy
+attention), K5-K8 (the weight-only GEMVs) and K9 (the fused int4 MLP)
+against their plain PyTorch versions on the same inputs, at the case
 lists ``chip_smoke.py`` phase 3 runs
 (``dynamic_llava_tpu_torch/kernel_cases.py``), with the same tolerances and
 the same twice-for-equal-bits rule; the GEMV and MLP work-list mirrors
@@ -30,6 +31,20 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the kernels have no CPU or interpret mode")
     return kernels.load_library()
+
+
+def _flash_id(case):
+    return f"{case.label}-{str(case.dtype)[6:]}"
+
+
+@pytest.mark.parametrize("case", kc.FLASH_FWD_CASES, ids=_flash_id)
+def test_flash_forward_matches_its_plain_version(case):
+    kc.check_flash_fwd_case(case)
+
+
+@pytest.mark.parametrize("case", kc.FLASH_BWD_CASES, ids=_flash_id)
+def test_flash_backward_matches_its_plain_version(case):
+    kc.check_flash_bwd_case(case)
 
 
 @pytest.mark.parametrize("case", kc.DECODE_CASES, ids=lambda c: c.label)

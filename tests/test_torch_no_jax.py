@@ -63,9 +63,8 @@ print("jax loaded:", "jax" in sys.modules)
 print("jax package loaded:", "dynamic_llava_tpu" in sys.modules)
 """
 
-SOURCES = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                           ROOT / "tools" / "profile_decode.py",
-                                           ROOT / "tools" / "profile_train.py"]
+SOURCES = (sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+           + sorted((ROOT / "tools").glob("profile_*.py")))
 # `import jax`, `from jax...`, `import dynamic_llava_tpu[.x]`, `from dynamic_llava_tpu[.x] ...`:
 # the word boundary keeps `dynamic_llava_tpu_torch` out
 FORBIDDEN = re.compile(
@@ -84,6 +83,8 @@ def test_forbidden_pattern_sees_what_it_should():
 
 def test_package_sources_import_no_jax():
     assert len(SOURCES) > 20 and all(p.is_file() for p in SOURCES)
+    assert {"profile_decode.py", "profile_mlp.py", "profile_train.py"} <= {
+        p.name for p in SOURCES}
     offenders = [str(p.relative_to(ROOT)) for p in SOURCES if FORBIDDEN.search(p.read_text())]
     assert offenders == []
 

@@ -1,34 +1,41 @@
 #!/usr/bin/env python3
-"""Where a decode step's time goes in the PyTorch/CUDA port, per weight kind.
+"""Where a decode step's time goes in the PyTorch/CUDA port, eager against
+CUDA graph, per weight kind and mode.
 
     python3 tools/profile_decode.py
 
 Run from the root of a checkout on one CUDA card (about 25 GB of device
-memory). At LLaVA-1.5-7B width (random weights from seed 0), sparse, it
-plans the batch ``chip_smoke.py`` serves (8 requests, one 336x336 image and
-60 text tokens each) and, for bf16 weights, the same weights quantized in
-place to int8, an int4 decoder made directly, that decoder with the fused
-MLP switched on (K9, ``DYNAMIC_LLAVA_Q4_MLP=1``), fused with the KV cache
-stored in scaled int8, and the two-kernel int4 MLP once more, so that the
-fused and two-kernel modes alternate (and, with the bf16 weights, once more
-for the dense configuration, whose prefill keeps all 576 image tokens in
-every layer):
+memory). At LLaVA-1.5-7B width (random weights from seed 0) it plans the
+batch ``chip_smoke.py`` serves (8 requests, one 336x336 image and 60 text
+tokens each, 64 new tokens) and runs, in one process, bf16 weights sparse
+and dense, the same weights quantized in place to int8, then an int4
+decoder made directly: sparse, dense, with the fused MLP (K9,
+``DYNAMIC_LLAVA_Q4_MLP=1``), fused with the KV cache stored in scaled int8,
+two-kernel with the int8 cache sparse and dense, and two-kernel once more
+(the fused and two-kernel modes alternate). For each mode:
 
-* times the prefill (``Generator.prefill_from_plan``) three times on the
-  host clock after ``synchronize`` and keeps the middle one, then records
-  one more prefill with ``torch.profiler`` and sums its device time in the
-  same buckets as below;
-* after 4 warm-up decode steps, times 16 decode steps (greedy sample +
-  ``dynamic.decode_step``) on the host clock: the step wall;
-* records 16 more steps with ``torch.profiler`` (CPU and CUDA activities)
-  and sums the device time of every kernel, in buckets by kernel name:
-  K5-K8 (``gemv_tc_kernel`` / ``gemv_fma_kernel``), K9 (``q4_mlp_kernel``),
-  K2 (``decode_kernel``), K1 (``flash_fwd_*``), cuBLAS (``gemm``, ``gemv``, ``nvjet``,
-  ``cutlass``, ``xmma``, ``splitK`` names that are not the port's own) and
-  other. Idle share = 1 - device busy / step wall.
+* prefill (``Generator.prefill_from_plan``) three times on the host clock
+  after ``synchronize``, the middle one kept, and one more recorded with
+  ``torch.profiler``, its device time summed in the buckets below;
+* decode tok/s as ``chip_smoke.py`` reads it: ``B * 64 / (generate - TTFT)``
+  for the second of two ``Generator.generate`` calls (the first captures
+  the decode graph), TTFT being the prefill wall above;
+* the step wall, in turns eager, graph, whole-chunk graph, graph, eager:
+  eager = 16 steps of greedy sample + ``dynamic.decode_step`` after 4
+  warm-up steps; graph = the ``Generator``'s runner replaying its one-step
+  graph over two chunks (64 steps, chunk k+1 enqueued before chunk k's
+  tokens are read); whole-chunk graph = the same 64 steps from a graph that
+  holds a whole chunk (32 steps), captured here from the runner's step;
+* device time per step by bucket from ``torch.profiler`` (CPU and CUDA
+  activities) over 16 eager steps and over 64 graph steps: K5-K8
+  (``gemv_tc_kernel`` / ``gemv_fma_kernel``), K9 (``q4_mlp_kernel``), K2
+  (``decode_kernel``), K1 (``flash_fwd_*``), cuBLAS (``gemm``, ``gemv``,
+  ``nvjet``, ``cutlass``, ``xmma``, ``splitK`` names that are not the port's
+  own) and other. Idle share = 1 - device busy / step wall. Beside it, the
+  graph's device time from CUDA events around the 64 replays.
 
-It prints the card's name and power limit, one line per weight kind with
-its largest kernels, and one JSON object as the last line.
+It prints the card's name and power limit, one line per mode, and one JSON
+object as the last line.
 """
 
 from __future__ import annotations
@@ -79,9 +86,14 @@ def sum_device_ms(prof, per: int = 1):
     return per_bucket, per_kernel, launches
 
 
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(msg)
+
+
 def profile(torch, params, cfg, kind, cache_dtype="bfloat16", fused=False):
-    """The measurements of one weight kind (see the module docstring), with
-    the KV cache stored in ``cache_dtype`` and the fused int4 MLP on or off."""
+    """The measurements of one mode (see the module docstring), with the KV
+    cache stored in ``cache_dtype`` and the fused int4 MLP on or off."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -102,60 +114,137 @@ def profile(torch, params, cfg, kind, cache_dtype="bfloat16", fused=False):
         os.environ["DYNAMIC_LLAVA_Q4_MLP"] = "1"
     plan = plan_batch(ids, cfg.num_image_tokens, pad_multiple=gc.pad_multiple)
     gen = Generator(params, cfg, gc)
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
 
-    def steps(state, n):
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def eager_steps(state, n):
         for _ in range(n):
             tok = torch.argmax(state.last_logits, dim=-1)
             state = dynamic.decode_step(params, cfg, tok, state)
         return state
 
+    def eager_wall():
+        state, _ = gen.prefill_from_plan(plan, pix, MAX_NEW)
+        state = eager_steps(state, WARM)
+        return timed(lambda: eager_steps(state, STEPS)) / STEPS
+
+    def loaded_runner():
+        state, _ = gen.prefill_from_plan(plan, pix, MAX_NEW)
+        runner = gen.runner(plan, pix, MAX_NEW)
+        runner.load(state, 0)
+        return runner
+
     with torch.inference_mode():
-        walls = []
-        for _ in range(3):
+        prefill = [timed(lambda: gen.prefill_from_plan(plan, pix, MAX_NEW)) for _ in range(3)]
+        with torch_profile(activities=activities) as pre:
+            gen.prefill_from_plan(plan, pix, MAX_NEW)
+            torch.cuda.synchronize()
+        ttft = statistics.median(prefill)
+        gen.generate(ids, pix)  # captures the decode step
+        gen_ms = timed(lambda: gen.generate(ids, pix))
+        runner = gen.decode_runner
+        require(runner.graph is not None, f"{kind}: decode took no CUDA graph")
+
+        # a graph of a whole chunk, captured here from the runner's step
+        loaded_runner()
+        chunk_graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(chunk_graph):
+            for _ in range(runner.chunk):
+                runner.step()
+        chunk_capture_ms = (time.perf_counter() - t0) * 1e3
+
+        def chunk_graph_run():
+            r = loaded_runner()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            state, _ = gen.prefill_from_plan(plan, pix, MAX_NEW)
+            for _ in range(MAX_NEW // r.chunk):
+                chunk_graph.replay()
+            r.toks.cpu()
             torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pre:
-            state, _ = gen.prefill_from_plan(plan, pix, MAX_NEW)
+            return (time.perf_counter() - t0) * 1e3 / MAX_NEW
+
+        def graph_wall():
+            r = loaded_runner()
             torch.cuda.synchronize()
-        state = steps(state, WARM)
+            t0 = time.perf_counter()
+            pending = [r.run_chunk() for _ in range(MAX_NEW // r.chunk)]
+            for p in pending:
+                p.tokens()
+            return (time.perf_counter() - t0) * 1e3 / MAX_NEW
+
+        eager_a, graph_a, chunk_ms, graph_b, eager_b = (
+            eager_wall(), graph_wall(), chunk_graph_run(), graph_wall(), eager_wall())
+
+        state, _ = gen.prefill_from_plan(plan, pix, MAX_NEW)
+        state = eager_steps(state, WARM)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state = steps(state, STEPS)
+        with torch_profile(activities=activities) as prof_eager:
+            eager_steps(state, STEPS)
+            torch.cuda.synchronize()
+        r = loaded_runner()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t0) * 1e3 / STEPS
-        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            state = steps(state, STEPS)
+        start.record()
+        for _ in range(MAX_NEW):
+            r.graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        graph_event_ms = start.elapsed_time(end) / MAX_NEW
+        r = loaded_runner()
+        torch.cuda.synchronize()
+        with torch_profile(activities=activities) as prof_graph:
+            for _ in range(MAX_NEW):
+                r.graph.replay()
             torch.cuda.synchronize()
     os.environ.pop("DYNAMIC_LLAVA_Q4_MLP", None)
-    per_bucket, per_kernel, launches = sum_device_ms(prof, STEPS)
+    capture_ms = runner.capture_ms
+    del chunk_graph, gen, runner, r, state
+    torch.cuda.empty_cache()
+
+    eager_step, graph_step = (eager_a + eager_b) / 2, (graph_a + graph_b) / 2
+    eb, ek, el = sum_device_ms(prof_eager, STEPS)
+    gb, gk, _ = sum_device_ms(prof_graph, MAX_NEW)
     pre_bucket = sum_device_ms(pre)[0]
-    busy = sum(per_bucket.values())
-    require(busy > 0, f"{kind}: the profiler saw no device time")
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
-    res = dict(prefill_wall_ms=statistics.median(walls) * 1e3, step_wall_ms=step_ms,
-               device_busy_ms=busy, idle_share=max(0.0, 1 - busy / step_ms),
-               buckets_ms=dict(per_bucket), prefill_device_ms=sum(pre_bucket.values()),
-               prefill_buckets_ms=dict(pre_bucket),
-               top=[dict(name=n, ms=ms, launches_per_step=launches[n] / STEPS)
-                    for n, ms in top])
-    print(f"{kind} B={B}: prefill wall {res['prefill_wall_ms']:.3f} ms, profiled prefill "
-          f"device busy {res['prefill_device_ms']:.3f} ms ("
-          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(pre_bucket.items())) + "); decode "
-          f"step wall {step_ms:.3f} ms, device busy {busy:.3f} ms, idle share "
-          f"{res['idle_share']:.3f}; per step ms "
-          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(per_bucket.items())), flush=True)
+    eager_busy, graph_busy = sum(eb.values()), sum(gb.values())
+    require(eager_busy > 0, f"{kind}: the profiler saw no device time")
+    top = sorted(ek.items(), key=lambda kv: -kv[1])[:6]
+    res = dict(
+        prefill_wall_ms=ttft, prefill_device_ms=sum(pre_bucket.values()),
+        prefill_buckets_ms=dict(pre_bucket),
+        generate_ms=gen_ms, decode_tok_s=B * MAX_NEW / ((gen_ms - ttft) / 1e3),
+        capture_ms=capture_ms, chunk_capture_ms=chunk_capture_ms,
+        eager=dict(step_wall_ms=eager_step, walls_ms=[eager_a, eager_b],
+                   device_busy_ms=eager_busy, idle_share=max(0.0, 1 - eager_busy / eager_step),
+                   buckets_ms=dict(eb)),
+        graph=dict(step_wall_ms=graph_step, walls_ms=[graph_a, graph_b],
+                   device_busy_ms=graph_busy, event_ms=graph_event_ms,
+                   idle_share=max(0.0, 1 - graph_busy / graph_step) if graph_busy else None,
+                   buckets_ms=dict(gb)),
+        chunk_graph=dict(step_wall_ms=chunk_ms),
+        top=[dict(name=n, ms=ms, launches_per_step=el[n] / STEPS) for n, ms in top])
+    gi = res["graph"]["idle_share"]
+    print(f"{kind} B={B}: prefill wall {ttft:.3f} ms (device {res['prefill_device_ms']:.3f}); "
+          f"decode {res['decode_tok_s']:.1f} tok/s (generate {gen_ms:.1f} ms); step wall "
+          f"eager {eager_a:.3f} / {eager_b:.3f} ms, graph {graph_a:.3f} / {graph_b:.3f} ms, "
+          f"whole-chunk graph {chunk_ms:.3f} ms; device busy eager {eager_busy:.3f} ms "
+          f"(idle {res['eager']['idle_share']:.3f}), graph {graph_busy:.3f} ms (idle "
+          f"{'not measured' if gi is None else f'{gi:.3f}'}), graph by events "
+          f"{graph_event_ms:.3f} ms; capture {capture_ms:.1f} ms (whole chunk "
+          f"{chunk_capture_ms:.1f} ms)", flush=True)
+    print("    graph step ms by bucket: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(gb.items()))
+          + "; eager: " + ", ".join(f"{k} {v:.3f}" for k, v in sorted(eb.items())), flush=True)
     for t in res["top"]:
         print(f"    {t['name'][:100]} {t['ms']:.3f} ms/step, "
               f"{t['launches_per_step']:g} launches/step", flush=True)
     return res
-
-
-def require(cond: bool, msg: str) -> None:
-    if not cond:
-        raise RuntimeError(msg)
 
 
 def main() -> int:
@@ -178,23 +267,27 @@ def main() -> int:
 
     kernels.load_library()
     cfg, dev = LlavaConfig(), torch.device("cuda")
+    dense = LlavaConfig(sparse=DENSE_SPARSE_CONFIG)
     params = init_llava_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev,
                                torch.bfloat16)
     out = {"bf16": profile(torch, params, cfg, "bf16"),
-           "bf16 dense": profile(torch, params, LlavaConfig(sparse=DENSE_SPARSE_CONFIG),
-                                 "bf16 dense")}
+           "bf16 dense": profile(torch, params, dense, "bf16 dense")}
     quantize_llm_params(params, bits=8)
     out["int8"] = profile(torch, params, cfg, "int8")
     del params["llm"]
     torch.cuda.empty_cache()
     params["llm"] = init_quantized_llama_params(
         cfg.text, torch.Generator(device=dev).manual_seed(SEED), dev, bits=4)
-    # two-kernel, fused, fused, two-kernel: the host's pace drifts within a call
-    out["int4"] = profile(torch, params, cfg, "int4")
-    out["int4 fused MLP"] = profile(torch, params, cfg, "int4 fused MLP", fused=True)
-    out["int4 fused MLP int8 KV"] = profile(torch, params, cfg, "int4 fused MLP int8 KV",
-                                            cache_dtype="int8", fused=True)
-    out["int4, again"] = profile(torch, params, cfg, "int4, again")
+    # two-kernel and fused modes alternate: the host's pace drifts within a call
+    int8kv = dict(cache_dtype="int8")
+    for kind, c, kw in [
+        ("int4", cfg, {}), ("int4 dense", dense, {}),
+        ("int4 fused MLP", cfg, dict(fused=True)),
+        ("int4 fused MLP int8 KV", cfg, dict(fused=True, **int8kv)),
+        ("int4 int8 KV", cfg, int8kv), ("int4 int8 KV dense", dense, int8kv),
+        ("int4, again", cfg, {}),
+    ]:
+        out[kind] = profile(torch, params, c, kind, **kw)
     print(json.dumps({"device": smi, "b8": out}))
     return 0
 
