@@ -42,7 +42,17 @@ anywhere else. Phases, each of which raises on failure:
    window, also one that opens inside a split; head_dim 64 and 128; 1-8
    query heads a KV head; B = 8; each launched twice with ``torch.equal``
    results; timed at max_len 768 / 256 and B = 4 / 8 beside one SDPA call
-   (for int8 / fp8 storage: on the dequantized bf16 cache). K5-K8 (int8 /
+   (for int8 / fp8 storage: on the dequantized bf16 cache). K2's M-query
+   form (K2-M, the continuation prefill's chunk attention) at every
+   ``kernel_cases.EXTEND_CASES`` case: all four storage types; M = 1, 2, 7,
+   8, 9, 40, 65, 128 across its groups of 8 query rows; 1 and 4 query heads
+   a KV head; head_dim 64 and 128; B = 1 and 4 with ragged lengths at 0, the
+   tile and split edges and the capacity; a chunk_attend mask and a window;
+   each launched twice with ``torch.equal`` results, at the same
+   tolerances as K2; timed at the chat phase's shapes (B=1, 32 heads, d=128,
+   M=40 at length 700 and M=100 at 804, bf16 and int8) beside one SDPA call
+   on the cache and the chunk concatenated, with the mask as a bool tensor.
+   K5-K8 (int8 /
    int4 GEMVs) at the 7B decoder's shapes (q/k/v, gate/up, down with
    K = 11008, o, the lm_head with N = 32000) and rows 1, 8, 24, 64, and at
    the ``kernel_cases.QUANT_EDGE_CASES`` (a three-weight group of unequal
@@ -58,9 +68,9 @@ anywhere else. Phases, each of which raises on failure:
    bf16 x and fp32 x with fp32 out (1e-2 / 1e-3 of max |ref|), each
    launched twice with ``torch.equal`` results, beside the two-kernel path
    it fuses and three bf16 matmuls on the dequantized weights. A
-   tensor-core attention kernel, the decode-attention kernel, the bf16
-   GEMV kernel or the fused MLP that spills registers fails the run
-   (phase 2);
+   tensor-core attention kernel, the decode-attention kernel or its
+   M-query form, the bf16 GEMV kernel or the fused MLP that spills
+   registers fails the run (phase 2);
 4. a small model (head_dim 64, GQA) on the card through the kernels
    against the port's plain CPU path, which the CPU tests hold against the
    JAX package: greedy generation in fp32 with plain, int8 and int4
@@ -82,6 +92,18 @@ anywhere else. Phases, each of which raises on failure:
    calls of an eager loop of ``argmax`` + ``decode_step`` written here
    (``eager_decode``) over the same prefill and steps, and the graph's
    tokens the eager loop's;
+5b. multi-round chat at 7B width through ``ChatSession.ask`` on the
+   phase-5 weights, sparse, dense, and sparse with an int8 KV cache: round
+   1 one 336x336 image and 60 text tokens, rounds 2 and 3 chunks of 40 and
+   100 tokens through the continuation prefill (K2-M), each round to 64
+   new tokens under a two-token keyword stop. On the card, in profiler
+   traces of one session's three rounds (one a round), K2-M launches once a
+   layer in each
+   continued round and K2 once a layer in every decode step the session's
+   stopping runner (one captured CUDA graph, replayed) ran; a second
+   session driven by the eager per-token path must give the same tokens,
+   tier lengths and ``next_pos`` after every round; a third is timed:
+   round-1 TTFT, the continuation's ms a chunk, decode tok/s at B=1;
 6. quantized serving at 7B width, the same batches: the phase-5 weights
    quantized in place to int8 (``quantize_llm_params``), sparse and dense;
    then an int4 decoder made directly (``init_quantized_llama_params``)
@@ -119,7 +141,8 @@ trace: a GEMV wrapper and its group form launch one kernel, whose count
 both report) and wrapper calls, and ``{"ok": true, "device": {...}}``.
 Before them a ``decode_graph`` line gives, per serving mode, the decode
 step wall of the eager loop and of the graph, the capture's ms and
-whether the tokens were equal.
+whether the tokens were equal, and a ``chat`` line each chat mode's TTFT,
+continuation ms, decode tok/s, capture ms, peak GiB and decode steps.
 """
 
 from __future__ import annotations
@@ -142,18 +165,41 @@ TRAIN_DEPTH = 32  # decoder layers of the training phase (width is never cut)
 TRAIN_STEPS = 3  # per mode; the first is timed apart
 TRAIN_BATCH, TRAIN_TEXT_LEN = 4, 1088  # fused S = 1088 - 1 + 576 = 1663
 TIMED = 3  # timed generate calls and prefills a serving mode
+CHAT_MAX_NEW = 64  # new tokens a chat round
+CHAT_CHUNKS = (40, 100)  # tokens of rounds 2 and 3
+CHAT_BUDGET = 384  # new tokens (answers and chunks) a chat session has room for
 # published peaks of one H100 SXM (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+
+
+T0 = time.perf_counter()
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def phase(msg: str) -> None:
+    """A phase's first line, with the seconds since the script started."""
+    log(f"{msg} [at {time.perf_counter() - T0:.0f} s]")
+
+
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
+
+
+def use_kineto_config() -> None:
+    """Point kineto (the backend of ``torch.profiler``) at the port's
+    ``kineto.conf`` before torch is imported; a ``KINETO_CONFIG`` already set
+    is kept. The file raises kineto's cap on one trace's GPU records from
+    128 MB to 1 GB: a traced 256-step decode call at B=8 records ~108 MB,
+    and past the cap kineto stops collecting, so the trace loses its end."""
+    import os
+
+    os.environ.setdefault(
+        "KINETO_CONFIG", str(ROOT / "dynamic_llava_tpu_torch" / "kineto.conf"))
 
 
 def time_ms(fn, iters: int = 20) -> float:
@@ -378,6 +424,81 @@ def check_decode_kernel(torch):
             (res if storage == "own" else res[storage]).update(timing)
         else:
             res["shapes"][f"B={b} max_len={max_len} {storage}"] = timing
+    torch.cuda.synchronize()
+    return res
+
+
+def check_extend_kernel(torch):
+    """Phase 3, K2-M (the M-query form of K2): every
+    ``kernel_cases.EXTEND_CASES`` case (bf16, fp32, scaled-int8 and fp8
+    storage; M = 1, 2, 7, 8, 9, 40, 65, 128 across the groups of 8 query
+    rows; 1 and 4 query heads a KV head; head_dim 64 and 128; B = 1 and 4
+    with ragged lengths at 0, the tile and split edges and the capacity; a
+    chunk_attend mask and a window) against the plain version in fp32 on the
+    same stored values, each launched twice for equal bits. Times (CUDA
+    events over a graph replay) at the chat phase's shapes: B=1, H=Hkv=32,
+    d=128, the pre tier of 1088 slots, M=40 at length 700 and M=100 at 804
+    (rounds 2 and 3), bf16 and int8 storage, beside one SDPA call on the
+    cache rows and the chunk concatenated (on the dequantized bf16 cache for
+    int8) with the same mask as a bool tensor. Returns the results: max
+    errors, the bf16 M=40 times, and the other readings under ``shapes``."""
+    import torch.nn.functional as F
+
+    from dynamic_llava_tpu_torch import kernel_cases as kc
+    from dynamic_llava_tpu_torch.ops.decode_attention import extend_attention
+    from dynamic_llava_tpu_torch.ops.kv_cache import dequantize_kv
+
+    dev = torch.device("cuda")
+    res = {"max_abs_err": 0.0, "int8": {"max_abs_err": 0.0}, "fp8": {"max_abs_err": 0.0},
+           "shapes": {}}
+    for case in kc.EXTEND_CASES:
+        try:
+            err = kc.check_extend_case(case, dev)
+        except AssertionError as e:
+            raise RuntimeError(str(e)) from e
+        tol = kc.FP32_TOL if case.dtype == torch.float32 else kc.BF16_TOL
+        log(f"  {kc.describe_extend_case(case)}: max_abs_err={err:.3e} (atol=rtol={tol:g}), "
+            "two launches equal: ok")
+        top = res[case.storage] if case.storage in res else res
+        top["max_abs_err"] = max(top["max_abs_err"], err)
+
+    for m, n_live, storage in [(40, 700, "own"), (100, 804, "own"), (40, 700, "int8"),
+                               (100, 804, "int8")]:
+        h, d, max_len, dtype = 32, 128, 1088, torch.bfloat16
+        case = kc.ExtendCase("timing", 1, m, max_len, h, h, d, dtype, storage, (n_live,))
+        args, kw = kc.make_extend_inputs(case, dev, SEED + 4)
+        q, kc_, vc, kn, vn, live = args
+        kms = time_ms(lambda: extend_attention(*args, **kw), 50)
+        pms = time_ms(lambda: kc.extend_plain(*args, **kw), 10)
+        ks, vs = kw["k_scale"], kw["v_scale"]
+        kd = dequantize_kv(kc_, ks, dtype) if ks is not None else kc_
+        vd = dequantize_kv(vc, vs, dtype) if vs is not None else vc
+        ql = sdpa_layout(q)
+        kl = sdpa_layout(torch.cat([kd[:, :n_live], kn], dim=1))
+        vl = sdpa_layout(torch.cat([vd[:, :n_live], vn], dim=1))
+        rows = torch.arange(m, device=dev)
+        mask = torch.cat([torch.ones((m, n_live), dtype=torch.bool, device=dev),
+                          rows[None, :] <= rows[:, None]], dim=1)[None, None]
+        lms = time_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask), 50)
+        # bytes: the live cache rows in their storage type (int8: and their
+        # bf16 scales), q, the chunk's K/V and the output; operations: two
+        # products over every attended (row, column) pair
+        per_elem = 2 if storage == "own" else 1
+        cache = 2 * n_live * h * (d * per_elem + (2 if storage == "int8" else 0))
+        pairs = m * n_live + m * (m + 1) // 2
+        bms, bby = bound_ms(cache + 2 * (2 * q.numel() + 2 * kn.numel()), 4 * pairs * h * d)
+        groups = -(-m // 8)
+        log(f"  K2-M time, B=1 M={m} H=Hkv={h} d={d} max_len={max_len}, {storage} cache at "
+            f"length {n_live}: kernel {kms:.4f} ms, plain {pms:.4f} ms, SDPA on the "
+            f"concatenated{'' if storage == 'own' else ' dequantized'} K/V with a bool mask "
+            f"{lms:.4f} ms, bound {bms:.4f} ms ({bby}); the cache is read by {groups} row "
+            f"groups: {groups * cache / kms / 1e6:.0f} GB/s of cache reads")
+        timing = dict(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms, bound_by=bby,
+                      cache_reads=groups)
+        if (m, storage) == (40, "own"):
+            res.update(timing)
+        else:
+            res["shapes"][f"M={m} length {n_live} {storage}"] = timing
     torch.cuda.synchronize()
     return res
 
@@ -1221,6 +1342,156 @@ def serve(torch, params, modes, counters, need, label, b=8, max_new=64, n_text=6
     return results
 
 
+class Keywords:
+    """A stopping criteria shaped like LLaVA's ``KeywordsStoppingCriteria``:
+    token sequences (``keyword_ids``, matched on the device by the chat's
+    stopping runner), and the same test on the host for the per-token path."""
+
+    def __init__(self, *seqs):
+        self.keyword_ids = [list(map(int, seq)) for seq in seqs]
+
+    def __call__(self, out):
+        return any(out[-len(seq):] == seq for seq in self.keyword_ids)
+
+
+def chat(torch, params, modes):
+    """Phase 5b: multi-round chat at 7B width through ``ChatSession.ask``,
+    for each mode of ``modes`` (``(name, cfg, GenerationConfig fields)``) on
+    the same weights. Round 1 is one 336x336 image and 60 text tokens,
+    rounds 2 and 3 chunks of ``CHAT_CHUNKS`` tokens through the
+    continuation prefill; each round runs to ``CHAT_MAX_NEW`` new tokens
+    under a two-token keyword stop, EOS off (so every round does the same
+    work). The main path, one session's three rounds, runs with the
+    wrappers' counters zeroed just before and read just after, inside a
+    profiler trace that counts the launches on the card: the M-query
+    kernel once a layer in each continued round, K2 once a layer in every
+    decode step the session's runner ran (its chunks, the frozen one
+    enqueued past the stop included). A second session driven by
+    ``_ask_tokenwise`` (eager, one host read a token) must give the same
+    tokens, tier lengths and ``next_pos`` after every round. A third,
+    untraced session through ``ask`` is timed with each round's prefill or
+    continuation timed apart (host clock after ``synchronize``): round-1
+    TTFT, the continuation's ms a chunk, and decode tok/s at B=1 over
+    rounds 2 and 3 (round 1's decode includes the step's capture)."""
+    from dynamic_llava_tpu_torch import kernel_cases as kc
+    from dynamic_llava_tpu_torch.config import IMAGE_TOKEN_INDEX
+    from dynamic_llava_tpu_torch.generation.generate import (
+        ChatSession, GenerationConfig, Generator)
+    from dynamic_llava_tpu_torch.ops.decode_attention import decode_attention, extend_attention
+
+    cfg0 = modes[0][1]
+    rng = np.random.default_rng(SEED + 5)
+    vocab, size = cfg0.text.vocab_size, cfg0.vision.image_size
+    prompt = np.concatenate([rng.integers(3, vocab, 30), [IMAGE_TOKEN_INDEX],
+                             rng.integers(3, vocab, 30)])
+    pix = rng.standard_normal((1, size, size, 3), dtype=np.float32)
+    rounds = [(prompt, pix)] + [(rng.integers(3, vocab, n), None) for n in CHAT_CHUNKS]
+    stop = Keywords(rng.integers(3, vocab, 2))
+    wrappers = {"extend_kernel": extend_attention, "decode_kernel": decode_attention}
+
+    def sync_time(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def after_round(session):
+        return session.cache_lengths()[:, 0].tolist(), int(session.state.next_pos[0])
+
+    results = {}
+    for mode, cfg, opts in modes:
+        # EOS is a token id the model cannot emit
+        gc = GenerationConfig(max_new_tokens=CHAT_MAX_NEW, temperature=0.0, eos_token_id=vocab,
+                              **opts)
+        gen = Generator(params, cfg, gc)
+        layers = cfg.text.num_hidden_layers
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        # the main path: three rounds through ChatSession.ask, one trace a
+        # round
+        session = ChatSession(gen, CHAT_BUDGET)
+        for fn in wrappers.values():
+            fn.launches = 0
+        t_main = time.perf_counter()
+        outs, states, device = [], [], dict.fromkeys(kc.SERVING_KERNELS, 0)
+        for ids, px in rounds:
+            out, seen = kc.device_launches(
+                lambda: session.ask(ids, px, stopping_criteria=stop))
+            outs.append(out)
+            states.append(after_round(session))
+            device = {k: device[k] + seen[k] for k in device}
+        t_main = time.perf_counter() - t_main
+        calls = {name: fn.launches for name, fn in wrappers.items()}
+        runner = session.runner
+        steps = runner.chunks_run * runner.chunk
+        require(device["extend_kernel"] == (len(rounds) - 1) * layers,
+                f"chat {mode}: the M-query kernel launched {device['extend_kernel']} times on "
+                f"the card, not once a layer in each of {len(rounds) - 1} continued rounds")
+        require(device["decode_kernel"] == steps * layers,
+                f"chat {mode}: K2 launched {device['decode_kernel']} times on the card, not "
+                f"once a layer in each of the runner's {steps} steps")
+        require(all(len(o) == CHAT_MAX_NEW for o in outs)
+                and all(0 <= t < vocab for o in outs for t in o),
+                f"chat {mode}: answers of {[len(o) for o in outs]} tokens")
+
+        # the reference: the per-token path, eager, on a session of its own
+        t_ref = time.perf_counter()
+        ref = ChatSession(gen, CHAT_BUDGET)
+        ref_outs, ref_states = [], []
+        for ids, px in rounds:
+            ref._start_round(ids, px)
+            ref_outs.append(ref._ask_tokenwise(stop, CHAT_MAX_NEW))
+            ref_states.append(after_round(ref))
+        require(outs == ref_outs and states == ref_states,
+                f"chat {mode}: ask gave {[o[:6] for o in outs]} with lengths / next_pos "
+                f"{states}, the per-token path {[o[:6] for o in ref_outs]} with {ref_states}")
+        del ref
+        t_ref = time.perf_counter() - t_ref
+
+        # timed: a third session, its prefill / continuation timed apart
+        timed = ChatSession(gen, CHAT_BUDGET)
+        starts = []
+        start_round = timed._start_round
+
+        def timed_start(ids, px, **kw):
+            _, sec = sync_time(lambda: start_round(ids, px, **kw))
+            starts.append(sec)
+
+        timed._start_round = timed_start
+        walls = []
+        for (ids, px), want in zip(rounds, outs):
+            out, sec = sync_time(lambda: timed.ask(ids, px, stopping_criteria=stop))
+            require(out == want, f"chat {mode}: a second session's answer differs")
+            walls.append(sec)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        require(runner.graph is not None and timed.runner.graph is not None,
+                f"chat {mode}: the stopping runner took no CUDA graph")
+        capture = float(timed.runner.capture_ms or 0.0)
+        decode_s = [w - st for w, st in zip(walls, starts)]
+        tok_s = sum(len(o) for o in outs[1:]) / sum(decode_s[1:])
+        results[mode] = dict(
+            ttft_ms=starts[0] * 1e3, continue_ms=[st * 1e3 for st in starts[1:]],
+            chunks=list(CHAT_CHUNKS), decode_tok_s=tok_s,
+            round_decode_tok_s=[len(o) / d for o, d in zip(outs, decode_s)],
+            capture_ms=capture, peak_gib=peak, tiers=(
+                runner.state.cache.pre.max_len, runner.state.cache.post.max_len),
+            lengths=states, device_launches=device, launches=calls, steps=steps)
+        log(f"  chat {mode}: tiers pre={results[mode]['tiers'][0]} "
+            f"post={results[mode]['tiers'][1]}; round-1 TTFT {starts[0] * 1e3:.1f} ms, "
+            f"continuation {', '.join(f'{n} tokens {st * 1e3:.1f} ms' for n, st in zip(CHAT_CHUNKS, starts[1:]))}, "
+            f"decode {tok_s:.1f} tok/s at B=1 (rounds 2-3; by round "
+            f"{', '.join(f'{r:.1f}' for r in results[mode]['round_decode_tok_s'])}, round 1 "
+            f"with a {capture:.1f} ms capture), peak {peak:.2f} GiB; lengths / "
+            f"next_pos after each round {[(st[0][0], st[0][-1], st[1]) for st in states]}; "
+            f"launches on the card {device['extend_kernel']} M-query, {device['decode_kernel']} "
+            f"K2 ({steps} steps), wrapper calls {calls}; ask == the per-token path: ok "
+            f"(seconds: traced session {t_main:.1f}, per-token session {t_ref:.1f})")
+        del session, timed, gen, runner
+    return results
+
+
 def main() -> int:
     if not (ROOT / "dynamic_llava_tpu_torch" / "csrc").is_dir():
         raise SystemExit(
@@ -1228,6 +1499,7 @@ def main() -> int:
             "(dynamic_llava_tpu_torch/ not found beside it)"
         )
     sys.path.insert(0, str(ROOT))
+    use_kineto_config()
     import torch
 
     if not torch.cuda.is_available():
@@ -1252,7 +1524,7 @@ def main() -> int:
         init_quantized_llama_params, quantize_llm_params)
     from dynamic_llava_tpu_torch.weights import init_llava_params, param_bytes
 
-    log("phase 2: build")
+    phase("phase 2: build")
     t0 = time.perf_counter()
     lib = kernels.load_library()
     log(f"  built {lib.path.name} in {lib.build_seconds:.1f} s "
@@ -1267,22 +1539,25 @@ def main() -> int:
             log(f"    {line.strip()}")
             if "0 bytes spill stores, 0 bytes spill loads" not in line:
                 spilled.append(entry)
-    # the tensor-core attention kernels, the decode-attention kernel, the bf16
-    # GEMV kernel and the fused MLP hold their accumulators in registers
-    no_spills = ("mma_kernel", "decode_kernel", "gemv_tc_kernel", "q4_mlp_kernel")
+    # the tensor-core attention kernels, the decode-attention kernel and its
+    # M-query form, the bf16 GEMV kernel and the fused MLP hold their
+    # accumulators in registers
+    no_spills = ("mma_kernel", "decode_kernel", "extend_kernel", "gemv_tc_kernel",
+                 "q4_mlp_kernel")
     require(not [e for e in spilled if any(k in e for k in no_spills)],
             f"ptxas spilled registers in {spilled}")
 
-    log("phase 3: kernels against their plain versions")
+    phase("phase 3: kernels against their plain versions")
     kres = check_kernels(torch)
     kres["decode_attention_appended"] = check_decode_kernel(torch)
+    kres["extend_attention_appended"] = check_extend_kernel(torch)
     kres.update(check_train_kernels(torch))
     kres["flash_attention_fwd"]["train_shape"] = kres.pop("flash_attention_fwd_train_shape")
     kres.update(check_quant_kernels(torch))
     kres["q4_mlp"] = check_mlp_kernel(torch)
     check_tower_gradient(torch)
 
-    log("phase 4: small model, card against plain CPU path")
+    phase("phase 4: small model, card against plain CPU path")
     check_small_model(torch)
     check_small_train(torch)
 
@@ -1326,7 +1601,7 @@ def main() -> int:
     both = [("sparse", cfg_sparse), ("dense", cfg_dense)]
     dev = torch.device("cuda")
 
-    log("phase 5: LLaVA-1.5-7B width, random bf16 weights, sparse and dense")
+    phase("phase 5: LLaVA-1.5-7B width, random bf16 weights, sparse and dense")
     t0 = time.perf_counter()
     params = init_llava_params(
         cfg_sparse, torch.Generator(device=dev).manual_seed(SEED), dev, torch.bfloat16)
@@ -1345,7 +1620,18 @@ def main() -> int:
             f"bf16 path: K1 launched {launches['flash_attention_fwd']} times "
             f"({calls['flash_attention_fwd']} wrapper calls), not {2 * 2 * per_prefill}")
 
-    log("phase 6: quantized serving at 7B width")
+    phase("phase 5b: multi-round chat at LLaVA-1.5-7B width through ChatSession.ask, the "
+        "phase-5 weights: sparse, dense, sparse with an int8 KV cache")
+    results["chat"] = chat(torch, params, [
+        ("sparse", cfg_sparse, {}), ("dense", cfg_dense, {}),
+        ("sparse int8-KV", cfg_sparse, dict(cache_dtype="int8")),
+    ])
+    launches["extend_attention_appended"] = sum(
+        r["device_launches"]["extend_kernel"] for r in results["chat"].values())
+    calls["extend_attention_appended"] = sum(
+        r["launches"]["extend_kernel"] for r in results["chat"].values())
+
+    phase("phase 6: quantized serving at 7B width")
     t0 = time.perf_counter()
     quantize_llm_params(params, bits=8)
     torch.cuda.synchronize()
@@ -1362,7 +1648,7 @@ def main() -> int:
         f"(all params {param_bytes(params) / 2**30:.2f} GiB)")
     drive("int4", params, both[:1])
 
-    log("phase 7: lean-memory serving at 7B width on the int4 decoder: the fused MLP "
+    phase("phase 7: lean-memory serving at 7B width on the int4 decoder: the fused MLP "
         "(K9) off and on, int8 and fp8 KV caches, ring overflow")
     int8kv, fp8kv = dict(cache_dtype="int8"), dict(cache_dtype="float8_e4m3fn")
     # two-kernel, fused, fused, two-kernel: the host's pace drifts within a call
@@ -1382,7 +1668,7 @@ def main() -> int:
     del params["llm"]
     torch.cuda.empty_cache()
 
-    log("phase 8: LLaVA-1.5-13B width (40 layers, hidden 5120, ffn 13824), int4 decoder "
+    phase("phase 8: LLaVA-1.5-13B width (40 layers, hidden 5120, ffn 13824), int4 decoder "
         "made directly, fused MLP, B=1, 256 new tokens")
     text13 = LlamaConfig.llama_13b()
     cfg13 = LlavaConfig(text=text13)
@@ -1403,7 +1689,7 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
-    log(f"phase 9: training at LLaVA-1.5-7B width, {TRAIN_DEPTH} decoder layers, "
+    phase(f"phase 9: training at LLaVA-1.5-7B width, {TRAIN_DEPTH} decoder layers, "
         "sparse steps, then dense-stage steps on the same weights")
     depth = TRAIN_DEPTH
     train_sparse = dataclasses.replace(
@@ -1437,6 +1723,12 @@ def main() -> int:
             "jax or the JAX package was imported")
     for label, runs in results.items():
         for mode, r in runs.items():
+            if label == "chat":
+                log(f"  summary chat {mode}: round-1 TTFT {r['ttft_ms']:.1f} ms, continuation "
+                    f"{' / '.join(f'{ms:.1f}' for ms in r['continue_ms'])} ms "
+                    f"({' / '.join(map(str, r['chunks']))} tokens), decode "
+                    f"{r['decode_tok_s']:.1f} tok/s at B=1, peak {r['peak_gib']:.2f} GiB")
+                continue
             if label == "train":
                 log(f"  summary train {mode}: depth {r['depth']}, {r['step_ms']:.1f} ms/step, "
                     f"{r['tok_s']:.1f} tok/s, peak {r['peak_gib']:.2f} GiB")
@@ -1456,6 +1748,8 @@ def main() -> int:
                                 "dynamic_llava_tpu/ops/flash_attention.py:38"),
         "decode_attention_appended": (csrc + "decode_attention.cu",
                                       "dynamic_llava_tpu/ops/decode_attention.py:29"),
+        "extend_attention_appended": (csrc + "decode_attention.cu",
+                                      "dynamic_llava_tpu/ops/attention.py:304"),
         "flash_attention_bwd_dkv": (csrc + "flash_attention_bwd.cu",
                                     "dynamic_llava_tpu/ops/flash_attention.py:303"),
         "flash_attention_bwd_dq": (csrc + "flash_attention_bwd.cu",
@@ -1475,6 +1769,7 @@ def main() -> int:
     # two-kernel time (K8 + silu*mul + K7) and 13B-shape readings, K1's CLIP
     # shape and full-length readings, K3's delta kernel and whole backward
     extra = {"decode_attention_appended": ("int8", "fp8", "shapes"),
+             "extend_attention_appended": ("int8", "fp8", "shapes", "cache_reads"),
              "q8_gemv": ("shapes",), "q8_gemv_group": ("shapes",),
              "q4_gemv": ("shapes",), "q4_gemv_group": ("shapes",),
              "q4_mlp": ("two_kernel_ms", "shapes"),
@@ -1488,9 +1783,14 @@ def main() -> int:
     # the launches of a GEMV wrapper and its group form are one kernel's
     shared = {"q8_gemv": "q8_gemv_group", "q8_gemv_group": "q8_gemv",
               "q4_gemv": "q4_gemv_group", "q4_gemv_group": "q4_gemv"}
+    log(f"  all phases done [at {time.perf_counter() - T0:.0f} s]")
     print("decode_graph " + json.dumps({
-        f"{label} {mode}": r["graph"] for label, runs in results.items() if label != "train"
-        for mode, r in runs.items()}))
+        f"{label} {mode}": r["graph"] for label, runs in results.items()
+        if label not in ("train", "chat") for mode, r in runs.items()}))
+    print("chat " + json.dumps({
+        mode: {k: r[k] for k in ("ttft_ms", "continue_ms", "chunks", "decode_tok_s",
+                                 "round_decode_tok_s", "capture_ms", "peak_gib", "steps")}
+        for mode, r in results["chat"].items()}))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], "max_abs_err": kres[name]["max_abs_err"],

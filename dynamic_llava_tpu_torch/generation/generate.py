@@ -36,6 +36,20 @@ counterpart of the JAX ``_decode_chunk_fn`` (a ``lax.scan`` of sampling and
   overlaps the device's. A speculative chunk past the stop is discarded and
   the returned lists are cut exactly at the stop point.
 
+Multi-round chat (``ChatSession``, the counterpart of the JAX one) decodes
+through a ``StopDecodeRunner``, the counterpart of the JAX
+``_decode_chunk_stop_fn``: the same runner with in-graph stopping. Its
+static buffers add ``active``, a rolling ``[B, K]`` history of the last
+tokens, the emitted count and the limit; the stop sequences are a device
+constant made before the capture and part of its ``RunnerKey``. A step
+freezes a sample (``decode_step(active=)``) once its history ends with a
+stop sequence or its count reaches the limit, so the live cache holds
+exactly the emitted tokens however far a chunk runs past the stop; it
+records the token and whether it was emitted, and the tokens, the emitted
+flags and the end-of-chunk ``active`` reach the host in one pinned copy a
+chunk. A session owns its runner (its KV cache and graph), apart from the
+``Generator``'s: a ``generate`` call between two rounds leaves it alone.
+
 Every kernel wrapper counts its host calls in ``<wrapper>.launches``: an
 eager launch, or the one launch a capture records into the graph. A
 graph's replays launch on the device without a host call, so their
@@ -110,17 +124,20 @@ def decode_chunk_len(gc: GenerationConfig) -> int:
 
 class RunnerKey(NamedTuple):
     """What a captured decode step depends on beyond the ``Generator``'s
-    params and config (sampling, cache dtype, overflow policy and chunk are
-    fixed by its ``GenerationConfig``)."""
+    params and config (sampling, cache dtype and overflow policy are fixed
+    by its ``GenerationConfig``)."""
 
     batch: int
     pre_len: int  # tier capacities
     post_len: int
     q4_mlp: bool  # DYNAMIC_LLAVA_Q4_MLP, read at every dispatch: a graph freezes it
+    stop: Tuple[Tuple[int, ...], ...] = ()  # a StopDecodeRunner's stop sequences
+    chunk: int = 0  # steps a chunk; 0: ``decode_chunk_len`` of the config
 
 
-def runner_key(batch: int, capacities: Tuple[int, int]) -> RunnerKey:
-    return RunnerKey(batch, *capacities, q4_mlp_enabled())
+def runner_key(batch: int, capacities: Tuple[int, int], stop=(), chunk: int = 0
+               ) -> RunnerKey:
+    return RunnerKey(batch, *capacities, q4_mlp_enabled(), tuple(stop), chunk)
 
 
 class PendingChunk:
@@ -132,7 +149,8 @@ class PendingChunk:
         self.runner, self.index, self.host, self.event = runner, index, host, event
 
     def tokens(self) -> np.ndarray:
-        """Waits for the chunk; ``[chunk, B]`` int32 token ids."""
+        """Waits for the chunk; ``[chunk, B]`` int32 token ids (a
+        ``StopDecodeRunner`` appends rows: ``StopDecodeRunner.read``)."""
         if self.runner.chunks_run > self.index + 2:
             raise RuntimeError("PendingChunk.tokens: the chunk after next has reused this "
                                "chunk's host buffer; read a chunk before enqueueing it")
@@ -148,17 +166,20 @@ class DecodeRunner:
     the host."""
 
     def __init__(self, params, cfg: LlavaConfig, gc: GenerationConfig, key: RunnerKey,
-                 device):
+                 device, state: Optional[dynamic.GenState] = None):
+        """``state``: another runner's static buffers (same key but for the
+        stop sequences and the chunk) to adopt instead of making new ones."""
         self.params, self.cfg, self.key = params, cfg, key
         self.temperature, self.top_p = gc.temperature, gc.top_p
-        self.kv_overflow, self.chunk = gc.kv_overflow, decode_chunk_len(gc)
+        self.kv_overflow = gc.kv_overflow
+        self.chunk = key.chunk or decode_chunk_len(gc)
         self.device = torch.device(device)
         self.graphed = self.device.type == "cuda"
         b, ring = key.batch, gc.kv_overflow == "ring"
         # normal (not inference) tensors: written inside and outside inference mode
         with torch.inference_mode(False):
             i32 = dict(dtype=torch.int32, device=self.device)
-            self.state = dynamic.GenState(
+            self.state = state if state is not None else dynamic.GenState(
                 cache=init_tiered_cache(cfg.text, cfg.sparse.sparse_layer, b, key.pre_len,
                                         key.post_len, CACHE_DTYPES[gc.cache_dtype],
                                         self.device),
@@ -168,16 +189,22 @@ class DecodeRunner:
                 ring_base=torch.zeros(b, **i32) if ring else None,
                 ring_base_pre=torch.zeros(b, **i32) if ring else None,
             )
-            self.toks = torch.zeros(self.chunk, b, **i32)
+            # what a chunk copies to the host: its tokens (a StopDecodeRunner
+            # adds rows), token j of the chunk in row j
+            self.out = torch.zeros(self._out_rows(), b, **i32)
+            self.toks = self.out[:self.chunk]
             self.step_index = torch.zeros(1, dtype=torch.long, device=self.device)
         self.generator = (None if gc.temperature <= 0.0
                           else torch.Generator(device=self.device))
         # two host buffers: chunk k's is read while chunk k+1's copy is in flight
-        self.host = [torch.zeros(self.chunk, b, dtype=torch.int32, pin_memory=self.graphed)
+        self.host = [torch.zeros(self.out.shape, dtype=torch.int32, pin_memory=self.graphed)
                      for _ in range(2)]
         self.chunks_run = 0
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.capture_ms: Optional[float] = None
+
+    def _out_rows(self) -> int:
+        return self.chunk
 
     def _fresh_outputs(self, state: dynamic.GenState):
         """(``state``'s tensor, static buffer) pairs of what a step returns
@@ -254,12 +281,98 @@ class DecodeRunner:
         index = self.chunks_run
         host = self.host[index % 2]
         self.chunks_run += 1
-        host.copy_(self.toks, non_blocking=self.graphed)
+        host.copy_(self.out, non_blocking=self.graphed)
         event = None
         if self.graphed:
             event = torch.cuda.Event()
             event.record()
         return PendingChunk(self, index, host, event)
+
+
+class StopDecodeRunner(DecodeRunner):
+    """A ``DecodeRunner`` with in-graph stopping (the JAX
+    ``_decode_chunk_stop_fn`` without its per-slot sampling and packed-rng
+    forms): its key's ``stop`` sequences (EOS is a sequence of one) end a
+    sample when its last emitted tokens equal one of them, and the limit
+    ends it after ``limit`` tokens. A stopped sample is frozen
+    (``decode_step(active=)``): its lengths, ``next_pos``, ``last_logits``
+    and history stay as they were. A chunk's host copy holds ``[2 * chunk +
+    1, B]`` int32 rows: the tokens, whether each was emitted (produced while
+    the sample was active; the stopping token itself is), and ``active`` at
+    the chunk's end (``read``)."""
+
+    def __init__(self, params, cfg: LlavaConfig, gc: GenerationConfig, key: RunnerKey,
+                 device, state: Optional[dynamic.GenState] = None):
+        if not key.stop:
+            raise ValueError("StopDecodeRunner: the key names no stop sequence")
+        super().__init__(params, cfg, gc, key, device, state)
+        b = key.batch
+        k_hist = max(len(seq) for seq in key.stop)
+        # stop sequences right-aligned in a [n_stop, K] matrix, the padding
+        # before each marked by position (the JAX matrix marks it by a
+        # negative id, so a negative stop id, such as an EOS of -1, matched
+        # at once there; here it never matches, as no token is negative)
+        stop_mat = np.zeros((len(key.stop), k_hist), np.int32)
+        stop_pad = np.ones((len(key.stop), k_hist), bool)
+        for i, seq in enumerate(key.stop):
+            stop_mat[i, k_hist - len(seq):] = seq
+            stop_pad[i, k_hist - len(seq):] = False
+        with torch.inference_mode(False):
+            i32 = dict(dtype=torch.int32, device=self.device)
+            # device constants, made before any capture
+            self.stop_mat = torch.from_numpy(stop_mat).to(self.device)
+            self.stop_pad = torch.from_numpy(stop_pad).to(self.device)
+            self.emitted = self.out[self.chunk:2 * self.chunk]
+            self.active = torch.zeros(b, dtype=torch.bool, device=self.device)
+            self.hist = torch.full((b, k_hist), -1, **i32)
+            self.n_emit = torch.zeros(b, **i32)
+            self.limit = torch.zeros(b, **i32)
+
+    def _out_rows(self) -> int:
+        return 2 * self.chunk + 1
+
+    def begin(self, limit: int, seed: int) -> None:
+        """Start a round: every sample active, an empty history, nothing
+        emitted, at most ``limit`` tokens; the next chunk writes from row 0."""
+        self.active.fill_(True)
+        self.hist.fill_(-1)
+        self.n_emit.zero_()
+        self.limit.fill_(limit)
+        self.step_index.zero_()
+        if self.generator is not None:
+            self.generator.manual_seed(seed)
+
+    def step(self) -> None:
+        """One decode step with the stop test on the static buffers (device
+        work only)."""
+        i32 = torch.int32
+        active = self.active
+        tok = _sample(self.generator, self.state.last_logits, self.temperature, self.top_p)
+        new = dynamic.decode_step(self.params, self.cfg, tok, self.state, active=active,
+                                  kv_overflow=self.kv_overflow)
+        for src, dst in self._fresh_outputs(new):
+            dst.copy_(src)
+        hist = torch.cat([self.hist[:, 1:], tok.to(i32)[:, None]], dim=1)
+        # [B, n_stop, K]: every position matches or is padding
+        match = (hist[:, None, :] == self.stop_mat[None]) | self.stop_pad[None]
+        stop_hit = match.all(dim=-1).any(dim=-1)
+        n_emit = self.n_emit + active.to(i32)
+        still = active & ~stop_hit & (n_emit < self.limit)
+        self.toks.index_copy_(0, self.step_index, tok.to(i32)[None])
+        self.emitted.index_copy_(0, self.step_index, active.to(i32)[None])
+        self.out[2 * self.chunk].copy_(still)  # after a chunk's last step: its end
+        # frozen samples keep their history (their token is not theirs)
+        self.hist.copy_(torch.where(active[:, None], hist, self.hist))
+        self.n_emit.copy_(n_emit)
+        self.active.copy_(still)
+        self.step_index.add_(1).remainder_(self.chunk)
+
+    def read(self, pending: PendingChunk):
+        """``(tokens [chunk, B], emitted [chunk, B] bool, active [B] bool)``
+        of a chunk, waiting for it."""
+        rows = pending.tokens()
+        c = self.chunk
+        return rows[:c], rows[c:2 * c].astype(bool), rows[2 * c].astype(bool)
 
 
 class Generator:
@@ -291,12 +404,11 @@ class Generator:
     def _all_have_image(plan: FusionPlan, pixel_values) -> bool:
         return pixel_values is not None and bool(np.asarray(plan.spans.has_image).all())
 
-    def runner(self, plan: FusionPlan, pixel_values, max_new_tokens: int) -> DecodeRunner:
-        """The runner for this batch shape, the tier capacities of
-        ``max_new_tokens`` and the current dispatch settings: the one kept
-        if its key is the same, else a new one that replaces it."""
+    def cache_sizes(self, plan: FusionPlan, pixel_values,
+                    max_new_tokens: int) -> Tuple[int, int]:
+        """The tier capacities of ``plan`` with room for ``max_new_tokens``."""
         gc = self.gen_cfg
-        sizes = dynamic.gen_cache_sizes(
+        return dynamic.gen_cache_sizes(
             self.cfg, plan.seq_len, max_new_tokens,
             bound_output_budget=gc.bound_kv_budget,
             all_have_image=self._all_have_image(plan, pixel_values),
@@ -304,16 +416,27 @@ class Generator:
             decode_window=gc.kv_window,
             ring=gc.kv_overflow == "ring",
         )
-        key = runner_key(plan.batch, sizes)
+
+    def runner(self, plan: FusionPlan, pixel_values, max_new_tokens: int) -> DecodeRunner:
+        """The runner for this batch shape, the tier capacities of
+        ``max_new_tokens`` and the current dispatch settings: the one kept
+        if its key is the same, else a new one that replaces it."""
+        key = runner_key(plan.batch, self.cache_sizes(plan, pixel_values, max_new_tokens))
         if self.decode_runner is None or self.decode_runner.key != key:
             self.decode_runner = None  # the old cache and graph go before the new ones come
-            self.decode_runner = DecodeRunner(self.params, self.cfg, gc, key, self.device)
+            self.decode_runner = DecodeRunner(self.params, self.cfg, self.gen_cfg, key,
+                                              self.device)
         return self.decode_runner
 
     def prefill_from_plan(self, plan: FusionPlan, pixel_values, max_new_tokens: int):
+        cache = self.runner(plan, pixel_values, max_new_tokens).fresh_cache()
+        return self.prefill_into(plan, pixel_values, cache)
+
+    def prefill_into(self, plan: FusionPlan, pixel_values, cache: TieredCache):
+        """``dynamic.prefill`` of ``plan`` into ``cache`` (zeroed, of the
+        capacities of ``cache_sizes``)."""
         gc = self.gen_cfg
         all_have_image = self._all_have_image(plan, pixel_values)
-        cache = self.runner(plan, pixel_values, max_new_tokens).fresh_cache()
         pix = None if pixel_values is None else self._tensor(pixel_values)
         i32 = torch.int32
         return dynamic.prefill(
@@ -402,3 +525,236 @@ class Generator:
                 break
             pending = following
         return out
+
+
+class ChatSession:
+    """Multi-round chat on ONE live KV cache (the JAX ``ChatSession``).
+
+    Round 1 runs the multimodal prefill; a later round feeds only its new
+    chunk through the continuation prefill (``dynamic.prefill_continue``)
+    instead of prefilling the whole conversation again. Decode rides a
+    ``StopDecodeRunner``: EOS and the keyword stops freeze the sample on the
+    device, so the cache holds exactly the emitted tokens while the host
+    reads once a chunk (chunk k+1 enqueued before chunk k is read). A
+    stopping criterion without ``keyword_ids`` takes the exact per-token
+    path (``_ask_tokenwise``). A criterion is duck-typed: ``keyword_ids``
+    (token sequences, matched on the device) and ``tokenizer`` (it also has
+    a decoded-text test, checked on the host a chunk; where it fires before
+    the token matcher, the state is rebuilt exactly by replay).
+
+    The session owns its runner (its KV cache, small buffers and graph),
+    made at round 1 for ``max_new_tokens_total`` new tokens and apart from
+    the ``Generator``'s runner, so ``Generator.generate`` between two rounds
+    leaves the conversation alone. ``state`` is that runner's state."""
+
+    def __init__(self, generator: Generator, max_new_tokens_total: int = 2048):
+        if generator.gen_cfg.kv_overflow != "drop":
+            # the continuation force-drops at capacity instead of wrapping: a
+            # wrapped ring cache would silently lose chunk KV
+            raise ValueError(
+                "ChatSession requires kv_overflow='drop'; the ring mode is a "
+                "single-conversation long-generation contract")
+        self.gen = generator
+        self.budget = max_new_tokens_total
+        self.runner: Optional[StopDecodeRunner] = None
+        # replay log of the text-fallback stop: ("prefill", ids, pixels),
+        # ("chunk", ids) or ("out", tokens fed through decode)
+        self._hist: List[tuple] = []
+
+    @property
+    def state(self) -> Optional[dynamic.GenState]:
+        return None if self.runner is None else self.runner.state
+
+    def _load(self, state: dynamic.GenState) -> None:
+        """Take a state computed on the runner's cache into its buffers."""
+        self.runner.load(state, self.gen.gen_cfg.seed)
+
+    def _plan(self, ids, pixel_values) -> FusionPlan:
+        cfg = self.gen.cfg
+        return plan_batch([ids], cfg.num_image_tokens if pixel_values is not None else 0,
+                          max_length=cfg.model_max_length)
+
+    def _prefill(self, ids, pixel_values) -> None:
+        gen, gc = self.gen, self.gen.gen_cfg
+        plan = self._plan(ids, pixel_values)
+        if self.runner is None:
+            key = runner_key(plan.batch, gen.cache_sizes(plan, pixel_values, self.budget),
+                             stop=((gc.eos_token_id,),), chunk=decode_chunk_len(gc))
+            self.runner = StopDecodeRunner(gen.params, gen.cfg, gc, key, gen.device)
+        state, _ = gen.prefill_into(plan, pixel_values, self.runner.fresh_cache())
+        self._load(state)
+
+    def _continue(self, ids) -> None:
+        gen = self.gen
+        tokens = torch.as_tensor(np.asarray(ids, np.int64)[None]).to(gen.device)
+        self._load(dynamic.prefill_continue(gen.params, gen.cfg, tokens, self.state))
+
+    def _decode_fed(self, tokens) -> None:
+        """Feed tokens one by one through ``decode_step`` (eager)."""
+        gen = self.gen
+        state = self.state
+        for tok in tokens:
+            state = dynamic.decode_step(
+                gen.params, gen.cfg, torch.full((1,), int(tok), device=gen.device), state)
+        self._load(state)
+
+    @torch.inference_mode()
+    def _start_round(self, input_ids, pixel_values, reserve: int = 0) -> None:
+        """Prefill round 1 or continue with a later round's chunk, after
+        checking that the pre tier (which persists every token) has room for
+        the chunk and for ``reserve`` new tokens after it: a decode step past
+        the capacity would write out of bounds."""
+        ids = np.asarray(input_ids, np.int64)
+        if self.runner is None:
+            plan = self._plan(ids, pixel_values)
+            pre_len = self.gen.cache_sizes(plan, pixel_values, self.budget)[0]
+            pre_room = pre_len - 1 - int(plan.valid_len[0])
+            chunk = 0
+        else:
+            # the chunk goes to slots below the scratch slot max_len - 1
+            pre = self.state.cache.pre
+            pre_room = pre.max_len - 1 - int(pre.length.max())
+            chunk = len(ids)
+            if chunk > pre_room:
+                raise ValueError(
+                    f"chunk of {chunk} tokens exceeds remaining cache capacity "
+                    f"{pre_room}; raise max_new_tokens_total")
+        if chunk + reserve > pre_room:
+            raise ValueError(
+                f"{chunk} chunk tokens and {reserve} new tokens exceed remaining cache "
+                f"capacity {pre_room}; raise max_new_tokens_total")
+        if self.runner is None:
+            self._hist.append(
+                ("prefill", ids.copy(),
+                 None if pixel_values is None else np.asarray(pixel_values)))
+            self._prefill(ids, pixel_values)
+        else:
+            self._hist.append(("chunk", ids.copy()))
+            self._continue(ids)
+
+    @torch.inference_mode()
+    def _replay_state(self) -> None:
+        """Rebuild the live state exactly from the replay log: prefill round
+        1 again, run each chunk, feed every recorded token through the
+        per-token decode (the keep / drop decisions depend on hidden states,
+        not on sampling, so the replay is exact). Only the text-fallback
+        stop of ``ask`` needs it."""
+        for entry in self._hist:
+            if entry[0] == "prefill":
+                self._prefill(entry[1], entry[2])
+            elif entry[0] == "chunk":
+                self._continue(entry[1])
+            else:
+                self._decode_fed(entry[1])
+
+    def _stop_runner(self, stop, chunk: int) -> StopDecodeRunner:
+        """The runner for these stop sequences and chunk: the session's, or
+        a new one on the same buffers (a new capture) when its key differs."""
+        key = self.runner.key._replace(stop=stop, chunk=chunk, q4_mlp=q4_mlp_enabled())
+        if key != self.runner.key:
+            gen = self.gen
+            state = self.runner.state
+            self.runner = None  # the old graph goes before the new one comes
+            self.runner = StopDecodeRunner(gen.params, gen.cfg, gen.gen_cfg, key, gen.device,
+                                           state=state)
+        return self.runner
+
+    @torch.inference_mode()
+    def ask(
+        self,
+        input_ids,  # round 1: the full prompt; later: the new chunk only
+        pixel_values: Optional[np.ndarray] = None,
+        stopping_criteria=None,
+        max_new_tokens: Optional[int] = None,
+        stop_sequences: Optional[List[List[int]]] = None,
+        on_chunk=None,  # callback(new_token_ids) for streaming
+    ) -> List[int]:
+        """The round's answer token ids. EOS is processed into the cache
+        but left out of the answer; keyword-stop tokens stay."""
+        gc = self.gen.gen_cfg
+        max_new = gc.max_new_tokens if max_new_tokens is None else max_new_tokens
+        self._start_round(input_ids, pixel_values, reserve=max(0, max_new))
+        if max_new <= 0:
+            # the chunk is processed, nothing is sampled
+            self._hist.append(("out", []))
+            return []
+
+        stop_seqs = [(gc.eos_token_id,)]
+        crit, text_crit = stopping_criteria, None
+        if crit is not None and hasattr(crit, "keyword_ids"):
+            # keyword criteria: their token sequences stop on the device; a
+            # decoded-text test (with a tokenizer) is the host's safety net
+            stop_seqs += [tuple(int(t) for t in kid) for kid in crit.keyword_ids]
+            text_crit = crit if hasattr(crit, "tokenizer") else None
+            crit = None
+        if stop_sequences:
+            stop_seqs += [tuple(int(t) for t in seq) for seq in stop_sequences]
+        if crit is not None:
+            return self._ask_tokenwise(crit, max_new)
+
+        runner = self._stop_runner(tuple(dict.fromkeys(stop_seqs)),
+                                   max(1, min(gc.decode_chunk, max_new)))
+        runner.begin(max_new, gc.seed)
+        out: List[int] = []
+        fired_at = None  # the earliest text-fallback stop (a token count)
+        pending = runner.run_chunk()
+        while True:
+            # the next chunk is enqueued before this one is read; once the
+            # sample has stopped it runs frozen and leaves the state as it was
+            following = runner.run_chunk()
+            toks, emitted, active = runner.read(pending)
+            fresh = [int(t) for t, e in zip(toks[:, 0], emitted[:, 0]) if e]
+            out.extend(fresh)
+            if on_chunk is not None and fresh:
+                on_chunk(fresh)
+            if text_crit is not None and fresh and fired_at is None:
+                for j in range(len(out) - len(fresh) + 1, len(out) + 1):
+                    if text_crit(out[:j]):
+                        fired_at = j
+                        break
+            inactive = not bool(active[0])
+            if fired_at is not None and not (inactive and fired_at == len(out)):
+                # the text test caught a stop the token matcher missed: cut
+                # the answer there and rebuild the state the per-token path
+                # would have (the tokens past the stop were persisted)
+                out = out[:fired_at]
+                self._hist.append(("out", list(out)))
+                self._replay_state()
+                return out
+            if inactive:
+                break
+            pending = following
+        self._hist.append(("out", list(out)))  # every emitted token was fed
+        if out and out[-1] == gc.eos_token_id:
+            out.pop()
+        return out
+
+    @torch.inference_mode()
+    def _ask_tokenwise(self, stopping_criteria, max_new: int) -> List[int]:
+        """The exact per-token loop for any host-side stopping criteria: one
+        host read a token. Every emitted token is fed through decode, the
+        one that trips EOS or the criteria too."""
+        gen, gc = self.gen, self.gen.gen_cfg
+        out: List[int] = []
+        fed: List[int] = []
+        state = self.state
+        for _ in range(max_new):
+            tok = int(torch.argmax(state.last_logits[0]))
+            state = dynamic.decode_step(
+                gen.params, gen.cfg, torch.full((1,), tok, device=gen.device), state)
+            fed.append(tok)
+            if tok == gc.eos_token_id:
+                break
+            out.append(tok)
+            if stopping_criteria is not None and stopping_criteria(out):
+                break
+        self._load(state)
+        self._hist.append(("out", fed))
+        return out
+
+    def cache_lengths(self) -> np.ndarray:
+        """Per-layer persisted KV lengths ``[L, 1]``, pre tier then post."""
+        if self.state is None:
+            raise RuntimeError("ChatSession.cache_lengths: no round yet")
+        return torch.cat([self.state.cache.pre.length,
+                          self.state.cache.post.length]).cpu().numpy()

@@ -1,6 +1,7 @@
 """Card-side cases of the flash forward (K1) and backward (K3, with its delta
-kernel), the policy attention (K4), the decode-attention kernel (K2), the
-weight-only GEMVs (K5-K8) and the fused int4 MLP (K9): the shapes at which
+kernel), the policy attention (K4), the decode-attention kernel (K2) and its
+M-query form (K2-M), the weight-only GEMVs (K5-K8) and the fused int4 MLP
+(K9): the shapes at which
 each kernel is held against its plain PyTorch version on the same inputs,
 and the functions that do so.
 
@@ -28,7 +29,9 @@ import torch
 
 from .ops import flash_attention as fa
 from .ops import quant_matmul as qm
-from .ops.decode_attention import decode_attention, decode_attention_plain, decode_split
+from .ops.decode_attention import (
+    decode_attention, decode_attention_plain, decode_split, extend_attention,
+    extend_attention_plain, extend_mask, extend_split)
 from .ops.flash_policy import flash_policy_attention, flash_policy_attention_plain
 from .ops.kv_cache import quantize_kv, to_storage
 
@@ -303,6 +306,128 @@ def describe_decode_case(case: DecodeCase) -> str:
             f"window={case.window} splits={split}]")
 
 
+class ExtendCase(NamedTuple):
+    label: str
+    b: int
+    m: int  # chunk tokens a sample
+    max_len: int
+    h: int
+    hkv: int
+    d: int
+    dtype: torch.dtype  # of q, the chunk's K/V and out
+    storage: str  # "own" (q's dtype), "int8" (with bf16 scales) or "fp8"
+    lengths: Tuple[int, ...]  # persisted bound per sample
+    attend: bool = False  # a random chunk_attend mask
+    window: Optional[int] = None  # with positions = length + arange(M)
+
+
+# K2-M: blocks are groups of at most 8 query rows (chunk token x head of a
+# kv head), so M x n_rep at 1, 2, 7, 8, 9, 40, 65 and 128 crosses the group
+# edges; the cache lengths sit at 0, at the tile and split edges and at the
+# capacity, ragged across B = 4; every storage type, 1 and 4 query heads a
+# kv head, head_dim 64 and 128, a chunk_attend mask and a window. The chat
+# shapes come first: 7B (32 heads, d 128), the pre tier of chip_smoke.py's
+# chat phase (1088 slots), rounds 2 and 3 (40 tokens at length 700, 100 at
+# 804).
+_STORES = ("own", "int8", "fp8")
+EXTEND_CASES = [
+    ExtendCase("chat chunk 40", 1, 40, 1088, 32, 32, 128, BF16, "own", (700,)),
+    ExtendCase("chat chunk 100", 1, 100, 1088, 32, 32, 128, BF16, "own", (804,)),
+    ExtendCase("chat chunk 40 int8", 1, 40, 1088, 32, 32, 128, BF16, "int8", (700,)),
+    ExtendCase("chat chunk 100 int8", 1, 100, 1088, 32, 32, 128, BF16, "int8", (804,)),
+] + [
+    ExtendCase(f"M={m} gqa 4 d 64 {store}", 4, m, 256, 8, 2, 64, BF16, store,
+               (0, 63, 129, 256))
+    for i, m in enumerate((1, 2, 7, 8, 9, 40, 65, 128)) for store in (_STORES[i % 3],)
+] + [
+    ExtendCase(f"M={m} d 128 {store}", 4, m, 768, 4, 4, 128, BF16, store, (1, 64, 255, 767))
+    for m, store in ((1, "fp8"), (2, "int8"), (8, "own"), (9, "fp8"), (65, "int8"))
+] + [
+    # few (kv head, sample, row group) blocks: the cache length is split
+    ExtendCase("split, one sample", 1, 7, 1024, 2, 2, 128, BF16, "own", (1000,)),
+    ExtendCase("split, length 0", 1, 3, 1024, 8, 2, 64, BF16, "int8", (0,)),
+    ExtendCase("split edges fp32", 4, 2, 768, 8, 2, 128, FP32, "own", (64, 65, 129, 800)),
+    ExtendCase("split fp32 q, fp8", 2, 9, 512, 4, 4, 64, FP32, "fp8", (511, 200)),
+    ExtendCase("fp32", 4, 40, 256, 8, 2, 128, FP32, "own", (0, 1, 128, 255)),
+    ExtendCase("fp32 q, int8", 4, 9, 256, 4, 1, 64, FP32, "int8", (32, 33, 256, 7)),
+    # chunk_attend, a window, both
+    ExtendCase("chunk_attend", 4, 40, 256, 8, 2, 64, BF16, "own", (0, 63, 129, 256), True),
+    ExtendCase("chunk_attend int8", 4, 65, 768, 4, 4, 128, BF16, "int8", (1, 64, 255, 767),
+               True),
+    ExtendCase("window", 4, 40, 768, 4, 4, 128, BF16, "own", (0, 100, 300, 767), False, 64),
+    ExtendCase("window fp8", 4, 9, 256, 8, 2, 64, BF16, "fp8", (0, 63, 129, 256), False, 5),
+    ExtendCase("chunk_attend and window, fp32", 2, 128, 768, 8, 2, 64, FP32, "int8",
+               (500, 767), True, 100),
+    ExtendCase("window inside a split", 1, 7, 1024, 2, 2, 64, BF16, "own", (900,), True, 150),
+]
+
+
+def make_extend_inputs(case: ExtendCase, device, seed: int = 0):
+    """``(args, kwargs)`` of ``extend_attention`` for ``case``, made from a
+    numpy seed: q, the stored cache, the chunk's K/V, the bounds, and the
+    chunk_attend / window keywords."""
+    rng = np.random.default_rng(seed)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(
+            device, case.dtype)
+
+    q = randn(case.b, case.m, case.h, case.d)
+    kf, vf = (randn(case.b, case.max_len, case.hkv, case.d) for _ in range(2))
+    kn, vn = (randn(case.b, case.m, case.hkv, case.d) for _ in range(2))
+    length = torch.tensor(case.lengths, dtype=torch.int32, device=device)
+    ks = vs = None
+    if case.storage == "int8":
+        (kc, ks), (vc, vs) = quantize_kv(kf), quantize_kv(vf)
+    elif case.storage == "fp8":
+        kc, vc = (to_storage(t, torch.float8_e4m3fn) for t in (kf, vf))
+    else:
+        kc, vc = kf, vf
+    kw = dict(k_scale=ks, v_scale=vs)
+    if case.attend:
+        kw["chunk_attend"] = torch.from_numpy(rng.random((case.b, case.m)) < 0.5).to(device)
+    if case.window is not None:
+        start = length.clamp(max=case.max_len)[:, None]
+        kw.update(window=case.window, positions=(start + torch.arange(
+            case.m, dtype=torch.int32, device=device)[None]).to(torch.int32).contiguous())
+    return (q, kc, vc, kn, vn, length), kw
+
+
+def extend_plain(q, kc, vc, kn, vn, length, chunk_attend=None, window=None, positions=None,
+                 k_scale=None, v_scale=None):
+    """The plain version in fp32 on the same stored values, under the mask
+    the structured arguments give."""
+    mask = extend_mask(length, kc.shape[1], q.shape[1], chunk_attend=chunk_attend,
+                       window=window, positions=positions)
+    return extend_attention_plain(q.float(), kc, vc, kn.float(), vn.float(), mask,
+                                  k_scale=k_scale, v_scale=v_scale)
+
+
+def check_extend_case(case: ExtendCase, device="cuda") -> float:
+    """Runs the M-query kernel on ``case`` twice (equal bits) and holds it
+    against the plain version in fp32 on the same stored values; returns
+    the max abs error, raises ``AssertionError`` on a mismatch."""
+    args, kw = make_extend_inputs(case, device)
+    before = extend_attention.launches
+    out = extend_attention(*args, **kw)
+    again = extend_attention(*args, **kw)
+    assert extend_attention.launches == before + 2, "K2-M launch counter"
+    ref = extend_plain(*args, **kw)
+    tol = FP32_TOL if case.dtype == torch.float32 else BF16_TOL
+    assert out.dtype == case.dtype and out.shape == args[0].shape, (out.dtype, out.shape)
+    err = _close(f"K2-M {case.label}", out, ref, tol)
+    assert torch.equal(out, again), f"K2-M {case.label}: two launches differ"
+    return err
+
+
+def describe_extend_case(case: ExtendCase) -> str:
+    split = extend_split(case.b, case.hkv, case.m, case.h // case.hkv, case.max_len)
+    return (f"K2-M {case.label} [B={case.b} M={case.m} max_len={case.max_len} H={case.h} "
+            f"Hkv={case.hkv} d={case.d} q {case.dtype} cache {case.storage} "
+            f"bounds={list(case.lengths)} chunk_attend={case.attend} window={case.window} "
+            f"splits={split}]")
+
+
 class GemvCase(NamedTuple):
     label: str
     k: int
@@ -535,6 +660,7 @@ def check_mlp_case(case: MlpCase, rows: int, fp32: bool, device="cuda", gen=None
 SERVING_KERNELS = {
     "flash_fwd": (r"flash_fwd_(?:mma_)?kernel[<I]", (fa.flash_attention,)),
     "decode_kernel": (r"decode_kernel[<I]", (decode_attention,)),
+    "extend_kernel": (r"extend_kernel[<I]", (extend_attention,)),
     "gemv int8": (r"gemv_(?:tc|fma)_kernel(?:<\d+, false>|ILi\d+ELb0E)",
                   (qm.q8_gemv, qm.q8_gemv_group)),
     "gemv int4": (r"gemv_(?:tc|fma)_kernel(?:<\d+, true>|ILi\d+ELb1E)",
@@ -543,7 +669,11 @@ SERVING_KERNELS = {
 }
 
 
-TRACE_MARGIN_S = 0.1
+TRACE_MARGIN_S = 0.5
+# kernels that no count reads, at each end of a trace: a trace loses a few
+# records at its start (more the longer the process has run), and up to
+# ~0.2 s of records at an edge where the profiler's clock conversion is off
+TRACE_PAD_KERNELS = 1024
 
 
 def serving_kernel(name: str) -> Optional[str]:
@@ -556,18 +686,32 @@ def serving_kernel(name: str) -> Optional[str]:
 
 def device_launches(fn: Callable):
     """``(fn(), launches)``: the serving kernels' launches on the card while
-    ``fn`` runs, by ``SERVING_KERNELS`` label, counted in a ``torch.profiler``
-    trace of the CUDA activity (a graph replay's kernels are recorded one by
-    one). The card is idle for ``TRACE_MARGIN_S`` at each end of the trace:
-    the profiler drops the events it places outside its window."""
+    ``fn`` runs, by ``SERVING_KERNELS`` label, counted in one
+    ``torch.profiler`` trace of the CUDA activity (a graph replay's kernels
+    are recorded one by one). The profiler drops events at the edges of its
+    trace, so ``fn``'s work sits between ``TRACE_PAD_KERNELS`` kernels of no
+    serving kernel's name and ``TRACE_MARGIN_S`` of idle card at each end.
+    kineto stops collecting once a trace's GPU records pass its cap (128 MB
+    unless a kineto config raises it, ``KINETO_CONFIG``: ``chip_smoke.py``
+    points it at ``kineto.conf`` beside this module), and the trace then
+    loses its end: a 256-step decode call at B=8 records ~108 MB."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    pad = torch.zeros(1, device=torch.device("cuda", torch.cuda.current_device()))
+
+    def padding():
+        for _ in range(TRACE_PAD_KERNELS):
+            pad.add_(1)
+        torch.cuda.synchronize()
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         time.sleep(TRACE_MARGIN_S)
+        padding()
         out = fn()
         torch.cuda.synchronize()
+        padding()
         time.sleep(TRACE_MARGIN_S)
     names = Counter(e.name() for e in prof.profiler.kineto_results.events()
                     if e.device_type() == DeviceType.CUDA)

@@ -91,7 +91,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, f, i, p,  # causal, q_offset, scale, dtype, stream
     ]
     lib.flash_attention_fwd.restype = i
-    lib.decode_attention_workspace_bytes.argtypes = [i, i, i, i, i]  # B, H, Hkv, D, n_split
+    lib.decode_attention_workspace_bytes.argtypes = [i, i, i, i, i, i]  # B, M, H, Hkv, D, n_split
     lib.decode_attention_workspace_bytes.restype = ctypes.c_longlong
     lib.decode_attention_appended.argtypes = [
         p, p, p, p, p, p,  # q, k_cache, v_cache, k_cur, v_cur, bound
@@ -101,6 +101,14 @@ def _declare(lib: ctypes.CDLL) -> None:
         f, i, i, i, p,  # scale, window (0 = none), q dtype, storage code, stream
     ]
     lib.decode_attention_appended.restype = i
+    lib.extend_attention_appended.argtypes = [
+        p, p, p, p, p, p,  # q, k_cache, v_cache, k_chunk, v_chunk, bound
+        p, p, p, p, p,  # k_scale, v_scale, q_pos, attend (each may be null), out
+        p, ctypes.c_longlong, p, i,  # workspace, its bytes, tickets (null at n_split 1), n_split
+        i, i, i, i, i, i,  # B, M, max_len, H, Hkv, D
+        f, i, i, i, p,  # scale, window (0 = none), q dtype, storage code, stream
+    ]
+    lib.extend_attention_appended.restype = i
     bwd = [
         p, p, p, p, p, p, p,  # q, k, v, dout, lse, delta, kv_length
     ]

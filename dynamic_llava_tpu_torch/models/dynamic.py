@@ -11,6 +11,9 @@ training forward (counterpart of ``dynamic_llava_tpu/models/dynamic.py``).
   post tier. Once that tier's budget is full, ``kv_overflow="drop"``
   force-drops every further token and ``"ring"`` lets each new token evict
   the oldest decode entry (both tiers wrap, the prefill region protected).
+* ``prefill_continue`` -- E5: a new round's chunk against the live cache in
+  one pass (multi-round chat), ragged across the batch, with the
+  instruct-predictor prune of the chunk before the post tier.
 
 * ``forward_train`` -- T1/T2/T3: the full-sequence training forward in
   which the predictors' Gumbel keep masks become a soft policy over the kv
@@ -295,6 +298,84 @@ def decode_step(
         pos_inc = 1
     return state._replace(cache=cache, next_pos=state.next_pos + pos_inc,
                           last_logits=logits)
+
+
+def prefill_continue(
+    params,
+    cfg: LlavaConfig,
+    token_ids: torch.Tensor,  # [B, M] the new round's tokens (right-padded)
+    state: GenState,
+    chunk_len: Optional[torch.Tensor] = None,  # [B] valid tokens a sample
+) -> GenState:
+    """Multi-round continuation (E5): a new chunk against the live cache in
+    one pass (``run_layers_extend`` in both tiers; K/V written IN PLACE into
+    the state's buffers, lengths and positions returned as new tensors).
+    The pre tier persists every valid token. With the instruct predictor on,
+    the post tier persists only the chunk tokens it keeps, the last valid
+    token always.
+
+    ``chunk_len`` makes the batch ragged: padding tokens are never
+    persisted, positions and lengths advance by the valid count, and the
+    logits come from each sample's last valid token. A ``chunk_len`` of 0
+    makes the sample a no-op (nothing persisted, positions unchanged, its
+    logits meaningless). Omitted, every chunk is fully valid. The ring
+    markers pass through: the extend path never wraps (once a tier is full,
+    chunk tokens are force-dropped), so multi-round sessions use
+    ``kv_overflow="drop"``."""
+    tcfg, sparse = cfg.text, cfg.sparse
+    b, m = token_ids.shape
+    sl = sparse.sparse_layer
+    dev = token_ids.device
+    cols = torch.arange(m, dtype=torch.int32, device=dev)[None, :]
+    valid = None if chunk_len is None else cols < chunk_len[:, None]  # [B, M]
+
+    x = llama.embed_tokens(params["llm"], token_ids)
+    positions = state.next_pos[:, None].to(torch.int32) + cols
+
+    d1 = llama.run_layers_extend(
+        params["llm"], tcfg, x, positions, state.cache.pre, lo=0, hi=sl, keep=valid,
+    )
+    x = d1.x
+    # the runner's kept counts reflect its capacity clamp: lengths never pass
+    # what was persisted
+    cache_pre = d1.cache._replace(length=d1.cache.length + d1.kept[None, :])
+
+    keep = valid
+    if sparse.use_instruct_predictor:
+        tp = text_predictor(params["predictors"]["instruct_score_predictor"], x)
+        keep = tp[..., 0] > tp[..., 1]
+        if valid is not None:
+            # the last VALID token is forced kept; a chunk_len of 0 forces
+            # nothing (column -1 would wrap to a padding token)
+            is_last_valid = (cols == (chunk_len - 1)[:, None]) & (chunk_len >= 1)[:, None]
+            keep = (keep & valid) | is_last_valid
+        else:
+            keep = keep.clone()
+            keep[:, -1] = True
+
+    d2 = llama.run_layers_extend(
+        params["llm"], tcfg, x, positions, state.cache.post,
+        lo=sl, hi=tcfg.num_hidden_layers, keep=keep,
+    )
+    x = d2.x
+    cache_post = d2.cache._replace(length=d2.cache.length + d2.kept[None, :])
+
+    if chunk_len is not None:
+        # a chunk_len of 0 gathers row 0 (in bounds, meaningless) and
+        # advances by 0
+        last = _gather_span(x, torch.clamp(chunk_len - 1, min=0), 1)  # [B, 1, D]
+        advance = chunk_len.to(state.next_pos.dtype)
+    else:
+        last = x[:, -1:]
+        advance = m
+    logits = llama.lm_head(params["llm"], tcfg, last)[:, 0]
+    return GenState(
+        cache=TieredCache(pre=cache_pre, post=cache_post),
+        next_pos=state.next_pos + advance,
+        last_logits=logits,
+        ring_base=state.ring_base,
+        ring_base_pre=state.ring_base_pre,
+    )
 
 
 class TrainForwardOut(NamedTuple):

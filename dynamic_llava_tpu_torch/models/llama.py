@@ -19,9 +19,10 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import LlamaConfig
 from ..ops.attention import attend, attend_with_policy, self_attend
-from ..ops.decode_attention import decode_attention
+from ..ops.decode_attention import decode_attention, extend_attention
 from ..ops.kv_cache import (
-    KVCache, quantize_kv, write_prefill, write_token_layers, write_token_scales)
+    KVCache, quantize_kv, write_chunk_layers, write_prefill, write_token_layers,
+    write_token_scales)
 from ..ops.norm import rms_norm
 from ..ops.quant import (
     dequantize_weight, is_quantized, linear, linear_group, matmul, matmul_q4_mlp,
@@ -191,8 +192,9 @@ def run_layers_prefill(
 
 
 class DecodeResult(NamedTuple):
-    x: torch.Tensor  # [B, 1, D]
+    x: torch.Tensor  # [B, 1, D] ([B, M, D] from run_layers_extend)
     cache: KVCache  # K/V written at the current slots; lengths NOT advanced
+    kept: Optional[torch.Tensor] = None  # [B] persisted-token count (extend only)
 
 
 def run_layers_decode(
@@ -252,3 +254,70 @@ def run_layers_decode(
         write_token_scales(cache.k_scale, cache.v_scale, ks_new, vs_new, slots)
     write_token_layers(cache.k, cache.v, k_new, v_new, slots)
     return DecodeResult(x=x, cache=cache)
+
+
+def run_layers_extend(
+    params,
+    cfg: LlamaConfig,
+    x: torch.Tensor,  # [B, M, D] new chunk
+    positions: torch.Tensor,  # [B, M] original positions of the chunk tokens
+    cache: KVCache,  # covers exactly layers [lo, hi); one length for all its layers
+    *,
+    lo: int = 0,
+    hi: Optional[int] = None,
+    keep: Optional[torch.Tensor] = None,  # [B, M] bool: persist the token
+    chunk_attend: Optional[torch.Tensor] = None,  # [B, M] bool
+) -> DecodeResult:
+    """Continuation ("chunked") prefill of layers [lo, hi): every chunk
+    token attends over the persisted rows ``[0, length)`` plus the chunk
+    itself, causal inside it (``extend_attention``: the M-query form of K2
+    on the card), on the unrounded chunk K/V; after the loop all layers'
+    chunk K/V are written in one pass (``write_chunk_layers``), the kept
+    tokens compacted to slots ``[length, length + kept)`` and the dropped
+    ones to the scratch slot ``max_len - 1``. Kept tokens past the
+    remaining capacity are force-dropped (the ``decode_step`` rule), so the
+    returned ``kept`` counts never overrun the tier; the caller advances the
+    lengths by them.
+
+    ``chunk_attend`` restricts which chunk tokens later rows may attend:
+    row ``j`` sees chunk column ``i < j`` only where ``chunk_attend[b, i]``
+    (every row sees itself), which makes a batched pass equal to feeding
+    the tokens one by one through ``decode_step``."""
+    hi = cfg.num_hidden_layers if hi is None else hi
+    if cache.num_layers != hi - lo:
+        raise ValueError(f"cache has {cache.num_layers} layers for [{lo}, {hi})")
+    b, m, _ = x.shape
+    i32 = torch.int32
+    if hi == lo:
+        return DecodeResult(x=x, cache=cache, kept=torch.zeros(b, dtype=i32, device=x.device))
+    max_len = cache.max_len
+    length0 = cache.length[0]  # [B], the tier's shared length
+    keep_i = (torch.ones((b, m), dtype=i32, device=x.device) if keep is None
+              else keep.to(i32))
+    # compacted target slot per chunk token; earlier tokens' offsets do not
+    # depend on later ones, so clamping after the cumsum is exact
+    offsets = torch.cumsum(keep_i, dim=1, dtype=i32) - 1
+    remaining = torch.clamp(max_len - 1 - length0, min=0)  # slot max_len - 1 = scratch
+    keep_i = keep_i * (offsets < remaining[:, None]).to(i32)
+    target = torch.where(keep_i > 0, length0[:, None] + offsets, max_len - 1).to(i32)
+    kept = keep_i.sum(dim=1, dtype=i32)
+    window = cfg.sliding_window
+    q_pos = None if window is None else positions.to(i32).contiguous()
+    attend = None if chunk_attend is None else chunk_attend.to(torch.bool).contiguous()
+    k_new, v_new = [], []
+    for li in range(hi - lo):
+        lp = layer_params(params["layers"], li + lo)
+        h = rms_norm(x, lp["input_ln"], cfg.rms_norm_eps)
+        q, k, v = _qkv(lp, cfg, h, positions)
+        o = extend_attention(
+            q, cache.k[li], cache.v[li], k.contiguous(), v.contiguous(), length0,
+            chunk_attend=attend, window=window, positions=q_pos,
+            k_scale=cache.k_scale[li] if cache.quantized else None,
+            v_scale=cache.v_scale[li] if cache.quantized else None,
+        )
+        x = x + linear(lp, "o", o.reshape(b, m, -1))
+        x = x + _mlp(lp, rms_norm(x, lp["post_ln"], cfg.rms_norm_eps))
+        k_new.append(k)
+        v_new.append(v)
+    write_chunk_layers(cache, torch.stack(k_new), torch.stack(v_new), target)
+    return DecodeResult(x=x, cache=cache, kept=kept)

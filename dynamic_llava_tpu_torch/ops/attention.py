@@ -6,9 +6,11 @@ Counterpart of ``dynamic_llava_tpu/ops/attention.py``. ``attend`` and
 The dispatchers send every CUDA tensor to a kernel: causal self-attention
 to K1 (``ops.flash_attention``, whose backward is K3), training-mode
 policy attention to K4 (``ops.flash_policy``) and decode attention to K2
-(``ops.decode_attention``). The TPU size thresholds that chose between XLA
-and Pallas there were measured on a v5e and do not apply on the H100.
-``decode_attend_appended`` also serves the int8 (scale-folding) and fp8
+(``ops.decode_attention``), whose M-query form serves the chunk attention
+of the continuation prefill (``extend_attend_appended``). The TPU size
+thresholds that chose between XLA and Pallas there were measured on a v5e
+and do not apply on the H100. ``decode_attend_appended`` and
+``extend_attend_appended`` also serve the int8 (scale-folding) and fp8
 caches and the sliding window. ``attend_with_policy`` and
 ``blockwise_attend`` are the plain
 differentiable policy paths; the second is also K4's backward.
@@ -269,6 +271,48 @@ def decode_attend_appended(
     vn = repeat_kv_heads(v_cur, n_rep).float()
     logit_cur = torch.einsum("bqhd,bkhd->bhqk", qf, kn) * scale  # always visible
     w = torch.softmax(torch.cat([logits_cache, logit_cur], dim=-1), dim=-1)
+    w_cache = w[..., :max_len]
+    if v_scale is not None:
+        w_cache = w_cache * _fold_kv_scales(v_scale, n_rep)
+    out = torch.einsum("bhqk,bkhd->bqhd", w_cache, vc) + torch.einsum(
+        "bhqk,bkhd->bqhd", w[..., max_len:], vn
+    )
+    return out.to(q.dtype)
+
+
+def extend_attend_appended(
+    q: torch.Tensor,  # [B, M, H, d] chunk queries
+    k_cache: torch.Tensor,  # [B, max_len, Hkv, d] persisted (read-only; may be int8 / fp8)
+    v_cache: torch.Tensor,  # [B, max_len, Hkv, d]
+    k_chunk: torch.Tensor,  # [B, M, Hkv, d] the chunk's fresh keys
+    v_chunk: torch.Tensor,  # [B, M, Hkv, d]
+    mask: torch.Tensor,  # [B, 1, M, max_len + M] bool (cache cols ++ chunk cols)
+    *,
+    scale: Optional[float] = None,
+    k_scale: Optional[torch.Tensor] = None,  # [B, max_len, Hkv] int8-KV scales
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Chunk attention over cache ++ chunk without concatenating the K/V:
+    the M-token form of ``decode_attend_appended`` and the plain version of
+    the M-query form of kernel K2. fp32 scores over the two segments, one
+    softmax under ``mask``, out in q's dtype. The cache is cast to q's
+    dtype on read (fp8 exactly); scaled-int8 storage folds ``k_scale`` into
+    the fp32 score row and ``v_scale`` into the probabilities."""
+    n_rep = q.shape[2] // k_cache.shape[2]
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    max_len = k_cache.shape[1]
+    qf = q.float()
+    kc = repeat_kv_heads(k_cache.to(q.dtype), n_rep).float()
+    vc = repeat_kv_heads(v_cache.to(q.dtype), n_rep).float()
+    logits_cache = torch.einsum("bqhd,bkhd->bhqk", qf, kc) * scale  # [B, H, M, max_len]
+    if k_scale is not None:
+        logits_cache = logits_cache * _fold_kv_scales(k_scale, n_rep)
+    kn = repeat_kv_heads(k_chunk, n_rep).float()
+    vn = repeat_kv_heads(v_chunk, n_rep).float()
+    logits_chunk = torch.einsum("bqhd,bkhd->bhqk", qf, kn) * scale  # [B, H, M, M]
+    logits = torch.where(mask, torch.cat([logits_cache, logits_chunk], dim=-1), NEG_INF)
+    w = torch.softmax(logits, dim=-1)
     w_cache = w[..., :max_len]
     if v_scale is not None:
         w_cache = w_cache * _fold_kv_scales(v_scale, n_rep)

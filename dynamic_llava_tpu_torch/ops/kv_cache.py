@@ -12,7 +12,9 @@ cast on write and on read); or scaled int8 (``torch.int8``): each written
 K/V head vector is quantized with one bf16 scale per (layer, sample, slot,
 head), kept in the side buffers ``k_scale`` / ``v_scale`` and folded into
 the attention on read (``ops.attention.decode_attend_appended``).
-``splice_cache_slot`` (continuous batching) is not ported yet.
+The continuation prefill writes a whole chunk's K/V at once
+(``write_chunk_layers``), compacted to the kept tokens. ``splice_cache_slot``
+(continuous batching) is not ported yet.
 """
 
 from __future__ import annotations
@@ -191,6 +193,32 @@ def write_token_scales(
     bidx = torch.arange(k_scale.shape[1], device=k_scale.device)
     k_scale[:, bidx, pos] = ks_new[:, :, 0].to(k_scale.dtype)
     v_scale[:, bidx, pos] = vs_new[:, :, 0].to(v_scale.dtype)
+
+
+def write_chunk_layers(
+    cache: KVCache,
+    k_new: torch.Tensor,  # [L, B, M, Hkv, d] every layer's chunk K (unrounded)
+    v_new: torch.Tensor,
+    target: torch.Tensor,  # [B, M] int32 slot per chunk token
+) -> None:
+    """Write every layer's chunk K/V at ``target`` IN PLACE: kept tokens at
+    their compacted slots, dropped ones at the scratch slot ``max_len - 1``
+    (several dropped tokens land there, in no fixed order on the card;
+    nothing reads that slot). Quantized to int8 with their scales, or cast
+    to the storage dtype (fp8 through the bytes), as ``write_token_layers``
+    / ``write_token_scales`` do for one token."""
+    bidx = torch.arange(target.shape[0], device=target.device)[:, None]
+    tgt = target.long()
+    if cache.quantized:
+        qk, ksc = quantize_kv(k_new)
+        qv, vsc = quantize_kv(v_new)
+        cache.k[:, bidx, tgt] = qk
+        cache.v[:, bidx, tgt] = qv
+        cache.k_scale[:, bidx, tgt] = ksc
+        cache.v_scale[:, bidx, tgt] = vsc
+        return
+    _bytes(cache.k)[:, bidx, tgt] = _bytes(to_storage(k_new, cache.k.dtype))
+    _bytes(cache.v)[:, bidx, tgt] = _bytes(to_storage(v_new, cache.v.dtype))
 
 
 def advance_tiered(cache: TieredCache, keep: torch.Tensor,

@@ -10,6 +10,13 @@ kernels they launch on the card, counted in a ``torch.profiler`` trace
 launch for as many steps (K2 once a layer and step, K9 as often with the
 switch on and never with it off).
 
+The chat's stopping runner (``StopDecodeRunner``) at the same width: its
+replays run under ``set_sync_debug_mode("error")``, its tokens, emitted
+flags and end-of-chunk ``active`` equal an eager loop of ``decode_step``
+with ``active`` and the stop test on the host, with a stop in mid-chunk,
+and a chunk run with every sample frozen leaves the tier lengths,
+``next_pos`` and ``last_logits`` as they were.
+
 It imports torch and the port only, so it also runs where jax is not
 installed. Every test needs an NVIDIA GPU and ``nvcc`` (the kernels are
 built at first use) and is skipped without them:
@@ -155,3 +162,86 @@ def test_graph_decode_matches_the_eager_loop(mode, q4_mlp_switch):
     layers = CFG.text.num_hidden_layers
     assert device["decode_kernel"] == layers * steps
     assert device["q4_mlp_kernel"] == (layers * steps if fused else 0)
+
+
+def _stop_loop(gen, plan, pix, steps, room, stops, limit):
+    """The stopping runner's reference: prefill (tiers with ``room`` new
+    tokens, as the runner's), then ``steps`` of greedy ``decode_step(active=)``
+    with the stop test on the host. Returns tokens and emitted flags
+    ``[steps, B]`` and the final ``active``."""
+    with torch.inference_mode():
+        state, _ = gen.prefill_from_plan(plan, pix, room)
+        b = plan.batch
+        hist = [[] for _ in range(b)]
+        active = np.ones(b, bool)
+        n_emit = np.zeros(b, int)
+        toks, emitted = [], []
+        for _ in range(steps):
+            tok = torch.argmax(state.last_logits, dim=-1)
+            state = dynamic.decode_step(gen.params, gen.cfg, tok, state,
+                                        active=torch.from_numpy(active.copy()).cuda())
+            t = tok.cpu().numpy()
+            toks.append(t)
+            emitted.append(active.copy())
+            hit = np.zeros(b, bool)
+            for i in range(b):
+                if active[i]:
+                    hist[i].append(int(t[i]))
+                    hit[i] = any(hist[i][-len(seq):] == list(seq) for seq in stops)
+            n_emit += active
+            active = active & ~hit & (n_emit < limit)
+    return np.stack(toks), np.stack(emitted), active
+
+
+def test_stop_runner_replays_match_the_eager_loop():
+    params = init_llava_params(CFG, torch.Generator(device="cuda").manual_seed(0), "cuda",
+                               torch.bfloat16)
+    gc = tgen.GenerationConfig(**BASE)
+    gen = tgen.Generator(params, CFG, gc)
+    ids, pix = _batch()
+    plan = plan_batch(ids, CFG.num_image_tokens, pad_multiple=gc.pad_multiple)
+    chunk, n_chunks, limit = gc.decode_chunk, 3, 20
+    steps = chunk * n_chunks
+    free, _ = _eager_loop(gen, plan, pix, steps, seed=0)
+    # sample 0 meets the pair of its 2nd and 3rd tokens by its 3rd token (in
+    # mid-chunk); another stop from sample 1's second chunk; the rest stop
+    # at the limit (in mid-chunk too), so every sample is frozen by the end
+    stops = (tuple(int(t) for t in free[1:3, 0]), (int(free[chunk + 2, 1]),))
+    want_toks, want_emitted, want_active = _stop_loop(gen, plan, pix, steps, steps + chunk,
+                                                      stops, limit)
+    assert 0 < want_emitted[:, 0].sum() <= 3 and not want_active.any()
+
+    key = tgen.runner_key(plan.batch, gen.cache_sizes(plan, pix, steps + chunk), stop=stops,
+                          chunk=chunk)
+    runner = tgen.StopDecodeRunner(params, CFG, gc, key, "cuda")
+    with torch.inference_mode():
+        state, _ = gen.prefill_into(plan, pix, runner.fresh_cache())
+        runner.load(state, 0)
+        del state
+    runner.begin(limit, 0)
+    got, pending = [], None
+    for ci in range(n_chunks + 1):  # the last chunk runs with every sample frozen
+        if ci == n_chunks:  # the state after chunk n_chunks - 1, in stream order
+            st = runner.state
+            frozen = [t.clone() for t in (st.cache.pre.length, st.cache.post.length,
+                                          st.next_pos, st.last_logits)]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            following = runner.run_chunk()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if pending is not None:
+            got.append(runner.read(pending))
+        pending = following
+    got.append(runner.read(pending))
+    assert runner.graph is not None
+    toks = np.concatenate([g[0] for g in got[:n_chunks]])
+    emitted = np.concatenate([g[1] for g in got[:n_chunks]])
+    np.testing.assert_array_equal(emitted, want_emitted)
+    np.testing.assert_array_equal(np.where(emitted, toks, -1), np.where(want_emitted, want_toks, -1))
+    np.testing.assert_array_equal(got[n_chunks - 1][2], want_active)
+    assert not got[n_chunks][1].any()  # the frozen chunk emitted nothing ...
+    st = runner.state
+    for before, after in zip(frozen, (st.cache.pre.length, st.cache.post.length, st.next_pos,
+                                      st.last_logits)):
+        assert torch.equal(before, after)  # ... and moved nothing

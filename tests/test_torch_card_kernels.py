@@ -1,6 +1,7 @@
 """Card-side checks of the hand-written kernels: K1 and K3 (the flash forward
-and backward, with K3's delta kernel), K2 (decode attention), K4 (policy
-attention), K5-K8 (the weight-only GEMVs) and K9 (the fused int4 MLP)
+and backward, with K3's delta kernel), K2 (decode attention) and its
+M-query form, K4 (policy attention), K5-K8 (the weight-only GEMVs) and K9
+(the fused int4 MLP)
 against their plain PyTorch versions on the same inputs, at the case
 lists ``chip_smoke.py`` phase 3 runs
 (``dynamic_llava_tpu_torch/kernel_cases.py``), with the same tolerances and
@@ -50,6 +51,11 @@ def test_flash_backward_matches_its_plain_version(case):
 @pytest.mark.parametrize("case", kc.DECODE_CASES, ids=lambda c: c.label)
 def test_decode_attention_matches_its_plain_version(case):
     kc.check_decode_case(case)
+
+
+@pytest.mark.parametrize("case", kc.EXTEND_CASES, ids=lambda c: c.label)
+def test_extend_attention_matches_its_plain_version(case):
+    kc.check_extend_case(case)
 
 
 def _gemv_params():

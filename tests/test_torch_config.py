@@ -1,7 +1,8 @@
 """The port's own copies of the framework-free host code against the JAX
 package's: the config dataclasses (same fields, same defaults, same derived
-values), the constants, and the numpy fusion planner (equal ``FusionPlan``s
-on seeded inputs). ``port_config`` is the helper the other port tests use to
+values), the constants, the numpy fusion planner (equal ``FusionPlan``s
+on seeded inputs), and the conversation templates (every template renders
+the same prompt from the same messages). ``port_config`` is the helper the other port tests use to
 build the port's config from the JAX package's field values."""
 
 import dataclasses
@@ -11,9 +12,11 @@ import pytest
 
 from dynamic_llava_tpu import config as jconfig
 from dynamic_llava_tpu import constants as jconstants
+from dynamic_llava_tpu import conversation as jconversation
 from dynamic_llava_tpu.multimodal import fusion as jfusion
 from dynamic_llava_tpu_torch import config as tconfig
 from dynamic_llava_tpu_torch import constants as tconstants
+from dynamic_llava_tpu_torch import conversation as tconversation
 from dynamic_llava_tpu_torch.multimodal import fusion as tfusion
 
 
@@ -108,3 +111,34 @@ def test_plan_batch_matches(with_labels, kwargs):
         g, w = getattr(got.spans, name), getattr(want.spans, name)
         assert g.dtype == w.dtype and np.array_equal(g, w), name
     assert (got.batch, got.seq_len) == (want.batch, want.seq_len)
+
+
+def test_conversation_templates_are_the_same_set():
+    assert sorted(tconversation.conv_templates) == sorted(jconversation.conv_templates)
+    assert [m.name for m in tconversation.SeparatorStyle] == \
+        [m.name for m in jconversation.SeparatorStyle]
+    for name in ("default_conversation", "conv_vicuna_v1", "conv_llava_v1"):
+        t, j = getattr(tconversation, name), getattr(jconversation, name)
+        assert t.get_prompt() == j.get_prompt() and t.version == j.version
+
+
+@pytest.mark.parametrize("image", [True, False], ids=["image", "text"])
+@pytest.mark.parametrize("name", sorted(jconversation.conv_templates))
+def test_conversation_prompts_match(name, image):
+    """Two rounds (the first with an image tuple, as the serving UI sends
+    it) and an open assistant turn: the same prompt and ``dict``, or the
+    same error (the ``plain`` style has no second separator and renders one
+    exchange only)."""
+    prompts = []
+    for mod in (jconversation, tconversation):
+        conv = mod.conv_templates[name].copy()
+        first = "<image>\nWhat is in the picture?"
+        conv.append_message(conv.roles[0], (first, "an image", "Pad") if image else first)
+        conv.append_message(conv.roles[1], "A cat on a mat.")
+        conv.append_message(conv.roles[0], "And its colour?")
+        conv.append_message(conv.roles[1], None)
+        try:
+            prompts.append((conv.get_prompt(), conv.dict(), conv.sep_style.name))
+        except TypeError as e:
+            prompts.append(str(e))
+    assert prompts[1] == prompts[0]

@@ -22,6 +22,13 @@ outputs and ``on_chunk`` calls equal the JAX ``Generator``'s.
 (e) The names by which the card's launches of the serving kernels are
 counted (``kernel_cases.SERVING_KERNELS``) match those kernels' names as
 the compiler emits them and as the profiler demangles them, and no other.
+(f) The stopping runner of the chat (``StopDecodeRunner``): its step makes
+no host read (under the same patch), and after three chunks in which one
+sample meets a two-token stop sequence in mid-chunk, one meets EOS and one
+runs to the limit, its tokens, emitted flags, end-of-chunk ``active`` and
+every static buffer equal a functional loop of ``decode_step(active=)``
+with the stop test written in numpy; frozen samples keep their lengths,
+``next_pos`` and ``last_logits``.
 """
 
 import contextlib
@@ -339,6 +346,94 @@ def test_chunks_are_pipelined_and_match_jax(bridged, monkeypatch, all_stop):
     assert sum(e[0] == "enqueue" for e in events) <= n_chunks
 
 
+STOP_MODES = {
+    "drop": (SPARSE, {}),
+    "int8 KV": (SPARSE, dict(cache_dtype="int8")),
+    "dense fp8 KV": (DENSE, dict(cache_dtype="float8_e4m3fn")),
+}
+
+
+def _stop_reference(params, cfg, gc, plan, pix, steps, stops, limit):
+    """The functional loop: greedy ``decode_step(active=)`` on another
+    ``Generator``'s buffers, with the stop test in numpy. Returns (state,
+    tokens [steps, B], emitted [steps, B], active [B])."""
+    gen = Generator(params, cfg, gc)
+    state, _ = gen.prefill_from_plan(plan, pix, steps)
+    b = plan.batch
+    k = max(len(seq) for seq in stops)
+    hist = np.full((b, k), -1, np.int64)
+    active = np.ones(b, bool)
+    n_emit = np.zeros(b, np.int64)
+    toks, emitted = [], []
+    for _ in range(steps):
+        tok = torch.argmax(state.last_logits, dim=-1)
+        state = dynamic.decode_step(params, cfg, tok, state,
+                                    active=torch.from_numpy(active.copy()),
+                                    kv_overflow=gc.kv_overflow)
+        t = tok.numpy()
+        toks.append(t)
+        emitted.append(active.copy())
+        nxt = np.concatenate([hist[:, 1:], t[:, None]], axis=1)
+        hit = np.array([any(list(nxt[i, k - len(seq):]) == list(seq) for seq in stops)
+                        for i in range(b)])
+        n_emit += active
+        hist = np.where(active[:, None], nxt, hist)
+        active = active & ~hit & (n_emit < limit)
+    return state, np.stack(toks), np.stack(emitted), active
+
+
+@pytest.mark.parametrize("mode", list(STOP_MODES))
+def test_stop_runner_matches_the_functional_loop(params, mode):
+    cfg, over = STOP_MODES[mode]
+    gc = GenerationConfig(**dict(BASE, **over))
+    ids, pix = _batch(1)
+    plan = _plan(cfg, ids, gc)
+    chunk, steps, limit = gc.decode_chunk, 3 * gc.decode_chunk, 10
+    with torch.inference_mode():
+        free = [list(map(int, o)) for o in Generator(params, cfg, gc).generate(ids, pix)]
+        # sample 0 meets a two-token sequence at its 2nd token (mid-chunk),
+        # sample 1 EOS at its 9th (in the third chunk), sample 2 the limit
+        stops = ((free[1][8],), tuple(free[0][:2]))
+        assert stops[0][0] not in free[1][:8] + free[2][:limit]
+        assert all(tuple(o[i:i + 2]) != stops[1] for o in free[1:] for i in range(limit))
+        gen = Generator(params, cfg, gc)
+        sizes = gen.cache_sizes(plan, pix, steps)
+        key = tgen.runner_key(plan.batch, sizes, stop=stops, chunk=chunk)
+        runner = tgen.StopDecodeRunner(params, cfg, gc, key, "cpu")
+        state, _ = gen.prefill_into(plan, pix, runner.fresh_cache())
+        runner.load(state, 0)
+        runner.begin(limit, 0)
+        with no_host_reads():
+            runner.step()  # the stop test in a step reads nothing on the host
+        runner.load(state, 0)
+        runner.begin(limit, 0)
+        got = [runner.read(runner.run_chunk()) for _ in range(3)]
+        ref, toks, emitted, active = _stop_reference(params, cfg, gc, plan, pix, steps, stops,
+                                                     limit)
+    np.testing.assert_array_equal(np.concatenate([g[0] for g in got]), toks)
+    np.testing.assert_array_equal(np.concatenate([g[1] for g in got]), emitted)
+    np.testing.assert_array_equal(got[-1][2], active)
+    assert emitted.sum(0).tolist() == [2, 9, limit]  # where each sample stopped
+    assert got[0][2].tolist() == [False, True, True]  # sample 0 frozen in chunk 1
+    st = runner.state
+    for tier, ref_tier in zip(st.cache, ref.cache):
+        for name, a, b in zip(tier._fields, tier, ref_tier):
+            if a is not None:
+                assert torch.equal(_raw(a), _raw(b)), name
+    assert torch.equal(st.next_pos, ref.next_pos)
+    assert torch.equal(_raw(st.last_logits), _raw(ref.last_logits))
+    # frozen samples advanced exactly by their emitted tokens
+    assert (st.next_pos - torch.from_numpy(plan.valid_len).to(torch.int32)).tolist() == \
+        emitted.sum(0).tolist()
+    assert torch.equal(runner.n_emit, torch.from_numpy(emitted.sum(0)).to(torch.int32))
+
+
+def test_stop_runner_needs_a_stop_sequence(params):
+    gc = GenerationConfig(**BASE)
+    with pytest.raises(ValueError, match="no stop sequence"):
+        tgen.StopDecodeRunner(params, SPARSE, gc, tgen.runner_key(1, (16, 16)), "cpu")
+
+
 # kernel names as the compiler emits them (mangled) and as c++filt and the
 # profiler give them (demangled) -> their SERVING_KERNELS label
 KERNEL_NAMES = {
@@ -351,6 +446,12 @@ KERNEL_NAMES = {
     "3Fp8ELi64ELi2EEEvNS0_10DecodeArgsE": "decode_kernel",
     "void dllava::(anonymous namespace)::decode_kernel<__nv_bfloat16, 128, 1>(dllava::"
     "(anonymous namespace)::DecodeArgs)": "decode_kernel",
+    "_ZN6dllava52_GLOBAL__N__6c6d5f17_19_decode_attention_cu_69089eeb13decode_kernelIaLi128ELi2EE"
+    "EvNS0_10AttendArgsE": "decode_kernel",
+    "_ZN6dllava52_GLOBAL__N__6c6d5f17_19_decode_attention_cu_69089eeb13extend_kernelI13__nv_bf"
+    "loat16Li128EEEvNS0_10AttendArgsE": "extend_kernel",
+    "void dllava::(anonymous namespace)::extend_kernel<signed char, 64>(dllava::(anonymous "
+    "namespace)::AttendArgs)": "extend_kernel",
     "_ZN6dllava46_GLOBAL__N__5be8b358_13_quant_gemv_cu_840698e714gemv_tc_kernelILi16ELb0EEEvPK"
     "13__nv_bfloat16NS0_5GroupEiiiiNS_6TcPlanEPfPi": "gemv int8",
     "void dllava::(anonymous namespace)::gemv_tc_kernel<16, false>(__nv_bfloat16 const*, "

@@ -1,5 +1,5 @@
 """The port never loads jax nor the JAX package: its sources (the package,
-``chip_smoke.py``, ``tools/profile_*.py``) import neither, and a fresh
+``chip_smoke.py``, ``tools/*.py``) import neither, and a fresh
 interpreter that imports the package (the quantized and the training paths
 included), generates on the CPU with fp32 and then int4 weights (also with
 the fused MLP, an int8 and an fp8 KV cache and the ring policy), and takes
@@ -64,7 +64,7 @@ print("jax package loaded:", "dynamic_llava_tpu" in sys.modules)
 """
 
 SOURCES = (sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-           + sorted((ROOT / "tools").glob("profile_*.py")))
+           + sorted((ROOT / "tools").glob("*.py")))
 # `import jax`, `from jax...`, `import dynamic_llava_tpu[.x]`, `from dynamic_llava_tpu[.x] ...`:
 # the word boundary keeps `dynamic_llava_tpu_torch` out
 FORBIDDEN = re.compile(
