@@ -49,9 +49,12 @@ anywhere else. Phases, each of which raises on failure:
    a KV head; head_dim 64 and 128; B = 1 and 4 with ragged lengths at 0, the
    tile and split edges and the capacity; a chunk_attend mask and a window;
    each launched twice with ``torch.equal`` results, at the same
-   tolerances as K2; timed at the chat phase's shapes (B=1, 32 heads, d=128,
-   M=40 at length 700 and M=100 at 804, bf16 and int8) beside one SDPA call
-   on the cache and the chunk concatenated, with the mask as a bool tensor.
+   tolerances as K2, and at the speculative verify shapes
+   (``kernel_cases.VERIFY_CASES``: B = 1 and 8, M = 5 and 8, 32 heads,
+   d=128, post-tier lengths 150-300, bf16 and int8, with chunk_attend);
+   timed at the chat phase's shapes (B=1, M=40 at length 700 and M=100 at
+   804, bf16 and int8) and at the verify shapes beside one SDPA call on the
+   cache and the chunk concatenated, with the mask as a bool tensor.
    K5-K8 (int8 /
    int4 GEMVs) at the 7B decoder's shapes (q/k/v, gate/up, down with
    K = 11008, o, the lm_head with N = 32000) and rows 1, 8, 24, 64, and at
@@ -104,6 +107,27 @@ anywhere else. Phases, each of which raises on failure:
    session driven by the eager per-token path must give the same tokens,
    tier lengths and ``next_pos`` after every round; a third is timed:
    round-1 TTFT, the continuation's ms a chunk, decode tok/s at B=1;
+5c. speculative decoding and beam search at 7B width on the phase-5
+   weights: B=1 and B=8 (an image and 60 text tokens a request, 128 new
+   tokens, EOS off), sparse and dense, and after phase 6's int8 serving a
+   B=8 sparse arm on the int8 decoder; each arm at k = 4 and 7 draft tokens
+   (``speculate``): plain ``generate``, ``generate_speculative`` with an
+   oracle draft (plain greedy's continuation), a self oracle (the device
+   run's chain) and prompt lookup, and ``generate_speculative_device`` (the in-graph lookup, chunks
+   of rounds); tok/s, rounds, tokens a round, no-op rounds, the verify
+   round's and the plain step's device ms, the tok/s of every draft
+   accepted (computed from the round's ms), capture ms. The graph runner's
+   tokens, tier lengths and ``next_pos`` must equal an eager loop of
+   ``decode_speculative_step`` with the same drafts over its first
+   ``SPEC_EAGER_ROUNDS`` rounds, and the host-drafted runner's after a
+   whole generation; in a profiler trace of
+   a host-drafted generation K2-M must launch once a layer a round and K2
+   never, and on the int8 decoder the GEMV kernel ``4 x layers + 1`` times
+   a round; the tokens must equal plain greedy's, or leave them only where
+   plain greedy's top-two logit gap or a token's keep margin is below a
+   bound derived from bf16 rounding (``near_tie_bound``), printed with the
+   matched prefix. Then ``beam_search`` (4 beams, 16 tokens): its wall time
+   and its length-normalised log-probability against greedy's;
 6. quantized serving at 7B width, the same batches: the phase-5 weights
    quantized in place to int8 (``quantize_llm_params``), sparse and dense;
    then an int4 decoder made directly (``init_quantized_llama_params``)
@@ -168,6 +192,10 @@ TIMED = 3  # timed generate calls and prefills a serving mode
 CHAT_MAX_NEW = 64  # new tokens a chat round
 CHAT_CHUNKS = (40, 100)  # tokens of rounds 2 and 3
 CHAT_BUDGET = 384  # new tokens (answers and chunks) a chat session has room for
+SPEC_MAX_NEW = 128  # new tokens a speculative generation
+SPEC_KS = (4, 7)  # draft lengths k (M = k + 1 candidates a verify round)
+SPEC_EAGER_ROUNDS = 16  # rounds the graph runner is held to an eager loop over
+BEAM_W, BEAM_NEW = 4, 16  # beams and new tokens of the beam search
 # published peaks of one H100 SXM (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
@@ -434,18 +462,20 @@ def check_extend_kernel(torch):
     storage; M = 1, 2, 7, 8, 9, 40, 65, 128 across the groups of 8 query
     rows; 1 and 4 query heads a KV head; head_dim 64 and 128; B = 1 and 4
     with ragged lengths at 0, the tile and split edges and the capacity; a
-    chunk_attend mask and a window) against the plain version in fp32 on the
-    same stored values, each launched twice for equal bits. Times (CUDA
-    events over a graph replay) at the chat phase's shapes: B=1, H=Hkv=32,
-    d=128, the pre tier of 1088 slots, M=40 at length 700 and M=100 at 804
-    (rounds 2 and 3), bf16 and int8 storage, beside one SDPA call on the
-    cache rows and the chunk concatenated (on the dequantized bf16 cache for
-    int8) with the same mask as a bool tensor. Returns the results: max
-    errors, the bf16 M=40 times, and the other readings under ``shapes``."""
+    chunk_attend mask and a window; the speculative verify shapes) against
+    the plain version in fp32 on the same stored values, each launched
+    twice for equal bits. Times (CUDA events over a graph replay) at the
+    chat phase's shapes: B=1, H=Hkv=32, d=128, the pre tier of 1088 slots,
+    M=40 at length 700 and M=100 at 804 (rounds 2 and 3), bf16 and int8
+    storage, and at ``kernel_cases.VERIFY_CASES`` (phase 5c's verify rounds),
+    beside one SDPA call on the cache rows up to the longest length and the
+    chunk concatenated (on the dequantized bf16 cache for int8) with the
+    same mask as a bool tensor. Returns the results: max errors, the bf16
+    M=40 times, and the other readings under ``shapes`` by case label."""
     import torch.nn.functional as F
 
     from dynamic_llava_tpu_torch import kernel_cases as kc
-    from dynamic_llava_tpu_torch.ops.decode_attention import extend_attention
+    from dynamic_llava_tpu_torch.ops.decode_attention import extend_attention, extend_mask
     from dynamic_llava_tpu_torch.ops.kv_cache import dequantize_kv
 
     dev = torch.device("cuda")
@@ -462,43 +492,45 @@ def check_extend_kernel(torch):
         top = res[case.storage] if case.storage in res else res
         top["max_abs_err"] = max(top["max_abs_err"], err)
 
-    for m, n_live, storage in [(40, 700, "own"), (100, 804, "own"), (40, 700, "int8"),
-                               (100, 804, "int8")]:
-        h, d, max_len, dtype = 32, 128, 1088, torch.bfloat16
-        case = kc.ExtendCase("timing", 1, m, max_len, h, h, d, dtype, storage, (n_live,))
+    # the chat shapes (rounds 2 and 3) and the speculative verify shapes
+    for case in kc.EXTEND_CASES[:4] + kc.VERIFY_CASES:
         args, kw = kc.make_extend_inputs(case, dev, SEED + 4)
         q, kc_, vc, kn, vn, live = args
+        b, m, h, d, dtype, storage = case.b, case.m, case.h, case.d, case.dtype, case.storage
         kms = time_ms(lambda: extend_attention(*args, **kw), 50)
         pms = time_ms(lambda: kc.extend_plain(*args, **kw), 10)
+        # SDPA on the cache rows up to the longest length and the chunk,
+        # concatenated, under the same mask as a bool tensor
+        n_max = max(case.lengths)
         ks, vs = kw["k_scale"], kw["v_scale"]
         kd = dequantize_kv(kc_, ks, dtype) if ks is not None else kc_
         vd = dequantize_kv(vc, vs, dtype) if vs is not None else vc
         ql = sdpa_layout(q)
-        kl = sdpa_layout(torch.cat([kd[:, :n_live], kn], dim=1))
-        vl = sdpa_layout(torch.cat([vd[:, :n_live], vn], dim=1))
-        rows = torch.arange(m, device=dev)
-        mask = torch.cat([torch.ones((m, n_live), dtype=torch.bool, device=dev),
-                          rows[None, :] <= rows[:, None]], dim=1)[None, None]
+        kl = sdpa_layout(torch.cat([kd[:, :n_max], kn], dim=1))
+        vl = sdpa_layout(torch.cat([vd[:, :n_max], vn], dim=1))
+        mask = extend_mask(live, n_max, m, chunk_attend=kw.get("chunk_attend"))
         lms = time_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask), 50)
         # bytes: the live cache rows in their storage type (int8: and their
         # bf16 scales), q, the chunk's K/V and the output; operations: two
         # products over every attended (row, column) pair
         per_elem = 2 if storage == "own" else 1
-        cache = 2 * n_live * h * (d * per_elem + (2 if storage == "int8" else 0))
-        pairs = m * n_live + m * (m + 1) // 2
+        cache = sum(2 * n * h * (d * per_elem + (2 if storage == "int8" else 0))
+                    for n in case.lengths)
+        pairs = int(mask.sum())
         bms, bby = bound_ms(cache + 2 * (2 * q.numel() + 2 * kn.numel()), 4 * pairs * h * d)
         groups = -(-m // 8)
-        log(f"  K2-M time, B=1 M={m} H=Hkv={h} d={d} max_len={max_len}, {storage} cache at "
-            f"length {n_live}: kernel {kms:.4f} ms, plain {pms:.4f} ms, SDPA on the "
-            f"concatenated{'' if storage == 'own' else ' dequantized'} K/V with a bool mask "
-            f"{lms:.4f} ms, bound {bms:.4f} ms ({bby}); the cache is read by {groups} row "
-            f"groups: {groups * cache / kms / 1e6:.0f} GB/s of cache reads")
+        log(f"  K2-M time, {case.label}: B={b} M={m} H=Hkv={h} d={d} max_len={case.max_len}, "
+            f"{storage} cache at lengths {list(case.lengths)}, chunk_attend={case.attend}: "
+            f"kernel {kms:.4f} ms, plain {pms:.4f} ms, SDPA on the concatenated"
+            f"{'' if storage == 'own' else ' dequantized'} K/V with a bool mask {lms:.4f} ms, "
+            f"bound {bms:.4f} ms ({bby}); the cache is read by {groups} row groups: "
+            f"{groups * cache / kms / 1e6:.0f} GB/s of cache reads")
         timing = dict(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms, bound_by=bby,
                       cache_reads=groups)
-        if (m, storage) == (40, "own"):
+        if case is kc.EXTEND_CASES[0]:
             res.update(timing)
         else:
-            res["shapes"][f"M={m} length {n_live} {storage}"] = timing
+            res["shapes"][case.label] = timing
     torch.cuda.synchronize()
     return res
 
@@ -1492,6 +1524,463 @@ def chat(torch, params, modes):
     return results
 
 
+BF16_U = 2.0**-8  # bf16 unit roundoff
+
+
+def near_tie_bound(scale: float, roundings: int) -> float:
+    """How close two values computed by the plain and the speculative path
+    must be for their order to flip by rounding alone. Both paths compute
+    the same function and round it to bf16 at the same points (each of a
+    decoder layer's two residual adds, the norms, a predictor layer), but
+    over B rows against B x M rows the GEMMs and K2 / K2-M sum in other
+    orders, so a rounding may land on the other side: a relative difference
+    of up to ``u = 2^-8`` at each of ``roundings`` points. Taken as a random
+    walk, two values of magnitude ``scale`` differ by up to ``u *
+    sqrt(roundings) * scale``, and a pair closer than that may swap."""
+    return BF16_U * roundings**0.5 * scale
+
+
+class KeepMargins:
+    """Records the output-text predictor's keep margins (keep logit minus
+    drop logit, and the larger magnitude of the two) of every token the
+    decode paths score, by patching ``models.dynamic.text_predictor`` while
+    it is entered."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from dynamic_llava_tpu_torch.models import dynamic
+
+        self.module, self.real = dynamic, dynamic.text_predictor
+
+        def recording(p, x):
+            tp = self.real(p, x)
+            tp32 = tp.float()
+            self.calls.append((tp32[..., 0] - tp32[..., 1], tp32.abs().amax(dim=-1)))
+            return tp
+
+        dynamic.text_predictor = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.module.text_predictor = self.real
+
+
+def eager_speculative(torch, gen, plan, pix, m, max_new, rounds, margins=None):
+    """The graph runner's reference: prefill, then at most ``rounds`` rounds
+    of host prompt-lookup drafts (``prompt_lookup_draft``, the host form of
+    the graph's ``device_prompt_lookup``) + ``decode_speculative_step`` as
+    an eager loop on the card, one host read a round, the emission rules of
+    ``generate_speculative``. ``margins``: a ``KeepMargins`` entered around
+    the rounds, whose records become per-sample ``[(position, margin,
+    scale)]`` of the emitted tokens. Returns (tokens a sample, the tiers'
+    lengths ``[L, B]``, ``next_pos``, rounds run, the serving kernels'
+    wrapper calls of the rounds and of the prefill, the margins)."""
+    import contextlib
+
+    from dynamic_llava_tpu_torch import kernel_cases as kc
+    from dynamic_llava_tpu_torch.generation.speculative import prompt_lookup_draft
+    from dynamic_llava_tpu_torch.models.dynamic import decode_speculative_step
+
+    dev = gen.device
+    b = plan.batch
+    eos = gen.gen_cfg.eos_token_id
+    prompts = [[int(t) for t in plan.token_ids[i][: plan.valid_len[i]]] for i in range(b)]
+    out = [[] for _ in range(b)]
+    kept = [[] for _ in range(b)]
+    done = np.zeros(b, bool)
+    n = 0
+    with torch.inference_mode():
+        before = kc.read_counters()
+        state, _ = gen.prefill_from_plan(plan, pix, max_new + m)
+        prefill_calls = kc.wrapper_calls(before, kc.read_counters())
+        before = kc.read_counters()
+        while not done.all() and n < rounds:
+            tn = torch.argmax(state.last_logits, dim=-1).cpu().numpy()
+            toks = np.zeros((b, m), np.int64)
+            toks[:, 0] = tn
+            for i in range(b):
+                if not done[i]:
+                    d = prompt_lookup_draft(prompts[i] + out[i] + [int(tn[i])], m - 1)[: m - 1]
+                    toks[i, 1:1 + len(d)] = d
+            seen = len(margins.calls) if margins is not None else 0
+            with margins if margins is not None else contextlib.nullcontext():
+                state, n_acc, _ = decode_speculative_step(
+                    gen.params, gen.cfg, torch.from_numpy(toks).to(dev), state, eos,
+                    active=torch.from_numpy(~done).to(dev))
+            n_acc = n_acc.cpu().numpy()
+            n += 1
+            new = margins.calls[seen:] if margins is not None else []
+            for i in range(b):
+                if done[i]:
+                    continue
+                take = min(int(n_acc[i]), max_new - len(out[i]))
+                for j in range(take):
+                    if new:
+                        kept[i].append((len(out[i]) + j, float(new[0][0][i, j]),
+                                        float(new[0][1][i, j])))
+                out[i].extend(int(t) for t in toks[i, :take])
+                if eos in toks[i, :take] or len(out[i]) >= max_new:
+                    done[i] = True
+        calls = kc.wrapper_calls(before, kc.read_counters())
+        lengths = torch.cat([state.cache.pre.length, state.cache.post.length]).cpu().numpy()
+        next_pos = state.next_pos.cpu().numpy()
+    return out, lengths, next_pos, n, calls, prefill_calls, kept
+
+
+def runner_state(torch, runner):
+    """``(tiers' lengths [L, B], next_pos)`` of a runner's state."""
+    st = runner.state
+    return (torch.cat([st.cache.pre.length, st.cache.post.length]).cpu().numpy(),
+            st.next_pos.cpu().numpy().copy())  # a copy on the CPU too: the buffer moves on
+
+
+def graph_rounds(torch, gen, plan, pix, m, max_new, rounds):
+    """The first ``rounds`` rounds of ``generate_speculative_device`` (its
+    runner and key: in-graph prompt lookup, ``ROUNDS_PER_CHUNK`` rounds a chunk;
+    the first call of a key runs a round eagerly and captures it), driven
+    chunk by chunk. Returns (tokens a sample, lengths ``[L, B]``,
+    ``next_pos``) after them."""
+    from dynamic_llava_tpu_torch.generation.speculative import ROUNDS_PER_CHUNK
+
+    with torch.inference_mode():
+        runner = gen.spec_runner(plan, pix, max_new, m, draft=(3, 1), rounds=ROUNDS_PER_CHUNK)
+        state, _ = gen.prefill_into(plan, pix, runner.fresh_cache())
+        runner.load(state, 0)
+        runner.begin(plan, max_new)
+        del state
+        for _ in range(rounds // ROUNDS_PER_CHUNK):
+            runner.run_chunk()
+        grid, n_out, _ = runner.results()
+    return [[int(t) for t in grid[i, : n_out[i]]] for i in range(plan.batch)], \
+        *runner_state(torch, runner)
+
+
+def plain_near_ties(torch, gen, plan, pix, tokens, steps):
+    """The plain path's near ties along its own greedy tokens: an eager loop
+    of ``decode_step`` over ``tokens`` (the graph's, which the eager loop
+    reproduces bit for bit), recording before each token the top-two logit
+    gap and the top logit, and each token's keep margin. Returns ``(gap
+    [steps, B], top [steps, B], margins: a step's (margin [B], scale [B]) or
+    None)``."""
+    from dynamic_llava_tpu_torch.models.dynamic import decode_step
+
+    gaps, tops, margins = [], [], []
+    with torch.inference_mode(), KeepMargins() as rec:
+        state, _ = gen.prefill_from_plan(plan, pix, steps)
+        for j in range(steps):
+            top2 = torch.topk(state.last_logits.float(), 2, dim=-1).values
+            gaps.append((top2[:, 0] - top2[:, 1]).cpu().numpy())
+            tops.append(top2[:, 0].abs().cpu().numpy())
+            tok = torch.from_numpy(np.asarray([t[j] for t in tokens])).to(gen.device)
+            n = len(rec.calls)
+            state = decode_step(gen.params, gen.cfg, tok, state)
+            margins.append(next(((a.cpu().numpy(), s.cpu().numpy())
+                                 for a, s in rec.calls[n:]), None))
+    return np.stack(gaps), np.stack(tops), margins
+
+
+def first_divergence(ref, spec):
+    """Per sample, the first position where ``spec`` leaves ``ref``, or
+    None."""
+    return [next((p for p, (x, y) in enumerate(zip(r, s)) if x != y), None)
+            for r, s in zip(ref, spec)]
+
+
+def explain_divergence(cfg, firsts, plain, spec_margins):
+    """For each sample whose speculative tokens leave plain greedy's at
+    ``firsts[i]`` = j, whether that stands: plain greedy's top-two logit gap
+    at j below ``near_tie_bound`` of its top logit (roundings: two a layer
+    and the final norm), or the keep margin of a token before j below the
+    bound of its magnitude (roundings: two a layer below the sparse layer
+    and the predictor's four), on the plain path (``plain``, from
+    ``plain_near_ties``) or the speculative one (``spec_margins``, the
+    eager loop's). Returns ``{sample: dict(j, gap, gap_bound, margin,
+    margin_bound, stands)}``."""
+    gaps, tops, plain_margins = plain
+    layers, sl = cfg.text.num_hidden_layers, cfg.sparse.sparse_layer
+    found = {}
+    for i, j in enumerate(firsts):
+        if j is None:
+            continue
+        gap, gap_bound = float(gaps[j, i]), near_tie_bound(float(tops[j, i]), 2 * layers + 1)
+        close = []  # (|margin|, bound) of the tokens before j, both paths
+        for p in range(j):
+            if plain_margins[p] is not None:
+                a, sc = plain_margins[p]
+                close.append((abs(float(a[i])), near_tie_bound(float(sc[i]), 2 * sl + 4)))
+        close += [(abs(a), near_tie_bound(sc, 2 * sl + 4))
+                  for p, a, sc in spec_margins[i] if p < j]
+        tightest = min(close, key=lambda c: c[0] - c[1], default=(None, None))
+        found[i] = dict(j=j, gap=gap, gap_bound=gap_bound, margin=tightest[0],
+                        margin_bound=tightest[1],
+                        stands=gap < gap_bound or any(a < bd for a, bd in close))
+    return found
+
+
+def speculate(torch, params, arms, label, gemv_kernel=None):
+    """Phase 5c: speculative decoding at 7B width for each arm ``(name,
+    cfg, B)`` on the same weights, ``SPEC_MAX_NEW`` new tokens, greedy,
+    EOS off; each arm at every ``SPEC_KS`` draft length k (M = k + 1).
+    Timed (tok/s = B * new tokens / (call wall - TTFT), each on a call
+    after the one that captured its key): plain ``generate``;
+    ``generate_speculative`` with an oracle draft, plain greedy's own
+    continuation, and with a self oracle, the device run's chain (plain
+    greedy's chain leaves the speculative one at near ties, and the
+    speculative chain moves at near ties with where the rounds cut it, so
+    neither is all accepted), and with prompt lookup;
+    ``generate_speculative_device`` (``ROUNDS_PER_CHUNK`` rounds a chunk); and,
+    computed, the tok/s of every draft accepted: TTFT plus ``ceil(new /
+    M)`` verify rounds at their measured device ms.
+    Checks: the device-drafted graph runner's tokens, tier lengths and
+    ``next_pos`` after its first ``SPEC_EAGER_ROUNDS`` rounds equal an
+    eager loop of ``decode_speculative_step`` with the same drafts
+    (``eager_speculative``), and after a whole generation the host-drafted
+    runner's (prompt lookup on the host); in a profiler trace of the self
+    oracle's first generation at the largest k (the wrappers' counters
+    zeroed just before and read just after) K2-M launches once a layer a
+    round, K2 never, and ``gemv_kernel`` (quantized
+    weights) as often as the eager loop's wrappers call it a round, ``4 x
+    layers + 1`` (q/k/v, o, gate/up, down, the lm_head), plus the
+    prefill's; the speculative tokens equal plain greedy's, or leave them
+    only at a near tie (``explain_divergence``). Times: the verify round's
+    and the plain decode step's device ms (CUDA events over 10 replays of
+    each graph on a fresh prefill) and each key's capture ms."""
+    from dynamic_llava_tpu_torch import kernel_cases as kc
+    from dynamic_llava_tpu_torch.config import IMAGE_TOKEN_INDEX
+    from dynamic_llava_tpu_torch.generation.generate import GenerationConfig, Generator
+    from dynamic_llava_tpu_torch.generation.speculative import ROUNDS_PER_CHUNK
+    from dynamic_llava_tpu_torch.multimodal.fusion import plan_batch
+
+    def sync_time(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def replay_ms(runner, reps=10):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            runner.graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    results = {}
+    new = SPEC_MAX_NEW
+    for name, cfg, b in arms:
+        t_arm = time.perf_counter()
+        rng = np.random.default_rng(SEED + 7)
+        vocab, size = cfg.text.vocab_size, cfg.vision.image_size
+        ids = [np.concatenate([rng.integers(3, vocab, 30), [IMAGE_TOKEN_INDEX],
+                               rng.integers(3, vocab, 30)]) for _ in range(b)]
+        pix = rng.standard_normal((b, size, size, 3), dtype=np.float32)
+        gc = GenerationConfig(max_new_tokens=new, temperature=0.0, eos_token_id=-1)
+        gen = Generator(params, cfg, gc)
+        ref_gen = Generator(params, cfg, gc)  # the eager loops' own buffers
+        plan = plan_batch(ids, cfg.num_image_tokens, pad_multiple=gc.pad_multiple)
+        layers = cfg.text.num_hidden_layers
+        r = dict(batch=b, new_tokens=new, rounds_per_chunk=ROUNDS_PER_CHUNK, k={})
+
+        # plain greedy: its tokens, tok/s, step ms
+        gen.generate(ids, pix)
+        ref, wall = sync_time(lambda: gen.generate(ids, pix))
+        with torch.inference_mode():
+            ttft = statistics.median(
+                sync_time(lambda: gen.prefill_from_plan(plan, pix, new))[1] for _ in range(3))
+            runner = gen.decode_runner
+            state, _ = gen.prefill_from_plan(plan, pix, new)
+            runner.load(state, 0)
+            del state
+            r.update(ttft_ms=ttft * 1e3, plain_tok_s=b * new / (wall - ttft),
+                     plain_step_ms=replay_ms(runner), plain_capture_ms=runner.capture_ms)
+        require(all(len(o) == new for o in ref), f"spec {name}: plain lengths")
+        prompt_len = int(plan.valid_len[0])
+        prompts = [tuple(int(t) for t in plan.token_ids[i][:prompt_len]) for i in range(b)]
+
+        def oracle_of(chains):
+            conts = dict(zip(prompts, chains))
+
+            def oracle(ctx, n):
+                cont = conts[tuple(ctx[:prompt_len])]
+                return cont[len(ctx) - prompt_len: len(ctx) - prompt_len + n]
+            return oracle
+
+        spec_out, spec_margins = {}, {}
+        for k in SPEC_KS:
+            m = k + 1
+            kr = {}
+            t_k = time.perf_counter()
+            # the graph runner's first rounds against the eager loop's; the
+            # first call of the device-drafted key captures it
+            margins = KeepMargins() if cfg.sparse.use_output_text_predictor else None
+            e_out, e_len, e_pos, e_rounds, e_calls, e_prefill, spec_margins[k] = \
+                eager_speculative(torch, ref_gen, plan, pix, m, new, SPEC_EAGER_ROUNDS, margins)
+            g_out, g_len, g_pos = graph_rounds(torch, gen, plan, pix, m, new, e_rounds)
+            require(g_out == e_out and np.array_equal(g_len, e_len)
+                    and np.array_equal(g_pos, e_pos),
+                    f"spec {name} k={k}: after {e_rounds} rounds the graph runner's tokens / "
+                    f"lengths / next_pos differ from the eager loop's: {g_len[:, 0]} / "
+                    f"{g_pos} against {e_len[:, 0]} / {e_pos}")
+            kr.update(eager_rounds=e_rounds, device_capture_ms=gen.decode_runner.capture_ms)
+            # device drafts: a whole generation
+            st = {}
+            dev_out, sec = sync_time(lambda: gen.generate_speculative_device(
+                ids, pix, draft_k=k, stats=st))
+            dev_state = runner_state(torch, gen.decode_runner)
+            kr.update(device_tok_s=b * new / (sec - ttft), device_rounds=st["rounds"],
+                      device_rounds_run=st["rounds_run"],
+                      noop_rounds=st["rounds_run"] - st["rounds"])
+            spec_out[k] = dev_out
+            # the verify round's device time, on a fresh prefill
+            with torch.inference_mode():
+                runner = gen.decode_runner
+                state, _ = gen.prefill_into(plan, pix, runner.fresh_cache())
+                runner.load(state, 0)
+                runner.begin(plan, new)
+                del state
+                kr["round_ms"] = replay_ms(runner)
+            # host drafts. The self oracle drafts the device run's chain; the
+            # chain depends, at near ties, on where the rounds cut it (a token
+            # verified as a chunk row or read back from the cache sums in
+            # another order), so its drafts are not all accepted either. Its
+            # first call captures the key: at the largest k, the counted and
+            # traced main path of the phase.
+            call = lambda stats=None: gen.generate_speculative(  # noqa: E731
+                ids, pix, draft=oracle_of(dev_out), draft_k=k, stats=stats)
+            if k != SPEC_KS[-1]:
+                call()
+            else:
+                for fn in kc.read_counters():
+                    fn.launches = 0
+                st = {}
+                _, seen = kc.device_launches(lambda: call(st))
+                calls = kc.wrapper_calls(dict.fromkeys(kc.read_counters(), 0),
+                                         kc.read_counters())
+                run = st["rounds"]
+                require(calls["extend_kernel"] > 0 and calls["decode_kernel"] == 0,
+                        f"spec {name}: wrapper calls {calls}: the M-query kernel's none, or K2's")
+                require(seen["extend_kernel"] == layers * run and seen["decode_kernel"] == 0,
+                        f"spec {name} k={k}: {seen['extend_kernel']} M-query and "
+                        f"{seen['decode_kernel']} K2 launches on the card, not {layers} x "
+                        f"{run} rounds and none")
+                if gemv_kernel is not None:
+                    per_round = e_calls[gemv_kernel] / e_rounds
+                    prefill = e_prefill[gemv_kernel]
+                    require(per_round == 4 * layers + 1 and calls[gemv_kernel] > 0
+                            and seen[gemv_kernel] == prefill + per_round * run,
+                            f"spec {name} k={k}: {gemv_kernel} launched {seen[gemv_kernel]} "
+                            f"times on the card over {run} rounds, the eager loop "
+                            f"{per_round} a round (layer layout: {4 * layers + 1}), a "
+                            f"prefill {prefill}")
+                kr.update(device_launches=seen, launches=calls, traced_rounds=run)
+            kr["host_capture_ms"] = gen.decode_runner.capture_ms
+            st = {}
+            out, sec = sync_time(lambda: call(st))
+            kr.update(self_oracle_rounds=st["rounds"], self_oracle_tok_s=b * new / (sec - ttft),
+                      self_oracle_tokens_equal_device=out == dev_out,
+                      ceiling_tok_s=b * new / (ttft + -(-new // m) * kr["round_ms"] / 1e3))
+            st = {}
+            out, sec = sync_time(lambda: gen.generate_speculative(
+                ids, pix, draft=oracle_of(ref), draft_k=k, stats=st))
+            kr.update(oracle_rounds=st["rounds"], oracle_tok_s=b * new / (sec - ttft),
+                      oracle_tokens_equal_device=out == dev_out)
+            st = {}
+            out, sec = sync_time(lambda: gen.generate_speculative(ids, pix, draft_k=k, stats=st))
+            host_state = runner_state(torch, gen.decode_runner)
+            require(out == dev_out and all(np.array_equal(x, y)
+                                           for x, y in zip(host_state, dev_state)),
+                    f"spec {name} k={k}: host- and device-drafted prompt lookup differ: tokens "
+                    f"equal {out == dev_out}, lengths / next_pos {host_state[0][:, 0]} / "
+                    f"{host_state[1]} against {dev_state[0][:, 0]} / {dev_state[1]}")
+            kr.update(lookup_rounds=st["rounds"], lookup_tokens_per_round=st["tokens_per_round"],
+                      lookup_tok_s=b * new / (sec - ttft), seconds=time.perf_counter() - t_k)
+            r["k"][k] = kr
+            log(f"  spec {name} k={k} (M={m}): every draft accepted (TTFT + "
+                f"{-(-new // m)} rounds at the verify round's device ms) "
+                f"{kr['ceiling_tok_s']:.1f} tok/s; self oracle {kr['self_oracle_rounds']} "
+                f"rounds {kr['self_oracle_tok_s']:.1f} tok/s, oracle (plain greedy's chain) "
+                f"{kr['oracle_rounds']} rounds {kr['oracle_tok_s']:.1f} tok/s; prompt lookup "
+                f"{kr['lookup_tokens_per_round']:.3f} tokens/round {kr['lookup_tok_s']:.1f} "
+                f"tok/s; device {kr['device_tok_s']:.1f} tok/s, {kr['device_rounds']} rounds + "
+                f"{kr['noop_rounds']} no-op (R={ROUNDS_PER_CHUNK}); verify round "
+                f"{kr['round_ms']:.3f} ms against the plain step's {r['plain_step_ms']:.3f} ms; "
+                f"capture device {kr['device_capture_ms']:.1f} / host "
+                f"{kr['host_capture_ms']:.1f} ms; graph == eager loop over {e_rounds} rounds, "
+                f"host == device drafts: ok [{kr['seconds']:.1f} s]")
+
+        # against plain greedy: equal, or apart only at a near tie
+        firsts = {k: first_divergence(ref, spec_out[k]) for k in SPEC_KS}
+        far = max((j for f in firsts.values() for j in f if j is not None), default=None)
+        plain = None if far is None else plain_near_ties(torch, ref_gen, plan, pix, ref, far + 1)
+        for k in SPEC_KS:
+            ties = {} if plain is None else explain_divergence(cfg, firsts[k], plain,
+                                                               spec_margins[k])
+            matched = [new if j is None else j for j in firsts[k]]
+            r["k"][k].update(matched_prefix=matched, near_ties=ties)
+            log(f"  spec {name} k={k}: matched prefix with plain greedy {matched}; near-tie "
+                f"bounds {BF16_U:.6f} x sqrt(roundings) x magnitude")
+            for i, t in ties.items():
+                log(f"    sample {i} leaves plain greedy at token {t['j']}: plain top-two gap "
+                    f"{t['gap']:.4g} (bound {t['gap_bound']:.4g}); tightest keep margin before "
+                    f"it {t['margin']} (bound {t['margin_bound']})")
+            require(all(t["stands"] for t in ties.values()),
+                    f"spec {name} k={k}: a divergence from plain greedy at no near tie: {ties}")
+        r["seconds"] = time.perf_counter() - t_arm
+        log(f"  spec {name}: B={b}, prompt {prompt_len}, TTFT {r['ttft_ms']:.1f} ms, plain "
+            f"{r['plain_tok_s']:.1f} tok/s (step {r['plain_step_ms']:.3f} ms, capture "
+            f"{r['plain_capture_ms']:.1f} ms) [{r['seconds']:.1f} s]")
+        results[f"{label} {name}"] = r
+        del gen, ref_gen, runner
+    return results
+
+
+def beam_phase(torch, params, cfg):
+    """Phase 5c: ``beam_search`` with ``BEAM_W`` beams on one prompt (an
+    image and 60 text tokens) for ``BEAM_NEW`` tokens, EOS off: its wall
+    time, and its length-normalised log-probability against greedy's (both
+    scored by ``sequence_logprob`` on the card)."""
+    from dynamic_llava_tpu_torch.config import IMAGE_TOKEN_INDEX
+    from dynamic_llava_tpu_torch.generation.beam import beam_search, sequence_logprob
+    from dynamic_llava_tpu_torch.generation.generate import GenerationConfig, Generator
+    from dynamic_llava_tpu_torch.multimodal.fusion import plan_batch
+
+    rng = np.random.default_rng(SEED + 8)
+    vocab, size = cfg.text.vocab_size, cfg.vision.image_size
+    ids = np.concatenate([rng.integers(3, vocab, 30), [IMAGE_TOKEN_INDEX],
+                          rng.integers(3, vocab, 30)])
+    pix = rng.standard_normal((1, size, size, 3), dtype=np.float32)
+    gen = Generator(params, cfg, GenerationConfig(max_new_tokens=BEAM_NEW, eos_token_id=-1))
+    greedy = gen.generate([ids], pix)[0]
+    w = BEAM_W
+    plan_w = plan_batch([ids] * w, cfg.num_image_tokens, pad_multiple=64)
+    plan_1 = plan_batch([ids], cfg.num_image_tokens, pad_multiple=64)
+    with torch.inference_mode():
+        state, _ = gen.prefill_from_plan(plan_w, np.repeat(pix, w, axis=0), BEAM_NEW)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        best = beam_search(params, cfg, state, w, BEAM_NEW, eos_token_id=-1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        del state
+        scores = []
+        for toks in (best, greedy):
+            state, _ = gen.prefill_from_plan(plan_1, pix, BEAM_NEW)
+            scores.append(sequence_logprob(params, cfg, state, toks) / len(toks))
+    require(len(best) == BEAM_NEW and all(0 <= t < vocab for t in best)
+            and np.isfinite(scores).all(), f"beam: {best}, scores {scores}")
+    res = dict(beams=w, new_tokens=BEAM_NEW, wall_ms=wall * 1e3, logprob_per_token=scores[0],
+               greedy_logprob_per_token=scores[1], same_as_greedy=best == greedy)
+    log(f"  beam W={w}, {BEAM_NEW} tokens: {wall * 1e3:.1f} ms; length-normalised log-probability "
+        f"{scores[0]:.4f} against greedy's {scores[1]:.4f}; first tokens {best[:6]} (greedy "
+        f"{greedy[:6]})")
+    return res
+
+
 def main() -> int:
     if not (ROOT / "dynamic_llava_tpu_torch" / "csrc").is_dir():
         raise SystemExit(
@@ -1626,10 +2115,15 @@ def main() -> int:
         ("sparse", cfg_sparse, {}), ("dense", cfg_dense, {}),
         ("sparse int8-KV", cfg_sparse, dict(cache_dtype="int8")),
     ])
-    launches["extend_attention_appended"] = sum(
-        r["device_launches"]["extend_kernel"] for r in results["chat"].values())
-    calls["extend_attention_appended"] = sum(
-        r["launches"]["extend_kernel"] for r in results["chat"].values())
+
+    phase("phase 5c: speculative decoding and beam search at LLaVA-1.5-7B width, the phase-5 "
+          "weights: B=1 and 8, sparse and dense, k = 4 and 7")
+    t5c = time.perf_counter()
+    spec = speculate(torch, params, [("B=1 sparse", cfg_sparse, 1), ("B=1 dense", cfg_dense, 1),
+                                     ("B=8 sparse", cfg_sparse, 8), ("B=8 dense", cfg_dense, 8)],
+                     "bf16")
+    beam = beam_phase(torch, params, cfg_sparse)
+    log(f"  phase 5c bf16 arms and beam: {time.perf_counter() - t5c:.1f} s")
 
     phase("phase 6: quantized serving at 7B width")
     t0 = time.perf_counter()
@@ -1639,6 +2133,21 @@ def main() -> int:
         f"{param_bytes(params['llm']) / 2**30:.2f} GiB (all params "
         f"{param_bytes(params) / 2**30:.2f} GiB)")
     drive("int8", params, both)
+    t0 = time.perf_counter()
+    spec.update(speculate(torch, params, [("B=8 sparse", cfg_sparse, 8)], "int8",
+                          gemv_kernel="gemv int8"))
+    log(f"  phase 5c int8 arm: {time.perf_counter() - t0:.1f} s")
+    # K2-M's main paths: the chat's continuations and the traced speculative
+    # generations
+    traced = [r["k"][SPEC_KS[-1]] for r in spec.values()]
+    by_path = {"chat": sum(r["device_launches"]["extend_kernel"]
+                           for r in results["chat"].values()),
+               "speculative": sum(t["device_launches"]["extend_kernel"] for t in traced)}
+    kres["extend_attention_appended"]["launches_by_path"] = by_path
+    launches["extend_attention_appended"] = sum(by_path.values())
+    calls["extend_attention_appended"] = sum(
+        r["launches"]["extend_kernel"] for r in results["chat"].values()) + sum(
+        t["launches"]["extend_kernel"] for t in traced)
     del params["llm"]
     torch.cuda.empty_cache()
     params["llm"] = init_quantized_llama_params(
@@ -1769,7 +2278,8 @@ def main() -> int:
     # two-kernel time (K8 + silu*mul + K7) and 13B-shape readings, K1's CLIP
     # shape and full-length readings, K3's delta kernel and whole backward
     extra = {"decode_attention_appended": ("int8", "fp8", "shapes"),
-             "extend_attention_appended": ("int8", "fp8", "shapes", "cache_reads"),
+             "extend_attention_appended": ("int8", "fp8", "shapes", "cache_reads",
+                                           "launches_by_path"),
              "q8_gemv": ("shapes",), "q8_gemv_group": ("shapes",),
              "q4_gemv": ("shapes",), "q4_gemv_group": ("shapes",),
              "q4_mlp": ("two_kernel_ms", "shapes"),
@@ -1787,6 +2297,11 @@ def main() -> int:
     print("decode_graph " + json.dumps({
         f"{label} {mode}": r["graph"] for label, runs in results.items()
         if label not in ("train", "chat") for mode, r in runs.items()}))
+    print("spec " + json.dumps({"arms": {
+        arm: {key: (v if key != "k" else {
+            k: {f: x for f, x in kr.items() if f not in ("device_launches", "launches")}
+            for k, kr in v.items()}) for key, v in r.items()}
+        for arm, r in spec.items()}, "beam": beam}))
     print("chat " + json.dumps({
         mode: {k: r[k] for k in ("ttft_ms", "continue_ms", "chunks", "decode_tok_s",
                                  "round_decode_tok_s", "capture_ms", "peak_gib", "steps")}

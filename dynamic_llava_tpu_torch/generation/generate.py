@@ -50,6 +50,13 @@ flags and the end-of-chunk ``active`` reach the host in one pinned copy a
 chunk. A session owns its runner (its KV cache and graph), apart from the
 ``Generator``'s: a ``generate`` call between two rounds leaves it alone.
 
+Speculative decoding (``generate_speculative``, ``generate_speculative_device``;
+``generation/speculative.py``) runs on a ``SpecRunner``: the same runner
+with a verify round of ``m`` candidates (``dynamic.decode_speculative_step``)
+as its step, and the drafts, the emitted tokens and the context they are
+drafted from in static buffers. It takes the ``Generator``'s one runner slot:
+a speculative key replaces a plain one and the other way round.
+
 Every kernel wrapper counts its host calls in ``<wrapper>.launches``: an
 eager launch, or the one launch a capture records into the graph. A
 graph's replays launch on the device without a host call, so their
@@ -75,6 +82,7 @@ from ..models import dynamic
 from ..multimodal.fusion import FusionPlan, plan_batch
 from ..ops.kv_cache import TieredCache, init_tiered_cache
 from ..ops.quant import q4_mlp_enabled
+from . import speculative
 
 
 class GenerationConfig(NamedTuple):
@@ -133,6 +141,12 @@ class RunnerKey(NamedTuple):
     q4_mlp: bool  # DYNAMIC_LLAVA_Q4_MLP, read at every dispatch: a graph freezes it
     stop: Tuple[Tuple[int, ...], ...] = ()  # a StopDecodeRunner's stop sequences
     chunk: int = 0  # steps a chunk; 0: ``decode_chunk_len`` of the config
+    # a SpecRunner's: candidates a round (0: not speculative), the context
+    # grid's width, and its drafts: () from the host, (max_ngram, min_ngram)
+    # prompt lookup on the device
+    m: int = 0
+    ctx_cap: int = 0
+    draft: Tuple[int, ...] = ()
 
 
 def runner_key(batch: int, capacities: Tuple[int, int], stop=(), chunk: int = 0
@@ -375,6 +389,134 @@ class StopDecodeRunner(DecodeRunner):
         return rows[:c], rows[c:2 * c].astype(bool), rows[2 * c].astype(bool)
 
 
+class SpecReport(NamedTuple):
+    """A speculative round's result on the host (the last round of a chunk)."""
+
+    tokens: np.ndarray  # [B, M] the round's candidates
+    n_take: np.ndarray  # [B] how many of them were emitted
+    next_tok: np.ndarray  # [B] the token after the accepted prefix
+    done: np.ndarray  # [B] bool, after the round
+
+
+class SpecRunner(DecodeRunner):
+    """Speculative verify rounds on static buffers, eager or replayed from
+    a CUDA graph (the counterpart of the JAX ``Generator._spec_fn``, of the
+    round of ``_spec_chunk_fn`` and of the body of the device loop in
+    ``speculative.py``). Its key adds to ``RunnerKey`` the candidates a
+    round ``m``, the context grid's width ``ctx_cap`` and the draft source;
+    ``chunk`` counts rounds.
+
+    A round: the committed token (argmax of ``last_logits``) and ``m - 1``
+    drafts, read from the static ``drafts`` buffer the host wrote
+    (``run_round``) or proposed by ``device_prompt_lookup`` over the
+    context grid with the committed token appended; then
+    ``dynamic.decode_speculative_step`` with ``active = ~done``; then the
+    emit: the accepted tokens, cut at the limit, scattered into the output
+    and context grids. Each grid has one spare column past ``ctx_cap`` that
+    the lanes not emitted write to (PyTorch has no dropping scatter). A
+    sample is done after it emits EOS or reaches the limit; a round whose
+    samples are all done changes nothing. ``rounds`` counts, on the device,
+    the rounds that had an active sample. The host copy of a chunk is the
+    last round's ``[M + 3, B]`` report (``read``); the emitted tokens come
+    back at the end (``results``)."""
+
+    def __init__(self, params, cfg: LlavaConfig, gc: GenerationConfig, key: RunnerKey,
+                 device):
+        if key.m < 1 or key.ctx_cap < 1:
+            raise ValueError(f"SpecRunner: the key names no speculative round ({key})")
+        super().__init__(params, cfg, gc, key, device)
+        self.eos = gc.eos_token_id
+        b, m, cap = key.batch, key.m, key.ctx_cap
+        with torch.inference_mode(False):
+            i32 = dict(dtype=torch.int32, device=self.device)
+            self.ctx = torch.zeros(b, cap + 1, **i32)  # prompt + emitted, spare column
+            self.grid = torch.zeros(b, cap + 1, **i32)  # emitted tokens, spare column
+            self.ctx_len = torch.zeros(b, **i32)
+            self.n_out = torch.zeros(b, **i32)
+            self.limit = torch.zeros(b, **i32)
+            self.done = torch.zeros(b, dtype=torch.bool, device=self.device)
+            self.rounds = torch.zeros(1, **i32)
+            self.drafts = torch.zeros(b, m - 1, **i32)
+            self.lanes = torch.arange(m, **i32)[None]  # a device constant
+        self.host_drafts = torch.zeros((b, m - 1), dtype=torch.int32, pin_memory=self.graphed)
+
+    def _out_rows(self) -> int:
+        return self.key.m + 3
+
+    def begin(self, plan: FusionPlan, limit: int) -> None:
+        """Start a generation of at most ``limit`` tokens a sample: the
+        context grid holds the plan's prompts, nothing is emitted or done."""
+        s = plan.seq_len
+        if s + limit + self.key.m > self.key.ctx_cap:
+            raise ValueError(f"SpecRunner.begin: {s} prompt slots and {limit} new tokens "
+                             f"pass the context grid of {self.key.ctx_cap}")
+        self.ctx.zero_()
+        self.ctx[:, :s].copy_(torch.from_numpy(np.asarray(plan.token_ids, np.int32)))
+        self.ctx_len.copy_(torch.from_numpy(np.asarray(plan.valid_len, np.int32)))
+        for t in (self.grid, self.n_out, self.done, self.rounds):
+            t.zero_()
+        self.limit.fill_(limit)
+        self.step_index.zero_()
+
+    def step(self) -> None:
+        """One speculative round on the static buffers (device work only)."""
+        key, st = self.key, self.state
+        m, cap = key.m, key.ctx_cap
+        t_next = torch.argmax(st.last_logits, dim=-1).to(torch.int32)
+        if m > 1 and key.draft:
+            # draft from the context WITH the committed token appended (a
+            # scratch copy: the grid takes only emitted tokens)
+            ctx = self.ctx[:, :cap].clone()
+            ctx.scatter_(1, torch.clamp(self.ctx_len, max=cap - 1).long()[:, None],
+                         t_next[:, None])
+            drafts = speculative.device_prompt_lookup(ctx, self.ctx_len + 1, m - 1, *key.draft)
+        else:
+            drafts = self.drafts  # the host's (run_round); [B, 0] at m = 1
+        tokens = torch.cat([t_next[:, None], drafts], dim=1)
+        active = ~self.done
+        new, n_acc, next_tok = dynamic.decode_speculative_step(
+            self.params, self.cfg, tokens, st, self.eos, active=active)
+        for src, dst in self._fresh_outputs(new):
+            dst.copy_(src)
+        n_take = torch.minimum(n_acc, self.limit - self.n_out)
+        emit = self.lanes < n_take[:, None]
+        self.grid.scatter_(1, torch.where(emit, self.n_out[:, None] + self.lanes, cap).long(),
+                           tokens)
+        self.ctx.scatter_(1, torch.where(emit, self.ctx_len[:, None] + self.lanes, cap).long(),
+                          tokens)
+        self.n_out.add_(n_take)
+        self.ctx_len.add_(n_take)
+        self.rounds.add_(active.any().to(torch.int32))
+        eos_hit = ((tokens == self.eos) & emit).any(dim=1)
+        self.done.copy_(self.done | eos_hit | (self.n_out >= self.limit))
+        rep = self.out
+        rep[:m].copy_(tokens.T)
+        rep[m].copy_(n_take)
+        rep[m + 1].copy_(next_tok)
+        rep[m + 2].copy_(self.done)
+
+    def run_round(self, drafts: np.ndarray) -> PendingChunk:
+        """Write the host's ``[B, m - 1]`` drafts into the static buffer and
+        enqueue one round (a runner whose chunk is one round)."""
+        self.host_drafts.copy_(torch.from_numpy(np.asarray(drafts, np.int32)))
+        self.drafts.copy_(self.host_drafts, non_blocking=self.graphed)
+        return self.run_chunk()
+
+    def read(self, pending: PendingChunk) -> SpecReport:
+        """The report of a chunk's last round, waiting for it."""
+        rows = pending.tokens()
+        m = self.key.m
+        return SpecReport(tokens=rows[:m].T, n_take=rows[m], next_tok=rows[m + 1],
+                          done=rows[m + 2].astype(bool))
+
+    def results(self):
+        """``(grid [B, ctx_cap] tokens, n_out [B], rounds)`` after the work
+        enqueued so far (synchronises)."""
+        cap = self.key.ctx_cap
+        return (self.grid[:, :cap].cpu().numpy(), self.n_out.cpu().numpy(),
+                int(self.rounds.cpu()[0]))
+
+
 class Generator:
     """Generation harness for fixed params, model config and generation
     config. ``params`` is the port's param tree (``weights``), all on one
@@ -417,16 +559,33 @@ class Generator:
             ring=gc.kv_overflow == "ring",
         )
 
+    def _keep_runner(self, key: RunnerKey, kind) -> DecodeRunner:
+        """The kept runner if its key is ``key``, else a new ``kind`` that
+        replaces it."""
+        if self.decode_runner is None or self.decode_runner.key != key:
+            self.decode_runner = None  # the old cache and graph go before the new ones come
+            self.decode_runner = kind(self.params, self.cfg, self.gen_cfg, key, self.device)
+        return self.decode_runner
+
     def runner(self, plan: FusionPlan, pixel_values, max_new_tokens: int) -> DecodeRunner:
         """The runner for this batch shape, the tier capacities of
         ``max_new_tokens`` and the current dispatch settings: the one kept
         if its key is the same, else a new one that replaces it."""
         key = runner_key(plan.batch, self.cache_sizes(plan, pixel_values, max_new_tokens))
-        if self.decode_runner is None or self.decode_runner.key != key:
-            self.decode_runner = None  # the old cache and graph go before the new ones come
-            self.decode_runner = DecodeRunner(self.params, self.cfg, self.gen_cfg, key,
-                                              self.device)
-        return self.decode_runner
+        return self._keep_runner(key, DecodeRunner)
+
+    def spec_runner(self, plan: FusionPlan, pixel_values, max_new_tokens: int, m: int,
+                    draft: Tuple[int, ...] = (), rounds: int = 1) -> SpecRunner:
+        """The speculative runner of ``m`` candidates a round for this batch,
+        ``max_new_tokens`` new tokens and drafts from the host (``draft``
+        ``()``) or from prompt lookup on the device (``(max_ngram,
+        min_ngram)``), ``rounds`` rounds a chunk. The caches have ``m`` slots
+        of headroom: the last round may persist up to ``m - 1`` tokens past
+        the limit. It takes the ``Generator``'s one runner slot."""
+        sizes = self.cache_sizes(plan, pixel_values, max_new_tokens + m)
+        key = runner_key(plan.batch, sizes, chunk=rounds)._replace(
+            m=m, ctx_cap=plan.seq_len + max_new_tokens + m, draft=tuple(draft))
+        return self._keep_runner(key, SpecRunner)
 
     def prefill_from_plan(self, plan: FusionPlan, pixel_values, max_new_tokens: int):
         cache = self.runner(plan, pixel_values, max_new_tokens).fresh_cache()
@@ -458,6 +617,25 @@ class Generator:
     def cache_lengths(self, state: dynamic.GenState) -> np.ndarray:
         """Per-layer persisted KV lengths ``[L, B]``, pre tier then post."""
         return torch.cat([state.cache.pre.length, state.cache.post.length]).cpu().numpy()
+
+    def generate_speculative(self, input_ids_list, pixel_values=None, draft="prompt_lookup",
+                             draft_k: int = 4, stats: Optional[dict] = None, on_tokens=None,
+                             max_new_tokens: Optional[int] = None) -> List[List[int]]:
+        """Greedy generation through speculative verify rounds with drafts
+        from the host: the tokens of ``generate``, fewer decode passes
+        (``generation.speculative.generate_speculative``)."""
+        return speculative.generate_speculative(
+            self, input_ids_list, pixel_values, draft=draft, draft_k=draft_k, stats=stats,
+            on_tokens=on_tokens, max_new_tokens=max_new_tokens)
+
+    def generate_speculative_device(self, input_ids_list, pixel_values=None,
+                                    draft_k: int = 4,
+                                    stats: Optional[dict] = None) -> List[List[int]]:
+        """Speculative decode with prompt lookup on the device, the host
+        reading once a chunk of rounds
+        (``generation.speculative.generate_speculative_device``)."""
+        return speculative.generate_speculative_device(
+            self, input_ids_list, pixel_values, draft_k=draft_k, stats=stats)
 
     @torch.inference_mode()
     def generate(

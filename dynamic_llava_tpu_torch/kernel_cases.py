@@ -360,6 +360,17 @@ EXTEND_CASES = [
                (500, 767), True, 100),
     ExtendCase("window inside a split", 1, 7, 1024, 2, 2, 64, BF16, "own", (900,), True, 150),
 ]
+# the verify rounds of speculative decoding (chip_smoke.py phase 5c): 7B
+# width (32 heads, d 128), the post tier of a sparse 640-slot prompt (320
+# slots, 150-300 persisted), B = 1 and 8, M = k + 1 = 5 and 8, bf16 and int8
+# caches, the output-text predictor's keep as chunk_attend
+_VERIFY_LENGTHS = {1: (180,), 8: (150, 172, 195, 210, 233, 251, 276, 300)}
+VERIFY_CASES = [
+    ExtendCase(f"verify B={b} M={m} {store}", b, m, 320, 32, 32, 128, BF16, store,
+               _VERIFY_LENGTHS[b], True)
+    for b in (1, 8) for m in (5, 8) for store in ("own", "int8")
+]
+EXTEND_CASES += VERIFY_CASES
 
 
 def make_extend_inputs(case: ExtendCase, device, seed: int = 0):

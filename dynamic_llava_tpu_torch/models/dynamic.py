@@ -14,6 +14,10 @@ training forward (counterpart of ``dynamic_llava_tpu/models/dynamic.py``).
 * ``prefill_continue`` -- E5: a new round's chunk against the live cache in
   one pass (multi-round chat), ragged across the batch, with the
   instruct-predictor prune of the chunk before the post tier.
+* ``decode_speculative_step`` -- one speculative round: M candidate tokens
+  verified in one pass, equal to feeding them one by one through
+  ``decode_step`` (drop mode), the caches rolled back by lengths to the
+  accepted prefix.
 
 * ``forward_train`` -- T1/T2/T3: the full-sequence training forward in
   which the predictors' Gumbel keep masks become a soft policy over the kv
@@ -376,6 +380,107 @@ def prefill_continue(
         ring_base=state.ring_base,
         ring_base_pre=state.ring_base_pre,
     )
+
+
+def decode_speculative_step(
+    params,
+    cfg: LlavaConfig,
+    tokens: torch.Tensor,  # [B, M]: [next committed token, draft_1 .. draft_{M-1}]
+    state: GenState,
+    eos_token_id: int,
+    active: Optional[torch.Tensor] = None,  # [B] bool -- False freezes the sample
+) -> Tuple[GenState, torch.Tensor, torch.Tensor]:
+    """One speculative round: the M candidates verified in ONE pass
+    (``run_layers_extend`` in both tiers, K2-M on the card), exactly
+    equivalent to feeding them one by one through ``decode_step`` in drop
+    mode. ``tokens[:, 0]`` is the model's own next token (the argmax of
+    ``state.last_logits``, always accepted), ``tokens[:, 1:]`` drafts from
+    any source.
+
+    The pre tier persists every candidate; the output-text predictor's keep
+    and the post tier's capacity force-drop (cumulative over the chunk, the
+    rule the per-token steps apply one at a time) decide the post tier's,
+    and a dropped candidate is invisible to the later ones
+    (``chunk_attend``). The longest prefix on which the drafts equal the
+    argmax chain is accepted, cut at the first EOS input and never past
+    what the pre tier persisted; the caches are rolled back to it by lengths
+    alone (rejected K/V lie past the lengths and are never attended). K/V are
+    written IN PLACE; lengths, ``next_pos`` and ``last_logits`` come back as
+    new tensors, ``last_logits`` from the last accepted row.
+
+    Returns ``(state2, n_acc [B] int32, next_tok [B] int32)``: the accepted
+    inputs (>= 1 for an active sample, 0 for a frozen one, whose state is
+    left as it was) and the token after the accepted prefix. With M == 1 it
+    is a greedy ``decode_step``. A drop-mode contract: a ring state raises."""
+    tcfg, sparse = cfg.text, cfg.sparse
+    if state.ring_base is not None:
+        raise ValueError("speculative decode requires drop mode (a ring-mode state was given)")
+    b, m = tokens.shape
+    sl = sparse.sparse_layer
+    dev = tokens.device
+    i32 = torch.int32
+
+    x = llama.embed_tokens(params["llm"], tokens)
+    positions = state.next_pos[:, None].to(i32) + torch.arange(m, dtype=i32, device=dev)[None]
+    valid = None if active is None else active[:, None].expand(b, m)
+
+    d1 = llama.run_layers_extend(
+        params["llm"], tcfg, x, positions, state.cache.pre, lo=0, hi=sl, keep=valid,
+    )
+    x = d1.x
+
+    # E3 per candidate, on the hidden entering the sparse layer (the same as
+    # the per-token path's: the pre tier persists everything)
+    if sparse.use_output_text_predictor:
+        tp = text_predictor(params["predictors"]["output_text_score_predictor"], x)
+        keep = tp[..., 0] > tp[..., 1]  # [B, M]
+    else:
+        keep = torch.ones((b, m), dtype=torch.bool, device=dev)
+    # the capacity force-drop, here because chunk_attend must reflect it
+    if state.cache.post.num_layers > 0:
+        offsets = torch.cumsum(keep.to(i32), dim=1, dtype=i32) - 1
+        remaining = torch.clamp(state.cache.post.max_len - 1 - state.cache.post.length[0], min=0)
+        keep = keep & (offsets < remaining[:, None])
+    if valid is not None:
+        keep = keep & valid
+
+    d2 = llama.run_layers_extend(
+        params["llm"], tcfg, x, positions, state.cache.post,
+        lo=sl, hi=tcfg.num_hidden_layers, keep=keep, chunk_attend=keep,
+    )
+    logits_all = llama.lm_head(params["llm"], tcfg, d2.x)  # [B, M, V] fp32
+    am = torch.argmax(logits_all, dim=-1).to(i32)  # [B, M]
+
+    # input i >= 1 is accepted iff it is the argmax after input i - 1 and
+    # every input before it was accepted
+    if m > 1:
+        matches = (tokens[:, 1:].to(i32) == am[:, :-1]).to(i32)
+        n_acc = 1 + torch.cumprod(matches, dim=1, dtype=i32).sum(dim=1, dtype=i32)
+    else:
+        n_acc = torch.ones(b, dtype=i32, device=dev)
+    # EOS is accepted, nothing after it
+    is_eos = (tokens == eos_token_id).to(i32)
+    first_eos = torch.argmax(is_eos, dim=1).to(i32)
+    n_acc = torch.where(is_eos.any(dim=1), torch.minimum(n_acc, first_eos + 1), n_acc)
+    # never past what the pre tier persisted (its clamp fires only on an
+    # undersized cache)
+    n_acc = torch.minimum(n_acc, d1.kept)
+    if active is not None:
+        n_acc = torch.where(active, n_acc, 0).to(i32)
+
+    idx = torch.clamp(n_acc - 1, min=0).long()[:, None]  # [B, 1]
+    kept_cum = torch.cumsum(keep.to(i32), dim=1, dtype=i32)
+    kept_acc = torch.where(n_acc > 0, torch.gather(kept_cum, 1, idx)[:, 0], 0).to(i32)
+    cache_pre = d1.cache._replace(length=d1.cache.length + n_acc[None, :])
+    cache_post = d2.cache._replace(length=d2.cache.length + kept_acc[None, :])
+
+    last = torch.gather(logits_all, 1, idx[..., None].expand(b, 1, logits_all.shape[-1]))[:, 0]
+    next_tok = torch.gather(am, 1, idx)[:, 0]
+    if active is not None:
+        last = torch.where(active[:, None], last, state.last_logits)
+    state2 = state._replace(cache=TieredCache(pre=cache_pre, post=cache_post),
+                            next_pos=state.next_pos + n_acc, last_logits=last)
+    return state2, n_acc, next_tok
 
 
 class TrainForwardOut(NamedTuple):

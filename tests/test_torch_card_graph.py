@@ -17,6 +17,13 @@ with ``active`` and the stop test on the host, with a stop in mid-chunk,
 and a chunk run with every sample frozen leaves the tier lengths,
 ``next_pos`` and ``last_logits`` as they were.
 
+The speculative runner (``SpecRunner``) at the same width, with bf16 and
+int8 weights and an int8 KV cache: device- and host-drafted generations
+give the tokens, tier lengths and ``next_pos`` of an eager loop of
+``decode_speculative_step`` with host prompt-lookup drafts, its chunks are
+enqueued under ``set_sync_debug_mode("error")``, and its replays launch
+K2-M once a layer a round, K2 never.
+
 It imports torch and the port only, so it also runs where jax is not
 installed. Every test needs an NVIDIA GPU and ``nvcc`` (the kernels are
 built at first use) and is skipped without them:
@@ -245,3 +252,102 @@ def test_stop_runner_replays_match_the_eager_loop():
     for before, after in zip(frozen, (st.cache.pre.length, st.cache.post.length, st.next_pos,
                                       st.last_logits)):
         assert torch.equal(before, after)  # ... and moved nothing
+
+
+def _spec_loop(gen, plan, pix, m, max_new):
+    """The speculative runner's reference: prefill (tiers with ``m`` slots
+    of headroom, as the runner's), then rounds of host prompt-lookup drafts
+    + ``decode_speculative_step`` until every sample has ``max_new`` tokens.
+    Returns the tokens a sample, the tiers' lengths, ``next_pos``, the
+    rounds and the serving kernels' wrapper calls of the rounds."""
+    from dynamic_llava_tpu_torch.generation.speculative import prompt_lookup_draft
+
+    b = plan.batch
+    prompts = [[int(t) for t in plan.token_ids[i][: plan.valid_len[i]]] for i in range(b)]
+    out = [[] for _ in range(b)]
+    rounds = 0
+    with torch.inference_mode():
+        state, _ = gen.prefill_from_plan(plan, pix, max_new + m)
+        before = kc.read_counters()
+        while any(len(o) < max_new for o in out):
+            nxt = torch.argmax(state.last_logits, dim=-1).cpu().numpy()
+            toks = np.zeros((b, m), np.int64)
+            toks[:, 0] = nxt
+            for i in range(b):
+                d = prompt_lookup_draft(prompts[i] + out[i] + [int(nxt[i])], m - 1)
+                toks[i, 1:1 + len(d)] = d
+            done = np.array([len(o) >= max_new for o in out])
+            state, n_acc, _ = dynamic.decode_speculative_step(
+                gen.params, gen.cfg, torch.from_numpy(toks).cuda(), state,
+                gen.gen_cfg.eos_token_id, active=torch.from_numpy(~done).cuda())
+            n_acc = n_acc.cpu().numpy()
+            rounds += 1
+            for i in range(b):
+                out[i] += [int(t) for t in toks[i, : min(int(n_acc[i]), max_new - len(out[i]))]]
+        calls = kc.wrapper_calls(before, kc.read_counters())
+        lengths = torch.cat([state.cache.pre.length, state.cache.post.length]).cpu().numpy()
+    return out, lengths, state.next_pos.cpu().numpy(), rounds, calls
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8", "int8 KV"])
+def test_spec_runner_replays_match_the_eager_loop(mode):
+    """The speculative runner at the same width, k = 3: a device-drafted
+    generation and a host-drafted one give the tokens, tier lengths and
+    ``next_pos`` of an eager loop of ``decode_speculative_step`` with host
+    prompt-lookup drafts; the device-drafted chunks are enqueued under
+    ``set_sync_debug_mode("error")``; the replays launch K2-M once a layer a
+    round and K2 never, as many as the eager loop's wrappers a round."""
+    bits, _, over = MODES[mode]
+    params = init_llava_params(CFG, torch.Generator(device="cuda").manual_seed(0), "cuda",
+                               torch.bfloat16)
+    if bits:
+        quantize_llm_params(params, bits=bits)
+    gc = tgen.GenerationConfig(**dict(BASE, **over))
+    gen = tgen.Generator(params, CFG, gc)
+    ids, pix = _batch()
+    plan = plan_batch(ids, CFG.num_image_tokens, pad_multiple=gc.pad_multiple)
+    k, new = 3, gc.max_new_tokens
+    want, lengths, next_pos, rounds, eager_calls = _spec_loop(gen, plan, pix, k + 1, new)
+
+    def state_of(runner):
+        st = runner.state
+        return (torch.cat([st.cache.pre.length, st.cache.post.length]).cpu().numpy(),
+                st.next_pos.cpu().numpy())
+
+    assert gen.generate_speculative(ids, pix, draft_k=k) == want, mode  # host drafts
+    assert all(np.array_equal(a, b) for a, b in zip(state_of(gen.decode_runner),
+                                                    (lengths, next_pos)))
+    got = gen.generate_speculative_device(ids, pix, draft_k=k)  # captures the device key
+    runner = gen.decode_runner
+    assert got == want and runner.graph is not None and runner.capture_ms > 0, mode
+    assert all(np.array_equal(a, b) for a, b in zip(state_of(runner), (lengths, next_pos)))
+
+    def replay_all():
+        n_chunks, pending = 0, None
+        while True:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                following = runner.run_chunk()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            n_chunks += 1
+            if pending is not None and runner.read(pending).done.all():
+                return n_chunks
+            pending = following
+
+    with torch.inference_mode():
+        state, _ = gen.prefill_into(plan, pix, runner.fresh_cache())
+        runner.load(state, 0)
+        runner.begin(plan, new)
+        del state
+        before = kc.read_counters()
+        n_chunks, device = kc.device_launches(replay_all)
+    grid, n_out, device_rounds = runner.results()
+    assert [list(grid[i, : n_out[i]]) for i in range(plan.batch)] == want
+    assert device_rounds == rounds
+    assert kc.wrapper_calls(before, kc.read_counters()) == dict.fromkeys(kc.SERVING_KERNELS, 0)
+    layers = CFG.text.num_hidden_layers
+    run = n_chunks * runner.chunk
+    assert device["extend_kernel"] == layers * run and device["decode_kernel"] == 0, device
+    assert device == {label: n * run // rounds for label, n in eager_calls.items()}, \
+        (device, eager_calls)

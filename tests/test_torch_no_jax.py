@@ -1,7 +1,8 @@
 """The port never loads jax nor the JAX package: its sources (the package,
 ``chip_smoke.py``, ``tools/*.py``) import neither, and a fresh
 interpreter that imports the package (the quantized and the training paths
-included), generates on the CPU with fp32 and then int4 weights (also with
+included), generates on the CPU with fp32 (also speculatively) and then
+int4 weights (also with
 the fused MLP, an int8 and an fp8 KV cache and the ring policy), and takes
 a train step, ends with neither ``jax`` nor ``dynamic_llava_tpu`` in
 ``sys.modules``."""
@@ -33,8 +34,12 @@ cfg = LlavaConfig.tiny()
 params = init_llava_params(cfg, torch.Generator().manual_seed(0), "cpu", torch.float32)
 ids = [np.array([5, 6, IMAGE_TOKEN_INDEX, 7, 8, 9]), np.array([10, 11, IMAGE_TOKEN_INDEX, 12])]
 pix = np.random.default_rng(0).normal(size=(2, 56, 56, 3)).astype(np.float32)
-out = Generator(params, cfg, GenerationConfig(max_new_tokens=4)).generate(ids, pix)
+gen = Generator(params, cfg, GenerationConfig(max_new_tokens=4))
+out = gen.generate(ids, pix)
 assert len(out) == 2 and all(1 <= len(o) <= 4 for o in out), out
+assert gen.generate_speculative(ids, pix, draft_k=2) == out
+assert gen.generate_speculative_device(ids, pix, draft_k=2) == out
+from dynamic_llava_tpu_torch.generation import beam
 
 rows = [np.concatenate([[3, IMAGE_TOKEN_INDEX], np.arange(4, 70)]) for _ in range(2)]
 labels = [np.where(np.arange(len(r)) < 8, -100, r) for r in rows]
