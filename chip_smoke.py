@@ -43,13 +43,18 @@ anywhere else. Phases, each of which raises on failure:
    query heads a KV head; B = 8; each launched twice with ``torch.equal``
    results; timed at max_len 768 / 256 and B = 4 / 8 beside one SDPA call
    (for int8 / fp8 storage: on the dequantized bf16 cache). K2's M-query
-   form (K2-M, the continuation prefill's chunk attention) at every
-   ``kernel_cases.EXTEND_CASES`` case: all four storage types; M = 1, 2, 7,
-   8, 9, 40, 65, 128 across its groups of 8 query rows; 1 and 4 query heads
-   a KV head; head_dim 64 and 128; B = 1 and 4 with ragged lengths at 0, the
-   tile and split edges and the capacity; a chunk_attend mask and a window;
-   each launched twice with ``torch.equal`` results, at the same
-   tolerances as K2, and at the speculative verify shapes
+   form (K2-M, the continuation prefill's chunk attention; a bf16 q over a
+   bf16, int8 or fp8 cache on the tensor cores, ``extend_mma_kernel``, an
+   fp32 q or cache on the CUDA cores, ``extend_kernel``) at every
+   ``kernel_cases.EXTEND_CASES`` case: all four storage types; M x n_rep
+   across the 16- and 64-row tiles of the one and the groups of 8 query
+   rows of the other; 1, 4 and 8 query heads a KV head; head_dim 64 and
+   128; B = 1-4 with ragged lengths at 0, the tile and split edges and the
+   capacity; a chunk_attend mask (all false too) and a window (also across
+   a tile's rows); each launched twice with ``torch.equal`` results, at the
+   same tolerances as K2, each once more in one profiler trace that must
+   show the kernel ``extend_plan`` names, and at the speculative verify
+   shapes
    (``kernel_cases.VERIFY_CASES``: B = 1 and 8, M = 5 and 8, 32 heads,
    d=128, post-tier lengths 150-300, bf16 and int8, with chunk_attend);
    timed at the chat phase's shapes (B=1, M=40 at length 700 and M=100 at
@@ -459,12 +464,16 @@ def check_decode_kernel(torch):
 def check_extend_kernel(torch):
     """Phase 3, K2-M (the M-query form of K2): every
     ``kernel_cases.EXTEND_CASES`` case (bf16, fp32, scaled-int8 and fp8
-    storage; M = 1, 2, 7, 8, 9, 40, 65, 128 across the groups of 8 query
-    rows; 1 and 4 query heads a KV head; head_dim 64 and 128; B = 1 and 4
-    with ragged lengths at 0, the tile and split edges and the capacity; a
-    chunk_attend mask and a window; the speculative verify shapes) against
-    the plain version in fp32 on the same stored values, each launched
-    twice for equal bits. Times (CUDA events over a graph replay) at the
+    storage; M x n_rep across the tensor-core form's 16- and 64-row tiles
+    and the CUDA-core form's groups of 8 query rows; 1, 4 and 8 query heads
+    a KV head; head_dim 64 and 128; B = 1-4 with ragged lengths at 0, the
+    tile and split edges and the capacity; a chunk_attend mask, all false
+    too, and a window, also across a tile's rows; the speculative verify
+    shapes) against the plain version in fp32 on the same stored values,
+    each launched twice for equal bits; then every case once more in one
+    profiler trace, which must show ``extend_mma_kernel`` for each bf16-q
+    case and ``extend_kernel`` for each fp32 one. Times (CUDA events over a
+    graph replay) at the
     chat phase's shapes: B=1, H=Hkv=32, d=128, the pre tier of 1088 slots,
     M=40 at length 700 and M=100 at 804 (rounds 2 and 3), bf16 and int8
     storage, and at ``kernel_cases.VERIFY_CASES`` (phase 5c's verify rounds),
@@ -491,6 +500,11 @@ def check_extend_kernel(torch):
             "two launches equal: ok")
         top = res[case.storage] if case.storage in res else res
         top["max_abs_err"] = max(top["max_abs_err"], err)
+    try:
+        ran = kc.check_extend_dispatch(kc.EXTEND_CASES, dev)
+    except AssertionError as e:
+        raise RuntimeError(str(e)) from e
+    log(f"  K2-M kernels on the card, one launch a case: {ran} (tensor cores for a bf16 q)")
 
     # the chat shapes (rounds 2 and 3) and the speculative verify shapes
     for case in kc.EXTEND_CASES[:4] + kc.VERIFY_CASES:
@@ -518,15 +532,19 @@ def check_extend_kernel(torch):
                     for n in case.lengths)
         pairs = int(mask.sum())
         bms, bby = bound_ms(cache + 2 * (2 * q.numel() + 2 * kn.numel()), 4 * pairs * h * d)
-        groups = -(-m // 8)
+        # each row tile (tensor cores) or group of 8 rows (CUDA cores) of a
+        # kv head reads the cache once
+        plan = kc.extend_case_plan(case)
+        reads = plan.row_tiles
         log(f"  K2-M time, {case.label}: B={b} M={m} H=Hkv={h} d={d} max_len={case.max_len}, "
             f"{storage} cache at lengths {list(case.lengths)}, chunk_attend={case.attend}: "
             f"kernel {kms:.4f} ms, plain {pms:.4f} ms, SDPA on the concatenated"
             f"{'' if storage == 'own' else ' dequantized'} K/V with a bool mask {lms:.4f} ms, "
-            f"bound {bms:.4f} ms ({bby}); the cache is read by {groups} row groups: "
-            f"{groups * cache / kms / 1e6:.0f} GB/s of cache reads")
+            f"bound {bms:.4f} ms ({bby}); the cache is read by {reads} "
+            f"{'row tiles of 64' if plan.tensor_cores else 'row groups of 8'} "
+            f"({plan.n_split} splits): {reads * cache / kms / 1e6:.0f} GB/s of cache reads")
         timing = dict(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms, bound_by=bby,
-                      cache_reads=groups)
+                      cache_reads=reads)
         if case is kc.EXTEND_CASES[0]:
             res.update(timing)
         else:
@@ -2257,7 +2275,7 @@ def main() -> int:
                                 "dynamic_llava_tpu/ops/flash_attention.py:38"),
         "decode_attention_appended": (csrc + "decode_attention.cu",
                                       "dynamic_llava_tpu/ops/decode_attention.py:29"),
-        "extend_attention_appended": (csrc + "decode_attention.cu",
+        "extend_attention_appended": (csrc + "extend_attention.cu",
                                       "dynamic_llava_tpu/ops/attention.py:304"),
         "flash_attention_bwd_dkv": (csrc + "flash_attention_bwd.cu",
                                     "dynamic_llava_tpu/ops/flash_attention.py:303"),

@@ -337,6 +337,20 @@ __device__ __forceinline__ bool last_block_to_arrive(int* ticket, int n) {
   return is_last;
 }
 
+// The merge of partial softmax states (m, l, acc), in the order given: the
+// first call sets the state, a state with l == 0 has seen no column.
+struct Merged {
+  float m = kNegBig, l = 0.f, o = 0.f;
+  __device__ __forceinline__ void add(float m2, float l2, float o2) {
+    if (l2 == 0.f) return;
+    const float mx = fmaxf(m, m2);
+    const float w1 = exp2f(m - mx), w2 = exp2f(m2 - mx);
+    l = l * w1 + l2 * w2;
+    o = o * w1 + o2 * w2;
+    m = mx;
+  }
+};
+
 inline int sm_count() {
   static int count = [] {
     int dev = 0, n = 132;

@@ -36,14 +36,18 @@
 // on the same bytes, still below it up to M of a few hundred. So every live
 // row is read once by a block and nothing past `bound`, and the design is
 // about keeping enough bytes in flight on every SM:
+// - a bf16 query over a bf16, int8 or fp8 cache with M chunk tokens takes
+//   the tensor-core form, extend_mma_kernel (extend_attention.cu): a block
+//   reads each cache tile once for a tile of up to 64 query rows of a kv
+//   head and multiplies with mma.sync, the one-byte tiles widened to bf16 in
+//   shared memory. Everything below is the CUDA-core code of decode_kernel
+//   (M = 1) and of extend_kernel, the M-query form for an fp32 query or an
+//   fp32 cache, where a bf16 product would not meet the fp32 checks;
 // - the query rows of a kv head ((chunk token m, head j of its group), M x
 //   n_rep of them) are cut into groups of at most kMaxQ = 8, one group a
-//   block; grid (Hkv x groups, B, n_split). A group re-reads the cache rows
-//   that every other group of its (kv head, sample) reads: ceil(M n_rep / 8)
-//   reads of the cache a call, from the L2 where it fits (a 7B layer's pre
-//   tier at 700 rows is 11.5 MB). That re-read is the price of this simple
-//   form; a tensor-core form that reads each cache tile once for all M rows
-//   (K1's mma.sync skeleton over the two segments) is left for later;
+//   block; grid (Hkv x groups, B, n_split). In extend_kernel a group
+//   re-reads the cache rows that every other group of its (kv head, sample)
+//   reads: ceil(M n_rep / 8) reads of the cache a call;
 // - the live length is split over blocks (flash-decoding), the split chosen
 //   on the host from the shapes alone (the lengths live on the device), so
 //   that a call has at least about one block an SM. Block z owns cache rows
@@ -78,6 +82,17 @@
 #include "common.cuh"
 
 namespace dllava {
+
+// extend_attention.cu: the tensor-core M-query form and its workspace
+cudaError_t extend_mma(const void* q, const void* k_cache, const void* v_cache,
+                       const void* k_chunk, const void* v_chunk, const int* length,
+                       const void* k_scale, const void* v_scale, const int* q_pos,
+                       const unsigned char* attend, void* out, void* workspace,
+                       long long ws_bytes, int* tickets, int n_split, int B, int M,
+                       int max_len, int H, int Hkv, int D, float scale, int window,
+                       int storage, cudaStream_t stream);
+long long extend_mma_workspace_bytes(int B, int M, int H, int Hkv, int D, int n_split);
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -179,20 +194,6 @@ struct AttendArgs {
   int* tickets;         // n_split > 1: [B, Hkv, n_groups], zero between launches
   int M, max_len, H, Hkv, n_rep, n_groups, nqg, n_split, chunk, window, q_dtype;
   float scale_log2;
-};
-
-// The merge of partial softmax states (m, l, acc), in the order given: the
-// first call sets the state, a state with l == 0 has seen no column.
-struct Merged {
-  float m = kNegBig, l = 0.f, o = 0.f;
-  __device__ __forceinline__ void add(float m2, float l2, float o2) {
-    if (l2 == 0.f) return;
-    const float mx = fmaxf(m, m2);
-    const float w1 = exp2f(m - mx), w2 = exp2f(m2 - mx);
-    l = l * w1 + l2 * w2;
-    o = o * w1 + o2 * w2;
-    m = mx;
-  }
 };
 
 // How the warps of a block share its nq query rows: warp-row groups of QW
@@ -635,6 +636,12 @@ cudaError_t launch_stored(int storage, const AttendArgs& a, int B, bool extend,
   return cudaErrorInvalidValue;
 }
 
+// the M-query form on a bf16 query over a bf16, int8 or fp8 cache runs on
+// the tensor cores (extend_attention.cu); everything else here
+bool tensor_cores(bool extend, int dtype, int storage) {
+  return extend && dtype == kBFloat16 && storage != kFloat32;
+}
+
 long long workspace_bytes(int B, int M, int H, int Hkv, int D, int n_split) {
   if (n_split <= 1 || Hkv <= 0) return 0;
   const int rows = M * (H / Hkv);
@@ -643,7 +650,7 @@ long long workspace_bytes(int B, int M, int H, int Hkv, int D, int n_split) {
 }
 
 // Checks the arguments and launches decode_kernel (extend false: M == 1,
-// attend null) or extend_kernel.
+// attend null), extend_mma_kernel (tensor_cores) or extend_kernel.
 int attend(const void* q, const void* k_cache, const void* v_cache, const void* k_chunk,
            const void* v_chunk, const int* length, const void* k_scale, const void* v_scale,
            const int* q_pos, const unsigned char* attend_mask, void* out, void* workspace,
@@ -656,6 +663,11 @@ int attend(const void* q, const void* k_cache, const void* v_cache, const void* 
       (window > 0 && q_pos == nullptr) || n_split < 1 || n_split > kMaxSplit ||
       (dtype != kFloat32 && dtype != kBFloat16) || (!extend && (M != 1 || attend_mask)))
     return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tensor_cores(extend, dtype, storage))
+    return extend_mma(q, k_cache, v_cache, k_chunk, v_chunk, length, k_scale, v_scale, q_pos,
+                      attend_mask, out, workspace, ws_bytes, tickets, n_split, B, M, max_len, H,
+                      Hkv, D, scale, window, storage, s);
   if (n_split > 1 &&
       (workspace == nullptr || tickets == nullptr ||
        ws_bytes < workspace_bytes(B, M, H, Hkv, D, n_split)))
@@ -691,7 +703,6 @@ int attend(const void* q, const void* k_cache, const void* v_cache, const void* 
   a.q_dtype = dtype;
   a.scale_log2 = scale * kLog2e;
   if (size_t(Hkv) * a.n_groups > 0x7FFFFFFFu) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   // one query row a block: a warp holds it alone (decode without GQA)
   const bool one = !extend && rows == 1;
   if (D == 128) return one ? launch_stored<128, 1>(storage, a, B, extend, s)
@@ -709,6 +720,15 @@ int attend(const void* q, const void* k_cache, const void* v_cache, const void* 
 extern "C" long long decode_attention_workspace_bytes(int B, int M, int H, int Hkv, int D,
                                                       int n_split) {
   return dllava::workspace_bytes(B, M, H, Hkv, D, n_split);
+}
+
+// The same for the M-query form, whose kernel depends on q's dtype and the
+// cache's storage code.
+extern "C" long long extend_attention_workspace_bytes(int B, int M, int H, int Hkv, int D,
+                                                      int n_split, int dtype, int storage) {
+  return dllava::tensor_cores(true, dtype, storage)
+             ? dllava::extend_mma_workspace_bytes(B, M, H, Hkv, D, n_split)
+             : dllava::workspace_bytes(B, M, H, Hkv, D, n_split);
 }
 
 // C entry point of K2. `dtype` is the type of q, k_cur, v_cur and out,
@@ -734,8 +754,12 @@ extern "C" int decode_attention_appended(
 
 // C entry point of the M-query form: q / out [B, M, H, D], k_chunk / v_chunk
 // [B, M, Hkv, D] in q's type, q_pos [B, M] (with a window), attend [B, M]
-// bool or null. Tickets are [B, Hkv, ceil(M * H / Hkv / 8)] int32 with
-// n_split > 1; everything else as decode_attention_appended.
+// bool or null. A bf16 q over a bf16, int8 or fp8 cache launches
+// extend_mma_kernel, anything else extend_kernel. With n_split > 1 the
+// workspace is extend_attention_workspace_bytes and the tickets are
+// [B, Hkv, ceil(M * H / Hkv / R)] int32, R the query rows of a block (64 on
+// the tensor cores, 8 otherwise); everything else as
+// decode_attention_appended.
 extern "C" int extend_attention_appended(
     const void* q, const void* k_cache, const void* v_cache, const void* k_chunk,
     const void* v_chunk, const int* length, const void* k_scale, const void* v_scale,

@@ -31,7 +31,7 @@ from .ops import flash_attention as fa
 from .ops import quant_matmul as qm
 from .ops.decode_attention import (
     decode_attention, decode_attention_plain, decode_split, extend_attention,
-    extend_attention_plain, extend_mask, extend_split)
+    extend_attention_plain, extend_mask, extend_plan)
 from .ops.flash_policy import flash_policy_attention, flash_policy_attention_plain
 from .ops.kv_cache import quantize_kv, to_storage
 
@@ -319,16 +319,18 @@ class ExtendCase(NamedTuple):
     lengths: Tuple[int, ...]  # persisted bound per sample
     attend: bool = False  # a random chunk_attend mask
     window: Optional[int] = None  # with positions = length + arange(M)
+    attend_rate: float = 0.5  # with ``attend``: the share of chunk columns attended
 
 
-# K2-M: blocks are groups of at most 8 query rows (chunk token x head of a
-# kv head), so M x n_rep at 1, 2, 7, 8, 9, 40, 65 and 128 crosses the group
-# edges; the cache lengths sit at 0, at the tile and split edges and at the
-# capacity, ragged across B = 4; every storage type, 1 and 4 query heads a
-# kv head, head_dim 64 and 128, a chunk_attend mask and a window. The chat
-# shapes come first: 7B (32 heads, d 128), the pre tier of chip_smoke.py's
-# chat phase (1088 slots), rounds 2 and 3 (40 tokens at length 700, 100 at
-# 804).
+# K2-M: a bf16 q over a bf16, int8 or fp8 cache runs on the tensor cores in
+# tiles of 64 query rows (chunk token x head of a kv head), an fp32 q or
+# cache on the CUDA cores in groups of 8, so M x n_rep at 1, 2, 7, 8, 9, 40,
+# 65 and 128 crosses the group edges (and the tiles' below); the cache
+# lengths sit at 0, at the tile and split edges and at the capacity, ragged
+# across B = 4; every storage type, 1 and 4 query heads a kv head, head_dim
+# 64 and 128, a chunk_attend mask and a window. The chat shapes come first:
+# 7B (32 heads, d 128), the pre tier of chip_smoke.py's chat phase (1088
+# slots), rounds 2 and 3 (40 tokens at length 700, 100 at 804).
 _STORES = ("own", "int8", "fp8")
 EXTEND_CASES = [
     ExtendCase("chat chunk 40", 1, 40, 1088, 32, 32, 128, BF16, "own", (700,)),
@@ -359,6 +361,33 @@ EXTEND_CASES = [
     ExtendCase("chunk_attend and window, fp32", 2, 128, 768, 8, 2, 64, FP32, "int8",
                (500, 767), True, 100),
     ExtendCase("window inside a split", 1, 7, 1024, 2, 2, 64, BF16, "own", (900,), True, 150),
+]
+# the tensor-core form's tiles, bf16 q on every storage type: M x n_rep at
+# 16, 17, 63, 64, 65, 128 and 129 with one query head a kv head (a split of
+# 67 rows, so tiles straddle the split edges), and with four the multiples
+# of 4 at and beside the 16- and 64-row edges (16, 20, 60, 64, 68, 128,
+# 132); eight query heads a kv head (16 and 72 rows); a 64-row tile whose
+# tokens' windows start on both sides of a cache tile edge (positions
+# 300-363, window 100: first rows 201-264); chunk_attend all false (every
+# row sees the cache and its own column)
+EXTEND_CASES += [
+    ExtendCase(f"tile edge M={m} {store}", 3, m, 333, 2, 2, 128, BF16, store, (0, 65, 333))
+    for m in (16, 17, 63, 64, 65, 128, 129) for store in _STORES
+] + [
+    ExtendCase(f"tile edge gqa 4 M={m} {store}", 3, m, 320, 8, 2, 64, BF16, store,
+               (1, 128, 320), True)
+    for m in (4, 5, 15, 16, 17, 32, 33) for store in _STORES
+] + [
+    ExtendCase(f"gqa 8 M={m} {store}", 2, m, 256, 16, 2, 128, BF16, store, (5, 200))
+    for m in (2, 9) for store in _STORES
+] + [
+    ExtendCase(f"tile across a window start {store}", 2, 64, 400, 2, 2, 128, BF16, store,
+               (300, 190), False, 100)
+    for store in _STORES
+] + [
+    ExtendCase(f"chunk_attend all false {store}", 3, 40, 256, 8, 2, 64, BF16, store,
+               (0, 100, 256), True, None, 0.0)
+    for store in _STORES
 ]
 # the verify rounds of speculative decoding (chip_smoke.py phase 5c): 7B
 # width (32 heads, d 128), the post tier of a sparse 640-slot prompt (320
@@ -396,7 +425,8 @@ def make_extend_inputs(case: ExtendCase, device, seed: int = 0):
         kc, vc = kf, vf
     kw = dict(k_scale=ks, v_scale=vs)
     if case.attend:
-        kw["chunk_attend"] = torch.from_numpy(rng.random((case.b, case.m)) < 0.5).to(device)
+        kw["chunk_attend"] = torch.from_numpy(
+            rng.random((case.b, case.m)) < case.attend_rate).to(device)
     if case.window is not None:
         start = length.clamp(max=case.max_len)[:, None]
         kw.update(window=case.window, positions=(start + torch.arange(
@@ -431,12 +461,37 @@ def check_extend_case(case: ExtendCase, device="cuda") -> float:
     return err
 
 
+def extend_case_plan(case: ExtendCase):
+    """``extend_plan`` of ``case``."""
+    store = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}.get(case.storage, case.dtype)
+    return extend_plan(case.b, case.m, case.h, case.hkv, case.d, case.max_len, case.dtype,
+                       store)
+
+
+def check_extend_dispatch(cases: Sequence[ExtendCase], device="cuda") -> Dict[str, int]:
+    """Launches the M-query wrapper once a case, all in one profiler trace,
+    and holds the kernels the card ran to ``extend_plan``:
+    ``extend_mma_kernel`` once for each tensor-core case, ``extend_kernel``
+    once for each other case, no other launch of either. Returns the
+    counts by kernel; raises ``AssertionError`` on a mismatch."""
+    inputs = [make_extend_inputs(case, device) for case in cases]
+    _, names = kernel_launches(lambda: [extend_attention(*a, **kw) for a, kw in inputs])
+    got = {k: sum(n for name, n in names.items() if re.search(k + "[<I]", name))
+           for k in ("extend_mma_kernel", "extend_kernel")}
+    mma = sum(extend_case_plan(case).tensor_cores for case in cases)
+    want = {"extend_mma_kernel": mma, "extend_kernel": len(cases) - mma}
+    assert got == want, f"K2-M kernels launched {got}, extend_plan says {want}"
+    return got
+
+
 def describe_extend_case(case: ExtendCase) -> str:
-    split = extend_split(case.b, case.hkv, case.m, case.h // case.hkv, case.max_len)
+    plan = extend_case_plan(case)
+    attend = f"{case.attend}" + (f" (rate {case.attend_rate})" if case.attend else "")
     return (f"K2-M {case.label} [B={case.b} M={case.m} max_len={case.max_len} H={case.h} "
             f"Hkv={case.hkv} d={case.d} q {case.dtype} cache {case.storage} "
-            f"bounds={list(case.lengths)} chunk_attend={case.attend} window={case.window} "
-            f"splits={split}]")
+            f"bounds={list(case.lengths)} chunk_attend={attend} window={case.window} "
+            f"{'tensor cores' if plan.tensor_cores else 'CUDA cores'}, "
+            f"row tiles={plan.row_tiles} splits={plan.n_split}]")
 
 
 class GemvCase(NamedTuple):
@@ -671,7 +726,7 @@ def check_mlp_case(case: MlpCase, rows: int, fp32: bool, device="cuda", gen=None
 SERVING_KERNELS = {
     "flash_fwd": (r"flash_fwd_(?:mma_)?kernel[<I]", (fa.flash_attention,)),
     "decode_kernel": (r"decode_kernel[<I]", (decode_attention,)),
-    "extend_kernel": (r"extend_kernel[<I]", (extend_attention,)),
+    "extend_kernel": (r"extend_(?:mma_)?kernel[<I]", (extend_attention,)),
     "gemv int8": (r"gemv_(?:tc|fma)_kernel(?:<\d+, false>|ILi\d+ELb0E)",
                   (qm.q8_gemv, qm.q8_gemv_group)),
     "gemv int4": (r"gemv_(?:tc|fma)_kernel(?:<\d+, true>|ILi\d+ELb1E)",
@@ -698,14 +753,27 @@ def serving_kernel(name: str) -> Optional[str]:
 def device_launches(fn: Callable):
     """``(fn(), launches)``: the serving kernels' launches on the card while
     ``fn`` runs, by ``SERVING_KERNELS`` label, counted in one
-    ``torch.profiler`` trace of the CUDA activity (a graph replay's kernels
-    are recorded one by one). The profiler drops events at the edges of its
-    trace, so ``fn``'s work sits between ``TRACE_PAD_KERNELS`` kernels of no
-    serving kernel's name and ``TRACE_MARGIN_S`` of idle card at each end.
-    kineto stops collecting once a trace's GPU records pass its cap (128 MB
-    unless a kineto config raises it, ``KINETO_CONFIG``: ``chip_smoke.py``
-    points it at ``kineto.conf`` beside this module), and the trace then
-    loses its end: a 256-step decode call at B=8 records ~108 MB."""
+    ``torch.profiler`` trace of the CUDA activity (``kernel_launches``)."""
+    out, names = kernel_launches(fn)
+    launches: Dict[str, int] = dict.fromkeys(SERVING_KERNELS, 0)
+    for name, n in names.items():
+        label = serving_kernel(name)
+        if label is not None:
+            launches[label] += n
+    return out, launches
+
+
+def kernel_launches(fn: Callable):
+    """``(fn(), Counter of kernel name -> launches)`` on the card while
+    ``fn`` runs, from one ``torch.profiler`` trace of the CUDA activity (a
+    graph replay's kernels are recorded one by one). The profiler drops
+    events at the edges of its trace, so ``fn``'s work sits between
+    ``TRACE_PAD_KERNELS`` kernels of no serving kernel's name and
+    ``TRACE_MARGIN_S`` of idle card at each end. kineto stops collecting
+    once a trace's GPU records pass its cap (128 MB unless a kineto config
+    raises it, ``KINETO_CONFIG``: ``chip_smoke.py`` points it at
+    ``kineto.conf`` beside this module), and the trace then loses its end: a
+    256-step decode call at B=8 records ~108 MB."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -724,14 +792,8 @@ def device_launches(fn: Callable):
         torch.cuda.synchronize()
         padding()
         time.sleep(TRACE_MARGIN_S)
-    names = Counter(e.name() for e in prof.profiler.kineto_results.events()
-                    if e.device_type() == DeviceType.CUDA)
-    launches: Dict[str, int] = dict.fromkeys(SERVING_KERNELS, 0)
-    for name, n in names.items():
-        label = serving_kernel(name)
-        if label is not None:
-            launches[label] += n
-    return out, launches
+    return out, Counter(e.name() for e in prof.profiler.kineto_results.events()
+                        if e.device_type() == DeviceType.CUDA)
 
 
 def wrapper_calls(before: Dict, after: Dict) -> Dict[str, int]:

@@ -93,6 +93,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.flash_attention_fwd.restype = i
     lib.decode_attention_workspace_bytes.argtypes = [i, i, i, i, i, i]  # B, M, H, Hkv, D, n_split
     lib.decode_attention_workspace_bytes.restype = ctypes.c_longlong
+    lib.extend_attention_workspace_bytes.argtypes = [i] * 8  # ... n_split, q dtype, storage
+    lib.extend_attention_workspace_bytes.restype = ctypes.c_longlong
     lib.decode_attention_appended.argtypes = [
         p, p, p, p, p, p,  # q, k_cache, v_cache, k_cur, v_cur, bound
         p, p, p, p,  # k_scale, v_scale, q_pos (each may be null), out

@@ -9,18 +9,21 @@ current token's K/V are appended virtually to the persisted cache rows
 an optional sliding window. ``extend_attention`` is the same for a chunk of
 M tokens a sample (the continuation prefill's ``extend_attend_appended``,
 an XLA function in the JAX package): the chunk's own K/V are M more
-columns, causal inside the chunk. On a CUDA tensor both launch the
-hand-written Hopper kernel ``csrc/decode_attention.cu`` (``decode_kernel``
-and ``extend_kernel``), which reads only the live rows and splits them over
-``decode_split`` blocks per (kv head, sample, group of 8 query rows),
-merged inside the same launch; on a CPU tensor they run the plain versions
-(``ops.attention.decode_attend_appended`` / ``extend_attend_appended``).
-There is no fallback from one to the other.
+columns, causal inside the chunk. On a CUDA tensor both launch a
+hand-written Hopper kernel, which reads only the live rows and splits them
+over ``decode_split`` blocks per (kv head, sample, tile of query rows),
+merged inside the same launch: ``decode_kernel`` in
+``csrc/decode_attention.cu``; for M tokens ``extend_mma_kernel``
+(``csrc/extend_attention.cu``, tensor cores, tiles of 64 query rows) with a
+bf16 q over a bf16, int8 or fp8 cache, else ``extend_kernel`` (CUDA cores,
+groups of 8 query rows), as ``extend_plan`` says. On a CPU tensor they run
+the plain versions (``ops.attention.decode_attend_appended`` /
+``extend_attend_appended``). There is no fallback from one to the other.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -30,7 +33,7 @@ from .attention import extend_attend_appended as extend_attention_plain
 from .attention import sliding_window_mask
 
 __all__ = ["decode_attention", "decode_attention_plain", "decode_split", "extend_attention",
-           "extend_attention_plain", "extend_mask", "extend_split"]
+           "extend_attention_plain", "extend_mask", "extend_plan"]
 
 
 # storage codes of the cache (csrc/common.cuh DType): q's own codes plus the
@@ -40,25 +43,59 @@ STORAGE_CODES = {**kernels.DTYPE_CODES, torch.int8: 2, torch.float8_e4m3fn: 3}
 
 # the split of the cache length over blocks (flash-decoding)
 SPLIT_TARGET_BLOCKS = 128  # about a block an SM: more splits bought nothing on the H100
+# the same for the tensor-core M-query form, whose blocks are heavier: on the
+# H100 192 beat 128 and 264 at the chat and verify shapes (the split merge,
+# done by one block a kv head, grows with the splits)
+MMA_SPLIT_TARGET_BLOCKS = 192
 SPLIT_MIN_ROWS = 64  # cache rows a block owns at least
 MAX_SPLIT = 32  # kMaxSplit of csrc/decode_attention.cu
-MAX_Q = 8  # kMaxQ of csrc/decode_attention.cu: query rows of a block
+MAX_Q = 8  # kMaxQ of csrc/decode_attention.cu: query rows of a CUDA-core block
+MMA_ROWS = 64  # kBR of csrc/extend_attention.cu: query rows of a tensor-core block
 
 
-def decode_split(b: int, hkv: int, max_len: int) -> int:
+def decode_split(b: int, hkv: int, max_len: int, target: Optional[int] = None) -> int:
     """Blocks that share the cache rows of one (kv head, sample): enough for
-    ``SPLIT_TARGET_BLOCKS`` blocks a call, each owning at least
+    ``target`` (``SPLIT_TARGET_BLOCKS``) blocks a call, each owning at least
     ``SPLIT_MIN_ROWS`` rows of the capacity. A function of the shapes alone
     (the lengths live on the device), so every call with the same shapes
     sums in the same order."""
-    want = -(-SPLIT_TARGET_BLOCKS // max(1, b * hkv))
+    want = -(-(target or SPLIT_TARGET_BLOCKS) // max(1, b * hkv))
     return max(1, min(want, max_len // SPLIT_MIN_ROWS, MAX_SPLIT))
 
 
-def extend_split(b: int, hkv: int, m: int, n_rep: int, max_len: int) -> int:
-    """``decode_split`` for the M-query form, whose blocks are (kv head,
-    sample, group of ``MAX_Q`` query rows)."""
-    return decode_split(b * -(-m * n_rep // MAX_Q), hkv, max_len)
+class ExtendPlan(NamedTuple):
+    """How a call of the M-query form is cut, from the shapes alone."""
+
+    tensor_cores: bool  # extend_mma_kernel (else extend_kernel)
+    block_rows: int  # query rows of a kv head a block takes at most
+    row_tiles: int  # blocks a (kv head, sample, split)
+    n_split: int  # blocks that share a (kv head, sample, row tile)'s cache rows
+    workspace_bytes: int  # fp32 partial states (0 at n_split 1)
+    tickets: int  # int32 tickets (0 at n_split 1)
+
+
+def extend_plan(b: int, m: int, h: int, hkv: int, d: int, max_len: int,
+                q_dtype: torch.dtype, store: torch.dtype) -> ExtendPlan:
+    """The kernel, row tiles, split, workspace and tickets of an
+    ``extend_attention`` call, mirroring the C entry
+    (``extend_attention_workspace_bytes``): a bf16 q over a bf16, int8 or
+    fp8 cache runs on the tensor cores in tiles of ``MMA_ROWS`` query rows of
+    a kv head (row r = chunk token r // n_rep, head r % n_rep), anything
+    else on the CUDA cores in groups of ``MAX_Q``; the cache length is split
+    by ``decode_split`` over (row tile, sample) pairs. The workspace holds
+    (acc [rows, d], m, l) of every (sample, kv head, row tile, split), rows
+    = the smaller of a tile and a kv head's M x n_rep."""
+    tc = q_dtype == torch.bfloat16 and store != torch.float32
+    per = MMA_ROWS if tc else MAX_Q
+    rows = m * (h // hkv)
+    tiles = -(-rows // per)
+    n_split = decode_split(b * tiles, hkv, max_len, MMA_SPLIT_TARGET_BLOCKS if tc else None)
+    if n_split == 1:
+        return ExtendPlan(tc, per, tiles, 1, 0, 0)
+    # a row's acc and (m, l): d + 2 floats, padded to d + 4 on the tensor
+    # cores for 16-byte rows
+    ws = 4 * b * hkv * tiles * n_split * min(rows, per) * (d + (4 if tc else 2))
+    return ExtendPlan(tc, per, tiles, n_split, ws, b * hkv * tiles)
 
 
 def _need(fn: str, q: torch.Tensor, name: str, t, dtype, shape, align: int = 16) -> None:
@@ -264,12 +301,13 @@ def extend_attention(
         scale = d**-0.5
     out = torch.empty_like(q)
     lib = kernels.load_library().lib
-    n_split = extend_split(b, hkv, m, h // hkv, max_len)
+    plan = extend_plan(b, m, h, hkv, d, max_len, q.dtype, store)
     workspace = tickets = None  # None: a null pointer
-    nbytes = lib.decode_attention_workspace_bytes(b, m, h, hkv, d, n_split)
-    if n_split > 1:
-        workspace = torch.empty(nbytes, dtype=torch.uint8, device=q.device)
-        tickets = kernels.tickets(q, b * hkv * -(-m * (h // hkv) // MAX_Q))
+    if plan.n_split > 1:
+        # from the caching allocator on every call: safe on any stream and
+        # under CUDA-graph capture
+        workspace = torch.empty(plan.workspace_bytes, dtype=torch.uint8, device=q.device)
+        tickets = kernels.tickets(q, plan.tickets)
     code = lib.extend_attention_appended(
         kernels.ptr(q), kernels.ptr(k_cache), kernels.ptr(v_cache),
         kernels.ptr(k_chunk), kernels.ptr(v_chunk), kernels.ptr(length),
@@ -278,8 +316,8 @@ def extend_attention(
         None if window is None else kernels.ptr(positions),
         None if chunk_attend is None else kernels.ptr(chunk_attend),
         kernels.ptr(out),
-        None if workspace is None else kernels.ptr(workspace), nbytes,
-        None if tickets is None else kernels.ptr(tickets), n_split,
+        None if workspace is None else kernels.ptr(workspace), plan.workspace_bytes,
+        None if tickets is None else kernels.ptr(tickets), plan.n_split,
         b, m, max_len, h, hkv, d, float(scale),
         0 if window is None else int(window),
         kernels.DTYPE_CODES[q.dtype], STORAGE_CODES[store], kernels.stream_of(q),

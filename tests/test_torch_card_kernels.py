@@ -58,6 +58,24 @@ def test_extend_attention_matches_its_plain_version(case):
     kc.check_extend_case(case)
 
 
+def test_extend_attention_launches_the_planned_kernel():
+    """Every bf16-q case runs ``extend_mma_kernel``, every fp32 one
+    ``extend_kernel``, as ``extend_plan`` says: no fallback between them."""
+    kc.check_extend_dispatch(kc.EXTEND_CASES)
+
+
+@pytest.mark.parametrize("case", kc.EXTEND_CASES, ids=lambda c: c.label)
+def test_extend_plan_mirrors_the_library(card, case):
+    """``decode_attention.extend_plan``'s workspace, which the wrapper
+    allocates, is the one the C entry checks for."""
+    plan = kc.extend_case_plan(case)
+    store = {"int8": 2, "fp8": 3}.get(case.storage, kernels.DTYPE_CODES[case.dtype])
+    want = card.lib.extend_attention_workspace_bytes(
+        case.b, case.m, case.h, case.hkv, case.d, plan.n_split,
+        kernels.DTYPE_CODES[case.dtype], store)
+    assert plan.workspace_bytes == want
+
+
 def _gemv_params():
     for bits in (8, 4):
         for cases, rows_list in ((kc.QUANT_CASES, kc.QUANT_ROWS),

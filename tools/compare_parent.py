@@ -13,11 +13,17 @@ measures, on an NVIDIA GPU:
   a CUDA-graph replay of 100 calls, 32 heads, head_dim 128, every sample one
   row short of the capacity, at B = 4 / 8 and 768 / 256 slots, bf16 and
   int8 caches, and B = 1 at 1088 slots;
+* K2-M (``extend_attention``): the same, 50 calls, at
+  ``kernel_cases.EXTEND_CASES[:4] + VERIFY_CASES`` (the chat rounds' and the
+  speculative verify rounds' shapes);
 * decode at LLaVA-1.5-7B width (32 layers, random bf16 weights from a seed),
   B = 8 requests of one 336x336 image and 60 text tokens, 64 greedy new
   tokens, sparse and dense: the graph step wall (host clock around the
   runner's chunks after a prefill, the median of three) and decode tok/s
-  (``B * 64 / (generate - prefill)``, medians of three of each).
+  (``B * 64 / (generate - prefill)``, medians of three of each);
+* the speculative verify round on the same weights and requests (B = 8 and
+  the first one alone), sparse and dense, k = 4 and 7: its device time,
+  CUDA events over 10 replays of the captured round on a fresh prefill.
 
 The last line of output is a JSON object with every turn's readings and
 the card's name and power limit. It fails without a card.
@@ -71,12 +77,12 @@ def measure(root: Path) -> dict:
         DENSE_SPARSE_CONFIG, IMAGE_TOKEN_INDEX, LlavaConfig)
     from dynamic_llava_tpu_torch.generation.generate import GenerationConfig, Generator
     from dynamic_llava_tpu_torch.multimodal.fusion import plan_batch
-    from dynamic_llava_tpu_torch.ops.decode_attention import decode_attention
+    from dynamic_llava_tpu_torch.ops.decode_attention import decode_attention, extend_attention
     from dynamic_llava_tpu_torch.weights import init_llava_params
 
     assert Path(kernels.__file__).resolve().is_relative_to(root.resolve())
     torch.backends.cuda.matmul.allow_tf32 = False
-    out = {"root": str(root), "k2_ms": {}, "decode": {}}
+    out = {"root": str(root), "k2_ms": {}, "k2m_ms": {}, "decode": {}, "verify_round_ms": {}}
     t0 = time.perf_counter()
     kernels.load_library()
     out["build_s"] = time.perf_counter() - t0
@@ -86,6 +92,9 @@ def measure(root: Path) -> dict:
         args, kw = kc.make_decode_inputs(case, "cuda", SEED + 3)
         out["k2_ms"][f"B={b} max_len={max_len} {storage}"] = time_ms(
             torch, lambda: decode_attention(*args, **kw))
+    for case in kc.EXTEND_CASES[:4] + kc.VERIFY_CASES:
+        args, kw = kc.make_extend_inputs(case, "cuda", SEED + 4)
+        out["k2m_ms"][case.label] = time_ms(torch, lambda: extend_attention(*args, **kw), 50)
 
     dev = torch.device("cuda")
     cfg = LlavaConfig()
@@ -133,6 +142,24 @@ def measure(root: Path) -> dict:
         out["decode"][mode] = dict(graph_step_ms=statistics.median(steps),
                                    decode_tok_s=b * max_new / (e2e - ttft),
                                    ttft_ms=ttft * 1e3)
+        for nb in (1, b):
+            sub = plan_batch(ids[:nb], mcfg.num_image_tokens, pad_multiple=gc.pad_multiple)
+            for k in (4, 7):
+                gen.generate_speculative_device(ids[:nb], pix[:nb], draft_k=k)  # captures
+                with torch.inference_mode():
+                    runner = gen.decode_runner
+                    state, _ = gen.prefill_into(sub, pix[:nb], runner.fresh_cache())
+                    runner.load(state, 0)
+                    runner.begin(sub, max_new)
+                    del state
+                    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                    torch.cuda.synchronize()
+                    start.record()
+                    for _ in range(10):
+                        runner.graph.replay()
+                    end.record()
+                    torch.cuda.synchronize()
+                out["verify_round_ms"][f"{mode} B={nb} k={k}"] = start.elapsed_time(end) / 10
         del gen, runner
     return out
 
