@@ -133,6 +133,29 @@ anywhere else. Phases, each of which raises on failure:
    bound derived from bf16 rounding (``near_tie_bound``), printed with the
    matched prefix. Then ``beam_search`` (4 beams, 16 tokens): its wall time
    and its length-normalised log-probability against greedy's;
+5d. continuous batching at 7B width on the phase-5 weights (``continuous``):
+   16 requests of one 336x336 image and 60 text tokens (bucket 640), 64 and
+   128 new tokens in turn, EOS off, arriving every 300 ms; 8 slots, chunks
+   of 16. Arms, each prewarmed first on the object then timed: the
+   ``ContinuousEngine`` (two of the requests sampled, temperature 0.8,
+   top-p 0.9, so that its sampling graph runs), the window batcher
+   (``run/continuous_bench.py``'s: what has arrived, padded to 8 rows, one
+   ``Generator`` a ``max_new`` value), the engine with ``spec_k=4``, and,
+   after phase 6's int8 serving, the engine and the window batcher on the
+   int8 decoder with an fp8 KV cache. Each arm's main path is one pass with
+   every request submitted at once, its wrapper counts zeroed just before
+   and read just after and its launches counted in a profiler trace: an
+   engine's chunks replay graphs (no eager step after a form's capture, no
+   decode / verify wrapper call), K2 (plain) or K2-M (speculative) launches
+   once a layer a step, the int8 GEMV ``4 x layers + 1`` times a step plus
+   once an admission, admissions launch K1, and its admission cache is one
+   cache of 8 rows; then a pass timed on the host clock with arrivals at
+   their times: makespan, tok/s, completion latency and TTFT (mean, p95),
+   admission ms by batch size, capture ms, prewarm s, peak, cache and
+   admission-pool GiB. Greedy tokens of the engines must equal the window
+   batcher's on the same weights and cache (the speculative engine's also
+   the plain engine's), or leave them only at a near tie
+   (``near_tie_bound``, as in phase 5c);
 6. quantized serving at 7B width, the same batches: the phase-5 weights
    quantized in place to int8 (``quantize_llm_params``), sparse and dense;
    then an int4 decoder made directly (``init_quantized_llama_params``)
@@ -171,7 +194,9 @@ both report) and wrapper calls, and ``{"ok": true, "device": {...}}``.
 Before them a ``decode_graph`` line gives, per serving mode, the decode
 step wall of the eager loop and of the graph, the capture's ms and
 whether the tokens were equal, and a ``chat`` line each chat mode's TTFT,
-continuation ms, decode tok/s, capture ms, peak GiB and decode steps.
+continuation ms, decode tok/s, capture ms, peak GiB and decode steps, and
+a ``continuous`` line with phase 5d's arms. K1's, K2's, K2-M's and the int8
+GEMV's launches in the ``kernels`` line include the engines' traced passes.
 """
 
 from __future__ import annotations
@@ -201,6 +226,11 @@ SPEC_MAX_NEW = 128  # new tokens a speculative generation
 SPEC_KS = (4, 7)  # draft lengths k (M = k + 1 candidates a verify round)
 SPEC_EAGER_ROUNDS = 16  # rounds the graph runner is held to an eager loop over
 BEAM_W, BEAM_NEW = 4, 16  # beams and new tokens of the beam search
+CONT_SLOTS, CONT_CHUNK, CONT_BUCKET = 8, 16, 640  # engine slots, steps a chunk, prompt bucket
+CONT_REQUESTS, CONT_ARRIVAL_S = 16, 0.3  # the trace: requests, seconds between arrivals
+CONT_MAX_NEW = (64, 128)  # new tokens, alternating
+CONT_SAMPLED = (5, 10)  # requests that sample (temperature 0.8, top-p 0.9) where an arm samples
+CONT_SPEC_K = 4
 # published peaks of one H100 SXM (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
@@ -1999,6 +2029,323 @@ def beam_phase(torch, params, cfg):
     return res
 
 
+def continuous_trace(cfg):
+    """Phase 5d's requests: each one 336x336 image and 60 text tokens,
+    ``CONT_MAX_NEW`` new tokens in turn, one every ``CONT_ARRIVAL_S``."""
+    from dynamic_llava_tpu_torch.config import IMAGE_TOKEN_INDEX
+
+    rng = np.random.default_rng(SEED + 13)
+    vocab, size = cfg.text.vocab_size, cfg.vision.image_size
+    return [dict(ids=np.concatenate([rng.integers(3, vocab, 30), [IMAGE_TOKEN_INDEX],
+                                     rng.integers(3, vocab, 30)]),
+                 pix=rng.standard_normal((size, size, 3), dtype=np.float32),
+                 max_new=CONT_MAX_NEW[i % 2], arrival=i * CONT_ARRIVAL_S,
+                 sampled=i in CONT_SAMPLED)
+            for i in range(CONT_REQUESTS)]
+
+
+def engine_pass(torch, engine, reqs, sample, timed_arrivals=True, admissions=None):
+    """One pass of the trace through a ``ContinuousEngine``: the loop
+    submits each request at its arrival time (all at once unless
+    ``timed_arrivals``), steps the engine while it has work, and stamps each
+    request's fresh tokens on the host clock as ``step`` returns them. The
+    requests of ``CONT_SAMPLED`` sample when ``sample``. ``admissions``: a
+    dict filled with each admission's ms by batch size, timed between two
+    synchronizations. Returns outputs, first / last token seconds, makespan
+    and the chunks run."""
+    if admissions is not None:
+        real = engine._admit_batch
+
+        def timed(slots, batch):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            real(slots, batch)
+            torch.cuda.synchronize()
+            admissions.setdefault(len(batch), []).append((time.perf_counter() - t) * 1e3)
+        engine._admit_batch = timed
+    chunks0 = engine.runner.chunks_run
+    index, first, last = {}, {}, {}
+    nxt, n = 0, len(reqs)
+    try:
+        t0 = time.perf_counter()
+        while True:
+            now = time.perf_counter() - t0
+            while nxt < n and (not timed_arrivals or reqs[nxt]["arrival"] <= now):
+                r = reqs[nxt]
+                opts = dict(temperature=0.8, top_p=0.9) if sample and r["sampled"] else {}
+                index[engine.submit(r["ids"], r["pix"], max_new_tokens=r["max_new"],
+                                    **opts)] = nxt
+                nxt += 1
+            if engine.idle():
+                if nxt == n:
+                    break
+                time.sleep(max(0.0, reqs[nxt]["arrival"] - now))
+                continue
+            fresh = engine.step()
+            now = time.perf_counter() - t0
+            for rid in fresh:
+                first.setdefault(index[rid], now)
+                last[index[rid]] = now
+        makespan = time.perf_counter() - t0
+    finally:
+        if admissions is not None:
+            del engine._admit_batch  # back to the class's method
+    outs = [None] * n
+    for rid, i in index.items():
+        outs[i] = engine.requests.pop(rid).output
+    return dict(outputs=outs, first=first, last=last, makespan=makespan,
+                chunks=engine.runner.chunks_run - chunks0)
+
+
+def window_pass(torch, gens, reqs, slots, timed_arrivals=True):
+    """The window batcher on the same trace (``run/continuous_bench.py``'s
+    window arm): take what has arrived, at most ``slots``, pad it to
+    ``slots`` rows, run one ``Generator.generate`` (the one of the batch's
+    largest ``max_new``) to its end, repeat. Tokens are stamped as
+    ``on_chunk`` streams them; a request's last token is its
+    ``max_new``-th. Greedy for every request."""
+    outs, first, last, count = [None] * len(reqs), {}, {}, {}
+    i, n = 0, len(reqs)
+    t0 = time.perf_counter()
+    while i < n:
+        now = time.perf_counter() - t0
+        batch = [j for j in range(i, n)
+                 if not timed_arrivals or reqs[j]["arrival"] <= now][:slots]
+        if not batch:
+            time.sleep(max(reqs[i]["arrival"] - now, 0.001))
+            continue
+        i = batch[-1] + 1
+        rows = batch + [batch[-1]] * (slots - len(batch))
+
+        def on_chunk(k, new, batch=batch):
+            if k < len(batch):
+                j = batch[k]
+                t = time.perf_counter() - t0
+                first.setdefault(j, t)
+                before = count.get(j, 0)
+                count[j] = before + len(new)
+                if before < reqs[j]["max_new"] <= count[j]:
+                    last[j] = t
+
+        got = gens[max(reqs[j]["max_new"] for j in batch)].generate(
+            [reqs[j]["ids"] for j in rows], np.stack([reqs[j]["pix"] for j in rows]),
+            pad_to=CONT_BUCKET, on_chunk=on_chunk)
+        for j, o in zip(batch, got):
+            outs[j] = o[:reqs[j]["max_new"]]
+    return dict(outputs=outs, first=first, last=last, makespan=time.perf_counter() - t0)
+
+
+def pass_stats(reqs, run):
+    """Makespan, aggregate tok/s, completion latency (arrival -> last token)
+    and TTFT (arrival -> first token), mean and p95, in seconds."""
+    done = [run["last"][i] - r["arrival"] for i, r in enumerate(reqs)]
+    ttft = [run["first"][i] - r["arrival"] for i, r in enumerate(reqs)]
+    tokens = sum(len(o) for o in run["outputs"])
+    return dict(makespan_s=run["makespan"], tokens=tokens, tok_s=tokens / run["makespan"],
+                latency_mean_s=float(np.mean(done)),
+                latency_p95_s=float(np.quantile(done, 0.95)),
+                ttft_mean_s=float(np.mean(ttft)), ttft_p95_s=float(np.quantile(ttft, 0.95)))
+
+
+def hold_to(torch, params, cfg, gc_fields, reqs, ref, got, which, label):
+    """Phase 5c's near-tie rule for the engine: each request of ``which``
+    has ``got``'s tokens equal ``ref``'s, or leaves them at position j where
+    the plain path along ``ref``'s tokens (an eager ``decode_step`` loop of
+    the diverging requests, ``plain_near_ties``) has a top-two logit gap or
+    an earlier keep margin below ``near_tie_bound`` (``explain_divergence``).
+    Returns ``{request: the tie}``."""
+    from dynamic_llava_tpu_torch.generation.generate import GenerationConfig, Generator
+    from dynamic_llava_tpu_torch.multimodal.fusion import plan_batch
+
+    firsts = first_divergence([ref[i] for i in which], [got[i] for i in which])
+    div = [(i, j) for i, j in zip(which, firsts) if j is not None]
+    if not div:
+        return {}
+    steps = max(j for _, j in div) + 1
+    gen = Generator(params, cfg, GenerationConfig(max_new_tokens=steps, eos_token_id=-1,
+                                                  **gc_fields))
+    plan = plan_batch([reqs[i]["ids"] for i, _ in div], cfg.num_image_tokens,
+                      pad_to=CONT_BUCKET)
+    pix = np.stack([reqs[i]["pix"] for i, _ in div])
+    tokens = [list(ref[i]) + [0] * (steps - len(ref[i])) for i, _ in div]
+    plain = plain_near_ties(torch, gen, plan, pix, tokens, steps)
+    ties = explain_divergence(cfg, [j for _, j in div], plain, [[] for _ in div])
+    found = {div[k][0]: t for k, t in ties.items()}
+    for i, t in found.items():
+        log(f"    {label}: request {i} leaves at token {t['j']}: plain top-two gap "
+            f"{t['gap']:.4g} (bound {t['gap_bound']:.4g}); tightest keep margin before it "
+            f"{t['margin']} (bound {t['margin_bound']})")
+    require(all(t["stands"] for t in found.values()),
+            f"continuous {label}: a divergence at no near tie: {found}")
+    del gen
+    return found
+
+
+def continuous(torch, params, cfg, arms, reqs, holds):
+    """Phase 5d: continuous batching at 7B width on the trace ``reqs``,
+    one arm ``(name, kind, opts)`` after another on the same weights, each
+    prewarmed first on the object that is then timed. ``kind`` "engine":
+    a ``ContinuousEngine`` (``CONT_SLOTS`` slots, chunks of ``CONT_CHUNK``,
+    bucket ``CONT_BUCKET``, ``max_new_cap`` 128) with ``opts["spec_k"]`` and
+    ``opts["gen"]`` (``GenerationConfig`` fields), prewarmed with
+    ``ContinuousEngine.prewarm``; "window": the window batcher, one
+    ``Generator`` a ``max_new`` value, each prewarmed by one full batch. For
+    each arm, the main path: one pass with every request submitted at once,
+    the wrappers' counts zeroed just before and read just after and the
+    serving kernels' launches counted in a profiler trace of it; then the
+    timed pass, requests submitted at their arrival times (admissions timed
+    between synchronizations). Checks: an engine's chunks replay graphs
+    (no step runs eagerly after its form's capture, no decode / verify
+    wrapper is called in the traced pass, K2 (plain) or K2-M (speculative)
+    launches once a layer for each step of each chunk on the card, and on
+    int8 weights the GEMV kernel ``4 x layers + 1`` times a step), its
+    admissions launch K1, its admission cache is one cache of
+    ``CONT_SLOTS`` rows at the admission capacities; both passes give the
+    same greedy tokens; and for each ``(arm, ref)`` of ``holds`` the arm's
+    tokens equal the ref's (every request but those that either arm
+    samples), or leave them only at a near tie (``hold_to``). ``opts["int8"]``:
+    the weights are int8 (the GEMV count is checked)."""
+    import gc
+
+    from dynamic_llava_tpu_torch import kernel_cases as kc
+    from dynamic_llava_tpu_torch.generation.continuous import ContinuousEngine
+    from dynamic_llava_tpu_torch.generation.generate import GenerationConfig, Generator
+
+    layers = cfg.text.num_hidden_layers
+    arms_by_name = {a[0]: a for a in arms}
+    results, outputs = {}, {}
+    for name, kind, opts in arms:
+        t_arm = time.perf_counter()
+        gen_fields = dict(opts.get("gen", {}))
+        spec_k = opts.get("spec_k", 0)
+        sample = kind == "engine" and not spec_k
+        gc.collect()  # the last arm's runners, graphs and caches
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        r = dict(kind=kind, **({"spec_k": spec_k} if spec_k else {}), **gen_fields)
+        if kind == "engine":
+            gen_cfg = GenerationConfig(max_new_tokens=max(CONT_MAX_NEW),
+                                       decode_chunk=CONT_CHUNK, eos_token_id=-1, **gen_fields)
+            engine = ContinuousEngine(params, cfg, gen_cfg, slots=CONT_SLOTS,
+                                      prompt_bucket=CONT_BUCKET, max_new_cap=max(CONT_MAX_NEW),
+                                      spec_k=spec_k)
+            engine.prewarm(reqs[0]["ids"], reqs[0]["pix"])
+            torch.cuda.synchronize()
+            runner = engine.runner
+            graphs = 1 if spec_k else 2
+            require(runner.eager_steps == graphs,
+                    f"continuous {name}: {runner.eager_steps} eager steps in prewarm, not one "
+                    f"before each of the {graphs} captures")
+            capture = ({"verify": runner.capture_ms} if spec_k else
+                       {("sampling" if k else "greedy"): v for k, v in
+                        runner.captures_ms.items()})
+            drive_once = lambda timed, adm=None: engine_pass(  # noqa: E731
+                torch, engine, reqs, sample, timed, adm)
+        else:
+            gens = {mn: Generator(params, cfg, GenerationConfig(
+                max_new_tokens=mn, decode_chunk=CONT_CHUNK, eos_token_id=-1, **gen_fields))
+                for mn in sorted(set(CONT_MAX_NEW))}
+            for mn in gens:
+                gens[mn].generate([reqs[0]["ids"]] * CONT_SLOTS,
+                                  np.stack([reqs[0]["pix"]] * CONT_SLOTS), pad_to=CONT_BUCKET)
+            torch.cuda.synchronize()
+            capture = {f"max_new {mn}": g.decode_runner.capture_ms for mn, g in gens.items()}
+            drive_once = lambda timed, adm=None: window_pass(  # noqa: E731
+                torch, gens, reqs, CONT_SLOTS, timed)
+        r.update(prewarm_s=time.perf_counter() - t0, capture_ms=capture)
+
+        # the main path: every request at once, counted and traced
+        t0 = time.perf_counter()
+        for fn in kc.read_counters():
+            fn.launches = 0
+        traced_admissions = {}
+        main, seen = kc.device_launches(lambda: drive_once(False, traced_admissions))
+        calls = kc.wrapper_calls(dict.fromkeys(kc.read_counters(), 0), kc.read_counters())
+        r["traced_pass_s"] = time.perf_counter() - t0
+        # the timed pass: arrivals at their times
+        admissions = {}
+        run = drive_once(True, admissions)
+        torch.cuda.synchronize()
+        r.update(pass_stats(reqs, run))
+        r.update(peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                 launches={"K1": seen["flash_fwd"], "K2": seen["decode_kernel"],
+                           "K2-M": seen["extend_kernel"],
+                           "K5/K6": seen["gemv int8"]},
+                 device_launches=seen, wrapper_calls=calls)
+        greedy = [i for i in range(len(reqs)) if not (sample and reqs[i]["sampled"])]
+        require([main["outputs"][i] for i in greedy] == [run["outputs"][i] for i in greedy],
+                f"continuous {name}: the traced and the timed pass differ")
+        require(all(len(o) == q["max_new"] for o, q in zip(run["outputs"], reqs))
+                and all(0 <= t < cfg.text.vocab_size for o in run["outputs"] for t in o),
+                f"continuous {name}: wrong output lengths or token ids")
+        require(seen["flash_fwd"] > 0, f"continuous {name}: no K1 launch ({seen})")
+        if kind == "engine":
+            steps = main["chunks"] * CONT_CHUNK
+            r.update(admission_ms={k: float(np.mean(v)) for k, v in sorted(admissions.items())},
+                     admissions_by_k={k: len(v) for k, v in sorted(admissions.items())},
+                     chunks=run["chunks"], traced_chunks=main["chunks"],
+                     cache_gib=cache_bytes(runner.state.cache) / 2**30,
+                     admission_pool_gib=cache_bytes(engine.admission_cache) / 2**30)
+            kernel, other = (("extend_kernel", "decode_kernel") if spec_k
+                             else ("decode_kernel", "extend_kernel"))
+            require(runner.eager_steps == graphs and calls[kernel] == 0,
+                    f"continuous {name}: a chunk ran eagerly after its capture "
+                    f"({runner.eager_steps} eager steps, {calls[kernel]} wrapper calls)")
+            require(seen[kernel] == layers * steps and seen[other] == 0,
+                    f"continuous {name}: {seen[kernel]} {kernel} launches on the card, not "
+                    f"{layers} x {steps} steps, and {seen[other]} {other}")
+            if opts.get("int8"):
+                # a step: q/k/v, o, gate/up, down a layer and the lm_head; an
+                # admission: the lm_head on its k rows (the rest is above 64 rows)
+                admits = sum(len(v) for v in traced_admissions.values())
+                require(seen["gemv int8"] == (4 * layers + 1) * steps + admits,
+                        f"continuous {name}: {seen['gemv int8']} int8 GEMV launches, not "
+                        f"{4 * layers + 1} x {steps} steps + {admits} admissions")
+            # one cache of CONT_SLOTS rows at the admission capacities: K and V
+            # (and the int8 mode's bf16 scales, one a head vector)
+            pool = engine.admission_cache
+            vec = cfg.text.head_dim * runner.state.cache.pre.k.element_size()
+            want_pool = sum(
+                2 * t.num_layers * CONT_SLOTS * cap * cfg.text.num_key_value_heads
+                * (vec + (2 if t.quantized else 0))
+                for t, cap in zip(pool, (engine.admit_pre_cap, engine.admit_post_cap)))
+            require(all(t.k.shape[1] == CONT_SLOTS for t in pool)
+                    and cache_bytes(pool) == want_pool,
+                    f"continuous {name}: the admission pool holds {cache_bytes(pool)} bytes, "
+                    f"bound {want_pool}")
+        outputs[name] = run["outputs"]
+        r.update(samples=sample, seconds=time.perf_counter() - t_arm)
+        results[name] = r
+        log(f"  continuous {name}: makespan {r['makespan_s']:.3f} s, {r['tok_s']:.1f} tok/s, "
+            f"latency mean / p95 {r['latency_mean_s']:.3f} / {r['latency_p95_s']:.3f} s, TTFT "
+            f"{r['ttft_mean_s']:.3f} / {r['ttft_p95_s']:.3f} s; admissions "
+            f"{r.get('admissions_by_k')} at {r.get('admission_ms')} ms; capture {capture} ms; "
+            f"prewarm {r['prewarm_s']:.1f} s; peak {r['peak_gib']:.2f} GiB, cache "
+            f"{r.get('cache_gib', 0):.3f} GiB, admission pool {r.get('admission_pool_gib', 0):.3f} "
+            f"GiB; traced pass: launches {r['launches']}, wrapper calls {calls} "
+            f"[{r['seconds']:.1f} s]")
+        if kind == "engine":
+            del engine, runner, drive_once
+        else:
+            del gens, drive_once
+    for name, ref in holds:
+        t0 = time.perf_counter()
+        samples = results[name]["samples"] or results[ref]["samples"]
+        which = [i for i in range(len(reqs)) if not (samples and reqs[i]["sampled"])]
+        ties = hold_to(torch, params, cfg, dict(arms_by_name[name][2].get("gen", {})), reqs,
+                       outputs[ref], outputs[name], which, f"{name} against {ref}")
+        results[name].setdefault("held_to", {})[ref] = dict(
+            requests=len(which), near_ties=len(ties),
+            matched_prefix=[ties[i]["j"] if i in ties else len(outputs[name][i])
+                            for i in which])
+        log(f"  continuous {name} against {ref}: {len(which)} greedy requests, "
+            f"{len(which) - len(ties)} equal, {len(ties)} apart at a near tie "
+            f"[{time.perf_counter() - t0:.1f} s]")
+    return results
+
+
 def main() -> int:
     if not (ROOT / "dynamic_llava_tpu_torch" / "csrc").is_dir():
         raise SystemExit(
@@ -2143,6 +2490,19 @@ def main() -> int:
     beam = beam_phase(torch, params, cfg_sparse)
     log(f"  phase 5c bf16 arms and beam: {time.perf_counter() - t5c:.1f} s")
 
+    phase("phase 5d: continuous batching at LLaVA-1.5-7B width, the phase-5 weights: "
+          f"{CONT_REQUESTS} requests every {CONT_ARRIVAL_S} s, {CONT_SLOTS} slots; the engine, "
+          f"the window batcher, the engine with spec_k={CONT_SPEC_K}")
+    t5d = time.perf_counter()
+    trace = continuous_trace(cfg_sparse)
+    spec_arm = f"engine spec k={CONT_SPEC_K}"
+    cont = continuous(torch, params, cfg_sparse, [
+        ("engine", "engine", {}),
+        ("window", "window", {}),
+        (spec_arm, "engine", dict(spec_k=CONT_SPEC_K)),
+    ], trace, holds=[("engine", "window"), (spec_arm, "window"), (spec_arm, "engine")])
+    log(f"  phase 5d bf16 arms: {time.perf_counter() - t5d:.1f} s")
+
     phase("phase 6: quantized serving at 7B width")
     t0 = time.perf_counter()
     quantize_llm_params(params, bits=8)
@@ -2155,17 +2515,35 @@ def main() -> int:
     spec.update(speculate(torch, params, [("B=8 sparse", cfg_sparse, 8)], "int8",
                           gemv_kernel="gemv int8"))
     log(f"  phase 5c int8 arm: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fp8_kv = dict(cache_dtype="float8_e4m3fn")
+    cont.update(continuous(torch, params, cfg_sparse, [
+        ("engine int8 fp8-KV", "engine", dict(gen=fp8_kv, int8=True)),
+        ("window int8 fp8-KV", "window", dict(gen=fp8_kv)),
+    ], trace, holds=[("engine int8 fp8-KV", "window int8 fp8-KV")]))
+    log(f"  phase 5d int8 fp8-KV arms: {time.perf_counter() - t0:.1f} s")
+    # the engines' launches on the card (their traced passes) join each
+    # kernel's count
+    engines = [r for r in cont.values() if r["kind"] == "engine"]
+    for name, label in (("flash_attention_fwd", "flash_fwd"),
+                        ("decode_attention_appended", "decode_kernel")):
+        launches[name] += sum(r["device_launches"][label] for r in engines)
+        calls[name] += sum(r["wrapper_calls"][label] for r in engines)
+    for name in ("q8_gemv", "q8_gemv_group"):
+        launches[name] += sum(r["device_launches"]["gemv int8"] for r in engines)
     # K2-M's main paths: the chat's continuations and the traced speculative
     # generations
     traced = [r["k"][SPEC_KS[-1]] for r in spec.values()]
     by_path = {"chat": sum(r["device_launches"]["extend_kernel"]
                            for r in results["chat"].values()),
-               "speculative": sum(t["device_launches"]["extend_kernel"] for t in traced)}
+               "speculative": sum(t["device_launches"]["extend_kernel"] for t in traced),
+               "continuous": sum(r["device_launches"]["extend_kernel"] for r in engines)}
     kres["extend_attention_appended"]["launches_by_path"] = by_path
     launches["extend_attention_appended"] = sum(by_path.values())
     calls["extend_attention_appended"] = sum(
         r["launches"]["extend_kernel"] for r in results["chat"].values()) + sum(
-        t["launches"]["extend_kernel"] for t in traced)
+        t["launches"]["extend_kernel"] for t in traced) + sum(
+        r["wrapper_calls"]["extend_kernel"] for r in engines)
     del params["llm"]
     torch.cuda.empty_cache()
     params["llm"] = init_quantized_llama_params(
@@ -2324,6 +2702,9 @@ def main() -> int:
         mode: {k: r[k] for k in ("ttft_ms", "continue_ms", "chunks", "decode_tok_s",
                                  "round_decode_tok_s", "capture_ms", "peak_gib", "steps")}
         for mode, r in results["chat"].items()}))
+    print("continuous " + json.dumps({
+        arm: {k: v for k, v in r.items() if k not in ("device_launches", "wrapper_calls")}
+        for arm, r in cont.items()}))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], "max_abs_err": kres[name]["max_abs_err"],

@@ -57,6 +57,15 @@ as its step, and the drafts, the emitted tokens and the context they are
 drafted from in static buffers. It takes the ``Generator``'s one runner slot:
 a speculative key replaces a plain one and the other way round.
 
+Continuous batching (``generation/continuous.py``) runs on runners whose
+rows are slots that requests enter and leave between chunks, owned by the
+engine: ``SlotDecodeRunner`` (the stopping runner with per-slot limits and
+per-slot temperature / top-p, ``_sample_per_slot``; a greedy and a sampling
+graph on the same buffers, the host picking one a chunk) and
+``SlotSpecRunner`` (verify rounds with prompt lookup over each slot's
+context row). A request enters by ``DecodeRunner.splice_row`` and the
+runner's ``admit``, written a slot at a time between chunks.
+
 Every kernel wrapper counts its host calls in ``<wrapper>.launches``: an
 eager launch, or the one launch a capture records into the graph. A
 graph's replays launch on the device without a host call, so their
@@ -80,7 +89,7 @@ import torch
 from ..config import LlavaConfig
 from ..models import dynamic
 from ..multimodal.fusion import FusionPlan, plan_batch
-from ..ops.kv_cache import TieredCache, init_tiered_cache
+from ..ops.kv_cache import TieredCache, init_tiered_cache, splice_tiered_slot
 from ..ops.quant import q4_mlp_enabled
 from . import speculative
 
@@ -123,6 +132,31 @@ def _sample(generator: Optional[torch.Generator], logits: torch.Tensor,
         logits = torch.where(logits < cutoff, float("-inf"), logits)
     probs = torch.softmax(logits, dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+def _sample_per_slot(generator: Optional[torch.Generator], logits: torch.Tensor,
+                     temps: torch.Tensor, top_ps: torch.Tensor) -> torch.Tensor:
+    """Per-row temperature / top-p (the JAX ``_sample_per_slot``; the
+    continuous engine's slots carry their requests' settings): rows at
+    temperature 0 take the argmax (the first maximum), the others a draw
+    from ``generator`` over their nucleus. The JAX function sorts only when
+    some row has ``top_p < 1`` (a ``lax.cond``); here the caller picks this
+    function or a plain argmax on the host, which knows every row's
+    settings. A row whose fp32 cumulative sum stays below its ``top_p`` at
+    all V entries (``top_p = 1`` can) has no cutoff: JAX gathers NaN at
+    index V there and masks nothing, ``torch.gather`` would fault, so the
+    index is clamped and V means no cutoff."""
+    greedy = torch.argmax(logits, dim=-1)
+    lg = logits.float() / torch.clamp(temps, min=1e-6)[:, None]
+    v = lg.shape[-1]
+    sorted_lg = torch.sort(lg, dim=-1, descending=True).values
+    cum = torch.cumsum(torch.softmax(sorted_lg, dim=-1), dim=-1)
+    cutoff_idx = torch.sum(cum < top_ps[:, None], dim=-1, keepdim=True)
+    cutoff = torch.gather(sorted_lg, -1, torch.clamp(cutoff_idx, max=v - 1))
+    cutoff = torch.where(cutoff_idx >= v, float("-inf"), cutoff)
+    lg = torch.where(lg < cutoff, float("-inf"), lg)
+    samp = torch.multinomial(torch.softmax(lg, dim=-1), 1, generator=generator)[:, 0]
+    return torch.where(temps > 0.0, samp, greedy)
 
 
 def decode_chunk_len(gc: GenerationConfig) -> int:
@@ -214,6 +248,7 @@ class DecodeRunner:
         self.host = [torch.zeros(self.out.shape, dtype=torch.int32, pin_memory=self.graphed)
                      for _ in range(2)]
         self.chunks_run = 0
+        self.eager_steps = 0  # steps run eagerly on a CUDA device (one before each capture)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.capture_ms: Optional[float] = None
 
@@ -258,9 +293,26 @@ class DecodeRunner:
         if self.generator is not None:
             self.generator.manual_seed(seed)
 
+    def splice_row(self, state: dynamic.GenState, row: int, slot: int) -> None:
+        """Copy row ``row`` of a prefilled ``state`` (another cache's, at most
+        this one's capacities) into batch slot ``slot`` of the static
+        buffers, in place: K/V, lengths, ``next_pos`` and ``last_logits``."""
+        st = self.state
+        splice_tiered_slot(st.cache, state.cache, slot, row)
+        st.next_pos[slot].copy_(state.next_pos[row])
+        st.last_logits[slot].copy_(state.last_logits[row])
+
+    def _next_token(self) -> torch.Tensor:
+        """The step's input token ``[B]``, from ``last_logits``."""
+        return _sample(self.generator, self.state.last_logits, self.temperature, self.top_p)
+
+    def _draws(self) -> bool:
+        """Whether a step draws from ``generator`` (its capture registers it)."""
+        return self.generator is not None
+
     def step(self) -> None:
         """One decode step on the static buffers (device work only)."""
-        tok = _sample(self.generator, self.state.last_logits, self.temperature, self.top_p)
+        tok = self._next_token()
         new = dynamic.decode_step(self.params, self.cfg, tok, self.state,
                                   kv_overflow=self.kv_overflow)
         for src, dst in self._fresh_outputs(new):
@@ -270,7 +322,7 @@ class DecodeRunner:
 
     def _capture(self) -> None:
         graph = torch.cuda.CUDAGraph()
-        if self.generator is not None:
+        if self._draws():
             graph.register_generator_state(self.generator)
         t0 = time.perf_counter()
         with torch.cuda.graph(graph):
@@ -289,6 +341,7 @@ class DecodeRunner:
                 continue
             if self.graph is None:
                 self.step()  # eager first: one-time set-up happens outside the capture
+                self.eager_steps += 1
                 self._capture()
                 continue
             self.graph.replay()
@@ -361,7 +414,7 @@ class StopDecodeRunner(DecodeRunner):
         work only)."""
         i32 = torch.int32
         active = self.active
-        tok = _sample(self.generator, self.state.last_logits, self.temperature, self.top_p)
+        tok = self._next_token()
         new = dynamic.decode_step(self.params, self.cfg, tok, self.state, active=active,
                                   kv_overflow=self.kv_overflow)
         for src, dst in self._fresh_outputs(new):
@@ -458,8 +511,9 @@ class SpecRunner(DecodeRunner):
         self.limit.fill_(limit)
         self.step_index.zero_()
 
-    def step(self) -> None:
-        """One speculative round on the static buffers (device work only)."""
+    def _round(self):
+        """One speculative round on the static buffers (device work only):
+        ``(tokens [B, M] int32, emit [B, M] bool, n_take [B], next_tok [B])``."""
         key, st = self.key, self.state
         m, cap = key.m, key.ctx_cap
         t_next = torch.argmax(st.last_logits, dim=-1).to(torch.int32)
@@ -480,8 +534,9 @@ class SpecRunner(DecodeRunner):
             dst.copy_(src)
         n_take = torch.minimum(n_acc, self.limit - self.n_out)
         emit = self.lanes < n_take[:, None]
-        self.grid.scatter_(1, torch.where(emit, self.n_out[:, None] + self.lanes, cap).long(),
-                           tokens)
+        if self.grid is not None:
+            self.grid.scatter_(1, torch.where(emit, self.n_out[:, None] + self.lanes,
+                                              cap).long(), tokens)
         self.ctx.scatter_(1, torch.where(emit, self.ctx_len[:, None] + self.lanes, cap).long(),
                           tokens)
         self.n_out.add_(n_take)
@@ -489,6 +544,12 @@ class SpecRunner(DecodeRunner):
         self.rounds.add_(active.any().to(torch.int32))
         eos_hit = ((tokens == self.eos) & emit).any(dim=1)
         self.done.copy_(self.done | eos_hit | (self.n_out >= self.limit))
+        return tokens, emit, n_take, next_tok
+
+    def step(self) -> None:
+        """One speculative round and its report (device work only)."""
+        tokens, _, n_take, next_tok = self._round()
+        m = self.key.m
         rep = self.out
         rep[:m].copy_(tokens.T)
         rep[m].copy_(n_take)
@@ -515,6 +576,128 @@ class SpecRunner(DecodeRunner):
         cap = self.key.ctx_cap
         return (self.grid[:, :cap].cpu().numpy(), self.n_out.cpu().numpy(),
                 int(self.rounds.cpu()[0]))
+
+
+class SlotDecodeRunner(StopDecodeRunner):
+    """The continuous engine's chunk (the JAX ``_decode_chunk_stop_fn`` with
+    ``per_slot_sampling`` and ``pack_results``): a ``StopDecodeRunner``
+    whose rows are slots that requests enter and leave between chunks. Each
+    slot has its own ``active``, history, emitted count and limit, and its
+    own ``temps`` / ``top_ps``, written a slot at a time (``admit``,
+    ``retire``), never all at once. The host copy of a chunk is the packed
+    ``[2 * chunk + 1, B]`` rows of ``read``.
+
+    Two step forms on the same buffers, each captured once on a CUDA
+    device: greedy (argmax) and per-slot sampling (``_sample_per_slot``,
+    its draws from ``generator``, seeded once for the runner). The host
+    picks one a chunk (``run_chunk(sampled)``): it wrote every slot's
+    settings, so it knows whether any row samples."""
+
+    def __init__(self, params, cfg: LlavaConfig, gc: GenerationConfig, key: RunnerKey,
+                 device):
+        super().__init__(params, cfg, gc, key, device)
+        with torch.inference_mode(False):
+            self.temps = torch.zeros(key.batch, dtype=torch.float32, device=self.device)
+            self.top_ps = torch.ones(key.batch, dtype=torch.float32, device=self.device)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(gc.seed)
+        self.sampled = False  # the form of the chunk being run
+        self.graphs = {}  # form -> its CUDA graph
+        self.captures_ms = {}  # form -> its capture's ms
+
+    def admit(self, slot: int, limit: int, temperature: float, top_p: float) -> None:
+        """Start slot ``slot``'s request (its state spliced in by
+        ``splice_row``): active, an empty history, nothing emitted, at most
+        ``limit`` tokens, its sampling settings."""
+        self.active[slot] = True
+        self.hist[slot] = -1
+        self.n_emit[slot] = 0
+        self.limit[slot] = limit
+        self.temps[slot] = temperature
+        self.top_ps[slot] = top_p
+
+    def retire(self, slot: int) -> None:
+        """A freed slot goes back to greedy, so that a retired sampled
+        request does not keep the sampling form running."""
+        self.temps[slot] = 0.0
+        self.top_ps[slot] = 1.0
+
+    def _next_token(self) -> torch.Tensor:
+        logits = self.state.last_logits
+        if not self.sampled:
+            return torch.argmax(logits, dim=-1)
+        return _sample_per_slot(self.generator, logits, self.temps, self.top_ps)
+
+    def _draws(self) -> bool:
+        return self.sampled
+
+    def run_chunk(self, sampled: bool = False) -> PendingChunk:
+        """``DecodeRunner.run_chunk`` in the greedy or the sampling form."""
+        self.sampled = bool(sampled)
+        self.graph = self.graphs.get(self.sampled)
+        pending = super().run_chunk()
+        if self.graph is not None and self.sampled not in self.graphs:
+            self.graphs[self.sampled] = self.graph
+            self.captures_ms[self.sampled] = self.capture_ms
+        return pending
+
+
+class SlotSpecRunner(SpecRunner):
+    """The continuous engine's speculative chunk (the JAX ``_spec_chunk_fn``):
+    ``chunk`` verify rounds a dispatch over slots that requests enter and
+    leave between chunks, each round ``SpecRunner``'s (the committed token
+    and ``m - 1`` drafts by ``device_prompt_lookup`` over the slot's context
+    row, ``decode_speculative_step`` with ``active = ~done``, the emit cut at
+    the slot's limit, EOS the only stop). Greedy only. The host copy of a
+    chunk is the JAX packed layout ``[2 * R * M + 1, B]``: round r's M
+    tokens in rows ``r * M ...``, then their emit flags, then ``active`` at
+    the chunk's end (``read``). ``admit`` writes one slot's limit, flags and
+    context row (its prompt, the spare column kept)."""
+
+    def __init__(self, params, cfg: LlavaConfig, gc: GenerationConfig, key: RunnerKey,
+                 device):
+        if not key.draft:
+            raise ValueError("SlotSpecRunner drafts on the device: the key names no lookup")
+        super().__init__(params, cfg, gc, key, device)
+        self.grid = None  # the emitted tokens reach the host a chunk, in the packed rows
+        r, m, b = self.chunk, key.m, key.batch
+        self.tok_rows = self.out[:r * m].view(r, m, b)
+        self.emit_rows = self.out[r * m:2 * r * m].view(r, m, b)
+
+    def _out_rows(self) -> int:
+        return 2 * self.chunk * self.key.m + 1
+
+    def admit(self, slot: int, limit: int, prompt: torch.Tensor, valid_len: int) -> None:
+        """Start slot ``slot``'s request (its state spliced in by
+        ``splice_row``): not done, nothing emitted, at most ``limit`` tokens,
+        its context row the prompt's ``[S]`` token ids (on the device) with
+        ``valid_len`` of them live."""
+        if prompt.shape[0] + limit + self.key.m > self.key.ctx_cap:
+            raise ValueError(f"SlotSpecRunner.admit: {prompt.shape[0]} prompt slots and "
+                             f"{limit} new tokens pass the context grid of {self.key.ctx_cap}")
+        self.done[slot] = False
+        self.n_out[slot] = 0
+        self.limit[slot] = limit
+        self.ctx[slot].zero_()
+        self.ctx[slot, :prompt.shape[0]].copy_(prompt)
+        self.ctx_len[slot] = valid_len
+
+    def step(self) -> None:
+        """One round; its tokens and emit flags go to the chunk's rows of
+        the round (device work only)."""
+        tokens, emit, _, _ = self._round()
+        idx = self.step_index
+        self.tok_rows.index_copy_(0, idx, tokens.T[None])
+        self.emit_rows.index_copy_(0, idx, emit.T.to(torch.int32)[None])
+        self.out[-1].copy_(~self.done)
+        self.step_index.add_(1).remainder_(self.chunk)
+
+    def read(self, pending: PendingChunk):
+        """``(tokens [R * M, B], emitted [R * M, B] bool, active [B] bool)``
+        of a chunk, waiting for it."""
+        rows = pending.tokens()
+        n = self.chunk * self.key.m
+        return rows[:n], rows[n:2 * n].astype(bool), rows[2 * n].astype(bool)
 
 
 class Generator:

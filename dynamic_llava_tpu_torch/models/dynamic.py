@@ -14,6 +14,8 @@ training forward (counterpart of ``dynamic_llava_tpu/models/dynamic.py``).
 * ``prefill_continue`` -- E5: a new round's chunk against the live cache in
   one pass (multi-round chat), ragged across the batch, with the
   instruct-predictor prune of the chunk before the post tier.
+* ``forward_nocache_eval`` -- E4: the cache-free hard-pruned forward of
+  the no-cache evaluation (the answer span pruned again on every call).
 * ``decode_speculative_step`` -- one speculative round: M candidate tokens
   verified in one pass, equal to feeding them one by one through
   ``decode_step`` (drop mode), the caches rolled back by lengths to the
@@ -23,8 +25,10 @@ training forward (counterpart of ``dynamic_llava_tpu/models/dynamic.py``).
   which the predictors' Gumbel keep masks become a soft policy over the kv
   tokens of every layer from the sparse layer on.
 
-With the predictors off (``DENSE_SPARSE_CONFIG``) all three reduce to
-dense LLaVA-1.5.
+With the predictors off (``DENSE_SPARSE_CONFIG``) all of them reduce to
+dense LLaVA-1.5. ``prefill``'s ``vision_score_override`` and
+``decode_step``'s ``output_text_keep_override`` replace a predictor's
+decision for the random-pruning ablations.
 """
 
 from __future__ import annotations
@@ -98,13 +102,19 @@ def prefill(
     *,
     all_have_image: bool = False,
     ring_mode: bool = False,  # records the ring bases for kv_overflow="ring"
+    vision_score_override: Optional[torch.Tensor] = None,  # [B, N_img] ablation
 ) -> Tuple[GenState, PrefillInfo]:
     """``all_have_image`` is the host-known promise that every sample has
     exactly one image; only then may the compacted sequence be cut to
-    ``S - N_img + K`` (a text-only sample keeps all its tokens). Both
+    ``S - N_img + K`` (a text-only sample keeps all its tokens). The
     options are keyword-only: the reference's ``prefill`` has
     ``image_features`` in the next positional slot, so a positional call
-    written for it raises here instead of misbinding."""
+    written for it raises here instead of misbinding.
+
+    ``vision_score_override`` is an evaluation hook (the ablations of
+    ``run/sparse_quality.py`` in the JAX package): it replaces the vision
+    predictor's scores, so random pruning runs the same top-k and
+    compaction."""
     tcfg, sparse = cfg.text, cfg.sparse
     b, s = plan_token_ids.shape
     n_img = cfg.num_image_tokens
@@ -127,11 +137,14 @@ def prefill(
     image_keep = None
     out_len = s
     if sparse.use_vision_predictor and pixel_values is not None:
-        img_hidden = _gather_span(x, image_start, n_img)  # [B, N_img, D]
-        logits = vision_predictor(
-            params["predictors"]["image_score_predictor"], img_hidden, sparse
-        )
-        scores_img = torch.log_softmax(logits.float(), dim=-1)[..., 0]
+        if vision_score_override is not None:
+            scores_img = vision_score_override.float()
+        else:
+            img_hidden = _gather_span(x, image_start, n_img)  # [B, N_img, D]
+            logits = vision_predictor(
+                params["predictors"]["image_score_predictor"], img_hidden, sparse
+            )
+            scores_img = torch.log_softmax(logits.float(), dim=-1)[..., 0]
         span_idx = image_start.long()[:, None] + torch.arange(n_img, device=dev)[None, :]
         scores = torch.zeros((b, s), dtype=torch.float32, device=dev)
         scores.scatter_(1, span_idx, scores_img)
@@ -220,6 +233,7 @@ def decode_step(
     state: GenState,
     active: Optional[torch.Tensor] = None,  # [B] bool -- False freezes the sample
     kv_overflow: str = "drop",  # "drop" | "ring"
+    output_text_keep_override: Optional[torch.Tensor] = None,  # [B] ablation
 ) -> GenState:
     """One decode step. The K/V buffers of both tiers are updated IN PLACE
     (the JAX version returns rebuilt buffers); lengths and positions come
@@ -233,7 +247,10 @@ def decode_step(
     persists EVERY token past the wrap by overwriting the oldest
     decode-region entry, in both tiers, each at its own budget
     (``state.ring_base`` / ``ring_base_pre`` from ``prefill(ring_mode=True)``
-    protect the prefill region)."""
+    protect the prefill region). ``output_text_keep_override`` is an
+    evaluation hook (``run/text_sparse_quality.py`` in the JAX package): it
+    replaces the output-text predictor's keep decision, so random KV
+    dropping runs the same persist and advance path."""
     tcfg, sparse = cfg.text, cfg.sparse
     b = token.shape[0]
     sl = sparse.sparse_layer
@@ -260,7 +277,9 @@ def decode_step(
     )
     x = d1.x
 
-    if sparse.use_output_text_predictor:
+    if output_text_keep_override is not None:
+        keep = output_text_keep_override.to(torch.int32)
+    elif sparse.use_output_text_predictor:
         # E3: keep iff logit[keep] > logit[drop] on the hidden entering the
         # sparse layer
         tp = text_predictor(
@@ -380,6 +399,79 @@ def prefill_continue(
         ring_base=state.ring_base,
         ring_base_pre=state.ring_base_pre,
     )
+
+
+def forward_nocache_eval(
+    params,
+    cfg: LlavaConfig,
+    plan_token_ids: torch.Tensor,  # [B, S]
+    plan_is_image: torch.Tensor,  # [B, S] bool
+    plan_image_slot: torch.Tensor,  # [B, S]
+    valid_len: torch.Tensor,  # [B] int32
+    image_start: torch.Tensor,  # [B]
+    answer_start: torch.Tensor,  # [B]
+    last_instruct_start: torch.Tensor,  # [B]
+    last_instruct_end: torch.Tensor,  # [B]
+    has_image: torch.Tensor,  # [B] bool
+    pixel_values: Optional[torch.Tensor],  # [B, H, W, 3] or None (text-only)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """E4: the cache-free hard-pruned forward (the no-cache bench's
+    quadratic-recompute regime). The image tokens are top-k pruned; unlike
+    ``prefill``, the answer span ``[answer_start, valid_len - 1)`` is pruned
+    again from scratch by the output-text predictor's threshold on every
+    call, the last token always kept; then the instruct prune, the
+    compaction, and layers from the sparse layer on over the kept tokens.
+
+    Returns ``(last-token logits [B, V] fp32, kept lengths [B])``."""
+    tcfg, sparse = cfg.text, cfg.sparse
+    b, s = plan_token_ids.shape
+    n_img = cfg.num_image_tokens
+    sl = sparse.sparse_layer
+    dev = plan_token_ids.device
+
+    x = llama.embed_tokens(params["llm"], plan_token_ids)
+    if pixel_values is not None:
+        img_feats = encode_images(params, cfg, pixel_values)
+        x = fuse_embeddings(x, img_feats, plan_is_image, plan_image_slot)
+    positions = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
+
+    x = llama.run_layers_nocache(params["llm"], tcfg, x, positions, lo=0, hi=sl)
+
+    valid = positions < valid_len[:, None]
+    keep = valid
+    if sparse.use_vision_predictor and pixel_values is not None:
+        img_hidden = _gather_span(x, image_start, n_img)
+        logits = vision_predictor(
+            params["predictors"]["image_score_predictor"], img_hidden, sparse
+        )
+        scores_img = torch.log_softmax(logits.float(), dim=-1)[..., 0]
+        span_idx = image_start.long()[:, None] + torch.arange(n_img, device=dev)[None, :]
+        scores = torch.zeros((b, s), dtype=torch.float32, device=dev)
+        scores.scatter_(1, span_idx, scores_img)
+        img_keep = topk_keep_mask(
+            scores, sparse.vision_keep_budget(n_img), plan_is_image & valid)
+        keep = torch.where(has_image[:, None] & plan_is_image, img_keep, keep)
+
+    if sparse.use_output_text_predictor:
+        tp = text_predictor(params["predictors"]["output_text_score_predictor"], x)
+        ans_span = _span_mask(s, answer_start, valid_len - 1)  # the last token exempt
+        keep = torch.where(ans_span, keep & (tp[..., 0] > tp[..., 1]), keep)
+
+    if sparse.use_instruct_predictor:
+        tp = text_predictor(params["predictors"]["instruct_score_predictor"], x)
+        ins_span = _span_mask(s, last_instruct_start, last_instruct_end)
+        is_last = (torch.arange(s, dtype=torch.int32, device=dev)[None, :]
+                   == (last_instruct_end - 1)[:, None])
+        keep = torch.where(ins_span & ~is_last, keep & (tp[..., 0] > tp[..., 1]), keep)
+
+    comp = plan_compaction(keep)
+    x = gather_tokens(x, comp.gather_idx)
+    new_positions = gather_tokens(positions, comp.gather_idx)
+    x = llama.run_layers_nocache(
+        params["llm"], tcfg, x, new_positions, lo=sl, hi=tcfg.num_hidden_layers)
+    last_hidden = _gather_span(x, comp.new_length - 1, 1)
+    logits = llama.lm_head(params["llm"], tcfg, last_hidden)[:, 0]
+    return logits, comp.new_length
 
 
 def decode_speculative_step(

@@ -13,8 +13,9 @@ K/V head vector is quantized with one bf16 scale per (layer, sample, slot,
 head), kept in the side buffers ``k_scale`` / ``v_scale`` and folded into
 the attention on read (``ops.attention.decode_attend_appended``).
 The continuation prefill writes a whole chunk's K/V at once
-(``write_chunk_layers``), compacted to the kept tokens. ``splice_cache_slot``
-(continuous batching) is not ported yet.
+(``write_chunk_layers``), compacted to the kept tokens. Continuous batching
+admits a request by ``splice_tiered_slot``: one row of a batched admission
+cache copied into one slot of the engine's cache, in place.
 """
 
 from __future__ import annotations
@@ -233,3 +234,34 @@ def advance_tiered(cache: TieredCache, keep: torch.Tensor,
         length=cache.post.length + keep.to(torch.int32)[None, :]
     )
     return TieredCache(pre=pre, post=post)
+
+
+def splice_cache_slot(dst: KVCache, src: KVCache, slot: int, row: int = 0) -> None:
+    """Copy row ``row`` of ``src`` into batch slot ``slot`` of ``dst`` IN
+    PLACE: K/V, the int8 scales and the lengths (the JAX function takes a
+    batch-1 source and returns a new cache). The admission primitive of
+    continuous batching (``generation.continuous``): a freshly prefilled
+    request replaces whatever a retired one left in the slot.
+
+    ``src`` may hold fewer slots than ``dst`` (an admission cache holds only
+    the prompt): only ``[:src.max_len]`` is copied, and the slots past it
+    keep the retired request's K/V, which nothing reads (attention reads
+    ``[0, length)``). fp8 tensors are copied through their bytes."""
+    if src.num_layers != dst.num_layers or src.max_len > dst.max_len:
+        raise ValueError(f"splice_cache_slot: a source of {src.num_layers} layers x "
+                         f"{src.max_len} slots does not fit {dst.num_layers} x {dst.max_len}")
+    if src.k.dtype != dst.k.dtype or src.quantized != dst.quantized:
+        raise ValueError(f"splice_cache_slot: storage {src.k.dtype} into {dst.k.dtype}")
+    n = src.max_len
+    pairs = [(dst.k, src.k), (dst.v, src.v)]
+    if dst.quantized:
+        pairs += [(dst.k_scale, src.k_scale), (dst.v_scale, src.v_scale)]
+    for d, s in pairs:
+        _bytes(d)[:, slot, :n].copy_(_bytes(s)[:, row])
+    dst.length[:, slot].copy_(src.length[:, row])
+
+
+def splice_tiered_slot(dst: TieredCache, src: TieredCache, slot: int, row: int = 0) -> None:
+    """``splice_cache_slot`` of both tiers."""
+    splice_cache_slot(dst.pre, src.pre, slot, row)
+    splice_cache_slot(dst.post, src.post, slot, row)

@@ -24,6 +24,12 @@ give the tokens, tier lengths and ``next_pos`` of an eager loop of
 enqueued under ``set_sync_debug_mode("error")``, and its replays launch
 K2-M once a layer a round, K2 never.
 
+The continuous-batching engine at the same width in fp32, plain and
+speculative: after ``prewarm``, staggered traffic (admissions spliced
+between replays, a sampled request beside greedy ones) gives the greedy
+tokens of the same engine on the CPU, with every chunk replayed from its
+form's graph (greedy or sampling), enqueued without a host sync.
+
 It imports torch and the port only, so it also runs where jax is not
 installed. Every test needs an NVIDIA GPU and ``nvcc`` (the kernels are
 built at first use) and is skipped without them:
@@ -351,3 +357,86 @@ def test_spec_runner_replays_match_the_eager_loop(mode):
     assert device["extend_kernel"] == layers * run and device["decode_kernel"] == 0, device
     assert device == {label: n * run // rounds for label, n in eager_calls.items()}, \
         (device, eager_calls)
+
+
+def _to_card(tree):
+    if isinstance(tree, dict):
+        return {k: _to_card(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_card(v) for v in tree]
+    return tree.cuda() if isinstance(tree, torch.Tensor) else tree
+
+
+def _engine_traffic(engine, sampled):
+    """Staggered requests after a prewarm (every graph captured): two with
+    an image, two text-only, a slot freed and taken again; the second
+    samples when ``sampled``. Returns the requests' outputs in order."""
+    ids, pix = _batch()
+    rng = np.random.default_rng(4)
+    text = [rng.integers(3, 500, 11), rng.integers(3, 500, 17)]
+    rids = [engine.submit(ids[0], pix[0], max_new_tokens=24)]
+    engine.step()
+    rids.append(engine.submit(text[0], max_new_tokens=12,
+                              **(dict(temperature=0.8, top_p=0.9) if sampled else {})))
+    rids.append(engine.submit(ids[1], pix[1], max_new_tokens=16))
+    rids.append(engine.submit(text[1], max_new_tokens=20))
+    engine.run_until_drained()
+    return [engine.requests[r].output for r in rids]
+
+
+@pytest.mark.parametrize("spec_k", [0, 3], ids=["plain", "speculative"])
+def test_continuous_engine_matches_the_cpu_engine(spec_k):
+    """The continuous engine at the same width on fp32 weights and an fp32
+    cache, slots=2, chunks of 8: after ``prewarm`` (the plain engine's
+    greedy and sampling graphs captured, the speculative engine's one),
+    staggered traffic with admissions spliced between replays gives the
+    greedy tokens of the same engine on the CPU (the port's plain path),
+    the speculative engine those of the plain one; every chunk is enqueued
+    under ``set_sync_debug_mode("error")``, no chunk runs eagerly after its
+    form's capture, both forms run in the plain engine, and in a trace of
+    the traffic the admissions launch K1 and the chunks K2 (plain) or K2-M
+    and no K2 (speculative)."""
+    from dynamic_llava_tpu_torch.generation.continuous import ContinuousEngine
+
+    params = init_llava_params(CFG, torch.Generator().manual_seed(0), "cpu", torch.float32)
+    gc = tgen.GenerationConfig(max_new_tokens=24, decode_chunk=8, pad_multiple=8,
+                               cache_dtype="float32")
+    opts = dict(slots=2, prompt_bucket=48, max_new_cap=24, spec_k=spec_k)
+    ids, pix = _batch()
+    sampled = not spec_k
+
+    cpu = ContinuousEngine(params, CFG, gc, device="cpu", **opts)
+    want = _engine_traffic(cpu, sampled)
+    if spec_k:
+        plain = ContinuousEngine(params, CFG, gc, device="cpu", **dict(opts, spec_k=0))
+        assert _engine_traffic(plain, False) == want
+
+    card = ContinuousEngine(_to_card(params), CFG, gc, device="cuda", **opts)
+    card.prewarm(ids[0], pix[0])
+    runner = card.runner
+    forms = []
+    real = runner.run_chunk
+
+    def checked(**kw):
+        forms.append(kw.get("sampled"))
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real(**kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    runner.run_chunk = checked
+    captured = runner.eager_steps
+    got, seen = kc.device_launches(lambda: _engine_traffic(card, sampled))
+    assert runner.eager_steps == captured  # every chunk replayed
+    greedy = [i for i in range(len(want)) if not (sampled and i == 1)]
+    assert [got[i] for i in greedy] == [want[i] for i in greedy]
+    assert all(1 <= len(o) for o in got)
+    assert seen["flash_fwd"] > 0
+    if spec_k:
+        assert runner.graph is not None and runner.eager_steps == 1
+        assert seen["extend_kernel"] > 0 and seen["decode_kernel"] == 0
+    else:
+        assert set(runner.graphs) == {False, True} and runner.eager_steps == 2
+        assert {True, False} <= set(forms), forms
+        assert seen["decode_kernel"] > 0

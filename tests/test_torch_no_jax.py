@@ -1,7 +1,8 @@
 """The port never loads jax nor the JAX package: its sources (the package,
 ``chip_smoke.py``, ``tools/*.py``) import neither, and a fresh
 interpreter that imports the package (the quantized and the training paths
-included), generates on the CPU with fp32 (also speculatively) and then
+included), generates on the CPU with fp32 (also speculatively, and through
+the continuous-batching engine) and then
 int4 weights (also with
 the fused MLP, an int8 and an fp8 KV cache and the ring policy), and takes
 a train step, ends with neither ``jax`` nor ``dynamic_llava_tpu`` in
@@ -39,6 +40,14 @@ out = gen.generate(ids, pix)
 assert len(out) == 2 and all(1 <= len(o) <= 4 for o in out), out
 assert gen.generate_speculative(ids, pix, draft_k=2) == out
 assert gen.generate_speculative_device(ids, pix, draft_k=2) == out
+from dynamic_llava_tpu_torch.generation.continuous import ContinuousEngine
+
+engine = ContinuousEngine(params, cfg, GenerationConfig(max_new_tokens=4), slots=2,
+                          prompt_bucket=64, max_new_cap=4, device="cpu")
+rids = [engine.submit(i, p, max_new_tokens=4) for i, p in zip(ids, pix)]
+engine.run_until_drained()
+solo = [gen.generate([i], p[None], pad_to=64)[0] for i, p in zip(ids, pix)]
+assert [engine.requests[r].output for r in rids] == solo, solo
 from dynamic_llava_tpu_torch.generation import beam
 
 rows = [np.concatenate([[3, IMAGE_TOKEN_INDEX], np.arange(4, 70)]) for _ in range(2)]
