@@ -30,8 +30,9 @@ anywhere else. Phases, each of which raises on failure:
    K3 at every ``kernel_cases.FLASH_FWD_CASES`` / ``FLASH_BWD_CASES`` case,
    the edges of their 64-row tiles among them (S = 64, 65, 130, 200; GQA
    with 4 query heads a KV head; a ``kv_length`` of 0 and one in mid-tile;
-   K1 with a ``q_offset`` and Sq < Sk; bf16 and fp32), each launched twice
-   with ``torch.equal`` results; K1 is timed beside SDPA both with the masks
+   K1 with a ``q_offset`` and Sq < Sk; bf16 and fp32; head_dim 16 and 32,
+   zero-padded to 64 by the wrappers), each launched twice with
+   ``torch.equal`` results; K1 is timed beside SDPA both with the masks
    as a bool tensor and, at full lengths, with ``is_causal``; K3's delta
    kernel beside ``torch.linalg.vecdot`` on the fp32 values it forms;
    ``torch.autograd.grad`` through K1 + K3 against autograd through the
@@ -39,8 +40,9 @@ anywhere else. Phases, each of which raises on failure:
    against the CPU's. K2 at every ``kernel_cases.DECODE_CASES`` case: bf16,
    fp32, scaled-int8 and fp8 storage; lengths 0, 1, below / at / above the
    kernel's tile and split edges, at the capacity and past it; a sliding
-   window, also one that opens inside a split; head_dim 64 and 128; 1-8
-   query heads a KV head; B = 8; each launched twice with ``torch.equal``
+   window, also one that opens inside a split; head_dim 64 and 128 (and 16
+   and 32, zero-padded); 1-8 query heads a KV head; B = 8; each launched
+   twice with ``torch.equal``
    results; timed at max_len 768 / 256 and B = 4 / 8 beside one SDPA call
    (for int8 / fp8 storage: on the dequantized bf16 cache). K2's M-query
    form (K2-M, the continuation prefill's chunk attention; a bf16 q over a
@@ -65,9 +67,9 @@ anywhere else. Phases, each of which raises on failure:
    K = 11008, o, the lm_head with N = 32000) and rows 1, 8, 24, 64, and at
    the ``kernel_cases.QUANT_EDGE_CASES`` (a three-weight group of unequal
    widths, widths and K that end inside a tile or a k16 step, the 13B
-   shapes), each launched twice with ``torch.equal`` results: max abs error
-   relative to max |ref| within 1e-2 for bf16 outputs, 1e-4 for the fp32
-   lm_head; the weights rotate through copies larger than the 50 MB L2, as
+   shapes, widths that are not a multiple of 64, fp32 x), each launched
+   twice with ``torch.equal`` results: max abs error relative to max |ref|
+   within 1e-2 for bf16 outputs, 1e-4 for fp32 ones (the lm_head, fp32 x); the weights rotate through copies larger than the 50 MB L2, as
    a decode step finds them cold, and the yardstick (``@`` on the
    dequantized bf16 weight) is timed on one copy and, at rows 8, rotated
    the same way. K9 (the fused int4 MLP) at the 7B and 13B MLP shapes and
@@ -86,6 +88,17 @@ anywhere else. Phases, each of which raises on failure:
    overflow, int4 with the fused MLP) by their logits under teacher
    forcing; and two train steps in fp32 on shared Gumbel
    noise, losses within rtol 1e-3 and every parameter within atol 1e-4;
+4b. the quality gates on the card (``quality_gates``): the vision gate, the
+   output-text gate and the train-then-evaluate chain of
+   ``dynamic_llava_tpu_torch/run/``, fp32, seed 0, at the JAX tests' configs
+   and step counts (head_dim 16, zero-padded to 64 by the attention
+   wrappers), trained and evaluated through K1, K3, K4 and K2 (and K5 / K6
+   for the chain's int8 answers), each kernel's counter zeroed before a
+   gate and required to rise in it; the first training steps and the
+   evaluation of each gate held against the CPU's on the same weights and
+   noise; the JAX tests' thresholds computed for each gate and printed with
+   its rows on the ``quality`` line (which of them must hold: see
+   ``quality_gates``);
 5. serving at LLaVA-1.5-7B width (32 layers, random bf16 weights made on
    the card from a seed): two batches of 8 requests (one 336x336 image
    and 60 text tokens each, 64 new tokens, greedy) through
@@ -167,7 +180,11 @@ anywhere else. Phases, each of which raises on failure:
    then ring overflow (int8 KV, 256 new tokens at a decode window of 64,
    so both tiers wrap). On the card K9 must launch once per layer and
    decode step with the switch on and never with it off, K2 once per layer
-   and step in every mode. Cache bytes and peak memory are printed;
+   and step in every mode. Cache bytes and peak memory are printed. Then
+   the KV cosine (``kv_cosine``): the bf16-KV run's greedy tokens fed to an
+   int8-KV and an fp8-KV run (teacher forcing, B=8), the cosine of each
+   sample's last logits against bf16 KV's at decode steps 1, 16 and 64
+   (the ``kv_cosine`` line), every one finite;
 8. LLaVA-1.5-13B width (40 layers, hidden 5120, ffn 13824), an int4
    decoder made directly, fused MLP, B=1, 256 new tokens, sparse and dense;
 9. training at 7B width (TRAIN_DEPTH decoder layers, fresh random bf16
@@ -176,7 +193,21 @@ anywhere else. Phases, each of which raises on failure:
    S = 1663), then as many dense-stage steps on the same weights; the
    launch counters of K1, K3 (all three kernels) and K4 are zeroed before each
    and must equal the counts the layer layout implies; the loss must be
-   finite and the parameters changed.
+   finite and the parameters changed;
+9b. the remat policies ``nothing``, ``dots``, ``flash``, ``flash_dots`` and
+   ``alternate`` at 7B width (``remat_policies``): the first step's
+   gradients on ``REMAT_CHECK_DEPTH`` layers equal ``nothing``'s for every
+   policy (the same fresh weights, batch and noise); then REMAT_STEPS
+   sparse steps each at the largest of ``REMAT_DEPTHS`` that fits, K1 (the
+   CLIP tower's apart), K3 and K4 counted: once a layer and step under the
+   ``flash`` policies and ``alternate`` (F2: the forward's outputs are
+   saved), twice under ``nothing`` and ``dots`` (the ``remat`` line);
+9c. QLoRA at 7B width (``qlora``): an int4 decoder with rank-128 adapters
+   on all seven targets, ``lora_mode``, REMAT_STEPS sparse steps: the loss
+   finite, the base byte-equal, every adapter's B moved; then ``generate``
+   with the adapters (B=8, 16 tokens, the fused-MLP switch on): K7 / K8
+   launch, K9 never, the tokens equal an eager loop's (the ``qlora``
+   line).
 
 After the main path of each serving mode, outside its counts and trace,
 TIMED more batches are timed (the graph is reused), each followed by its
@@ -231,6 +262,20 @@ CONT_REQUESTS, CONT_ARRIVAL_S = 16, 0.3  # the trace: requests, seconds between 
 CONT_MAX_NEW = (64, 128)  # new tokens, alternating
 CONT_SAMPLED = (5, 10)  # requests that sample (temperature 0.8, top-p 0.9) where an arm samples
 CONT_SPEC_K = 4
+# phase 4b: the quality gates at the JAX tests' configs (text hidden 64 in 4
+# heads, a tower of hidden 32 in 2 heads: head_dim 16, which the attention
+# wrappers zero-pad to 64), fp32, seed 0, at the JAX tests' step counts
+GATE_VISION_STEPS = 150  # dense, then as many sparse
+GATE_TEXT_STEPS = (300, 400)  # dense, sparse
+GATE_CHAIN_STEPS = 40
+GATE_CHECK_STEPS = 5  # training steps of each stage held card against CPU
+COSINE_STEPS = (1, 16, 64)  # phase 7: decode steps at which the KV modes' logits are compared
+# phase 9b / 9c: the JAX package's remat policies and QLoRA at 7B width
+REMAT_POLICIES = ("nothing", "dots", "flash", "flash_dots", "alternate")
+REMAT_STEPS = 2  # per policy; the first is timed apart
+REMAT_DEPTHS = (32, 24, 16, 8)  # tried in turn until a policy's steps fit the card
+REMAT_CHECK_DEPTH = 4  # the gradient check's depth (the same weights for every policy)
+LORA_RANK, LORA_ALPHA = 128, 256.0  # run/finetune_qlora.sh's adapters
 # published peaks of one H100 SXM (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
@@ -588,7 +633,8 @@ def check_quant_kernels(torch):
     bf16 x and int8 / packed int4 weights (bf16 scales), at every
     ``kernel_cases.QUANT_CASES`` shape and ``QUANT_ROWS`` row count and at
     the ``QUANT_EDGE_CASES`` (a three-weight group of unequal widths, widths
-    and K that end inside a tile, a k16 step or a unit, the 13B shapes),
+    and K that end inside a tile, a k16 step or a unit, the 13B shapes,
+    widths that are not a multiple of 64, fp32 x),
     each launched twice for equal bits. Times (CUDA events over a graph
     replay) rotate through weight copies of more than 256 MB, so that every
     call reads its weights from HBM as a decode step does; beside them the
@@ -614,9 +660,10 @@ def check_quant_kernels(torch):
         res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
         res[name]["max_err_rel"] = max(res[name]["max_err_rel"], rel)
         return (f"  {name} int{bits} {case.label} [K={case.k} N={'+'.join(map(str, case.ns))} "
-                f"rows={rows}{' fp32 out' if case.out_fp32 else ''}]: max_abs_err={err:.3e}, "
-                f"/max|ref| {rel:.3e} (tol {kc.QUANT_TOL[case.out_fp32]:g}), two launches "
-                "equal: ok")
+                f"rows={rows}{' fp32 out' if case.out_fp32 else ''}"
+                f"{' fp32 x' if case.x_fp32 else ''}]: max_abs_err={err:.3e}, /max|ref| "
+                f"{rel:.3e} (tol {kc.QUANT_TOL[case.out_fp32 or case.x_fp32]:g}), two "
+                "launches equal: ok")
 
     for bits in (8, 4):
         for case in kc.QUANT_EDGE_CASES:
@@ -1056,10 +1103,11 @@ def check_small_train(torch):
     require(worst[0] <= 1e-4, f"small train: parameters differ by {worst[0]} at {worst[1]}")
 
 
-def train(torch, params, cfg, label, expect):
-    """TRAIN_STEPS steps of ``Trainer.train`` on ``params`` (updated in
-    place) with the launch counters of K1, K3 and K4 zeroed before and held
-    against ``expect`` after. Returns the measurements."""
+def train(torch, params, cfg, label, expect, steps=TRAIN_STEPS, remat_policy="nothing"):
+    """``steps`` steps of ``Trainer.train`` on ``params`` (updated in
+    place) under ``remat_policy`` with the launch counters of K1, K3 and K4
+    zeroed before and held against ``expect`` (a step's counts) after.
+    Returns the measurements."""
     import tempfile
 
     from dynamic_llava_tpu_torch.ops import flash_attention as fa
@@ -1087,14 +1135,15 @@ def train(torch, params, cfg, label, expect):
     with tempfile.TemporaryDirectory() as out_dir:
         # warmup 1 step of 100: the first step runs at lr 0, as in the JAX trainer
         tc = TrainerConfig(output_dir=out_dir, num_train_steps=100, warmup_ratio=0.01,
-                           logging_steps=1, save_steps=0, report_to="none", seed=SEED)
+                           logging_steps=1, save_steps=0, report_to="none", seed=SEED,
+                           remat_policy=remat_policy)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         trainer = Trainer(cfg, params, tc)
         for fn in counters.values():
             fn.launches = 0
         times, losses = [], []
-        for _ in range(TRAIN_STEPS):
+        for _ in range(steps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             metrics = trainer.train([(plan, images)])
@@ -1104,7 +1153,7 @@ def train(torch, params, cfg, label, expect):
         got = {n: fn.launches for n, fn in counters.items()}
         peak = torch.cuda.max_memory_allocated() / 2**30
         del trainer
-    want = {n: c * TRAIN_STEPS for n, c in expect.items()}
+    want = {n: c * steps for n, c in expect.items()}
     require(got == want, f"{label}: launches {got} != {want} (the layer layout's counts)")
     for i, m in enumerate(losses):
         require(all(np.isfinite(v) for v in m.values()), f"{label} step {i + 1}: {m}")
@@ -1115,7 +1164,8 @@ def train(torch, params, cfg, label, expect):
             f"{label}: a frozen leaf changed")
     step_s = sum(times[1:]) / len(times[1:])
     r = dict(first_step_s=times[0], step_ms=step_s * 1e3, tok_s=b * s / step_s,
-             peak_gib=peak, depth=cfg.text.num_hidden_layers, launches=got)
+             peak_gib=peak, depth=cfg.text.num_hidden_layers, launches=got,
+             launches_per_step={n: c // steps for n, c in got.items()})
     keys = ("loss", "lm_loss", "image_mask_loss", "output_text_mask_loss", "grad_norm")
     log(f"  {label}: depth {r['depth']}, B={b}, S={s}; first step {times[0]:.3f} s, then "
         f"{r['step_ms']:.1f} ms/step ({r['tok_s']:.1f} tok/s), peak {peak:.2f} GiB; "
@@ -2346,6 +2396,435 @@ def continuous(torch, params, cfg, arms, reqs, holds):
     return results
 
 
+def gate_configs():
+    """The gates' configs at the JAX tests' values: the vision gate's sparse
+    and dense configs, the text gate's, and its dense one."""
+    from dynamic_llava_tpu_torch.run import sparse_quality as sq
+    from dynamic_llava_tpu_torch.run import text_sparse_quality as tq
+
+    return (sq.make_cfg(64, 3, 0.2, sparse_layer=0),
+            sq.make_cfg(64, 3, 1.0, use_vision_predictor=False, sparse_layer=0),
+            tq.make_cfg(64, 3, 0), tq.make_cfg(64, 3, 0, use_output_text_predictor=False))
+
+
+def gate_eval_on_card_and_cpu(torch):
+    """Phase 4b's plain check of the gates' evaluation path: ``eval_arm`` of
+    both gates at their configs on the same random weights (seed 0, fp32),
+    the vision gate's learned and random arms, the text gate's dense and
+    random arms (its keep decisions all from the override), on the card (K1
+    in the tower and the prefill, K2 in each decode step) and on the CPU
+    (plain versions). The
+    discrete metrics (accuracy, F1, kept shares, keep rates) must be equal,
+    PPL and margin within 1e-3 relative (fp32, rounded to 4 decimals)."""
+    from dynamic_llava_tpu_torch.run import sparse_quality as sq
+    from dynamic_llava_tpu_torch.run import text_sparse_quality as tq
+    from dynamic_llava_tpu_torch.weights import init_llava_params, map_leaves
+
+    cont = ("holdout_answer_ppl", "answer_margin", "recall_ppl")
+    vcfg, _, tcfg, tdense = gate_configs()
+    p, a, im, sig, lab = sq.build_corpus(16, vcfg.vision.image_size, vcfg.vision.patch_size,
+                                         seed=SEED)
+    corpus = tq.build_corpus(16, 2, seed=SEED)
+    rng = np.random.default_rng(SEED + 7)
+    scores = rng.uniform(size=(16, vcfg.num_image_tokens))
+    t = corpus.answers.shape[1]
+    keep = (rng.uniform(size=(t - 1, 16)) < 0.5).astype(np.int32)
+    arms = [("vision learned@0.2", vcfg, lambda prm, dev: sq.eval_arm(
+                 prm, vcfg, p, a, im, sig, lab, device=dev)),
+            ("vision random@0.2", vcfg, lambda prm, dev: sq.eval_arm(
+                 prm, vcfg, p, a, im, sig, lab, score_override=scores, device=dev)),
+            ("text dense", tdense, lambda prm, dev: tq.eval_arm(prm, tdense, corpus,
+                                                                 device=dev)),
+            ("text random@0.5", tcfg, lambda prm, dev: tq.eval_arm(
+                 prm, tcfg, corpus, keep_override=keep, device=dev))]
+    for name, cfg, evaluate in arms:
+        cpu = init_llava_params(cfg, torch.Generator().manual_seed(SEED), "cpu", torch.float32)
+        rows = {dev: evaluate(map_leaves(lambda _, x: x.to(dev), cpu), dev)
+                for dev in ("cpu", "cuda")}
+        log(f"  eval {name}, card: {json.dumps(rows['cuda'])}")
+        for k, want in rows["cpu"].items():
+            got = rows["cuda"][k]
+            same = (abs(got - want) <= 1e-3 * abs(want) + 1e-4) if k in cont else got == want
+            require(same, f"eval {name}: {k} on the card {got} != on the CPU {want}")
+
+
+def gate_train_on_card_and_cpu(torch):
+    """Phase 4b's plain check of the gates' training path: ``GATE_CHECK_STEPS``
+    steps of each training stage of both gates (dense, then with the
+    predictor: the vision gate's ``train_sparse``, the text gate's
+    ``train_lm``) from the same random weights (seed 0, fp32, the
+    predictors made as ``run_all`` makes them) on the same uniform Gumbel
+    noise, on the card (K1 / K3 in the dense stages, K4 in the sparse ones)
+    and on the CPU (plain versions). The last step's ``lm_loss`` must agree
+    within 1e-4 relative, so that what the gates measure on the card is the
+    training the CPU runs, not a kernel's fault."""
+    from dynamic_llava_tpu_torch.run import sparse_quality as sq
+    from dynamic_llava_tpu_torch.run import text_sparse_quality as tq
+    from dynamic_llava_tpu_torch.weights import init_llava_params, init_predictors, map_leaves
+
+    vcfg, vdense, tcfg, tdense = gate_configs()
+    p, a, im, _, _ = sq.build_corpus(32, vcfg.vision.image_size, vcfg.vision.patch_size,
+                                     seed=SEED)
+    n, b = GATE_CHECK_STEPS, 32
+    s_vision = len(p[0]) + 1 + vcfg.num_image_tokens
+    s_text = len(tq.PROMPT) + tq.build_corpus(1, 2).answers.shape[1]
+
+    def vision(cfg, prm, dev, nz):
+        return sq.train_sparse(cfg, p, a, im, n, params=prm, device=dev, noise=nz)
+
+    def text(cfg, prm, dev, nz):
+        return tq.train_lm(cfg, 2, n, batch_size=b, params=prm, predictor_lr=6e-3, device=dev,
+                           noise=nz)
+
+    stages = [("vision dense", vdense, s_vision, vision),
+              ("vision sparse", vcfg, s_vision, vision),
+              ("text dense", tdense, s_text, text), ("text sparse", tcfg, s_text, text)]
+    rng = np.random.default_rng(SEED + 3)
+    for name, cfg, s, train in stages:
+        cpu = init_llava_params(cfg, torch.Generator().manual_seed(SEED), "cpu", torch.float32)
+        if cfg.sparse.any_predictor:
+            cpu["predictors"] = init_predictors(
+                cfg, torch.Generator().manual_seed(SEED + 1), "cpu", torch.float32,
+                text_keep_bias=3.0 if cfg.sparse.use_output_text_predictor else 0.0)
+        draws = [[np.clip(rng.uniform(size=shape), 1e-12, None).astype(np.float32)
+                  for shape in ((b, cfg.num_image_tokens, 2), (b, s, 2), (b, s, 2))]
+                 for _ in range(n)]
+        losses = {}
+        for dev in ("cpu", "cuda"):
+            prm = map_leaves(lambda _, x: x.clone().to(dev), cpu)
+            _, losses[dev] = train(cfg, prm, dev, lambda i, dev=dev: [
+                torch.from_numpy(u).to(dev) for u in draws[i]])
+        log(f"  train {name}: lm_loss after {n} steps card {losses['cuda']:.6f}, "
+            f"CPU {losses['cpu']:.6f}")
+        require(abs(losses["cuda"] - losses["cpu"]) <= 1e-4 * abs(losses["cpu"]),
+                f"train {name}: lm_loss on the card {losses['cuda']} != on the CPU "
+                f"{losses['cpu']}")
+
+
+def quality_gates(torch):
+    """Phase 4b: the port's quality gates on the card (``dynamic_llava_tpu_torch.run``)
+    at the JAX tests' configs and step counts, fp32, seed 0: the vision
+    gate, the output-text gate and the train-then-evaluate chain, each
+    trained and evaluated through the kernels (head_dim 16, zero-padded to
+    64 by the attention wrappers). The launch counters of K1, K3, K4 and K2
+    (and of K5 / K6 for the chain's int8 answers) are zeroed before each
+    and must rise in it (K4 runs only under a predictor, so not in the
+    chain); every row must be finite. The JAX tests' thresholds
+    (``gate_failures`` of each harness) are computed for each gate and
+    printed; the text gate's and the chain's must hold. The vision gate's
+    are reported, not required: the JAX harness itself meets them at seed 0
+    with the CPU's default thread count and misses them with one thread,
+    and at seeds 1 and 2 (ROADMAP C20, PERF.md's Findings), so their pass is
+    a property of one trajectory of its training. What the kernels must get
+    right is held apart, card against CPU, by ``gate_train_on_card_and_cpu``
+    and ``gate_eval_on_card_and_cpu``."""
+    import contextlib
+    import io
+
+    from dynamic_llava_tpu_torch.ops import flash_attention as fa
+    from dynamic_llava_tpu_torch.ops import quant_matmul as qm
+    from dynamic_llava_tpu_torch.ops.decode_attention import decode_attention
+    from dynamic_llava_tpu_torch.ops.flash_policy import flash_policy_attention
+    from dynamic_llava_tpu_torch.run import quant_quality as qq
+    from dynamic_llava_tpu_torch.run import sparse_quality as sq
+    from dynamic_llava_tpu_torch.run import text_sparse_quality as tq
+
+    gate_train_on_card_and_cpu(torch)
+    gate_eval_on_card_and_cpu(torch)
+    counters = {"K1": (fa.flash_attention,),
+                "K3": (fa.flash_attention_bwd_delta, fa.flash_attention_bwd_dq,
+                       fa.flash_attention_bwd_dkv),
+                "K4": (flash_policy_attention,), "K2": (decode_attention,),
+                "K5/K6": (qm.q8_gemv, qm.q8_gemv_group)}
+    dense_v = GATE_VISION_STEPS
+    dense_t, sparse_t = GATE_TEXT_STEPS
+    gates = [
+        ("vision", {"steps": dense_v + dense_v},
+         lambda: sq.run_all(steps=dense_v, pairs=32, holdout=32, hidden=64, layers=3,
+                            dense_steps=dense_v, sparse_layer=0, seed=SEED, device="cuda"),
+         lambda res: sq.gate_failures(*res), ("K1", "K3", "K4", "K2"), False),
+        ("text", {"steps": dense_t + sparse_t},
+         lambda: tq.run_all(steps=sparse_t, batch=32, holdout=32, hidden=64, layers=3, k=2,
+                            sparse_layer=0, seed=SEED, dense_steps=dense_t,
+                            predictor_lr=6e-3, device="cuda"),
+         lambda res: tq.gate_failures(*res), ("K1", "K3", "K4", "K2"), True),
+        ("train-eval", {"steps": GATE_CHAIN_STEPS},
+         lambda: qq.run_gate(steps=GATE_CHAIN_STEPS, device="cuda"),
+         qq.gate_failures, ("K1", "K3", "K2", "K5/K6"), True),
+    ]
+    out = {}
+    for name, info, run, failures, need, held in gates:
+        for fns in counters.values():
+            for fn in fns:
+                fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):  # the harness's own JSON lines
+            res = run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k: sum(fn.launches for fn in fns) for k, fns in counters.items()}
+        fails = failures(res)
+        if name == "train-eval":
+            rows = {"chain": {"lm_loss": res["lm_loss"],
+                              **{f"{key}_{m}": res[key][m] for key in ("pope", "pope_int8")
+                                 for m in ("accuracy", "f1")}}}
+            gaps = None
+        else:
+            rows, gaps = res
+        out[name] = dict(info, seconds=round(secs, 1), rows=rows, gaps=gaps,
+                         launches=launches, thresholds_failed=fails, thresholds_held=held)
+        log(f"  gate {name}: {secs:.1f} s, {info['steps']} train steps; launches {launches}")
+        for arm, row in rows.items():
+            log(f"    {arm}: {json.dumps(row)}")
+        log(f"    gaps {json.dumps(gaps)}; JAX thresholds "
+            + (f"failed: {fails}" if fails else "met") + ("" if held else " (reported)"))
+        require(all(launches[k] > 0 for k in need),
+                f"gate {name}: a kernel of its path did not launch: {launches}")
+        require(all(np.isfinite(v) for row in rows.values() for v in row.values()
+                    if v is not None), f"gate {name}: a row is not finite: {rows}")
+        require(not (held and fails), f"gate {name}: thresholds not met: {fails}")
+    return out
+
+
+def kv_cosine(torch, params, cfg, b=8, n_text=60):
+    """Phase 7, KV quality: on ``params`` (the int4 decoder), B=``b`` requests
+    (one image and ``n_text`` tokens each, as ``serve`` makes them) are
+    prefilled with a bf16, an int8 and an fp8 KV cache; the bf16 run
+    decodes greedily and its tokens are fed to the other two (teacher
+    forcing, so errors do not compound). At each of ``COSINE_STEPS`` the
+    cosine of each sample's last logits against the bf16 run's; every one
+    must be finite. Returns ``{cache: {step: [min, mean]}}``."""
+    from dynamic_llava_tpu_torch.config import IMAGE_TOKEN_INDEX
+    from dynamic_llava_tpu_torch.generation.generate import GenerationConfig, Generator
+    from dynamic_llava_tpu_torch.models.dynamic import decode_step
+    from dynamic_llava_tpu_torch.multimodal.fusion import plan_batch
+
+    rng = np.random.default_rng(SEED)
+    vocab, size = cfg.text.vocab_size, cfg.vision.image_size
+    ids = [np.concatenate([rng.integers(3, vocab, n_text // 2), [IMAGE_TOKEN_INDEX],
+                           rng.integers(3, vocab, n_text - n_text // 2)])
+           for _ in range(b)]
+    pix = rng.standard_normal((b, size, size, 3), dtype=np.float32)
+    steps = max(COSINE_STEPS)
+    logits, tokens = {}, None
+    for kv in ("bfloat16", "int8", "float8_e4m3fn"):
+        gc = GenerationConfig(max_new_tokens=steps, temperature=0.0, eos_token_id=-1,
+                              cache_dtype=kv)
+        plan = plan_batch(ids, cfg.num_image_tokens, pad_multiple=gc.pad_multiple)
+        gen = Generator(params, cfg, gc)
+        got, fed = {}, []
+        with torch.inference_mode():
+            state, _ = gen.prefill_from_plan(plan, pix, steps)
+            for i in range(steps):
+                tok = torch.argmax(state.last_logits, dim=-1) if tokens is None else tokens[i]
+                state = decode_step(gen.params, gen.cfg, tok, state)
+                fed.append(tok)
+                if i + 1 in COSINE_STEPS:
+                    got[i + 1] = state.last_logits.float().clone()
+        tokens = fed if tokens is None else tokens
+        logits[kv] = got
+        del gen, state
+        torch.cuda.empty_cache()
+    out = {}
+    for kv in ("int8", "float8_e4m3fn"):
+        out[kv] = {}
+        for step in COSINE_STEPS:
+            cos = torch.nn.functional.cosine_similarity(logits[kv][step],
+                                                        logits["bfloat16"][step], dim=-1)
+            require(bool(torch.isfinite(cos).all()), f"KV cosine {kv} step {step}: {cos}")
+            out[kv][step] = [cos.min().item(), cos.mean().item()]
+        log(f"  KV cosine against bf16 KV, {kv}: " + ", ".join(
+            f"step {st}: min {v[0]:.6f} mean {v[1]:.6f}" for st, v in out[kv].items()))
+    return out
+
+
+def remat_policies(torch, cfg_sparse):
+    """Phase 9b: the JAX package's remat policies at 7B width (B=4, S=1663,
+    bf16). First the gradients: on ``REMAT_CHECK_DEPTH`` layers, the same
+    fresh weights, batch and noise for every policy, one step each; every
+    gradient leaf must match ``nothing``'s within ``BF16_TOL`` of its max
+    |grad| (the recompute repeats the same arithmetic). Then each policy's
+    ``Trainer`` for REMAT_STEPS sparse steps at the largest of
+    ``REMAT_DEPTHS`` that fits the card (an out-of-memory error frees
+    everything and takes the next), with K1 (the CLIP tower's apart), K3
+    and K4 counted: once a layer and step under ``flash``, ``flash_dots``
+    and ``alternate``, twice under ``nothing`` and ``dots``. Returns each
+    policy's measurements."""
+    import gc
+
+    from dynamic_llava_tpu_torch.train.optimizer import label_params, make_optimizer
+    from dynamic_llava_tpu_torch.train.step import batch_from_plan, make_train_step
+    from dynamic_llava_tpu_torch.weights import init_llava_params
+
+    dev = torch.device("cuda")
+
+    def at_depth(depth):
+        return dataclasses.replace(
+            cfg_sparse, text=dataclasses.replace(cfg_sparse.text, num_hidden_layers=depth))
+
+    check = at_depth(REMAT_CHECK_DEPTH)
+    plan, images = train_batch(check, TRAIN_BATCH, TRAIN_TEXT_LEN)
+    batch = batch_from_plan(plan, images, dev)
+    ref, grad_err = None, {}
+    for policy in REMAT_POLICIES:
+        params = init_llava_params(check, torch.Generator(device=dev).manual_seed(SEED + 3), dev,
+                                   torch.bfloat16)
+        opt = make_optimizer()
+        step = make_train_step(check, opt, remat=True, remat_policy=policy,
+                               labels=label_params(params))
+        step(params, opt.init(params), batch, torch.Generator(device=dev).manual_seed(SEED), 1.0)
+        grads = step.grad_buffers
+        if ref is None:
+            ref = {p: g.clone() for p, g in grads.items()}
+        else:
+            require(sorted(grads) == sorted(ref), f"remat {policy}: other gradient leaves")
+            worst = max(((grads[p].float() - ref[p].float()).abs().max().item()
+                         / max(ref[p].float().abs().max().item(), 1e-30), p) for p in ref)
+            grad_err[policy] = worst[0]
+            log(f"  remat {policy}: first-step gradients at depth {REMAT_CHECK_DEPTH} against "
+                f"nothing's: max |diff| / max |grad| {worst[0]:.3e} (at {worst[1]}; "
+                f"tolerance {BF16_TOL})")
+            require(worst[0] <= BF16_TOL, f"remat {policy}: gradients differ from nothing's")
+        del params, opt, step, grads
+        torch.cuda.empty_cache()
+    del ref, batch
+    torch.cuda.empty_cache()
+
+    vis = cfg_sparse.vision
+    clip_layers = vis.num_hidden_layers + vis.select_layer + 1
+    sl = cfg_sparse.sparse.sparse_layer
+    out = {}
+    for policy in REMAT_POLICIES:
+        runs = 1 if policy in ("flash", "flash_dots", "alternate") else 2
+        for depth in REMAT_DEPTHS:
+            cfg = at_depth(depth)
+            expect = {"flash_attention_fwd": clip_layers + runs * sl,
+                      "flash_attention_bwd_delta": sl, "flash_attention_bwd_dq": sl,
+                      "flash_attention_bwd_dkv": sl,
+                      "flash_policy_attention_fwd": runs * (depth - sl)}
+            params = init_llava_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 1),
+                                       dev, torch.bfloat16)
+            try:
+                r = train(torch, params, cfg, f"remat {policy}", expect, steps=REMAT_STEPS,
+                          remat_policy=policy)
+            except torch.cuda.OutOfMemoryError:
+                r = None
+                log(f"  remat {policy}: out of memory at depth {depth}")
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+            if r is not None:
+                r["decoder_k1_launches_per_step"] = r["launches_per_step"][
+                    "flash_attention_fwd"] - clip_layers
+                r["clip_k1_launches_per_step"] = clip_layers
+                r["grad_max_rel_diff"] = grad_err.get(policy, 0.0)
+                out[policy] = r
+                break
+        require(policy in out, f"remat {policy}: no depth of {REMAT_DEPTHS} fits the card")
+    return out
+
+
+def qlora(torch, cfg_sparse):
+    """Phase 9c: QLoRA at 7B width: an int4 decoder made directly with
+    rank-``LORA_RANK`` bf16 adapters on all seven targets, ``lora_mode``,
+    REMAT_STEPS sparse steps of ``Trainer.train`` (B=4, S=1663, remat
+    ``nothing``, lr 2e-4 and a projector lr of 2e-5 as in
+    ``run/finetune_qlora.sh``): the loss finite, every base leaf (int4
+    values, scales, norms, embedding) byte-equal after, every adapter's B
+    changed in every layer. Then greedy ``generate`` with the adapters
+    attached (B=8, 16 new tokens) with ``DYNAMIC_LLAVA_Q4_MLP=1``: K7 and
+    K8 must launch and K9 never (every MLP leaf has an adapter), and the
+    tokens must equal an eager loop's (``eager_decode``)."""
+    import os
+    import tempfile
+
+    from dynamic_llava_tpu_torch.config import IMAGE_TOKEN_INDEX
+    from dynamic_llava_tpu_torch.generation.generate import GenerationConfig, Generator
+    from dynamic_llava_tpu_torch.multimodal.fusion import plan_batch
+    from dynamic_llava_tpu_torch.ops import quant_matmul as qm
+    from dynamic_llava_tpu_torch.ops.quant import init_quantized_llama_params
+    from dynamic_llava_tpu_torch.train.lora import attach_lora, init_lora_params
+    from dynamic_llava_tpu_torch.train.trainer import Trainer, TrainerConfig
+    from dynamic_llava_tpu_torch.weights import init_llava_params, named_leaves, param_bytes
+
+    dev = torch.device("cuda")
+    text = cfg_sparse.text
+    params = init_llava_params(
+        dataclasses.replace(cfg_sparse, text=dataclasses.replace(text, num_hidden_layers=0)),
+        torch.Generator(device=dev).manual_seed(SEED + 4), dev, torch.bfloat16)
+    params["llm"] = init_quantized_llama_params(
+        text, torch.Generator(device=dev).manual_seed(SEED + 4), dev, bits=4)
+    adapters = init_lora_params(text, torch.Generator(device=dev).manual_seed(SEED + 5),
+                                rank=LORA_RANK, alpha=LORA_ALPHA, dtype=torch.bfloat16,
+                                device=dev)
+    params = attach_lora(params, adapters)
+    base = {p: t.clone() for p, t in named_leaves(params["llm"]) if "_lora" not in p}
+    log(f"  int4 decoder {param_bytes(base) / 2**30:.2f} GiB, adapters "
+        f"{param_bytes(adapters) / 2**30:.3f} GiB (rank {LORA_RANK}, all seven targets)")
+    plan, images = train_batch(cfg_sparse, TRAIN_BATCH, TRAIN_TEXT_LEN)
+    b, s = plan.token_ids.shape
+    with tempfile.TemporaryDirectory() as out_dir:
+        tc = TrainerConfig(output_dir=out_dir, num_train_steps=100, warmup_ratio=0.01,
+                           logging_steps=1, save_steps=0, report_to="none", seed=SEED,
+                           learning_rate=2e-4, mm_projector_lr=2e-5, lora_mode=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = Trainer(cfg_sparse, params, tc)
+        times, losses = [], []
+        for _ in range(REMAT_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(trainer.train([(plan, images)]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        params = trainer.params
+        del trainer
+    require(all(np.isfinite(m["loss"]) for m in losses), f"qlora: losses {losses}")
+    leaves = dict(named_leaves(params["llm"]))
+    changed = [p for p, t in base.items() if not torch.equal(leaves[p], t)]
+    require(not changed, f"qlora: base leaves changed: {changed}")
+    for name in adapters:
+        bl = params["llm"]["layers"][name]["b"]
+        require(bool((bl != 0).flatten(1).any(1).all()), f"qlora: {name} B did not change")
+    del base
+    step_s = sum(times[1:]) / len(times[1:])
+    r = dict(first_step_s=times[0], step_ms=step_s * 1e3, tok_s=b * s / step_s, peak_gib=peak,
+             depth=text.num_hidden_layers, rank=LORA_RANK,
+             losses=[{k: m[k] for k in ("loss", "lm_loss")} for m in losses])
+    log(f"  qlora: depth {r['depth']}, B={b}, S={s}; first step {times[0]:.3f} s, then "
+        f"{r['step_ms']:.1f} ms/step ({r['tok_s']:.1f} tok/s), peak {peak:.2f} GiB; "
+        f"losses {r['losses']}; base byte-equal, every adapter B moved")
+
+    rng = np.random.default_rng(SEED)
+    vocab, size = text.vocab_size, cfg_sparse.vision.image_size
+    ids = [np.concatenate([rng.integers(3, vocab, 30), [IMAGE_TOKEN_INDEX],
+                           rng.integers(3, vocab, 30)]) for _ in range(8)]
+    pix = rng.standard_normal((8, size, size, 3), dtype=np.float32)
+    gc_ = GenerationConfig(max_new_tokens=16, temperature=0.0, eos_token_id=-1)
+    gen = Generator(params, cfg_sparse, gc_)
+    os.environ[Q4_MLP_SWITCH] = "1"
+    try:
+        for fn in (qm.q4_gemv, qm.q4_gemv_group, qm.q4_mlp):
+            fn.launches = 0
+        out = gen.generate(ids, pix)
+        got = {"q4_gemv": qm.q4_gemv.launches, "q4_gemv_group": qm.q4_gemv_group.launches,
+               "q4_mlp": qm.q4_mlp.launches}
+        plan_g = plan_batch(ids, cfg_sparse.num_image_tokens, pad_multiple=gc_.pad_multiple)
+        ref, _, _ = eager_decode(torch, gen, plan_g, pix, 16)
+    finally:
+        os.environ.pop(Q4_MLP_SWITCH, None)
+    log(f"  qlora generate (B=8, 16 tokens, adapters attached, fused MLP switched on): "
+        f"wrapper calls {got}")
+    require(got["q4_gemv"] > 0 and got["q4_gemv_group"] > 0 and got["q4_mlp"] == 0,
+            f"qlora generate: K7 / K8 must launch and K9 never: {got}")
+    require(np.array_equal(np.asarray(out).T, ref),
+            "qlora generate: the graph's tokens differ from the eager loop's")
+    r["generate_launches"] = got
+    return r
+
+
 def main() -> int:
     if not (ROOT / "dynamic_llava_tpu_torch" / "csrc").is_dir():
         raise SystemExit(
@@ -2414,6 +2893,10 @@ def main() -> int:
     phase("phase 4: small model, card against plain CPU path")
     check_small_model(torch)
     check_small_train(torch)
+
+    phase("phase 4b: the quality gates on the card: vision, output text, train then evaluate "
+          "(the JAX tests' configs, head_dim 16 zero-padded to 64, fp32)")
+    quality = quality_gates(torch)
 
     counters = {"flash_attention_fwd": flash_attention,
                 "decode_attention_appended": decode_attention,
@@ -2570,6 +3053,7 @@ def main() -> int:
     ring = dict(cache_dtype="int8", kv_overflow="ring", kv_window=64)
     drive("ring", params, [("sparse int8-KV fused MLP, 256 new tokens", cfg_sparse,
                             dict(fused=True, gen=ring))], max_new=256)
+    cosine = kv_cosine(torch, params, cfg_sparse)
     del params["llm"]
     torch.cuda.empty_cache()
 
@@ -2624,6 +3108,18 @@ def main() -> int:
     for n in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv", "flash_policy_attention_fwd"):
         launches[n] = calls[n] = results["train"]["sparse"]["launches"][n]
     del params
+    torch.cuda.empty_cache()
+
+    phase(f"phase 9b: the remat policies {', '.join(REMAT_POLICIES)} at LLaVA-1.5-7B width, "
+          f"sparse steps, each at the largest depth of {REMAT_DEPTHS} that fits")
+    t0 = time.perf_counter()
+    remat = remat_policies(torch, cfg_sparse)
+    log(f"  phase 9b: {time.perf_counter() - t0:.1f} s")
+    phase(f"phase 9c: QLoRA at LLaVA-1.5-7B width: int4 decoder, rank-{LORA_RANK} adapters "
+          "on all seven targets, lora_mode")
+    t0 = time.perf_counter()
+    qlora_r = qlora(torch, cfg_sparse)
+    log(f"  phase 9c: {time.perf_counter() - t0:.1f} s")
     require("jax" not in sys.modules and "dynamic_llava_tpu" not in sys.modules,
             "jax or the JAX package was imported")
     for label, runs in results.items():
@@ -2680,15 +3176,19 @@ def main() -> int:
              "q4_gemv": ("shapes",), "q4_gemv_group": ("shapes",),
              "q4_mlp": ("two_kernel_ms", "shapes"),
              "flash_policy_attention_fwd": ("vsum_ms", "main_ms", "sdpa_log_policy_mask_ms",
-                                            "bf16_rounding_err"),
+                                            "bf16_rounding_err", "launches_per_step_by_policy"),
              "flash_attention_fwd": ("full_length_ms", "library_full_length_ms", "clip",
-                                     "train_shape"),
+                                     "train_shape", "launches_per_step_by_policy"),
              "flash_attention_bwd_dq": ("delta_ms", "delta_plain_ms", "delta_bound_ms",
                                         "delta_library_ms", "delta_max_abs_err",
                                         "whole_backward_ms")}
     # the launches of a GEMV wrapper and its group form are one kernel's
     shared = {"q8_gemv": "q8_gemv_group", "q8_gemv_group": "q8_gemv",
               "q4_gemv": "q4_gemv_group", "q4_gemv_group": "q4_gemv"}
+    # F2: what a training step launches under each remat policy
+    for name in ("flash_attention_fwd", "flash_policy_attention_fwd"):
+        kres[name]["launches_per_step_by_policy"] = {
+            policy: r["launches_per_step"][name] for policy, r in remat.items()}
     log(f"  all phases done [at {time.perf_counter() - T0:.0f} s]")
     print("decode_graph " + json.dumps({
         f"{label} {mode}": r["graph"] for label, runs in results.items()
@@ -2702,6 +3202,14 @@ def main() -> int:
         mode: {k: r[k] for k in ("ttft_ms", "continue_ms", "chunks", "decode_tok_s",
                                  "round_decode_tok_s", "capture_ms", "peak_gib", "steps")}
         for mode, r in results["chat"].items()}))
+    print("quality " + json.dumps(quality))
+    print("kv_cosine " + json.dumps(cosine))
+    print("remat " + json.dumps({
+        policy: {k: r[k] for k in ("depth", "first_step_s", "step_ms", "tok_s", "peak_gib",
+                                   "launches_per_step", "decoder_k1_launches_per_step",
+                                   "clip_k1_launches_per_step", "grad_max_rel_diff")}
+        for policy, r in remat.items()}))
+    print("qlora " + json.dumps(qlora_r))
     print("continuous " + json.dumps({
         arm: {k: v for k, v in r.items() if k not in ("device_launches", "wrapper_calls")}
         for arm, r in cont.items()}))

@@ -124,6 +124,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                "l"(src) : "memory");
 }
 
+// arrives on the barrier once (release: this thread's earlier shared-memory
+// stores are visible to a thread that has waited for the phase)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{ .reg .b64 st; mbarrier.arrive.shared::cta.b64 st, [%0]; }" ::"r"(
+                   smem_addr(bar)) : "memory");
+}
+
 // arrives on `bar` once every cp.async this thread started so far has landed
 __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(

@@ -10,8 +10,8 @@
 // q [K, N] or a split-half packed int4 weight [K, N/2] (byte j: column j in
 // the low nibble, column N/2 + j in the high nibble), per-output-column
 // scales s [N] (bf16 or fp32) and y [rows, N] (bf16 or fp32), K a multiple
-// of 8 up to 16384 and N of 64. Sums are fp32 and the scale is applied
-// once, after the whole K loop. A group launch takes 1-3 weights that share
+// of 8 up to 16384 and any N (even for int4). Sums are fp32 and the scale is
+// applied once, after the whole K loop. A group launch takes 1-3 weights that share
 // x (q/k/v, gate/up): the grid spans their concatenated column tiles.
 //
 // What bounds it on the H100: bytes of weight read per call. At decode row
@@ -61,6 +61,13 @@
 // - each weight element is read by one thread and applied to every row of x:
 //   64 fp32 accumulators a thread (128 at 64 rows), MT rows (x's rows
 //   rounded up to 8, 16, 32 or 64) times 64/MT columns.
+// Any N: the last column tile of a weight may be narrower than a tile. Its
+// bytes past the row's end are never copied (the products there use stale,
+// always finite bytes) and their columns are never stored. A weight whose row
+// is not a whole number of 16-byte pieces (int8 N, or int4 N / 2, not a
+// multiple of 16: a small vocabulary's lm_head) cannot take 16-byte cp.async
+// copies; its tiles are copied a byte a thread instead (plain loads and
+// shared-memory stores), a slow path for the small weights that have it.
 // Left for later: wgmma, and TMA copies of the units (PERF.md).
 
 #include <cooperative_groups.h>
@@ -105,7 +112,7 @@ __device__ __forceinline__ Slice locate(const Group& g, int split, int rank, int
   s.tile = blockIdx.x / split;
   s.j = 0;
   for (; s.j < g.nw - 1; ++s.j) {
-    const int t = g.n[s.j] / kTileCols;
+    const int t = (g.n[s.j] + kTileCols - 1) / kTileCols;
     if (s.tile < t) break;
     s.tile -= t;
   }
@@ -119,25 +126,37 @@ __device__ __forceinline__ Slice locate(const Group& g, int split, int rank, int
 
 // Issues the cp.async copies of the slice (group gi: rows [256 gi, 256 gi +
 // 256) to slab rows of kRowStride bytes); every thread arrives on each
-// group's mbarrier once its copies have landed. Returns the number of groups.
+// group's mbarrier once its copies have landed. A row that is not a whole
+// number of 16-byte pieces is copied a byte a thread, and then each thread
+// arrives after its stores. Returns the number of groups.
 template <bool INT4, int Threads>
 __device__ __forceinline__ int copy_slice(unsigned char* slab, uint64_t* bars,
                                           const Group& g, const Slice& s) {
-  constexpr int kPerRow = kTileBytes<INT4> / 16;
   const int ngroups = (s.nrows + kGroupRows - 1) / kGroupRows;
   if (threadIdx.x == 0)
     for (int gi = 0; gi < ngroups; ++gi) mbar_init(&bars[gi], Threads);
   __syncthreads();
-  const size_t ldw = INT4 ? g.n[s.j] / 2 : g.n[s.j];
+  const int ldw = INT4 ? g.n[s.j] / 2 : g.n[s.j];
+  // bytes of the tile's rows inside the weight (fewer in a narrower last tile)
+  const int valid = min(kTileBytes<INT4>, ldw - s.tile * kTileBytes<INT4>);
   const int8_t* src = g.w[s.j] + size_t(s.tile) * kTileBytes<INT4> + size_t(s.kb) * ldw;
+  const bool whole = ldw % 16 == 0;
+  const int per_row = whole ? valid / 16 : valid;  // copies a row: pieces or bytes
   for (int gi = 0; gi < ngroups; ++gi) {
-    const int end = min(kGroupRows, s.nrows - gi * kGroupRows) * kPerRow;
+    const int end = min(kGroupRows, s.nrows - gi * kGroupRows) * per_row;
     for (int c = threadIdx.x; c < end; c += Threads) {
-      const int row = gi * kGroupRows + c / kPerRow, part = c % kPerRow;
-      cp_async16(slab + row * kRowStride<INT4> + part * 16,
-                 src + size_t(row) * ldw + part * 16);
+      const int row = gi * kGroupRows + c / per_row, part = c % per_row;
+      if (whole)
+        cp_async16(slab + row * kRowStride<INT4> + part * 16,
+                   src + size_t(row) * ldw + part * 16);
+      else
+        slab[row * kRowStride<INT4> + part] =
+            static_cast<unsigned char>(src[size_t(row) * ldw + part]);
     }
-    cp_async_arrive(&bars[gi]);
+    if (whole)
+      cp_async_arrive(&bars[gi]);
+    else
+      mbar_arrive(&bars[gi]);
   }
   return ngroups;
 }
@@ -159,18 +178,18 @@ __device__ __forceinline__ void finish(float* part, int nparts, const Group& g,
   cluster.sync();
   const int rank = static_cast<int>(cluster.block_rank());
   const int split = static_cast<int>(cluster.num_blocks());
-  const int N = g.n[s.j];
+  const int N = g.n[s.j], ldw = INT4 ? N / 2 : N;
   for (int idx = rank * Threads + threadIdx.x; idx < rows * kTileCols;
        idx += split * Threads) {
+    // tile column -> weight byte -> output column; int4: tile columns [0, 32)
+    // are the low nibbles of the tile's 32 bytes, [32, 64) the high ones
+    const int r = idx / kTileCols, cl = idx % kTileCols;
+    const bool high = INT4 && cl >= kTileCols / 2;
+    const int byte = s.tile * kTileBytes<INT4> + (high ? cl - kTileCols / 2 : cl);
+    if (byte >= ldw) continue;  // past the end of a narrower last tile
+    const int col = high ? N / 2 + byte : byte;
     float v = 0.f;
     for (int q = 0; q < split; ++q) v += cluster.map_shared_rank(part, q)[idx];
-    const int r = idx / kTileCols, cl = idx % kTileCols;
-    int col;  // tile column -> output column; int4: [0, 32) low, [32, 64) high
-    if constexpr (INT4)
-      col = cl < kTileCols / 2 ? s.tile * (kTileCols / 2) + cl
-                               : N / 2 + s.tile * (kTileCols / 2) + cl - kTileCols / 2;
-    else
-      col = s.tile * kTileCols + cl;
     store_out(g.y[s.j], size_t(r) * N + col, v * load_scale(g.s[s.j], col, s_dtype),
               y_dtype);
   }
@@ -280,15 +299,24 @@ gemv_tc_kernel(const __nv_bfloat16* __restrict__ x, Group g, int rows, int K,
   auto send = [&](uint32_t n, const Walk& p) {
     const int nrows = min(S::KR, K - p.k0);
     const int ldw = INT4 ? g.n[p.w] / 2 : g.n[p.w];  // bytes of a weight row
-    const int valid = min(S::TB, ldw - p.tile * S::TB) / 16;  // 16-byte pieces of a tile row
+    const int valid = min(S::TB, ldw - p.tile * S::TB);  // bytes of a tile row in the weight
     unsigned char* xd = stage_of(n);
     unsigned char* wd = xd + S::kXBytes;
     const int8_t* src = g.w[p.w] + size_t(p.k0) * ldw + size_t(p.tile) * S::TB;
-    constexpr int kPieces = S::TB / 16;  // of a whole tile row
-    const int piece = tid % kPieces;
-    if (piece < valid)
-      for (int row = tid / kPieces; row < nrows; row += S::Threads / kPieces)
-        cp_async16(wd + row * S::RS + piece * 16, src + size_t(row) * ldw + piece * 16);
+    if (ldw % 16 == 0) {
+      constexpr int kPieces = S::TB / 16;  // of a whole tile row
+      const int piece = tid % kPieces;
+      if (piece * 16 < valid)
+        for (int row = tid / kPieces; row < nrows; row += S::Threads / kPieces)
+          cp_async16(wd + row * S::RS + piece * 16, src + size_t(row) * ldw + piece * 16);
+    } else {
+      // rows that are not whole 16-byte pieces: a byte a thread, stored before
+      // the barrier that precedes this unit's products
+      for (int c = tid; c < nrows * valid; c += S::Threads) {
+        const int row = c / valid, b = c - row * valid;
+        wd[row * S::RS + b] = static_cast<unsigned char>(src[size_t(row) * ldw + b]);
+      }
+    }
     // whole k16 steps of x: a last half step is zero-filled, so the weight
     // rows past the unit (stale bytes, always finite) meet zeros
     constexpr int kXPieces = S::KR / 8;  // 16-byte pieces of a whole x row
@@ -659,7 +687,7 @@ cudaError_t launch(void (*kernel)(const float*, Group, int, int, int, int),
                    int threads, int smem_bytes, const void* x, const Group& g,
                    int rows, int K, int s_dtype, int y_dtype, cudaStream_t stream) {
   int tiles = 0;
-  for (int j = 0; j < g.nw; ++j) tiles += g.n[j] / kTileCols;
+  for (int j = 0; j < g.nw; ++j) tiles += (g.n[j] + kTileCols - 1) / kTileCols;
   const int split = pick_split(tiles, K);
   if (split > kMaxSplit) return cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
@@ -739,12 +767,12 @@ cudaError_t launch_rows(const void* x, bool bf16, const Group& g, int rows, int 
   return launch_fma<64, INT4>(x, g, rows, K, s_dtype, y_dtype, stream);
 }
 
-bool shapes_ok(const Group& g, int rows, int K) {
+bool shapes_ok(const Group& g, int rows, int K, bool int4) {
   if (rows < 1 || rows > 64 || K < 8 || K % 8 != 0 || K > kMaxSplit * kSlabRows ||
       g.nw < 1 || g.nw > kMaxGroup)
     return false;
   for (int j = 0; j < g.nw; ++j)
-    if (g.n[j] <= 0 || g.n[j] % kTileCols != 0) return false;
+    if (g.n[j] <= 0 || (int4 && g.n[j] % 2 != 0)) return false;
   return true;
 }
 
@@ -752,7 +780,7 @@ int dispatch(const void* x, const Group& g, int rows, int K, bool int4,
              int x_dtype, int s_dtype, int y_dtype, const Scratch& sc, void* stream) {
   // the one statement of the shape contract (the Python wrappers check only
   // devices, dtypes, shapes and contiguity, which these pointers cannot show)
-  if (!shapes_ok(g, rows, K) || reinterpret_cast<uintptr_t>(x) % 16 != 0)
+  if (!shapes_ok(g, rows, K, int4) || reinterpret_cast<uintptr_t>(x) % 16 != 0)
     return cudaErrorInvalidValue;
   for (int j = 0; j < g.nw; ++j)
     if (reinterpret_cast<uintptr_t>(g.w[j]) % 16 != 0) return cudaErrorInvalidValue;
@@ -808,7 +836,7 @@ extern "C" long long quant_gemv_scratch_bytes(int n0, int n1, int n2, int nw, in
   using namespace dllava;
   const Group g = many(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                        nullptr, nullptr, n0, n1, n2, nw);
-  if (!shapes_ok(g, rows, K)) return -1;
+  if (!shapes_ok(g, rows, K, int4)) return -1;
   const TcPlan p = tc_plan(group_tiles(g), K, int4 ? TcShape<16, true>::KR : TcShape<16, false>::KR);
   if (int4)
     return rows <= 16   ? tc_scratch_bytes<16, true>(p)

@@ -1,0 +1,1 @@
+"""Evaluation scorers of the port (own copies of the JAX package's)."""

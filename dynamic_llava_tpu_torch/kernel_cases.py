@@ -74,6 +74,10 @@ FLASH_FWD_CASES = [
     FlashCase("q_offset, Sq < Sk", 2, 70, 150, 8, 4, 128, True, (150, 97), BF16, 80),
     FlashCase("q_offset, Sq < Sk", 2, 70, 150, 4, 2, 64, True, (150, 97), FP32, 80),
     FlashCase("non-causal Sq < Sk kv_length", 2, 70, 150, 4, 4, 64, False, (33, 150), BF16),
+    # head_dim 16 and 32, zero-padded to 64 by the wrapper (the quality gates)
+    FlashCase("d 16, padded", 32, 35, 35, 4, 4, 16, True, (35, 20) * 16, FP32),
+    FlashCase("d 16 non-causal, padded", 8, 26, 26, 2, 2, 16, False, None, FP32),
+    FlashCase("d 32 gqa, padded", 2, 70, 70, 4, 2, 32, True, (70, 33), BF16),
 ]
 # K3: the training shape (chip_smoke.py times the bf16 one) and the edges of
 # the 64-row tiles: GQA with 4 query heads a kv head at d 64, a kv_length of
@@ -91,6 +95,8 @@ FLASH_BWD_CASES = [
     FlashCase("one tile and a row", 2, 65, 65, 4, 2, 128, True, (65, 64), BF16),
     FlashCase("non-causal Sq != Sk", 2, 70, 150, 4, 2, 64, False, (150, 97), BF16),
     FlashCase("non-causal Sq != Sk", 2, 150, 70, 4, 2, 64, False, None, FP32),
+    FlashCase("d 16, padded", 32, 35, 35, 4, 4, 16, True, (35, 20) * 16, FP32),
+    FlashCase("d 32 gqa, padded", 2, 70, 70, 4, 2, 32, True, (70, 33), BF16),
 ]
 
 
@@ -250,6 +256,10 @@ DECODE_CASES = [
                _lens(200, 300, 400, 767), 150),
     DecodeCase("window inside a split int8", 4, 768, 8, 2, 64, BF16, "int8",
                _lens(200, 300, 400, 767), 150),
+    # head_dim 16 and 32, zero-padded to 64 by the wrapper (the quality gates)
+    DecodeCase("d 16, padded", 4, 40, 4, 4, 16, FP32, "own", _lens(0, 1, 20, 39)),
+    DecodeCase("d 16 int8, padded", 4, 40, 4, 4, 16, BF16, "int8", _lens(0, 1, 20, 39)),
+    DecodeCase("d 32 gqa fp8, padded", 4, 64, 4, 2, 32, BF16, "fp8", _lens(0, 1, 33, 63)),
 ]
 
 
@@ -499,6 +509,7 @@ class GemvCase(NamedTuple):
     k: int
     ns: Tuple[int, ...]  # output columns of the 1-3 weights of one launch
     out_fp32: bool = False
+    x_fp32: bool = False  # fp32 x (the CUDA-core kernel) instead of bf16
 
 
 # the 7B decoder's shapes: timed by chip_smoke.py at every QUANT_ROWS row count
@@ -512,7 +523,10 @@ QUANT_CASES = [
 QUANT_ROWS = (1, 8, 24, 64)
 # the edges of the kernel's tiling: a three-weight group of unequal widths (GQA
 # q/k/v), widths that end inside a 256-column tile, K that ends inside a k16
-# step and inside a unit, one unit, the largest K, the 13B decoder's shapes
+# step and inside a unit, one unit, the largest K, the 13B decoder's shapes;
+# widths that are not a multiple of 64 (rows of whole 16-byte pieces or not:
+# a small vocabulary's lm_head, a ragged group, a sliced ragged tile), and
+# the same on fp32 x
 QUANT_EDGE_CASES = [
     GemvCase("gqa q/k/v", 4096, (4096, 1024, 1024)),
     GemvCase("one narrow tile", 64, (64,)),
@@ -523,6 +537,13 @@ QUANT_EDGE_CASES = [
     GemvCase("one unit, N = 32000", 128, (32000,), True),
     GemvCase("13B down", 13824, (5120,)),
     GemvCase("13B gate/up", 5120, (13824, 13824)),
+    GemvCase("N = 24", 256, (24,), True),
+    GemvCase("N = 80, K = 72", 72, (80,)),
+    GemvCase("ragged group, K = 264", 264, (40, 24, 88)),
+    GemvCase("N = 1000, sliced", 4096, (1000,)),
+    GemvCase("fp32 x, N = 24", 256, (24,), x_fp32=True),
+    GemvCase("fp32 x, ragged group", 264, (40, 24, 88), x_fp32=True),
+    GemvCase("fp32 x, gqa q/k/v", 4096, (4096, 1024, 1024), x_fp32=True),
 ]
 QUANT_EDGE_ROWS = (1, 7, 17, 64)
 
@@ -555,15 +576,17 @@ def call_gemv(fn, case: GemvCase, x, ws: Sequence[torch.Tensor], scales):
 
 def check_gemv_case(case: GemvCase, bits: int, rows: int, device="cuda", gen=None,
                     weights=None, scales=None) -> Tuple[float, float]:
-    """Runs the GEMV of ``case`` twice (equal bits) on bf16 x and holds it
-    against its plain version; returns (max abs error, that over max |ref|),
-    raises ``AssertionError`` on a mismatch."""
+    """Runs the GEMV of ``case`` twice (equal bits) on bf16 x (fp32 with
+    ``case.x_fp32``) and holds it against its plain version; returns (max
+    abs error, that over max |ref|), raises ``AssertionError`` on a
+    mismatch."""
     if gen is None:
         gen = torch.Generator(device=device).manual_seed(0)
     if weights is None:
         (weights,), scales = make_gemv_weights(case, bits, device, gen)
     name, kernel, plain = gemv_functions(bits, len(case.ns) > 1)
-    x = torch.randn(rows, case.k, generator=gen, device=device).bfloat16()
+    x = torch.randn(rows, case.k, generator=gen, device=device)
+    x = x if case.x_fp32 else x.bfloat16()
     got = call_gemv(kernel, case, x, weights, scales)
     again = call_gemv(kernel, case, x, weights, scales)
     want = call_gemv(plain, case, x, weights, scales)
@@ -574,7 +597,7 @@ def check_gemv_case(case: GemvCase, bits: int, rows: int, device="cuda", gen=Non
         assert torch.equal(g, g2), f"{name} {case.label} rows={rows}: two launches differ"
         e = (g.float() - w.float()).abs().max().item()
         err, rel = max(err, e), max(rel, e / w.float().abs().max().item())
-    tol = QUANT_TOL[case.out_fp32]
+    tol = QUANT_TOL[case.out_fp32 or case.x_fp32]
     assert rel <= tol, (f"{name} {case.label} rows={rows}: kernel disagrees with its plain "
                         f"version, max err / max |ref| {rel:.3e} (tol {tol:g})")
     return err, rel
@@ -598,6 +621,8 @@ POLICY_CASES = [
     PolicyCase("training shape", 4, 1663, 32, 32, 128, BF16, "mixed"),
     PolicyCase("training shape", 4, 1663, 32, 32, 128, FP32, "mixed"),
     PolicyCase("gqa", 2, 203, 8, 2, 64, FP32, "mixed"),
+    PolicyCase("d 16, padded", 32, 35, 4, 4, 16, FP32, "mixed"),
+    PolicyCase("d 32 gqa, padded", 2, 70, 4, 2, 32, BF16, "mixed"),
 ]
 # the edges of the 64-row q and kv tiles (one row, a row short of a tile, one
 # tile, a row past it, two tiles and a row), 4 query heads a kv head, head_dim

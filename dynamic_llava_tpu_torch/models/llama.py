@@ -1,25 +1,29 @@
 """LLaMA decoder (counterpart of ``dynamic_llava_tpu/models/llama.py``),
-LoRA-free, with bf16/fp32 or weight-only int8/int4 linears.
+with bf16/fp32 or weight-only int8/int4 linears and optional LoRA adapters.
 
 Params are the JAX pytree with torch tensors: layer weights stacked along
 a leading ``[L, ...]`` axis, linears stored ``[in, out]`` (forward
 ``x @ W``). Python loops over layers replace ``lax.scan``; ``layers[name][i]``
 is a view, so no weights are copied. A quantized weight is a dict leaf
 (``ops.quant``) and every linear goes through ``ops.quant.linear`` /
-``linear_group``.
+``linear_group``, which also add a LoRA adapter's delta where a
+``{name}_lora`` leaf ``{"a": [L, in, r], "b": [L, r, out], "s": 0-d}`` is
+attached (``train.lora``).
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from ..config import LlamaConfig
 from ..ops.attention import attend, attend_with_policy, self_attend
 from ..ops.decode_attention import decode_attention, extend_attention
+from ..ops import flash_policy  # noqa: F401  (registers the F2 dispatcher ops)
 from ..ops.kv_cache import (
     KVCache, quantize_kv, write_chunk_layers, write_prefill, write_token_layers,
     write_token_scales)
@@ -30,14 +34,19 @@ from ..ops.quant import (
 from ..ops.rope import apply_rope_for_config
 
 
+def _layer_leaf(w, i: int):
+    if isinstance(w, dict):  # quantized {"q"|"q4", "s"} or LoRA {"a", "b", "s"}
+        # a LoRA scale is one 0-d tensor for all layers
+        return {k: t if not is_quantized(w) and k == "s" else t[i] for k, t in w.items()}
+    return w[i]
+
+
 def layer_params(layers: dict, i: int) -> dict:
     """Layer ``i``'s weights as views into the stacked tensors; a quantized
-    leaf gives ``{"q"|"q4": w[i], "s": s[i]}``. A leaf may also be a list of
+    leaf gives ``{"q"|"q4": w[i], "s": s[i]}``, a LoRA adapter
+    ``{"a": a[i], "b": b[i], "s": s}``. A leaf may also be a list of
     per-layer tensors (the trainer's gradient-carrying views)."""
-    return {
-        name: {k: t[i] for k, t in w.items()} if is_quantized(w) else w[i]
-        for name, w in layers.items()
-    }
+    return {name: _layer_leaf(w, i) for name, w in layers.items()}
 
 
 def embed_tokens(params, ids: torch.Tensor) -> torch.Tensor:
@@ -107,7 +116,29 @@ def layer_nocache(
     return x + _mlp(lp, rms_norm(x, lp["post_ln"], cfg.rms_norm_eps))
 
 
-REMAT_POLICIES_WAITING = ("dots", "flash", "flash_dots", "alternate")
+# What each remat policy saves from a layer's first forward (the JAX
+# ``_remat_policy``); everything else is recomputed in the backward.
+# ``dots``: the weight products, ``x @ W`` with no batch dimension, which
+# ``matmul`` folds into ``mm`` (the attention's own batched products are
+# ``bmm`` and are recomputed, as in JAX). ``flash``: the outputs of the
+# attention forward ops (F2: K1's out and lse, K4's out), so the backward
+# never runs an attention forward again.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_FLASH = (torch.ops.dynamic_llava.flash_forward.default,
+          torch.ops.dynamic_llava.flash_policy_forward.default)
+REMAT_SAVES = {"nothing": (), "dots": _DOTS, "flash": _FLASH, "flash_dots": _DOTS + _FLASH}
+REMAT_POLICIES = (*REMAT_SAVES, "alternate")
+
+
+def _checkpointed(policy: str, lp, cfg, x, positions, mask, pol) -> torch.Tensor:
+    """``layer_nocache`` under activation checkpointing (non-reentrant),
+    saving what ``REMAT_SAVES[policy]`` names (selective checkpointing)."""
+    saves = REMAT_SAVES[policy]
+    kw = {}
+    if saves:
+        kw["context_fn"] = partial(create_selective_checkpoint_contexts, list(saves))
+    return checkpoint(layer_nocache, lp, cfg, x, positions, mask, pol,
+                      use_reentrant=False, **kw)
 
 
 def run_layers_nocache(
@@ -125,25 +156,33 @@ def run_layers_nocache(
 ) -> torch.Tensor:
     """Run layers [lo, hi) without a KV cache (training and parity paths).
 
-    ``remat=True`` with ``remat_policy="nothing"`` saves only each layer's
-    input and recomputes the whole layer in the backward
-    (``torch.utils.checkpoint``, non-reentrant): the minimum-memory regime
-    of 7B training. The JAX package's other policies (``dots``, ``flash``,
-    ``flash_dots``, ``alternate``) are not ported yet and raise."""
+    ``remat=True`` checkpoints each layer (``torch.utils.checkpoint``,
+    non-reentrant) and recomputes it in the backward, except what the
+    policy saves: ``"nothing"`` saves only the layer's input (minimum
+    memory, the 7B regime); ``"dots"`` the weight products; ``"flash"``
+    only the attention outputs (and K1's logsumexp), so the backward never
+    re-runs an attention forward; ``"flash_dots"`` both. ``"alternate"``
+    takes layers in pairs: the first checkpointed under ``"flash_dots"``,
+    the second not checkpointed at all (it needs an even layer count)."""
     hi = cfg.num_hidden_layers if hi is None else hi
-    if remat and remat_policy != "nothing":
-        if remat_policy in REMAT_POLICIES_WAITING:
-            raise NotImplementedError(
-                f"remat_policy={remat_policy!r} is not ported yet; use 'nothing'")
-        raise ValueError(f"unknown remat_policy {remat_policy!r}")
+    if remat and remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {remat_policy!r}; one of {REMAT_POLICIES}")
+    if remat and remat_policy == "alternate" and (hi - lo) % 2:
+        raise ValueError(f"remat_policy 'alternate' takes layers in pairs, got [{lo}, {hi})")
     layers = params["layers"]
-    for li in range(lo, hi):
-        lp = layer_params(layers, li)
-        if remat and torch.is_grad_enabled():
-            x = checkpoint(layer_nocache, lp, cfg, x, positions, mask, policy,
-                           use_reentrant=False)
-        else:
-            x = layer_nocache(lp, cfg, x, positions, mask, policy)
+    if not (remat and torch.is_grad_enabled()):
+        for li in range(lo, hi):
+            x = layer_nocache(layer_params(layers, li), cfg, x, positions, mask, policy)
+        return x
+    if remat_policy != "alternate":
+        for li in range(lo, hi):
+            x = _checkpointed(remat_policy, layer_params(layers, li), cfg, x, positions,
+                              mask, policy)
+        return x
+    for li in range(lo, hi, 2):
+        x = _checkpointed("flash_dots", layer_params(layers, li), cfg, x, positions, mask,
+                          policy)
+        x = layer_nocache(layer_params(layers, li + 1), cfg, x, positions, mask, policy)
     return x
 
 

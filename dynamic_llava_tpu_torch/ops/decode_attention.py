@@ -19,6 +19,8 @@ bf16 q over a bf16, int8 or fp8 cache, else ``extend_kernel`` (CUDA cores,
 groups of 8 query rows), as ``extend_plan`` says. On a CPU tensor they run
 the plain versions (``ops.attention.decode_attend_appended`` /
 ``extend_attend_appended``). There is no fallback from one to the other.
+``decode_attention`` zero-pads a head_dim below 64 (or between 64 and 128)
+as ``ops.flash_attention`` does; ``extend_attention`` takes 64 or 128.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from .. import kernels
 from .attention import decode_attend_appended as decode_attention_plain
 from .attention import extend_attend_appended as extend_attention_plain
 from .attention import sliding_window_mask
+from .flash_attention import kernel_head_dim, pad_head_dim
 
 __all__ = ["decode_attention", "decode_attention_plain", "decode_split", "extend_attention",
            "extend_attention_plain", "extend_mask", "extend_plan"]
@@ -150,6 +153,13 @@ def decode_attention(
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     b, one, h, d = q.shape
     _, max_len, hkv, _ = k_cache.shape
+    kd = kernel_head_dim(d)
+    if kd != d:  # a smaller head_dim, zero-padded (see ``ops.flash_attention``)
+        out = decode_attention(
+            *(pad_head_dim(t, kd) for t in (q, k_cache, v_cache, k_cur, v_cur)), length,
+            scale=d**-0.5 if scale is None else scale, window=window, q_pos=q_pos,
+            k_scale=k_scale, v_scale=v_scale)
+        return out[..., :d].contiguous()
     if q.dtype not in kernels.DTYPE_CODES:
         raise ValueError(f"decode_attention: unsupported dtype {q.dtype}")
     if one != 1 or d not in (64, 128) or hkv == 0 or h % hkv or h // hkv > 8:

@@ -11,9 +11,8 @@ hand-written Hopper kernel ``csrc/flash_attention_fwd.cu`` and
 ``flash_attention_bwd_plain``, which compute the same functions with plain
 tensor ops. There is no fallback from one to the other. The C entry points
 run bf16 tensors on the tensor cores and fp32 tensors in full fp32.
-``flash_attention_vjp`` is the differentiable entry: a
-``torch.autograd.Function`` whose forward is K1 (saving the logsumexp) and
-whose backward is K3.
+``flash_attention_vjp`` is the differentiable entry: the dispatcher op
+``flash_forward`` (K1, saving the logsumexp) whose backward is K3.
 
 Semantics (both versions): q ``[B, Sq, H, d]``, k/v ``[B, Sk, Hkv, d]``;
 query row i may attend kv column j when ``j < kv_length[b]`` and, if
@@ -21,18 +20,44 @@ query row i may attend kv column j when ``j < kv_length[b]`` and, if
 TPU kernel's ``l == 0`` rule); GQA maps head h to kv head ``h // n_rep``;
 softmax and accumulation in fp32, output in q's dtype; the optional
 logsumexp is ``[B, H, Sq]`` fp32.
+
+The kernels take head_dim 64 or 128. A smaller head_dim (the quality gates'
+toy configurations: 16, 32) is zero-padded to the next of them by the
+wrappers (``kernel_head_dim``, ``pad_head_dim``) and the result sliced back:
+zero columns add exact zeros to every dot product and give zero output
+columns, so it is the same function, at the scale of the true head_dim.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from .. import kernels
 from .attention import repeat_kv_heads
 
 NEG_INF = -1e30
+KERNEL_HEAD_DIMS = (64, 128)
+
+
+def kernel_head_dim(d: int) -> int:
+    """The head_dim the attention kernels run a head_dim ``d`` at: the
+    smallest of ``KERNEL_HEAD_DIMS`` that holds it (``d`` itself past them,
+    which the shape checks refuse)."""
+    return next((kd for kd in KERNEL_HEAD_DIMS if d <= kd), d)
+
+
+def pad_head_dim(t: torch.Tensor, kd: int) -> torch.Tensor:
+    """``t [..., d]`` with zero columns up to ``kd`` (``t`` itself when
+    ``d == kd``); an fp8 tensor through its bytes (a zero byte is +0)."""
+    d = t.shape[-1]
+    if d == kd:
+        return t
+    if t.dtype == torch.float8_e4m3fn:
+        return F.pad(t.view(torch.uint8), (0, kd - d)).view(t.dtype)
+    return F.pad(t, (0, kd - d))
 
 
 def flash_attention_plain(
@@ -135,6 +160,12 @@ def flash_attention(
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     b, sq, h, d = q.shape
     _, sk, hkv, _ = k.shape
+    kd = kernel_head_dim(d)
+    if kd != d:
+        res = flash_attention(*(pad_head_dim(t, kd) for t in (q, k, v)),
+                              **dict(args, scale=d**-0.5 if scale is None else scale))
+        out = (res[0] if return_lse else res)[..., :d].contiguous()
+        return (out, res[1]) if return_lse else out
     check_qkv("flash_attention", q, k, v)
     if q_offset < 0:
         raise ValueError("flash_attention: q_offset must be >= 0")
@@ -254,6 +285,9 @@ def flash_attention_bwd_delta(out: torch.Tensor, g: torch.Tensor) -> torch.Tenso
     _check("out", out, out.dtype, 4)
     _check("g", g, out.dtype, 4)
     b, sq, h, d = out.shape
+    kd = kernel_head_dim(d)
+    if kd != d and g.shape == out.shape:
+        return flash_attention_bwd_delta(pad_head_dim(out, kd), pad_head_dim(g, kd))
     if g.shape != out.shape or g.device != out.device or d not in (64, 128):
         raise ValueError(
             "flash_attention_bwd_delta: g must have out's shape and device and "
@@ -273,6 +307,13 @@ def flash_attention_bwd_dq(q, k, v, g, lse, delta, *, kv_length=None,
     """Kernel K3, dq half (CUDA tensors only): ``dq = ds k`` per q tile."""
     if not q.is_cuda:
         raise ValueError(f"flash_attention_bwd_dq: not a CUDA tensor ({q.device})")
+    d = q.shape[-1]
+    kd = kernel_head_dim(d)
+    if kd != d:
+        dq = flash_attention_bwd_dq(*(pad_head_dim(t, kd) for t in (q, k, v, g)), lse, delta,
+                                    kv_length=kv_length, causal=causal,
+                                    scale=d**-0.5 if scale is None else scale)
+        return dq[..., :d].contiguous()
     head = _bwd_args(q, k, v, g, lse, delta, kv_length, causal)
     b, sq, h, d = q.shape
     dq = torch.empty_like(q)
@@ -294,6 +335,13 @@ def flash_attention_bwd_dkv(q, k, v, g, lse, delta, *, kv_length=None,
     as ``[B, Sk, Hkv, d]`` in k's dtype."""
     if not q.is_cuda:
         raise ValueError(f"flash_attention_bwd_dkv: not a CUDA tensor ({q.device})")
+    d = q.shape[-1]
+    kd = kernel_head_dim(d)
+    if kd != d:
+        dk, dv = flash_attention_bwd_dkv(*(pad_head_dim(t, kd) for t in (q, k, v, g)), lse,
+                                         delta, kv_length=kv_length, causal=causal,
+                                         scale=d**-0.5 if scale is None else scale)
+        return dk[..., :d].contiguous(), dv[..., :d].contiguous()
     head = _bwd_args(q, k, v, g, lse, delta, kv_length, causal)
     b, sq, h, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -336,25 +384,50 @@ def flash_attention_bwd(
     return dq, dk, dv
 
 
-class _FlashAttentionFn(torch.autograd.Function):
-    """K1 forward (saving q, k, v, kv_length, out, lse), K3 backward. Both
-    are deterministic, so a layer re-run under activation checkpointing
-    reproduces its first run."""
+# F2: K1's forward as a dispatcher op, so that a selective-checkpoint policy
+# (``models.llama``'s ``flash`` / ``flash_dots``) can name it and keep its
+# ``(out, lse)`` from the first forward: the recompute in the backward then
+# returns the saved pair instead of running the kernel again, and K3 takes
+# it with q / k / v from the recomputed projections (the JAX
+# ``_flash_attach_bwd`` with its ``flash_out`` / ``flash_lse`` names). A
+# ctypes launch inside a ``torch.autograd.Function`` would be invisible to
+# the dispatcher, and so to the policy.
+OP_RUNS = {"flash_forward": 0, "flash_policy_forward": 0}
+"""How many times each differentiable attention op's implementation ran,
+on any device (a forward replayed from a checkpoint's saved set does not
+run it). Launch counts stay on the wrappers."""
 
-    @staticmethod
-    def forward(ctx, q, k, v, kv_length, causal):
-        out, lse = flash_attention(q, k, v, kv_length=kv_length, causal=causal,
-                                   return_lse=True)
-        ctx.save_for_backward(q, k, v, kv_length, out, lse)
-        ctx.causal = causal
-        return out
 
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v, kv_length, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g, kv_length=kv_length,
-                                         causal=ctx.causal)
-        return dq, dk, dv, None, None
+@torch.library.custom_op("dynamic_llava::flash_forward", mutates_args=())
+def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  kv_length: Optional[torch.Tensor], causal: bool
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention(..., return_lse=True)``: K1 on a CUDA tensor, the
+    plain version on a CPU tensor."""
+    OP_RUNS["flash_forward"] += 1
+    return flash_attention(q, k, v, kv_length=kv_length, causal=causal, return_lse=True)
+
+
+@flash_forward.register_fake
+def _(q, k, v, kv_length, causal):
+    b, sq, h, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b, h, sq), dtype=torch.float32)
+
+
+def _flash_forward_setup(ctx, inputs, output):
+    q, k, v, kv_length, causal = inputs
+    ctx.save_for_backward(q, k, v, kv_length, *output)
+    ctx.causal = causal
+
+
+def _flash_forward_backward(ctx, g, _g_lse):
+    q, k, v, kv_length, out, lse = ctx.saved_tensors
+    dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g, kv_length=kv_length,
+                                     causal=ctx.causal)
+    return dq, dk, dv, None, None
+
+
+flash_forward.register_autograd(_flash_forward_backward, setup_context=_flash_forward_setup)
 
 
 def flash_attention_vjp(
@@ -365,11 +438,13 @@ def flash_attention_vjp(
     kv_length: Optional[torch.Tensor] = None,
     causal: bool = True,
 ) -> torch.Tensor:
-    """Differentiable fused attention: ``flash_attention`` whose gradient is
-    ``flash_attention_bwd``. Without anything to differentiate it is
+    """Differentiable fused attention: ``flash_forward`` (K1, saving the
+    logsumexp) whose gradient is ``flash_attention_bwd`` (K3). Both are
+    deterministic, so a layer re-run under activation checkpointing
+    reproduces its first run. Without anything to differentiate it is
     ``flash_attention`` itself."""
     if not (torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                          or v.requires_grad)):
         return flash_attention(q, k, v, kv_length=kv_length, causal=causal)
-    return _FlashAttentionFn.apply(q.contiguous(), k.contiguous(), v.contiguous(),
-                                   kv_length, causal)
+    return flash_forward(q.contiguous(), k.contiguous(), v.contiguous(), kv_length,
+                         causal)[0]

@@ -14,9 +14,11 @@ the ``eps/N`` term covers every column, masked ones too; all in fp32, the
 output in q's dtype. On a CUDA tensor ``flash_policy_attention`` launches
 the hand-written Hopper kernel ``csrc/flash_policy_fwd.cu``; on a CPU
 tensor it runs ``flash_policy_attention_plain``. There is no fallback from
-one to the other.
+one to the other. A head_dim below 64 (or between 64 and 128) is zero-padded
+as in ``ops.flash_attention``.
 
-``flash_policy_attention_vjp`` is the differentiable entry. Its backward
+``flash_policy_attention_vjp`` is the differentiable entry, through the
+dispatcher op ``flash_policy_forward``. Its backward
 recomputes the attention blockwise with plain tensor ops
 (``ops.attention.blockwise_attend``) and differentiates that, as the JAX
 package does: it has no backward kernel for the policy path either.
@@ -30,7 +32,7 @@ import torch
 
 from .. import kernels
 from .attention import attend_with_policy, blockwise_attend
-from .flash_attention import _check, check_qkv
+from .flash_attention import OP_RUNS, _check, check_qkv, kernel_head_dim, pad_head_dim
 
 
 def flash_policy_attention_plain(
@@ -61,6 +63,12 @@ def flash_policy_attention(
         return flash_policy_attention_plain(q, k, v, policy, scale=scale, eps=eps)
     if not q.is_cuda:
         raise ValueError(f"flash_policy_attention: unsupported device {q.device}")
+    d = q.shape[-1]
+    kd = kernel_head_dim(d)
+    if kd != d:  # a smaller head_dim, zero-padded (see ``ops.flash_attention``)
+        out = flash_policy_attention(*(pad_head_dim(t, kd) for t in (q, k, v)), policy,
+                                     scale=d**-0.5 if scale is None else scale, eps=eps)
+        return out[..., :d].contiguous()
     check_qkv("flash_policy_attention", q, k, v)
     b, s, h, d = q.shape
     hkv = k.shape[2]
@@ -88,25 +96,41 @@ def flash_policy_attention(
 flash_policy_attention.launches = 0
 
 
-class _FlashPolicyFn(torch.autograd.Function):
-    """K4 forward; the backward differentiates a blockwise recompute of the
-    same attention (O(block x S) memory)."""
+# F2 for K4: the forward as a dispatcher op (see ``flash_attention.flash_forward``),
+# so that the ``flash`` remat policies keep its output from the first
+# forward (the JAX ``flash_policy_out`` name); the backward recomputes the
+# attention blockwise from q / k / v / policy either way.
+@torch.library.custom_op("dynamic_llava::flash_policy_forward", mutates_args=())
+def flash_policy_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         policy: torch.Tensor) -> torch.Tensor:
+    """``flash_policy_attention``: K4 on a CUDA tensor, the plain version on
+    a CPU tensor."""
+    OP_RUNS["flash_policy_forward"] += 1
+    return flash_policy_attention(q, k, v, policy)
 
-    @staticmethod
-    def forward(ctx, q, k, v, policy):
-        ctx.save_for_backward(q, k, v, policy)
-        return flash_policy_attention(q, k, v, policy)
 
-    @staticmethod
-    def backward(ctx, g):
-        need = ctx.needs_input_grad
-        inputs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
-        with torch.enable_grad():
-            q, k, v, policy = inputs
-            out = blockwise_attend(q, k, v, policy=policy)
-        wanted = [t for t, n in zip(inputs, need) if n]
-        grads = iter(torch.autograd.grad(out, wanted, g))
-        return tuple(next(grads) if n else None for n in need)
+@flash_policy_forward.register_fake
+def _(q, k, v, policy):
+    return torch.empty_like(q)
+
+
+def _policy_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _policy_backward(ctx, g):
+    """Differentiates a blockwise recompute of the same attention
+    (O(block x S) memory)."""
+    need = ctx.needs_input_grad
+    inputs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
+    with torch.enable_grad():
+        out = blockwise_attend(*inputs[:3], policy=inputs[3])
+    wanted = [t for t, n in zip(inputs, need) if n]
+    grads = iter(torch.autograd.grad(out, wanted, g))
+    return tuple(next(grads) if n else None for n in need)
+
+
+flash_policy_forward.register_autograd(_policy_backward, setup_context=_policy_setup)
 
 
 def flash_policy_attention_vjp(
@@ -120,4 +144,5 @@ def flash_policy_attention_vjp(
     if not (torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v, policy))):
         return flash_policy_attention(q, k, v, policy)
-    return _FlashPolicyFn.apply(q.contiguous(), k.contiguous(), v.contiguous(), policy)
+    return flash_policy_forward(q.contiguous(), k.contiguous(), v.contiguous(),
+                                policy.contiguous())

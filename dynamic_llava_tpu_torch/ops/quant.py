@@ -7,12 +7,14 @@ per byte in the split-half layout of ``pack_int4``. Scales are per output
 channel (per row for the embedding) and keep the source weight's dtype.
 
 ``linear`` / ``linear_group`` are the dispatch of the JAX ``matmul_q8``,
-``matmul_q4``, ``matmul_q8_group``, ``matmul_q4_group`` and
-``train.lora.lora_proj`` (without LoRA): up to ``MAX_ROWS`` rows go to the
+``matmul_q4``, ``matmul_q8_group``, ``matmul_q4_group``,
+``train.lora.lora_proj`` and ``models.llama._lora_delta``: a LoRA adapter
+``lp[name + "_lora"]`` adds ``((x @ a) @ b) * s`` to whatever route the base
+product takes. Up to ``MAX_ROWS`` rows go to the
 GEMVs K5-K8 (``ops.quant_matmul``: the CUDA kernels on a CUDA tensor, their
 plain versions on a CPU tensor); larger (prefill) row counts dequantize the
 layer's weight and run one ``torch.matmul``, as the JAX package leaves that
-product to an XLA einsum. A plain tensor weight is ``x @ w``.
+product to an XLA einsum (``gemv_route``). A plain tensor weight is ``x @ w``.
 ``matmul_q4_mlp`` is the JAX dispatch of the same name: the whole SwiGLU
 MLP as ONE kernel (K9) when gate, up and down are all int4, at decode rows,
 opt-in through ``DYNAMIC_LLAVA_Q4_MLP=1``.
@@ -27,12 +29,14 @@ import torch
 
 from ..weights import resolve_device
 from .quant_matmul import (
-    MAX_ROWS, q4_gemv, q4_gemv_group, q4_mlp, q8_gemv, q8_gemv_group, unpack_int4)
+    MAX_ROWS, q4_gemv, q4_gemv_group, q4_mlp, q8_gemv, q8_gemv_group,
+    unpack_int4)
 
 __all__ = [
     "QUANT_TARGETS", "pack_int4", "unpack_int4", "quantize_weight",
     "quantize_llm_params", "init_quantized_llama_params", "dequantize_weight",
-    "is_quantized", "linear", "linear_group", "matmul", "matmul_q4_mlp", "q4_mlp_enabled",
+    "is_quantized", "gemv_route", "linear", "linear_group", "lora_delta", "matmul",
+    "matmul_q4_mlp", "q4_mlp_enabled",
 ]
 
 QUANT_TARGETS = ("q", "k", "v", "o", "gate", "up", "down")
@@ -112,10 +116,11 @@ def quantize_llm_params(params: dict, bits: int = 8) -> dict:
     quantized form exists (at 7B the two sets together would double the
     weights' memory). Layer stacks ``[L, in, out]`` get per (layer, output
     channel) scales; the embedding per row (``[V, 1]``), the untied lm_head
-    per output column."""
+    per output column. LoRA adapters (``*_lora`` leaves) are left as they
+    are, as in the JAX package: QLoRA attaches them after this call."""
     llm = params["llm"]
     layers = llm["layers"]
-    for name in QUANT_TARGETS:
+    for name in QUANT_TARGETS:  # never a ``*_lora`` name
         layers[name] = quantize_weight(layers.pop(name), axis=1, bits=bits)
     llm["embed"] = quantize_weight(llm.pop("embed"), axis=1, bits=bits)
     if "lm_head" in llm:
@@ -181,6 +186,13 @@ def _rows(x: torch.Tensor) -> int:
     return x.numel() // x.shape[-1]
 
 
+def gemv_route(x: torch.Tensor) -> bool:
+    """Whether quantized weights take the GEMVs at ``x``'s rows (up to
+    ``MAX_ROWS``, any output width, on either device); the other route
+    dequantizes and runs one ``torch.matmul``."""
+    return _rows(x) <= MAX_ROWS
+
+
 class _MmFp32Out(torch.autograd.Function):
     """``x @ w`` of low-precision CUDA operands with an fp32 result (the JAX
     ``preferred_element_type=float32``), which ``torch.mm(out_dtype=)``
@@ -209,7 +221,7 @@ def matmul(x: torch.Tensor, w, out_fp32: bool = False) -> torch.Tensor:
             y = _MmFp32Out.apply(x.reshape(-1, x.shape[-1]), w)
             return y.reshape(*x.shape[:-1], w.shape[-1])
         return x.float() @ w.float() if out_fp32 else x @ w
-    if _rows(x) <= MAX_ROWS:
+    if gemv_route(x):
         x = x.contiguous()
         if "q4" in w:
             return q4_gemv(x, w["q4"], w["s"], out_fp32)
@@ -217,23 +229,45 @@ def matmul(x: torch.Tensor, w, out_fp32: bool = False) -> torch.Tensor:
     return matmul(x, dequantize_weight(w, x.dtype), out_fp32)
 
 
+def lora_delta(lp: dict, name: str, x: torch.Tensor) -> Optional[torch.Tensor]:
+    """``((x @ a) @ b) * s`` of the adapter ``lp[name + "_lora"]``, or None
+    without one (the JAX ``_lora_delta``), in the wider of x's and the
+    adapter's dtypes, as JAX promotes them."""
+    ad = lp.get(f"{name}_lora")
+    if ad is None:
+        return None
+    a, b, s = ad["a"], ad["b"], ad["s"]
+    dt = torch.promote_types(x.dtype, a.dtype)
+    return ((x.to(dt) @ a.to(dt)) @ b.to(dt)) * s.to(dt)
+
+
+def _plus_delta(y: torch.Tensor, lp: dict, name: str, x: torch.Tensor) -> torch.Tensor:
+    d = lora_delta(lp, name, x)
+    return y if d is None else y + d
+
+
 def linear(lp: dict, name: str, x: torch.Tensor, out_fp32: bool = False) -> torch.Tensor:
-    """``x @ lp[name]`` (the JAX ``lora_proj`` without an adapter)."""
-    return matmul(x, lp[name], out_fp32)
+    """``x @ lp[name]``, plus the adapter's delta when one is attached (the
+    JAX ``lora_proj``)."""
+    return _plus_delta(matmul(x, lp[name], out_fp32), lp, name, x)
 
 
 def linear_group(lp: dict, names: Sequence[str], x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """``linear`` for several weights sharing ``x`` (q/k/v, gate/up): ONE
     grouped GEMV launch (K6 / K8) when they are all int8 or all int4 and
-    ``x`` has decode rows; otherwise one ``linear`` each."""
+    ``x`` has decode rows, each adapter's delta added after it; otherwise
+    one ``linear`` each."""
     leaves = [lp[n] for n in names]
-    if _rows(x) <= MAX_ROWS and all(is_quantized(w) for w in leaves):
+    if all(is_quantized(w) for w in leaves) and gemv_route(x):
         x = x.contiguous()
+        ys = None
         if all("q" in w for w in leaves):
-            return q8_gemv_group(x, [w["q"] for w in leaves], [w["s"] for w in leaves])
-        if all("q4" in w for w in leaves):
-            return q4_gemv_group(x, [w["q4"] for w in leaves], [w["s"] for w in leaves])
-    return tuple(matmul(x, w) for w in leaves)
+            ys = q8_gemv_group(x, [w["q"] for w in leaves], [w["s"] for w in leaves])
+        elif all("q4" in w for w in leaves):
+            ys = q4_gemv_group(x, [w["q4"] for w in leaves], [w["s"] for w in leaves])
+        if ys is not None:
+            return tuple(_plus_delta(y, lp, n, x) for y, n in zip(ys, names))
+    return tuple(linear(lp, n, x) for n in names)
 
 
 def q4_mlp_enabled() -> bool:
@@ -255,12 +289,13 @@ def matmul_q4_mlp(x: torch.Tensor, lp: dict, out_fp32: bool = False
     ``1`` / ``true`` in the environment, read at every dispatch so that one
     process can run both settings in turn. The fused path forms ``h`` from
     the fp32 gate and up sums, the two-kernel path from their bf16-rounded
-    outputs, so the two agree to bf16 rounding, not bit for bit. (The JAX
-    dispatch also refuses LoRA-adapted leaves; the port has no LoRA yet, so
-    there is nothing to exclude -- the port of ``train/lora.py`` must add
-    that rule here.)"""
+    outputs, so the two agree to bf16 rounding, not bit for bit. A gate, up
+    or down LoRA adapter makes the MLP ineligible, as in the JAX dispatch:
+    its delta must be added before the in-kernel silu."""
     leaves = [lp.get(n) for n in ("gate", "up", "down")]
     if not all(is_quantized(l) and "q4" in l for l in leaves):
+        return None
+    if any(f"{n}_lora" in lp for n in ("gate", "up", "down")):
         return None
     if not q4_mlp_enabled():
         return None

@@ -102,16 +102,24 @@ def make_train_step(
     ``labels`` (the optimizer's label tree) restricts differentiation to
     the leaves that are not ``'frozen'``: a frozen weight is a plain tensor
     in the forward and gets no gradient buffer at all, so projector-only
-    pretraining allocates no decoder gradients. The gradient buffers live
-    as long as the step function and are zeroed at each step."""
+    pretraining allocates no decoder gradients, and a LoRA run
+    (``lora_mode``) none for its base. A quantized weight (its int8 / int4
+    values and its scales) and a LoRA scale never train, labels or not.
+    The gradient buffers live as long as the step function and are zeroed
+    at each step; ``step.grad_buffers`` holds them (path -> gradient of
+    the last step, after the optimizer's update)."""
     frozen = set()
     if labels is not None:
         frozen = {p for p, label in named_leaves(labels) if label == "frozen"}
     buffers: Dict[str, torch.Tensor] = {}
 
     def grad_buffers(params) -> Dict[str, torch.Tensor]:
-        for path, t in named_leaves(params):
-            if path in frozen or not t.is_floating_point():
+        leaves = dict(named_leaves(params))
+        fixed = {p for p in leaves if p.endswith("_lora/s")} | {
+            p.rsplit("/", 1)[0] + "/s" for p, t in leaves.items()
+            if p.endswith(("/q", "/q4")) and not t.is_floating_point()}
+        for path, t in leaves.items():
+            if path in frozen or path in fixed or not t.is_floating_point():
                 continue
             buf = buffers.get(path)
             if buf is None or (buf.shape, buf.dtype, buf.device) != (t.shape, t.dtype, t.device):
@@ -156,4 +164,5 @@ def make_train_step(
         metrics["grad_norm"] = optimizer.update(params, grads, opt_state)
         return params, opt_state, metrics
 
+    step.grad_buffers = buffers
     return step

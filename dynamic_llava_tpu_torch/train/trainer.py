@@ -5,7 +5,10 @@ Exponential Gumbel-tau annealing per step, grouped learning rates with
 cosine + warmup schedules, per-step metric logging ({loss, mask losses,
 lrs, tau}) to a JSONL stream, and checkpoints (``torch.save``) with
 auto-resume. A checkpoint also holds the noise generator's state, so that
-a resumed run draws the Gumbel noise an uninterrupted run would.
+a resumed run draws the Gumbel noise an uninterrupted run would, and keeps
+LoRA adapters apart from the other weights (``train.lora.split_lora_state``):
+under ``lora_mode`` it holds only the adapters and the other trainables
+(predictors, projector), as the frozen base is the run's input.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch
 
 from ..config import LlavaConfig
 from ..weights import map_leaves
+from .lora import split_lora_state, strip_lora
 from .optimizer import cosine_with_warmup, gumbel_tau_schedule, label_params, make_optimizer
 from .step import batch_from_plan, make_train_step
 
@@ -149,13 +153,20 @@ class Trainer:
                 found.append((int(m.group(1)), os.path.join(self._ckpt_dir, name)))
         return sorted(found)
 
+    def _saved_params(self):
+        """``(weights, adapters)`` as a checkpoint holds them: views of
+        ``self.params``."""
+        lora, non_lora = split_lora_state(self.params)
+        return (non_lora if self.tc.lora_mode else strip_lora(self.params)), lora
+
     def save(self) -> str:
         os.makedirs(self._ckpt_dir, exist_ok=True)
         path = os.path.join(self._ckpt_dir, f"step_{self.step}.pt")
         tmp = f"{path}.{os.getpid()}.tmp"
+        params, lora = self._saved_params()
         torch.save(
-            {"step": self.step, "params": self.params, "opt_state": self.opt_state,
-             "generator": self.generator.get_state()},
+            {"step": self.step, "params": params, "lora": lora,
+             "opt_state": self.opt_state, "generator": self.generator.get_state()},
             tmp,
         )
         os.replace(tmp, path)
@@ -184,7 +195,14 @@ class Trainer:
                     return dst.copy_(src)
             return src
 
-        restore(self.params, ckpt["params"])
+        params, lora = self._saved_params()
+        # a checkpoint written before adapters were kept apart has no "lora"
+        saved_lora = ckpt.get("lora", {})
+        if sorted(saved_lora) != sorted(lora):
+            raise ValueError(f"{path} holds the adapters {sorted(saved_lora)}, this trainer "
+                             f"{sorted(lora)}")
+        restore(params, ckpt["params"])
+        restore(lora, saved_lora)
         restore(self.opt_state, ckpt["opt_state"])
         self.generator.set_state(ckpt["generator"].cpu())
         self.step = step

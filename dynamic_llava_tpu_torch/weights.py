@@ -206,17 +206,19 @@ def _projector_depth(projector_type: str) -> int:
     return int(m.group(1))
 
 
-def _init_text_predictor(it: _Init, d_in: int, d: int) -> dict:
-    return {
+def _init_text_predictor(it: _Init, d_in: int, d: int, keep_bias: float = 0.0) -> dict:
+    p = {
         "norm": it.ln(d_in),
         "fc1": it.linear(d_in, d),
         "fc2": it.linear(d, d // 2),
         "fc3": it.linear(d // 2, d // 4),
         "fc4": it.linear(d // 4, 2),
     }
+    p["fc4"]["b"][0] += keep_bias  # channel 0 = keep
+    return p
 
 
-def _init_predictors(it: _Init, cfg: LlavaConfig) -> dict:
+def _init_predictors(it: _Init, cfg: LlavaConfig, text_keep_bias: float = 0.0) -> dict:
     sp, d_in, d = cfg.sparse, cfg.text.hidden_size, cfg.sparse.d_model
     preds = {}
     if sp.use_vision_predictor:
@@ -239,10 +241,20 @@ def _init_predictors(it: _Init, cfg: LlavaConfig) -> dict:
             "out3": it.linear(d // 4, 2),
         }
     if sp.use_output_text_predictor:
-        preds["output_text_score_predictor"] = _init_text_predictor(it, d_in, d)
+        preds["output_text_score_predictor"] = _init_text_predictor(it, d_in, d,
+                                                                    text_keep_bias)
     if sp.use_instruct_predictor:
-        preds["instruct_score_predictor"] = _init_text_predictor(it, d_in, d)
+        preds["instruct_score_predictor"] = _init_text_predictor(it, d_in, d, text_keep_bias)
     return preds
+
+
+def init_predictors(cfg: LlavaConfig, generator: torch.Generator, device=None,
+                    dtype: torch.dtype = torch.bfloat16, text_keep_bias: float = 0.0) -> dict:
+    """Fresh predictor params (the JAX ``init_predictors``), drawn from
+    ``generator`` on ``device``. ``text_keep_bias`` adds to the keep logit's
+    bias of both text predictors: the prune-in init, which starts them at
+    (near) keep-everything."""
+    return _init_predictors(_Init(generator, resolve_device(device), dtype), cfg, text_keep_bias)
 
 
 def init_llava_params(

@@ -176,3 +176,93 @@ def test_clip_tower_gradient_on_the_card_matches_the_cpu():
         grads[device] = torch.autograd.grad((out * g.to(device)).sum(), leaf)[0].cpu()
     assert grads["cpu"].abs().max() > 0
     torch.testing.assert_close(grads["cuda"], grads["cpu"], atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_k3_from_the_saved_pair_is_bit_equal(dtype):
+    """F2: under a checkpoint that saves ``flash_forward`` (the ``flash``
+    remat policies) the backward takes K1's (out, lse) from the saved set
+    and runs K3 on them with q / k / v recomputed: the gradients equal the
+    K1 + K3 autograd path's bit for bit, with one K1 launch instead of the
+    recompute's two."""
+    from functools import partial
+
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    from dynamic_llava_tpu_torch.models.llama import REMAT_SAVES
+    from dynamic_llava_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    b, s, h, hkv, d = 2, 130, 4, 2, 64
+    w = torch.randn(d, d, generator=gen, device="cuda", dtype=dtype) * d**-0.5
+    q, k, v, g = (torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+                  for shape in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d), (b, s, h, d)))
+
+    def layer(q_, k_, v_):  # a projection before the attention, recomputed
+        return fa.flash_attention_vjp(q_ @ w, k_ @ w, v_ @ w)
+
+    def grads(run):
+        ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        before = fa.flash_attention.launches, fa.flash_attention_bwd_dq.launches
+        torch.autograd.backward(run(*ins), g)
+        rose = (fa.flash_attention.launches - before[0],
+                fa.flash_attention_bwd_dq.launches - before[1])
+        return [t.grad for t in ins], rose
+
+    want, plain = grads(layer)
+    got, saved = grads(lambda *a: checkpoint(
+        layer, *a, use_reentrant=False,
+        context_fn=partial(create_selective_checkpoint_contexts, list(REMAT_SAVES["flash"]))))
+    again, recomputed = grads(lambda *a: checkpoint(layer, *a, use_reentrant=False))
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert all(torch.equal(x, y) for x, y in zip(again, want))
+    assert plain == saved == (1, 1) and recomputed == (2, 1)
+
+
+@pytest.mark.parametrize("bits", [None, 8, 4], ids=["bf16", "int8", "int4"])
+def test_lora_decode_graph_matches_the_eager_loop(bits):
+    """Adapters (nonzero B) attached to a small model, plain or quantized:
+    the captured decode graph (which holds the adapters' products) gives
+    the tokens of an eager loop of ``argmax`` + ``decode_step``."""
+    from dynamic_llava_tpu_torch.config import (
+        IMAGE_TOKEN_INDEX, ClipVisionConfig, LlamaConfig, LlavaConfig, SparseConfig)
+    from dynamic_llava_tpu_torch.generation.generate import GenerationConfig, Generator
+    from dynamic_llava_tpu_torch.models.dynamic import decode_step
+    from dynamic_llava_tpu_torch.multimodal.fusion import plan_batch
+    from dynamic_llava_tpu_torch.ops.quant import quantize_llm_params
+    from dynamic_llava_tpu_torch.train.lora import attach_lora, init_lora_params
+    from dynamic_llava_tpu_torch.weights import init_llava_params
+
+    cfg = LlavaConfig(
+        text=LlamaConfig.tiny(hidden_size=256, intermediate_size=512, num_attention_heads=4,
+                              num_key_value_heads=2),
+        vision=ClipVisionConfig.tiny(hidden_size=128, intermediate_size=256,
+                                     num_attention_heads=2),
+        sparse=SparseConfig(d_model=64, nhead=2, dim_feedforward=128, num_layers=1))
+    gen_ = torch.Generator(device="cuda").manual_seed(0)
+    params = init_llava_params(cfg, gen_, "cuda", torch.bfloat16)
+    if bits:
+        quantize_llm_params(params, bits=bits)
+    adapters = init_lora_params(cfg.text, gen_, rank=8, alpha=16.0, dtype=torch.bfloat16,
+                                device="cuda")
+    for ad in adapters.values():
+        ad["b"].normal_(0.0, 0.05, generator=gen_)
+    params = attach_lora(params, adapters)
+    rng = np.random.default_rng(0)
+    ids = [np.concatenate([rng.integers(3, 500, 7), [IMAGE_TOKEN_INDEX],
+                           rng.integers(3, 500, 9 + i)]) for i in range(3)]
+    pix = rng.standard_normal((3, cfg.vision.image_size, cfg.vision.image_size, 3),
+                              dtype=np.float32)
+    gc = GenerationConfig(max_new_tokens=16, decode_chunk=8, pad_multiple=8, eos_token_id=-1)
+    g = Generator(params, cfg, gc)
+    got = g.generate(ids, pix)
+    assert g.decode_runner.graphed and g.decode_runner.graph is not None
+    plan = plan_batch(ids, cfg.num_image_tokens, pad_multiple=gc.pad_multiple)
+    with torch.inference_mode():
+        state, _ = g.prefill_from_plan(plan, pix, 16)
+        want = []
+        for _ in range(16):
+            tok = torch.argmax(state.last_logits, dim=-1)
+            state = decode_step(g.params, g.cfg, tok, state)
+            want.append(tok)
+    assert np.array_equal(np.asarray(got).T, torch.stack(want).cpu().numpy())

@@ -69,27 +69,26 @@ def test_frozen_tower_has_no_gradient(setup):
 
 def test_tower_attention_goes_through_the_differentiable_wrapper(setup, monkeypatch):
     """Every tower layer calls ``flash_attention_vjp`` (non-causal), which on
-    the card runs K1 inside an autograd Function; under ``no_grad`` the
-    Function is not built (serving and a frozen tower pay nothing)."""
+    the card runs K1 inside the differentiable op ``flash_forward``; under
+    ``no_grad`` the op is not entered (serving and a frozen tower pay
+    nothing)."""
     _, tp, pix, _ = setup
-    calls, built = [], []
+    calls = []
     real = tfa.flash_attention_vjp
-    real_apply = tfa._FlashAttentionFn.apply
 
     def spy(q, k, v, **kw):
         calls.append(kw)
         return real(q, k, v, **kw)
 
     monkeypatch.setattr(tclip, "flash_attention_vjp", spy)
-    monkeypatch.setattr(tfa._FlashAttentionFn, "apply",
-                        lambda *a: built.append(1) or real_apply(*a))
     vcfg = port_config(CFG).vision
     n_run = vcfg.num_hidden_layers + vcfg.select_layer + 1
+    runs0 = tfa.OP_RUNS["flash_forward"]
     with torch.no_grad():
         tclip.vision_tower_features(tp["vision_tower"], vcfg, torch.from_numpy(pix))
     assert len(calls) == n_run and all(kw == {"causal": False} for kw in calls)
-    assert not built
+    assert tfa.OP_RUNS["flash_forward"] == runs0
     leaf = tp["vision_tower"]["patch_embedding"].clone().requires_grad_(True)
     tclip.vision_tower_features(dict(tp["vision_tower"], patch_embedding=leaf), vcfg,
                                 torch.from_numpy(pix))
-    assert len(built) == n_run
+    assert tfa.OP_RUNS["flash_forward"] - runs0 == n_run

@@ -142,3 +142,26 @@ def test_conversation_prompts_match(name, image):
         except TypeError as e:
             prompts.append(str(e))
     assert prompts[1] == prompts[0]
+
+
+POPE_ANSWERS = ["Yes, there is.", "No.", "There is not a dog.", "yes", "No, there is no cat",
+                "Maybe. No.", "", "no, not at all", "It is, no doubt", "NO", "I see one, not two.",
+                "none"]
+POPE_LABELS = ["yes", "no", "no", "yes", "no", "yes", "no", "no", "yes", "no", "yes", "no"]
+
+
+def test_pope_scorer_matches():
+    """The port's own copy of ``eval/eval_pope.py``: the same decision per
+    answer and the same metrics on a fixed list (and the same error on a
+    length mismatch)."""
+    from dynamic_llava_tpu.eval import eval_pope as jpope
+    from dynamic_llava_tpu_torch.eval import eval_pope as tpope
+
+    assert [tpope.normalize_answer(a) for a in POPE_ANSWERS] == \
+        [jpope.normalize_answer(a) for a in POPE_ANSWERS]
+    assert tpope.score_pope(POPE_ANSWERS, POPE_LABELS) == \
+        jpope.score_pope(POPE_ANSWERS, POPE_LABELS)
+    assert tpope.score_pope([], []) == jpope.score_pope([], [])
+    for mod in (tpope, jpope):
+        with pytest.raises(ValueError, match="predictions"):
+            mod.score_pope(POPE_ANSWERS, POPE_LABELS[:3])

@@ -1,8 +1,9 @@
 """The port never loads jax nor the JAX package: its sources (the package,
 ``chip_smoke.py``, ``tools/*.py``) import neither, and a fresh
-interpreter that imports the package (the quantized and the training paths
-included), generates on the CPU with fp32 (also speculatively, and through
-the continuous-batching engine) and then
+interpreter that imports the package (the quantized and the training paths,
+the LoRA module and the quality harnesses included), generates on the CPU
+with fp32 (also speculatively, through the continuous-batching engine and
+with LoRA adapters attached) and then
 int4 weights (also with
 the fused MLP, an int8 and an fp8 KV cache and the ring policy), and takes
 a train step, ends with neither ``jax`` nor ``dynamic_llava_tpu`` in
@@ -61,6 +62,14 @@ with tempfile.TemporaryDirectory() as d:
     trainer.logger.close()
 assert trainer.step == 2 and np.isfinite(metrics["loss"]), metrics
 assert "image_mask_loss" in metrics and "output_text_mask_loss" in metrics, metrics
+from dynamic_llava_tpu_torch.eval import eval_pope
+from dynamic_llava_tpu_torch.run import quant_quality, sparse_quality, text_sparse_quality
+from dynamic_llava_tpu_torch.train import lora
+
+adapted = lora.attach_lora(params, lora.init_lora_params(
+    cfg.text, torch.Generator().manual_seed(1), rank=2, device="cpu"))
+out = Generator(adapted, cfg, GenerationConfig(max_new_tokens=4)).generate(ids, pix)
+assert len(out) == 2 and all(1 <= len(o) <= 4 for o in out), out
 
 quant.quantize_llm_params(params, bits=4)
 out = Generator(params, cfg, GenerationConfig(max_new_tokens=4)).generate(ids, pix)

@@ -311,3 +311,21 @@ def test_quantized_decoder_matches_jax(quantized):
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(jllama.lm_head(jp, CFG, jd.x)),
                                atol=ATOL, rtol=RTOL)
+
+
+def test_gemv_route_follows_the_kernels_shape_contract():
+    """Decode rows take the GEMVs at any output width on either device (the
+    kernels take an N tail: a 24-token vocabulary's lm_head); more rows
+    dequantize. The GEMVs' plain versions give the dequantized product at
+    such a width."""
+    from dynamic_llava_tpu_torch.ops import quant as tq
+
+    assert tq.gemv_route(torch.empty(8, 256))
+    assert tq.gemv_route(torch.empty(4, 16, 256, device="meta"))
+    assert not tq.gemv_route(torch.empty(65, 256))
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=(8, 256)).astype(np.float32))
+    w = torch.from_numpy(np.random.default_rng(4).normal(size=(256, 24)).astype(np.float32))
+    for bits in (8, 4):
+        leaf = tq.quantize_weight(w, bits=bits)
+        want = x @ tq.dequantize_weight(leaf, torch.float32)
+        np.testing.assert_allclose(tq.matmul(x, leaf).numpy(), want.numpy(), atol=1e-5, rtol=1e-5)

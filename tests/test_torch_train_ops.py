@@ -222,7 +222,7 @@ def test_k3_plain_matches_grad_of_attend(h, hkv, causal):
 
 @pytest.mark.parametrize("lens", [None, [33, 12]])
 def test_k1_function_grads_match_jax_vjp(lens):
-    """The autograd Function (K1 forward, K3 backward; plain inside on the
+    """The differentiable op (K1 forward, K3 backward; plain inside on the
     CPU) against ``jax.grad`` of ``flash_attention_vjp`` (Pallas in
     interpret mode on the CPU)."""
     b, s, h, hkv, d = 2, 33, 4, 2, 16
@@ -233,7 +233,7 @@ def test_k1_function_grads_match_jax_vjp(lens):
         g[1, 12:] = 0.0
     ins = [_t(a, grad=True) for a in (q, k, v)]
     out = tflash.flash_attention_vjp(*ins, kv_length=None if kvl is None else _t(kvl))
-    assert out.grad_fn is not None and "FlashAttentionFn" in type(out.grad_fn).__name__
+    assert out.grad_fn is not None and "flash_forward" in type(out.grad_fn).__name__
     _grads_close(
         out, ins,
         lambda *a: jflash.flash_attention_vjp(
@@ -251,10 +251,10 @@ def test_self_attend_routes_and_padding_is_not_masked():
     jmask = jattn.make_attention_mask(s, s, causal=True, batch=b)
     out = tattn.self_attend(*ins[:3])
     _close(out, jattn.attend(*map(jnp.asarray, (q, k, v)), mask=jmask))
-    assert "FlashAttentionFn" in type(out.grad_fn).__name__
+    assert "flash_forward" in type(out.grad_fn).__name__
     out = tattn.self_attend(*ins[:3], policy=ins[3])
     _close(out, jattn.attend_with_policy(*map(jnp.asarray, (q, k, v, pol)), mask=jmask))
-    assert "FlashPolicyFn" in type(out.grad_fn).__name__
+    assert "flash_policy_forward" in type(out.grad_fn).__name__
     # with a valid_len the policy path is the plain oracle under the combined mask
     kvl = np.asarray([21, 9], np.int32)
     out = tattn.self_attend(*ins[:3], policy=ins[3], valid_len=_t(kvl))
@@ -281,14 +281,14 @@ def test_k4_plain_matches_pallas_interpret(h, hkv, s, soft):
 
 @pytest.mark.parametrize("h,hkv", [(2, 2), (4, 2)])
 def test_k4_function_grads_match_jax_vjp(h, hkv):
-    """The autograd Function (K4 forward, blockwise recompute backward)
+    """The differentiable op (K4 forward, blockwise recompute backward)
     against ``flash_policy_attention_vjp`` (Pallas forward in interpret
     mode; its backward is the JAX blockwise recompute)."""
     b, s, d = 2, 32, 16
     q, k, v, pol = _qkvp(b, s, h, hkv, d, 80)
     ins = [_t(a, grad=True) for a in (q, k, v, pol)]
     out = tpolicy.flash_policy_attention_vjp(*ins)
-    assert "FlashPolicyFn" in type(out.grad_fn).__name__
+    assert "flash_policy_forward" in type(out.grad_fn).__name__
     _grads_close(out, ins, jpolicy.flash_policy_attention_vjp, (q, k, v, pol),
                  _np(q.shape, 84), atol=3e-5, rtol=3e-4)
     # a policy that needs no gradient gets none
