@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. It needs one CUDA card with 80 GB, ``nvcc``
-and about five minutes, and fails (exit code != 0, no result line)
-anywhere else. Phases, each of which raises on failure:
+Run from the root of a checkout. It needs one CUDA card with 80 GB, ``nvcc``,
+PIL, 15 GB free in the temporary directory (phase 5e's checkpoint) and
+about twenty minutes, and fails (exit code != 0, no result line) anywhere
+else. Phases, each of which raises on failure:
 
 1. print the card's name and power limit (``nvidia-smi``);
 2. build the hand-written kernels from ``dynamic_llava_tpu_torch/csrc``
@@ -169,6 +170,18 @@ anywhere else. Phases, each of which raises on failure:
    batcher's on the same weights and cache (the speculative engine's also
    the plain engine's), or leave them only at a near tie
    (``near_tie_bound``, as in phase 5c);
+5e. the checkpoint path at 7B width on the phase-5 weights (``checkpoint``):
+   ``export_hf_checkpoint`` to a temporary directory (removed at the end of
+   the phase), ``load_pretrained_model`` back onto the card (every leaf
+   ``torch.equal`` to the phase-5 weights, the config equal), greedy
+   ``Generator.generate`` of phase 5's sparse batch (phase 5's tokens),
+   two rounds of the chat CLI's loop (``serve.cli.chat_loop``, a word-level
+   stand-in tokenizer) against the same loop on the phase-5 weights, and
+   the VQA CLI (``eval.model_vqa_loader.eval_model``) on three questions,
+   plain and with ``--spec_k 4``, on the checkpoint loaded again in fp32
+   (equal answers); K1, K2 and K2-M counted (wrappers zeroed at the start,
+   profiler traces of the calls), the export and load seconds, the host's
+   peak RSS and the device's peak printed (the ``checkpoint`` line);
 6. quantized serving at 7B width, the same batches: the phase-5 weights
    quantized in place to int8 (``quantize_llm_params``), sparse and dense;
    then an int4 decoder made directly (``init_quantized_llama_params``)
@@ -226,18 +239,21 @@ Before them a ``decode_graph`` line gives, per serving mode, the decode
 step wall of the eager loop and of the graph, the capture's ms and
 whether the tokens were equal, and a ``chat`` line each chat mode's TTFT,
 continuation ms, decode tok/s, capture ms, peak GiB and decode steps, and
-a ``continuous`` line with phase 5d's arms. K1's, K2's, K2-M's and the int8
-GEMV's launches in the ``kernels`` line include the engines' traced passes.
+a ``continuous`` line with phase 5d's arms, and a ``checkpoint`` line with
+phase 5e's. K1's, K2's, K2-M's and the int8 GEMV's launches in the
+``kernels`` line include the engines' traced passes and phase 5e's.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -262,6 +278,9 @@ CONT_REQUESTS, CONT_ARRIVAL_S = 16, 0.3  # the trace: requests, seconds between 
 CONT_MAX_NEW = (64, 128)  # new tokens, alternating
 CONT_SAMPLED = (5, 10)  # requests that sample (temperature 0.8, top-p 0.9) where an arm samples
 CONT_SPEC_K = 4
+# phase 5e: the checkpoint round trip and the entry points
+CKPT_QUESTIONS, CKPT_MAX_NEW, CKPT_SPEC_K = 3, 32, 4  # VQA questions, new tokens an answer, k
+CKPT_TURNS = ("What is in the image ?", "Is there a dog ?")  # the chat CLI's two rounds
 # phase 4b: the quality gates at the JAX tests' configs (text hidden 64 in 4
 # heads, a tower of hidden 32 in 2 heads: head_dim 16, which the attention
 # wrappers zero-pad to 64), fp32, seed 0, at the JAX tests' step counts
@@ -317,12 +336,14 @@ def time_ms(fn, iters: int = 20) -> float:
     functions is called in turn."""
     import torch
 
+    from dynamic_llava_tpu_torch.generation.generate import capturing
+
     fns = fn if isinstance(fn, list) else [fn]
     for f in fns[:2]:  # builds, sets kernel attributes, warms the allocator
         f()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with capturing(graph):
         for i in range(iters):
             fns[i % len(fns)]()
     graph.replay()
@@ -1327,6 +1348,20 @@ def graph_decode(torch, gen, plan, pix, steps):
     return np.concatenate(toks), step_ms
 
 
+def serving_batch(cfg, b: int, n_text: int):
+    """The serving phases' batch, made from ``SEED``: ``b`` prompts of
+    ``n_text`` random text tokens around one image token, and ``b``
+    preprocessed images of random pixels."""
+    from dynamic_llava_tpu_torch.config import IMAGE_TOKEN_INDEX
+
+    rng = np.random.default_rng(SEED)
+    vocab, size = cfg.text.vocab_size, cfg.vision.image_size
+    ids = [np.concatenate([rng.integers(3, vocab, n_text // 2), [IMAGE_TOKEN_INDEX],
+                           rng.integers(3, vocab, n_text - n_text // 2)])
+           for _ in range(b)]
+    return ids, rng.standard_normal((b, size, size, 3), dtype=np.float32)
+
+
 def serve(torch, params, modes, counters, need, label, b=8, max_new=64, n_text=60,
           batches=2):
     """For each mode of ``modes`` on the same weights, the main path:
@@ -1351,18 +1386,13 @@ def serve(torch, params, modes, counters, need, label, b=8, max_new=64, n_text=6
     import os
 
     from dynamic_llava_tpu_torch import kernel_cases as kc
-    from dynamic_llava_tpu_torch.config import IMAGE_TOKEN_INDEX
     from dynamic_llava_tpu_torch.generation.generate import GenerationConfig, Generator
     from dynamic_llava_tpu_torch.models.dynamic import gen_cache_sizes
     from dynamic_llava_tpu_torch.multimodal.fusion import plan_batch
 
     cfg0 = modes[0][1]
-    rng = np.random.default_rng(SEED)
-    vocab, size = cfg0.text.vocab_size, cfg0.vision.image_size
-    ids = [np.concatenate([rng.integers(3, vocab, n_text // 2), [IMAGE_TOKEN_INDEX],
-                           rng.integers(3, vocab, n_text - n_text // 2)])
-           for _ in range(b)]
-    pix = rng.standard_normal((b, size, size, 3), dtype=np.float32)
+    vocab = cfg0.text.vocab_size
+    ids, pix = serving_batch(cfg0, b, n_text)
     results = {}
     for mode, cfg, *rest in modes:
         opts = rest[0] if rest else {}
@@ -1457,7 +1487,7 @@ def serve(torch, params, modes, counters, need, label, b=8, max_new=64, n_text=6
         require(same, f"{label} {mode}: graph tokens differ from the eager loop's")
         results[mode] = dict(e2e_s=e2e, ttft_ms=ttft * 1e3, decode_tok_s=tok_s,
                              peak_gib=peak, kv_gib=kv_gib, pre=sizes[0], post=sizes[1],
-                             launches=calls, device_launches=device, graph=graph)
+                             launches=calls, device_launches=device, graph=graph, tokens=out)
         log(f"  {label} {mode}: B={b}, prompt length {plan.seq_len}, {max_new} new tokens, "
             f"tier capacities pre={sizes[0]} post={sizes[1]}, KV cache "
             f"{kv_dtype} {kv_gib:.3f} GiB; generate {e2e:.3f} s, TTFT "
@@ -2396,6 +2426,251 @@ def continuous(torch, params, cfg, arms, reqs, holds):
     return results
 
 
+class WordTokenizer:
+    """A word-level stand-in for a checkpoint's tokenizer (phase 5e; the
+    exported checkpoint has none): the text's words get ids from 3 up as
+    they are first seen, ``</s>`` is EOS (2) and BOS (1) leads every
+    encoding, as the LLaMA tokenizer's do. An id that no word has decodes
+    to ``w<id>`` and encodes back to it, so an answer's text re-encodes to
+    its ids."""
+
+    bos_token_id, eos_token_id = 1, 2
+
+    def __init__(self):
+        self.words = {0: "<unk>", 1: "<s>", 2: "</s>"}
+        self.ids = {w: i for i, w in self.words.items()}
+
+    def _id(self, word: str) -> int:
+        if word not in self.ids:
+            m = re.fullmatch(r"w(\d+)", word)
+            if m:
+                return int(m.group(1))
+            self.ids[word] = len(self.words)
+            self.words[len(self.words)] = word
+        return self.ids[word]
+
+    def __call__(self, text: str):
+        words = text.replace("</s>", " </s> ").split()
+        return types.SimpleNamespace(input_ids=[self.bos_token_id] + [self._id(w) for w in words])
+
+    def decode(self, ids, skip_special_tokens: bool = False) -> str:
+        return " ".join(self.words.get(int(i), f"w{int(i)}") for i in ids
+                        if not (skip_special_tokens and int(i) < 3))
+
+
+class HostMemory:
+    """Peaks of this process's resident memory (``VmRSS``) and of its
+    anonymous part (``RssAnon``: not file pages such as a memory-mapped
+    checkpoint's), sampled from ``/proc/self/status`` every ``period``
+    seconds by a thread between ``start`` and ``stop``, and ``VmRSS`` at
+    ``start``."""
+
+    def __init__(self, period: float = 0.02):
+        import threading
+
+        # a key the kernel does not report stays None ("not measured")
+        self.period, self.peak = period, {"VmRSS": None, "RssAnon": None}
+        self.done = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+
+    def _sample(self) -> dict:
+        now = {}
+        with open("/proc/self/status") as f:
+            for line in f:
+                key = line.split(":")[0]
+                if key in self.peak:
+                    now[key] = int(line.split()[1]) * 1024
+                    self.peak[key] = max(self.peak[key] or 0, now[key])
+        return now
+
+    def _run(self) -> None:
+        while not self.done.is_set():
+            self._sample()
+            self.done.wait(self.period)
+
+    def start(self) -> "HostMemory":
+        self.at_start = self._sample()["VmRSS"]
+        self.thread.start()
+        return self
+
+    def stop(self) -> dict:
+        self.done.set()
+        self.thread.join(timeout=5)
+        require(not self.thread.is_alive(), "the host-memory sampler did not stop")
+        self._sample()
+        return {k: None if v is None else v / 2**30
+                for k, v in (("rss_gib", self.peak["VmRSS"]), ("anon_gib", self.peak["RssAnon"]),
+                             ("rss_start_gib", self.at_start))}
+
+
+def checkpoint(torch, params, cfg, want_tokens, b=8, n_text=60):
+    """Phase 5e: the phase-5 weights through a checkpoint and the entry
+    points users run. ``export_hf_checkpoint`` writes them (bf16, full
+    depth) to a temporary directory, removed at the end; ``load_pretrained_model``
+    loads it onto the card, and every leaf must be ``torch.equal`` to the
+    phase-5 weights and the config equal to ``cfg``. On the loaded runtime:
+    greedy ``Generator.generate`` of phase 5's sparse batch must give phase
+    5's tokens (``want_tokens``); two rounds of the chat CLI's loop
+    (``serve.cli.chat_loop``, a 400x300 image, ``WordTokenizer``) must give
+    the answers the same loop gives on the phase-5 weights, K2-M once a
+    layer in the continued round. Then the checkpoint is loaded again in
+    fp32 (the bf16 weights widened, exactly), and the VQA CLI
+    (``model_vqa_loader.eval_model``) on ``CKPT_QUESTIONS`` questions must
+    write the same answers plain and with ``--spec_k CKPT_SPEC_K``. The wrappers' counts are zeroed at the
+    start and read at the end, the launches on the card counted in profiler
+    traces of the generate, chat and VQA calls; K1, K2 and K2-M must each
+    launch. Returns the export and load seconds (the tokenizer's first try
+    apart), the checkpoint's size, the host's peak RSS (and its anonymous
+    part, where the kernel reports it) over export and load, the device's
+    peak GiB, and the counts."""
+    import os
+    import resource
+    import tempfile
+
+    from PIL import Image
+
+    from dynamic_llava_tpu_torch import kernel_cases as kc
+    from dynamic_llava_tpu_torch.eval import model_vqa_loader
+    from dynamic_llava_tpu_torch.generation.generate import GenerationConfig, Generator
+    from dynamic_llava_tpu_torch.models.builder import (
+        LlavaRuntime, load_pretrained_model, load_tokenizer)
+    from dynamic_llava_tpu_torch.models.export import export_hf_checkpoint
+    from dynamic_llava_tpu_torch.ops.decode_attention import decode_attention, extend_attention
+    from dynamic_llava_tpu_torch.ops.flash_attention import flash_attention
+    from dynamic_llava_tpu_torch.serve.cli import chat_loop
+    from dynamic_llava_tpu_torch.weights import named_leaves
+
+    wrappers = {"flash_fwd": flash_attention, "decode_kernel": decode_attention,
+                "extend_kernel": extend_attention}
+    for fn in wrappers.values():
+        fn.launches = 0
+    device = dict.fromkeys(kc.SERVING_KERNELS, 0)
+
+    def traced(fn):
+        out, seen = kc.device_launches(fn)
+        for k in device:
+            device[k] += seen[k]
+        return out, seen
+
+    layers = cfg.text.num_hidden_layers
+    rng = np.random.default_rng(SEED + 7)
+    images = [Image.fromarray(rng.integers(0, 256, (300, 400, 3), dtype=np.uint8))
+              for _ in range(CKPT_QUESTIONS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as root:
+        path = os.path.join(root, "llava-v1.5-7b-random")
+        host = HostMemory().start()
+        try:
+            t0 = time.perf_counter()
+            export_hf_checkpoint(params, cfg, path)
+            export_s = time.perf_counter() - t0
+            # the tokenizer's first try (importing transformers) timed apart
+            t0 = time.perf_counter()
+            found = load_tokenizer(path)
+            tokenizer_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            _, runtime, processor, ctx = load_pretrained_model(path)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+        finally:
+            rss = host.stop()
+        load_peak = torch.cuda.max_memory_allocated() / 2**30
+        file_gib = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)) / 2**30
+        got, ref = list(named_leaves(runtime.params)), list(named_leaves(params))
+        require([p for p, _ in got] == [p for p, _ in ref],
+                f"checkpoint: loaded leaves {[p for p, _ in got][:8]}... != the phase-5 tree's")
+        differ = [p for (p, a), (_, r) in zip(got, ref)
+                  if not (a.dtype == r.dtype and a.device == r.device and torch.equal(a, r))]
+        require(not differ, f"checkpoint: {len(differ)} loaded leaves differ, e.g. {differ[:4]}")
+        require(runtime.cfg == cfg, f"checkpoint: loaded config {runtime.cfg} != {cfg}")
+        anon = "not measured" if rss["anon_gib"] is None else f"{rss['anon_gib']:.2f} GiB"
+        log(f"  checkpoint: export {export_s:.1f} s ({file_gib:.2f} GiB file), load {load_s:.1f} s "
+            f"(after {tokenizer_s:.1f} s for the tokenizer's first try: "
+            f"{type(found).__name__}), {len(got)} leaves bit-equal, config equal; host peak "
+            f"RSS {rss['rss_gib']:.2f} GiB from {rss['rss_start_gib']:.2f} (anonymous {anon}), "
+            f"device peak {load_peak:.2f} GiB")
+        del got
+
+        # greedy generate of phase 5's sparse batch on the loaded weights
+        gen = Generator(runtime.params, runtime.cfg, GenerationConfig(
+            max_new_tokens=64, temperature=0.0, eos_token_id=-1))
+        ids, pix = serving_batch(cfg, b, n_text)
+        out, seen = traced(lambda: gen.generate(ids, pix))
+        require(out == want_tokens, "checkpoint: generate on the loaded weights gave "
+                f"{out[0][:8]}..., phase 5 {want_tokens[0][:8]}...")
+        log(f"  checkpoint: generate B={b}, 64 tokens == phase 5's; launches {seen}")
+        del gen
+
+        # two rounds of the chat CLI's loop, against the same loop on the phase-5 weights
+        tok = WordTokenizer()
+        kw = dict(conv_mode="llava_v1", temperature=0.0, max_new_tokens=CKPT_MAX_NEW,
+                  echo=lambda *a, **k: None)
+        answers, seen = traced(lambda: chat_loop(tok, runtime, processor, images[0],
+                                                 CKPT_TURNS, **kw))
+        ref_answers = chat_loop(tok, LlavaRuntime(params, cfg), processor, images[0],
+                                CKPT_TURNS, **kw)
+        require(answers == ref_answers, f"checkpoint: chat answers {answers} != the phase-5 "
+                f"weights' {ref_answers}")
+        require(seen["extend_kernel"] == layers,
+                f"checkpoint: chat's continued round launched K2-M {seen['extend_kernel']} "
+                f"times, not once a layer ({layers})")
+        chat_words = [len(a.split()) for a in answers]
+        log(f"  checkpoint: chat {len(answers)} rounds (answers of {chat_words} words) == the "
+            f"phase-5 weights'; launches {seen}")
+
+        # the VQA CLI, plain and speculative, on the checkpoint loaded in
+        # fp32: on random weights the top two logits sit so close that bf16
+        # rounding alone reorders them (phase 5c's near ties), fp32 rounding
+        # almost never
+        del runtime
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        _, runtime, processor, ctx = load_pretrained_model(path, dtype=torch.float32)
+        torch.cuda.synchronize()
+        load_fp32_s = time.perf_counter() - t0
+        require(runtime.cfg == cfg and all(
+            torch.equal(a, r.float()) for (_, a), (_, r) in zip(named_leaves(runtime.params), ref)),
+            "checkpoint: the fp32 load is not the bf16 weights widened")
+        log(f"  checkpoint: loaded again in fp32 in {load_fp32_s:.1f} s")
+        for i, image in enumerate(images):
+            image.save(os.path.join(root, f"q{i}.png"))
+        qfile = os.path.join(root, "questions.jsonl")
+        with open(qfile, "w") as f:
+            for i in range(CKPT_QUESTIONS):
+                f.write(json.dumps({"question_id": i, "image": f"q{i}.png",
+                                    "text": f"Is there a dog in picture {i} ?"}) + "\n")
+        texts = {}
+        for k in (0, CKPT_SPEC_K):
+            answers_file = os.path.join(root, f"answers-{k}.jsonl")
+            args = model_vqa_loader.parser().parse_args([
+                "--model-path", path, "--image-folder", root, "--question-file", qfile,
+                "--answers-file", answers_file, "--conv-mode", "llava_v1", "--temperature",
+                "0", "--max_new_tokens", str(CKPT_MAX_NEW), "--spec_k", str(k)])
+            _, seen = traced(lambda: model_vqa_loader.eval_model(
+                args, loaded=(tok, runtime, processor, ctx)))
+            with open(answers_file) as f:
+                texts[k] = [json.loads(line)["text"] for line in f]
+            log(f"  checkpoint: VQA CLI spec_k={k}: {len(texts[k])} answers, launches {seen}")
+        require(len(texts[0]) == CKPT_QUESTIONS and texts[CKPT_SPEC_K] == texts[0],
+                f"checkpoint: VQA answers plain {texts[0]} != spec_k={CKPT_SPEC_K} "
+                f"{texts[CKPT_SPEC_K]}")
+    calls = {k: fn.launches for k, fn in wrappers.items()}
+    require(all(device[k] > 0 and calls[k] > 0 for k in wrappers),
+            f"checkpoint: a kernel of the path never launched (card {device}, wrappers {calls})")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del runtime
+    torch.cuda.empty_cache()
+    return dict(export_s=export_s, tokenizer_s=tokenizer_s, load_s=load_s,
+                load_fp32_s=load_fp32_s, file_gib=file_gib,
+                host_peak_rss_gib=rss["rss_gib"], host_rss_start_gib=rss["rss_start_gib"],
+                host_peak_anon_gib=rss["anon_gib"],
+                process_max_rss_gib=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20,
+                load_peak_gib=load_peak, peak_gib=peak, chat_answer_words=chat_words,
+                vqa_answers=texts[0], device_launches={k: device[k] for k in wrappers},
+                wrapper_calls=calls)
+
+
 def gate_configs():
     """The gates' configs at the JAX tests' values: the vision gate's sparse
     and dense configs, the text gate's, and its dense one."""
@@ -2986,6 +3261,12 @@ def main() -> int:
     ], trace, holds=[("engine", "window"), (spec_arm, "window"), (spec_arm, "engine")])
     log(f"  phase 5d bf16 arms: {time.perf_counter() - t5d:.1f} s")
 
+    phase("phase 5e: checkpoint: the phase-5 weights exported, loaded back onto the card, and "
+          "served through generate, the chat CLI's loop and the VQA CLI")
+    t5e = time.perf_counter()
+    ckpt = checkpoint(torch, params, cfg_sparse, results["bf16"]["sparse"]["tokens"])
+    log(f"  phase 5e: {time.perf_counter() - t5e:.1f} s")
+
     phase("phase 6: quantized serving at 7B width")
     t0 = time.perf_counter()
     quantize_llm_params(params, bits=8)
@@ -3014,19 +3295,26 @@ def main() -> int:
         calls[name] += sum(r["wrapper_calls"][label] for r in engines)
     for name in ("q8_gemv", "q8_gemv_group"):
         launches[name] += sum(r["device_launches"]["gemv int8"] for r in engines)
+    # phase 5e's path (generate, the chat loop and the VQA CLI on the loaded weights)
+    for name, label in (("flash_attention_fwd", "flash_fwd"),
+                        ("decode_attention_appended", "decode_kernel")):
+        launches[name] += ckpt["device_launches"][label]
+        calls[name] += ckpt["wrapper_calls"][label]
     # K2-M's main paths: the chat's continuations and the traced speculative
     # generations
     traced = [r["k"][SPEC_KS[-1]] for r in spec.values()]
     by_path = {"chat": sum(r["device_launches"]["extend_kernel"]
                            for r in results["chat"].values()),
                "speculative": sum(t["device_launches"]["extend_kernel"] for t in traced),
-               "continuous": sum(r["device_launches"]["extend_kernel"] for r in engines)}
+               "continuous": sum(r["device_launches"]["extend_kernel"] for r in engines),
+               "checkpoint": ckpt["device_launches"]["extend_kernel"]}
     kres["extend_attention_appended"]["launches_by_path"] = by_path
     launches["extend_attention_appended"] = sum(by_path.values())
     calls["extend_attention_appended"] = sum(
         r["launches"]["extend_kernel"] for r in results["chat"].values()) + sum(
         t["launches"]["extend_kernel"] for t in traced) + sum(
-        r["wrapper_calls"]["extend_kernel"] for r in engines)
+        r["wrapper_calls"]["extend_kernel"] for r in engines) + ckpt["wrapper_calls"][
+        "extend_kernel"]
     del params["llm"]
     torch.cuda.empty_cache()
     params["llm"] = init_quantized_llama_params(
@@ -3210,6 +3498,7 @@ def main() -> int:
                                    "clip_k1_launches_per_step", "grad_max_rel_diff")}
         for policy, r in remat.items()}))
     print("qlora " + json.dumps(qlora_r))
+    print("checkpoint " + json.dumps(ckpt))
     print("continuous " + json.dumps({
         arm: {k: v for k, v in r.items() if k not in ("device_launches", "wrapper_calls")}
         for arm, r in cont.items()}))

@@ -4,8 +4,7 @@ The port's own copy of the JAX package's frozen dataclasses
 (``dynamic_llava_tpu/config.py``): the same fields and defaults, so a
 config built from the same values means the same model in both packages,
 without either importing the other. Frozen dataclasses are hashable and
-compare by value. The MPT family and the HF-dict constructors are not
-ported.
+compare by value. The MPT family is not ported (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -160,6 +159,37 @@ class LlamaConfig:
         base.update(overrides)
         return cls(**base)
 
+    @classmethod
+    def from_hf_dict(cls, d: dict) -> "LlamaConfig":
+        """The decoder fields of an HF ``config.json`` dict: GQA's
+        ``num_key_value_heads`` (default: MHA), ``rope_scaling`` by ``type``
+        or ``rope_type``, tied embeddings, a sliding window."""
+        rs = d.get("rope_scaling")
+        rope_scaling = None
+        if rs:
+            rope_scaling = RopeScalingConfig(
+                rope_type=rs.get("rope_type", rs.get("type", "linear")),
+                factor=float(rs.get("factor", 1.0)),
+            )
+        return cls(
+            vocab_size=d.get("vocab_size", 32000),
+            hidden_size=d.get("hidden_size", 4096),
+            intermediate_size=d.get("intermediate_size", 11008),
+            num_hidden_layers=d.get("num_hidden_layers", 32),
+            num_attention_heads=d.get("num_attention_heads", 32),
+            num_key_value_heads=d.get(
+                "num_key_value_heads", d.get("num_attention_heads", 32)
+            ),
+            max_position_embeddings=d.get("max_position_embeddings", 4096),
+            rms_norm_eps=d.get("rms_norm_eps", 1e-5),
+            rope_theta=d.get("rope_theta", 10000.0),
+            rope_scaling=rope_scaling,
+            attention_bias=d.get("attention_bias", False),
+            tie_word_embeddings=d.get("tie_word_embeddings", False),
+            sliding_window=d.get("sliding_window"),
+        )
+
+
 @dataclass(frozen=True)
 class ClipVisionConfig:
     """CLIP ViT vision tower config (CLIP-ViT-L/14-336 defaults)."""
@@ -201,6 +231,24 @@ class ClipVisionConfig:
         )
         base.update(overrides)
         return cls(**base)
+
+    @classmethod
+    def from_hf_dict(cls, d: dict, select_layer: int = -2,
+                     select_feature: str = "patch") -> "ClipVisionConfig":
+        """The tower fields of an HF CLIP vision ``config.json`` dict."""
+        return cls(
+            hidden_size=d.get("hidden_size", 1024),
+            intermediate_size=d.get("intermediate_size", 4096),
+            num_hidden_layers=d.get("num_hidden_layers", 24),
+            num_attention_heads=d.get("num_attention_heads", 16),
+            image_size=d.get("image_size", 336),
+            patch_size=d.get("patch_size", 14),
+            layer_norm_eps=d.get("layer_norm_eps", 1e-5),
+            projection_dim=d.get("projection_dim", 768),
+            select_layer=select_layer,
+            select_feature=select_feature,
+        )
+
 
 @dataclass(frozen=True)
 class LlavaConfig:

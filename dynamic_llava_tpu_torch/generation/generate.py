@@ -80,6 +80,8 @@ oldest decode entry).
 
 from __future__ import annotations
 
+import contextlib
+import gc as pygc  # `gc` names the generation configs here
 import time
 from typing import List, NamedTuple, Optional, Tuple
 
@@ -157,6 +159,25 @@ def _sample_per_slot(generator: Optional[torch.Generator], logits: torch.Tensor,
     lg = torch.where(lg < cutoff, float("-inf"), lg)
     samp = torch.multinomial(torch.softmax(lg, dim=-1), 1, generator=generator)[:, 0]
     return torch.where(temps > 0.0, samp, greedy)
+
+
+@contextlib.contextmanager
+def capturing(graph):
+    """``torch.cuda.graph(graph)`` with Python's cyclic garbage collector
+    paused. A collection inside the capture can free the CUDA objects of
+    dead reference cycles (a graph, an event, a finished trace's buffers),
+    which a capturing stream does not permit: the capture is invalidated
+    and the next launch in it fails (cuBLAS did, ROADMAP C24).
+    ``torch.cuda.graph`` no longer collects at its entry; paused, the
+    collection comes after the capture."""
+    enabled = pygc.isenabled()
+    pygc.disable()
+    try:
+        with torch.cuda.graph(graph):
+            yield
+    finally:
+        if enabled:
+            pygc.enable()
 
 
 def decode_chunk_len(gc: GenerationConfig) -> int:
@@ -325,7 +346,7 @@ class DecodeRunner:
         if self._draws():
             graph.register_generator_state(self.generator)
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph):
+        with capturing(graph):
             self.step()
         torch.cuda.synchronize()
         self.capture_ms = (time.perf_counter() - t0) * 1e3

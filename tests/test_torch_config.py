@@ -1,8 +1,12 @@
 """The port's own copies of the framework-free host code against the JAX
 package's: the config dataclasses (same fields, same defaults, same derived
 values), the constants, the numpy fusion planner (equal ``FusionPlan``s
-on seeded inputs), and the conversation templates (every template renders
-the same prompt from the same messages). ``port_config`` is the helper the other port tests use to
+on seeded inputs), the conversation templates (every template renders
+the same prompt from the same messages), the HF ``config.json``
+constructors (``from_hf_dict``, and the builder's
+``llava_config_from_hf_dict`` where the dict has no ``vision_config``) and
+``mm_utils`` (prompt tokenization, image preprocessing, anyres geometry,
+the keyword stop). ``port_config`` is the helper the other port tests use to
 build the port's config from the JAX package's field values."""
 
 import dataclasses
@@ -165,3 +169,130 @@ def test_pope_scorer_matches():
     for mod in (tpope, jpope):
         with pytest.raises(ValueError, match="predictions"):
             mod.score_pope(POPE_ANSWERS, POPE_LABELS[:3])
+
+
+HF_DICTS = {
+    "defaults": {},
+    "gqa_rope_type_tied_window": {
+        "vocab_size": 100, "hidden_size": 256, "intermediate_size": 512,
+        "num_hidden_layers": 3, "num_attention_heads": 8, "num_key_value_heads": 2,
+        "max_position_embeddings": 8192, "rms_norm_eps": 1e-6, "rope_theta": 1e6,
+        "rope_scaling": {"type": "linear", "factor": 2}, "tie_word_embeddings": True,
+        "sliding_window": 4096, "attention_bias": True},
+    "mha_rope_type_key": {"num_attention_heads": 8, "rope_scaling": {"rope_type": "dynamic",
+                                                                     "factor": 4.0}},
+    "clip_b16": {"hidden_size": 768, "intermediate_size": 3072, "num_hidden_layers": 12,
+                 "num_attention_heads": 12, "image_size": 224, "patch_size": 16,
+                 "layer_norm_eps": 1e-6, "projection_dim": 512},
+}
+
+
+@pytest.mark.parametrize("name", sorted(HF_DICTS))
+def test_from_hf_dict_matches(name):
+    d = HF_DICTS[name]
+    assert tconfig.LlamaConfig.from_hf_dict(d) == port_config(jconfig.LlamaConfig.from_hf_dict(d))
+    for args in ((), (-1, "cls_patch")):
+        assert tconfig.ClipVisionConfig.from_hf_dict(d, *args) == port_config(
+            jconfig.ClipVisionConfig.from_hf_dict(d, *args))
+
+
+LLAVA_DICTS = [
+    {},
+    {"mm_vision_tower": "openai/clip-vit-large-patch14", "mm_projector_type": "mlp2x_gelu",
+     "mm_vision_select_layer": -1, "mm_vision_select_feature": "cls_patch",
+     "image_aspect_ratio": "pad", "mm_use_im_start_end": True, "max_length": 1024,
+     "model_max_length": 4096, "num_key_value_heads": 8,
+     "sparse_config": {"vision_keep_rate": 0.3, "sparse_layer": 3, "unknown_key": 1}},
+    {"mm_vision_tower": "openai/clip-vit-large-patch14-336", "model_max_length": 512,
+     "mm_use_im_patch_token": False, "sparse_config": {}},
+]
+
+
+@pytest.mark.parametrize("i", range(len(LLAVA_DICTS)))
+def test_llava_config_from_hf_dict_matches(i):
+    from dynamic_llava_tpu.models import builder as jbuilder
+    from dynamic_llava_tpu_torch.models import builder as tbuilder
+
+    d = LLAVA_DICTS[i]
+    assert tbuilder.llava_config_from_hf_dict(d) == port_config(
+        jbuilder.llava_config_from_hf_dict(d))
+
+
+def _pil_images():
+    from PIL import Image
+
+    rng = np.random.default_rng(1)
+    return [Image.fromarray(rng.integers(0, 255, (h, w, 3)).astype("uint8"))
+            for h, w in ((40, 64), (64, 40), (50, 50), (336, 500), (21, 13))]
+
+
+@pytest.mark.parametrize("aspect", ["pad", "square"])
+def test_process_images_matches(aspect):
+    from dynamic_llava_tpu import mm_utils as jmm
+    from dynamic_llava_tpu_torch import mm_utils as tmm
+
+    for size in (56, 336):
+        jp, tp = jmm.ClipImagePreprocessor(size), tmm.ClipImagePreprocessor(size)
+        assert tp.background_color == jp.background_color
+        images = _pil_images()
+        want = jmm.process_images(images, jp, image_aspect_ratio=aspect)
+        got = tmm.process_images(images, tp, image_aspect_ratio=aspect)
+        assert got.dtype == want.dtype == np.float32 and np.array_equal(got, want)
+        cfg = tconfig.LlavaConfig(image_aspect_ratio=aspect)
+        assert np.array_equal(tmm.process_images(images, tp, cfg), want)
+
+
+def test_anyres_and_name_helpers_match():
+    from dynamic_llava_tpu import mm_utils as jmm
+    from dynamic_llava_tpu_torch import mm_utils as tmm
+
+    grid = [[336, 672], [672, 336], [672, 672], [1008, 336], [336, 1008]]
+    for size in ((500, 300), (300, 900), (336, 336), (1000, 10)):
+        assert tmm.select_best_resolution(size, grid) == jmm.select_best_resolution(size, grid)
+        for g in (grid, str(grid)):
+            assert tmm.get_anyres_image_grid_shape(size, g, 336) == \
+                jmm.get_anyres_image_grid_shape(size, g, 336)
+    image = _pil_images()[0]
+    small = [[28, 56], [56, 28], [56, 56]]
+    assert np.array_equal(
+        tmm.process_anyres_image(image, tmm.ClipImagePreprocessor(28), small),
+        jmm.process_anyres_image(image, jmm.ClipImagePreprocessor(28), small))
+    for path in ("/a/b/llava-v1.5-7b", "ckpts/run/checkpoint-500/", "model"):
+        assert tmm.get_model_name_from_path(path) == jmm.get_model_name_from_path(path)
+
+
+PROMPTS = ["USER: <image>\nWhat is it? ASSISTANT:", "no image here </s>",
+           "<image> first and <image> second", "<image>", ""]
+
+
+@pytest.mark.parametrize("prompt", PROMPTS)
+def test_tokenizer_image_token_matches(prompt):
+    from dynamic_llava_tpu import mm_utils as jmm
+    from dynamic_llava_tpu_torch import mm_utils as tmm
+    from helpers import WordTokenizer
+
+    tok = WordTokenizer()
+    want = jmm.tokenizer_image_token(prompt, tok)
+    assert tmm.tokenizer_image_token(prompt, tok) == want
+    assert np.array_equal(tmm.tokenizer_image_token(prompt, tok, return_tensors="np"),
+                          jmm.tokenizer_image_token(prompt, tok, return_tensors="np"))
+    assert tmm.tokenizer_image_token(prompt, tok, return_tensors="pt").tolist() == want
+    with pytest.raises(ValueError, match="Unsupported"):
+        tmm.tokenizer_image_token(prompt, tok, return_tensors="jax")
+
+
+def test_keywords_stopping_criteria_matches():
+    from dynamic_llava_tpu import mm_utils as jmm
+    from dynamic_llava_tpu_torch import mm_utils as tmm
+    from helpers import WordTokenizer
+
+    tok = WordTokenizer()
+    words = [tok.convert_tokens_to_ids(w) for w in ("a", "b", "</s>", "###", "c")]
+    j = jmm.KeywordsStoppingCriteria(["</s>", "### c"], tok, 2)
+    t = tmm.KeywordsStoppingCriteria(["</s>", "### c"], tok, 2)
+    assert t.keyword_ids == j.keyword_ids and t.max_keyword_len == j.max_keyword_len
+    rng = np.random.default_rng(2)
+    for n in range(0, 9):
+        seq = [int(x) for x in rng.choice(words, size=n)]
+        assert t(seq) == j(seq), seq
+    assert t([7, 7, words[3], words[4]]) and not t([7, 7])

@@ -257,6 +257,41 @@ def test_generator_keeps_one_runner(params):
     assert len(set(keys)) == 3 and keys[0] == keys[3]
 
 
+def test_a_capture_pauses_the_garbage_collector(params, monkeypatch):
+    """A collection inside a capture can free a dead ``CUDAGraph``, and
+    destroying a graph invalidates the capture (ROADMAP §C24): the runner
+    captures its step with the cyclic collector paused, and restores it
+    after, also when the step raises. The capture itself is faked here."""
+    import gc as pygc
+
+    class FakeGraph:
+        pass
+
+    @contextlib.contextmanager
+    def fake_capture(graph):
+        yield
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", FakeGraph)
+    monkeypatch.setattr(torch.cuda, "graph", fake_capture)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    gc = GenerationConfig(**dict(BASE, max_new_tokens=4))
+    ids, pix = _batch()
+    runner = Generator(params, SPARSE, gc).runner(_plan(SPARSE, ids, gc), pix, 4)
+    seen = []
+    monkeypatch.setattr(runner, "step", lambda: seen.append(pygc.isenabled()))
+    assert pygc.isenabled()
+    runner._capture()
+    assert seen == [False] and pygc.isenabled() and isinstance(runner.graph, FakeGraph)
+
+    def failing_step():
+        raise RuntimeError("the capture failed")
+
+    monkeypatch.setattr(runner, "step", failing_step)
+    with pytest.raises(RuntimeError, match="capture failed"):
+        runner._capture()
+    assert pygc.isenabled()
+
+
 def test_a_chunk_is_read_before_its_host_buffer_is_reused(params):
     """A chunk's tokens stay readable until the chunk after next is
     enqueued (it takes the same host buffer); reading later raises."""

@@ -1,7 +1,8 @@
 """The port never loads jax nor the JAX package: its sources (the package,
 ``chip_smoke.py``, ``tools/*.py``) import neither, and a fresh
 interpreter that imports the package (the quantized and the training paths,
-the LoRA module and the quality harnesses included), generates on the CPU
+the LoRA module, the quality harnesses, the checkpoint loader and the
+entry points included), exports and loads a checkpoint, generates on the CPU
 with fp32 (also speculatively, through the continuous-batching engine and
 with LoRA adapters attached) and then
 int4 weights (also with
@@ -62,7 +63,16 @@ with tempfile.TemporaryDirectory() as d:
     trainer.logger.close()
 assert trainer.step == 2 and np.isfinite(metrics["loss"]), metrics
 assert "image_mask_loss" in metrics and "output_text_mask_loss" in metrics, metrics
-from dynamic_llava_tpu_torch.eval import eval_pope
+from dynamic_llava_tpu_torch.eval import eval_pope, model_vqa_loader, run_dynamic_llava
+from dynamic_llava_tpu_torch.models import builder, export, tokenizer_init, weight_tools
+from dynamic_llava_tpu_torch.serve import cli
+
+with tempfile.TemporaryDirectory() as d:
+    export.export_hf_checkpoint(params, cfg, d)
+    _, runtime, _, _ = builder.load_pretrained_model(d, dtype=torch.float32, device="cpu")
+assert runtime.cfg == cfg
+assert Generator(runtime.params, cfg, GenerationConfig(max_new_tokens=4)).generate(ids, pix) \
+    == gen.generate(ids, pix)
 from dynamic_llava_tpu_torch.run import quant_quality, sparse_quality, text_sparse_quality
 from dynamic_llava_tpu_torch.train import lora
 
