@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout. It needs one CUDA card with 80 GB, ``nvcc``,
-PIL, 15 GB free in the temporary directory (phase 5e's checkpoint) and
+PIL, ``tokenizers`` and ``transformers``, ~45 GB free in the temporary
+directory (phase 9d's final save; phase 5e's checkpoint takes 15 GB) and
 about twenty minutes, and fails (exit code != 0, no result line) anywhere
 else. Phases, each of which raises on failure:
 
@@ -179,23 +180,31 @@ else. Phases, each of which raises on failure:
    stand-in tokenizer) against the same loop on the phase-5 weights, and
    the VQA CLI (``eval.model_vqa_loader.eval_model``) on three questions,
    plain and with ``--spec_k 4``, on the checkpoint loaded again in fp32
-   (equal answers); K1, K2 and K2-M counted (wrappers zeroed at the start,
+   (equal answers), then the offline eval generators on that load through
+   ``eval_model(args, loaded=...)`` (``eval_generators``: ``model_vqa``,
+   whose answers must equal the VQA CLI's, ``model_vqa_science``,
+   ``model_vqa_qbench``, ``model_qa`` text-only, and ``model_vqa_mmbench``
+   where ``pandas`` imports; three questions, 32 tokens each) and their
+   scorers; K1, K2 and K2-M counted (wrappers zeroed at the start,
    profiler traces of the calls), the export and load seconds, the host's
    peak RSS and the device's peak printed (the ``checkpoint`` line);
 6. quantized serving at 7B width, the same batches: the phase-5 weights
    quantized in place to int8 (``quantize_llm_params``), sparse and dense;
    then an int4 decoder made directly (``init_quantized_llama_params``)
    beside the bf16 tower, projector and predictors, sparse;
-7. lean-memory serving at 7B width on the int4 decoder, the same batches,
-   within one process so that the modes can be compared: bf16 KV with the
+7. lean-memory serving at 7B width on the first LEAN_DEPTH of the int4
+   decoder's 32 layers (views of its stacked weights; cut for the script's
+   time limit), the same batches, within one process so that the modes can
+   be compared: bf16 KV with the
    fused MLP (K9, ``DYNAMIC_LLAVA_Q4_MLP=1``) off, on, on, off; fused with
    an int8 KV cache, sparse and dense; fused with an fp8 cache, sparse;
    then ring overflow (int8 KV, 256 new tokens at a decode window of 64,
    so both tiers wrap). On the card K9 must launch once per layer and
    decode step with the switch on and never with it off, K2 once per layer
    and step in every mode. Cache bytes and peak memory are printed. Then
-   the KV cosine (``kv_cosine``): the bf16-KV run's greedy tokens fed to an
-   int8-KV and an fp8-KV run (teacher forcing, B=8), the cosine of each
+   the KV cosine (``kv_cosine``) on all 32 layers: the bf16-KV run's
+   greedy tokens fed to an int8-KV and an fp8-KV run (teacher forcing,
+   B=8), the cosine of each
    sample's last logits against bf16 KV's at decode steps 1, 16 and 64
    (the ``kv_cosine`` line), every one finite;
 8. LLaVA-1.5-13B width (40 layers, hidden 5120, ffn 13824), an int4
@@ -221,6 +230,16 @@ else. Phases, each of which raises on failure:
    with the adapters (B=8, 16 tokens, the fused-MLP switch on): K7 / K8
    launch, K9 never, the tokens equal an eager loop's (the ``qlora``
    line).
+9d. the training CLI at 7B width (``train_cli``): ``train_sparse.train``
+   in this process, ``--model_size 7b`` (32 layers, bf16, random weights
+   from its seed), B=4, CLI_STEPS sparse steps over a LLaVA-format JSON set
+   the phase writes (12 records with a PNG of mixed aspect ratio through the
+   ``pad`` path, native where ``g++`` builds it; 4 text-only; ~1.6k fused
+   tokens each) and a word-level tokenizer it writes, then the CLI's final
+   save (~38 GiB; the room checked first, the directory removed after);
+   K1 / K3 / K4 held to phase 9's sparse step, losses finite, the
+   checkpoint file present (the ``train_cli`` line: step ms, fused lengths,
+   peak, save seconds and bytes, whether the native image path ran).
 
 After the main path of each serving mode, outside its counts and trace,
 TIMED more batches are timed (the graph is reused), each followed by its
@@ -240,8 +259,9 @@ step wall of the eager loop and of the graph, the capture's ms and
 whether the tokens were equal, and a ``chat`` line each chat mode's TTFT,
 continuation ms, decode tok/s, capture ms, peak GiB and decode steps, and
 a ``continuous`` line with phase 5d's arms, and a ``checkpoint`` line with
-phase 5e's. K1's, K2's, K2-M's and the int8 GEMV's launches in the
-``kernels`` line include the engines' traced passes and phase 5e's.
+phase 5e's, and a ``train_cli`` line with phase 9d's. K1's, K2's, K2-M's
+and the int8 GEMV's launches in the ``kernels`` line include the engines'
+traced passes and phase 5e's; K1's, K3's and K4's include phase 9d's.
 """
 
 from __future__ import annotations
@@ -252,6 +272,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import types
 from pathlib import Path
@@ -263,6 +284,10 @@ SEED = 0
 BF16_TOL = 2e-2
 FP32_TOL = 1e-4
 TRAIN_DEPTH = 32  # decoder layers of the training phase (width is never cut)
+# decoder layers of phase 7's serving modes (of the int4 decoder's 32): cut
+# so that the script, with phase 5e's generators and phase 9d, stays inside
+# its 1200 s limit; its KV cosine and every other phase keep full depth
+LEAN_DEPTH = 8
 TRAIN_STEPS = 3  # per mode; the first is timed apart
 TRAIN_BATCH, TRAIN_TEXT_LEN = 4, 1088  # fused S = 1088 - 1 + 576 = 1663
 TIMED = 3  # timed generate calls and prefills a serving mode
@@ -295,6 +320,12 @@ REMAT_STEPS = 2  # per policy; the first is timed apart
 REMAT_DEPTHS = (32, 24, 16, 8)  # tried in turn until a policy's steps fit the card
 REMAT_CHECK_DEPTH = 4  # the gradient check's depth (the same weights for every policy)
 LORA_RANK, LORA_ALPHA = 128, 256.0  # run/finetune_qlora.sh's adapters
+# phase 9d: the training CLI on a JSON set the phase writes
+CLI_STEPS = 3
+CLI_IMAGE_RECORDS, CLI_TEXT_RECORDS = 12, 4
+CLI_WORDS, CLI_TURN_WORDS = 4000, 250  # synthetic vocabulary; words a turn (~1.6k fused)
+CLI_IMAGE_SIZES = ((640, 480), (480, 640), (336, 336), (800, 300), (300, 800), (500, 375),
+                   (375, 500), (1024, 768), (448, 336), (336, 448), (700, 350), (350, 700))
 # published peaks of one H100 SXM (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
@@ -308,8 +339,15 @@ def log(msg: str) -> None:
 
 
 def phase(msg: str) -> None:
-    """A phase's first line, with the seconds since the script started."""
-    log(f"{msg} [at {time.perf_counter() - T0:.0f} s]")
+    """A phase's first line, with the seconds since the script started and,
+    once the port is imported, the launch-counting traces taken so far and
+    the seconds they cost beyond the calls they wrapped."""
+    cost = ""
+    kc = sys.modules.get("dynamic_llava_tpu_torch.kernel_cases")
+    if kc is not None:
+        cost = (f"; {kc.TRACE_COST['traces']} traces, {kc.TRACE_COST['records']} kernel records, "
+                f"{kc.TRACE_COST['seconds']:.0f} s of trace cost")
+    log(f"{msg} [at {time.perf_counter() - T0:.0f} s{cost}]")
 
 
 def require(cond: bool, msg: str) -> None:
@@ -1124,6 +1162,26 @@ def check_small_train(torch):
     require(worst[0] <= 1e-4, f"small train: parameters differ by {worst[0]} at {worst[1]}")
 
 
+def train_launches(cfg) -> dict:
+    """K1's, K3's and K4's launches in one train step under remat
+    ``nothing`` of ``cfg``'s layer layout, sparse and dense stage: the CLIP
+    tower (to layer -2) runs K1 forward only; a decoder layer runs its
+    attention forward twice (forward and recompute) and its backward once,
+    K1 + K3 below ``sparse_layer`` (every layer in the dense stage), K4 at
+    and above it."""
+    clip_layers = cfg.vision.num_hidden_layers + cfg.vision.select_layer + 1
+    depth, sl = cfg.text.num_hidden_layers, cfg.sparse.sparse_layer
+    return {
+        "sparse": {"flash_attention_fwd": clip_layers + 2 * sl, "flash_attention_bwd_delta": sl,
+                   "flash_attention_bwd_dq": sl, "flash_attention_bwd_dkv": sl,
+                   "flash_policy_attention_fwd": 2 * (depth - sl)},
+        "dense": {"flash_attention_fwd": clip_layers + 2 * depth,
+                  "flash_attention_bwd_delta": depth,
+                  "flash_attention_bwd_dq": depth, "flash_attention_bwd_dkv": depth,
+                  "flash_policy_attention_fwd": 0},
+    }
+
+
 def train(torch, params, cfg, label, expect, steps=TRAIN_STEPS, remat_policy="nothing"):
     """``steps`` steps of ``Trainer.train`` on ``params`` (updated in
     place) under ``remat_policy`` with the launch counters of K1, K3 and K4
@@ -1417,6 +1475,7 @@ def serve(torch, params, modes, counters, need, label, b=8, max_new=64, n_text=6
             # the main path (the first call captures the decode step); one
             # trace a call keeps the profiler's buffers small
             outs, per_call = [], []
+            t_stage = time.perf_counter()
             for _ in range(batches):
                 out, seen = kc.device_launches(lambda: gen.generate(ids, pix))
                 outs.append(out)
@@ -1425,6 +1484,8 @@ def serve(torch, params, modes, counters, need, label, b=8, max_new=64, n_text=6
             calls = {name: fn.launches for name, fn in counters.items()}
             peak = torch.cuda.max_memory_allocated() / 2**30
             runner = gen.decode_runner
+            stage_s = {"traced": time.perf_counter() - t_stage}
+            t_stage = time.perf_counter()
             # timed apart from the trace: TIMED calls and as many prefills
             # alone, the median of each kept (the host's pace varies)
             e2es, ttfts = [], []
@@ -1448,8 +1509,13 @@ def serve(torch, params, modes, counters, need, label, b=8, max_new=64, n_text=6
             # the graph's tokens and step wall against the eager loop's, all steps
             require(gen.decode_runner is runner and runner.graph is not None,
                     f"{label} {mode}: decode took no CUDA graph, or not one graph")
+            stage_s["timed"] = time.perf_counter() - t_stage
+            t_stage = time.perf_counter()
             graph_toks, graph_ms = graph_decode(torch, gen, plan, pix, steps)
+            stage_s["graph"] = time.perf_counter() - t_stage
+            t_stage = time.perf_counter()
             eager_toks, eager_ms, eager_calls = eager_decode(torch, gen, plan, pix, steps)
+            stage_s["eager"] = time.perf_counter() - t_stage
         finally:
             os.environ.pop(Q4_MLP_SWITCH, None)
         for name in need:
@@ -1497,7 +1563,8 @@ def serve(torch, params, modes, counters, need, label, b=8, max_new=64, n_text=6
             f"first tokens {out[0][:8]}")
         log(f"  {label} {mode}: decode step wall {eager_ms:.3f} ms eager, "
             f"{graph_ms:.3f} ms graph (capture {runner.capture_ms:.1f} ms); "
-            "graph tokens == eager loop's")
+            "graph tokens == eager loop's; seconds "
+            + ", ".join(f"{k} {v:.1f}" for k, v in stage_s.items()))
         del gen, runner, info
     return results
 
@@ -2503,6 +2570,116 @@ class HostMemory:
                              ("rss_start_gib", self.at_start))}
 
 
+def eval_generators(root, model_path, loaded, images, qfile, traced, layers):
+    """Phase 5e: the offline eval generators through ``eval_model(args,
+    loaded=...)`` on the loaded runtime, ``CKPT_QUESTIONS`` questions each,
+    ``CKPT_MAX_NEW`` new tokens, greedy: ``model_vqa`` on the VQA CLI's
+    questions, ``model_vqa_science`` (the last problem text-only),
+    ``model_vqa_qbench``, ``model_qa`` (text only: K1 once a decoder layer a
+    question, the tower never) and, where ``pandas`` imports,
+    ``model_vqa_mmbench`` on a TSV of base64 PNGs. Each answers file must
+    hold one record a question. The VQA answers are scored with the TextVQA
+    accuracy and the ScienceQA answers with its parser (on random weights:
+    this shows that the scorers run, not what they score). The five run in
+    one profiler trace (``traced``). Returns each generator's records,
+    seconds (traced), K1 launches and texts, the five's launches on the
+    card, and the scores."""
+    import base64
+    import io
+    import os
+    import random
+
+    from dynamic_llava_tpu_torch.eval import (
+        eval_science_qa, model_qa, model_vqa, model_vqa_mmbench, model_vqa_qbench,
+        model_vqa_science, vqa_metrics)
+    from dynamic_llava_tpu_torch.ops.flash_attention import flash_attention
+
+    n = CKPT_QUESTIONS
+
+    def write(name, text):
+        path = os.path.join(root, name)
+        with open(path, "w") as f:
+            f.write(text)
+        return path
+
+    sqa = write("sqa.json", json.dumps([
+        {"id": f"p{i}", **({"image": f"q{i}.png"} if i < n - 1 else {}),
+         "conversations": [{"from": "human", "value":
+                            f"<image>\nWhich animal is in picture {i} ?\nA. a cat\nB. a dog"}]}
+        for i in range(n)]))
+    qbench = write("qbench.json", json.dumps([
+        {"img_path": f"q{i}.png", "question": f"How is the quality of picture {i} ?",
+         "candidates": ["good", "poor", "fair"]} for i in range(n)]))
+    qa = write("qa.jsonl", "".join(
+        json.dumps({"question_id": f"t{i}", "text": f"Describe a dog in {i + 2} words ."}) + "\n"
+        for i in range(n)))
+    runs = {
+        "model_vqa": (model_vqa, ["--image-folder", root, "--question-file", qfile,
+                                  "--conv-mode", "llava_v1", "--temperature", "0"], "text"),
+        "model_vqa_science": (model_vqa_science, ["--image-folder", root, "--question-file", sqa,
+                                                  "--single-pred-prompt"], "text"),
+        "model_vqa_qbench": (model_vqa_qbench, ["--image-folder", root, "--questions-file",
+                                                qbench], "response"),
+        "model_qa": (model_qa, ["--question-file", qa, "--temperature", "0"], "text"),
+    }
+    try:
+        import pandas  # noqa: F401
+    except ImportError:
+        log("  checkpoint: pandas is absent on this machine: model_vqa_mmbench not run")
+    else:
+        rows = []
+        for i, image in enumerate(images):
+            buf = io.BytesIO()
+            image.save(buf, format="PNG")
+            rows.append(f"{i}\tWhich animal is in picture {i} ?\t\ta cat\ta dog\ta bird\t\t"
+                        f"{base64.b64encode(buf.getvalue()).decode()}\n")
+        tsv = write("mmbench.tsv", "index\tquestion\thint\tA\tB\tC\tD\timage\n" + "".join(rows))
+        runs["model_vqa_mmbench"] = (model_vqa_mmbench, ["--question-file", tsv,
+                                                         "--single-pred-prompt"], "text")
+    out = {}
+
+    def run_all():
+        for name, (mod, argv, key) in runs.items():
+            answers = os.path.join(root, f"{name}.jsonl")
+            args = mod.parser().parse_args(["--model-path", model_path, "--answers-file",
+                                            answers, "--max_new_tokens", str(CKPT_MAX_NEW)] + argv)
+            k1 = flash_attention.launches
+            t0 = time.perf_counter()
+            mod.eval_model(args, loaded=loaded)
+            seconds = time.perf_counter() - t0
+            with open(answers) as f:
+                records = [json.loads(line) for line in f]
+            require(len(records) == n, f"checkpoint: {name} wrote {len(records)} records for "
+                    f"{n} questions")
+            # K1 runs eagerly in the prefill: a wrapper call is a launch
+            out[name] = dict(records=len(records), traced_s=seconds,
+                             k1_launches=flash_attention.launches - k1,
+                             texts=[r[key] for r in records])
+            log(f"  checkpoint: {name}: {len(records)} answers in {seconds:.1f} s (traced), "
+                f"K1 {out[name]['k1_launches']}")
+
+    # one trace over the five: a trace costs its margins and its processing
+    _, seen = traced(run_all)
+    log(f"  checkpoint: the generators' launches on the card {seen}")
+    qa_k1 = out["model_qa"]["k1_launches"]
+    require(qa_k1 == n * layers, f"checkpoint: model_qa launched K1 {qa_k1} times, not once a "
+            f"decoder layer a question ({n * layers}): it must run text-only")
+    require(seen["flash_fwd"] == sum(g["k1_launches"] for g in out.values()),
+            f"checkpoint: the generators' K1 on the card {seen['flash_fwd']} != their wrapper "
+            "calls")
+    random.seed(SEED)
+    scores = {
+        "textvqa_accuracy": vqa_metrics.TextVQAAccuracyEvaluator().eval_pred_list(
+            [{"pred_answer": t, "gt_answers": ["yes"] * 10} for t in out["model_vqa"]["texts"]]),
+        "science_qa_acc": eval_science_qa.score_sqa(
+            {f"p{i}": {"choices": ["a cat", "a dog"], "answer": i % 2} for i in range(n)},
+            {f"p{i}": {"text": t, "prompt": ""}
+             for i, t in enumerate(out["model_vqa_science"]["texts"])})["acc"],
+    }
+    log(f"  checkpoint: scorers on random weights: {scores}")
+    return out, {k: v for k, v in seen.items() if v}, scores
+
+
 def checkpoint(torch, params, cfg, want_tokens, b=8, n_text=60):
     """Phase 5e: the phase-5 weights through a checkpoint and the entry
     points users run. ``export_hf_checkpoint`` writes them (bf16, full
@@ -2565,7 +2742,8 @@ def checkpoint(torch, params, cfg, want_tokens, b=8, n_text=60):
             t0 = time.perf_counter()
             export_hf_checkpoint(params, cfg, path)
             export_s = time.perf_counter() - t0
-            # the tokenizer's first try (importing transformers) timed apart
+            # the tokenizer's first try timed apart (transformers is imported
+            # in phase 2, during the build)
             t0 = time.perf_counter()
             found = load_tokenizer(path)
             tokenizer_s = time.perf_counter() - t0
@@ -2655,6 +2833,11 @@ def checkpoint(torch, params, cfg, want_tokens, b=8, n_text=60):
         require(len(texts[0]) == CKPT_QUESTIONS and texts[CKPT_SPEC_K] == texts[0],
                 f"checkpoint: VQA answers plain {texts[0]} != spec_k={CKPT_SPEC_K} "
                 f"{texts[CKPT_SPEC_K]}")
+        gens, gen_launches, scores = eval_generators(
+            root, path, (tok, runtime, processor, ctx), images, qfile, traced, layers)
+        require(gens["model_vqa"]["texts"] == texts[0],
+                f"checkpoint: model_vqa's answers {gens['model_vqa']['texts']} != the VQA "
+                f"CLI's {texts[0]} (both build_prompt, greedy)")
     calls = {k: fn.launches for k, fn in wrappers.items()}
     require(all(device[k] > 0 and calls[k] > 0 for k in wrappers),
             f"checkpoint: a kernel of the path never launched (card {device}, wrappers {calls})")
@@ -2668,7 +2851,10 @@ def checkpoint(torch, params, cfg, want_tokens, b=8, n_text=60):
                 process_max_rss_gib=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20,
                 load_peak_gib=load_peak, peak_gib=peak, chat_answer_words=chat_words,
                 vqa_answers=texts[0], device_launches={k: device[k] for k in wrappers},
-                wrapper_calls=calls)
+                wrapper_calls=calls,
+                generators={k: {f: v for f, v in g.items() if f != "texts"}
+                            for k, g in gens.items()},
+                generator_launches=gen_launches, scores=scores)
 
 
 def gate_configs():
@@ -2860,6 +3046,15 @@ def quality_gates(torch):
                     if v is not None), f"gate {name}: a row is not finite: {rows}")
         require(not (held and fails), f"gate {name}: thresholds not met: {fails}")
     return out
+
+
+def first_layers(llm: dict, n: int) -> dict:
+    """A decoder's params cut to its first ``n`` layers: views of the
+    stacked layer weights, the embedding, final norm and lm_head shared."""
+    def cut(tree):
+        return {k: cut(v) if isinstance(v, dict) else v[:n] for k, v in tree.items()}
+
+    return {**llm, "layers": cut(llm["layers"])}
 
 
 def kv_cosine(torch, params, cfg, b=8, n_text=60):
@@ -3100,6 +3295,219 @@ def qlora(torch, cfg_sparse):
     return r
 
 
+def write_word_tokenizer(out_dir, corpus) -> str:
+    """A word-level tokenizer directory trained on ``corpus`` with
+    ``tokenizers`` (``<unk>`` 0, ``<s>`` 1 leading every encoding, ``</s>``
+    2), as a LLaMA tokenizer numbers them, and the ``tokenizer_config.json``
+    that ``AutoTokenizer`` reads."""
+    import os
+
+    from tokenizers import Tokenizer, models, pre_tokenizers, trainers
+    from tokenizers.processors import TemplateProcessing
+
+    tok = Tokenizer(models.WordLevel(unk_token="<unk>"))
+    tok.pre_tokenizer = pre_tokenizers.Whitespace()
+    tok.train_from_iterator(corpus, trainers.WordLevelTrainer(
+        special_tokens=["<unk>", "<s>", "</s>"]))
+    tok.post_processor = TemplateProcessing(
+        single="<s> $A", special_tokens=[("<s>", tok.token_to_id("<s>"))])
+    os.makedirs(out_dir, exist_ok=True)
+    tok.save(os.path.join(out_dir, "tokenizer.json"))
+    with open(os.path.join(out_dir, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "PreTrainedTokenizerFast", "bos_token": "<s>",
+                   "eos_token": "</s>", "unk_token": "<unk>", "model_max_length": 2048}, f)
+    return out_dir
+
+
+def write_train_set(root, n_image=CLI_IMAGE_RECORDS, n_text=CLI_TEXT_RECORDS,
+                    words=CLI_WORDS, turn_words=CLI_TURN_WORDS, seed=SEED):
+    """A LLaVA-format JSON set of v1 conversations under ``root``: ``n_image``
+    records with an image (PNGs of random pixels in ``CLI_IMAGE_SIZES``:
+    mixed aspect ratios, so the ``pad`` path squares them) and ``n_text``
+    text-only ones, each of two rounds of ``turn_words`` words a turn (text
+    records of ``1.5 x`` as many, so that both fuse to ~1.6k tokens at 7B),
+    drawn from ``words`` synthetic words. Returns ``(data_path,
+    image_folder, corpus)``; the corpus holds every text the tokenizer
+    must know."""
+    import os
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    vocab = [f"t{i}" for i in range(words)]
+    images = os.path.join(root, "images")
+    os.makedirs(images, exist_ok=True)
+
+    def turn(n):
+        return " ".join(rng.choice(vocab, n + int(rng.integers(-8, 9))))
+
+    records = []
+    for i in range(n_image + n_text):
+        n = turn_words if i < n_image else turn_words * 3 // 2
+        conv = []
+        for r in range(2):
+            q = turn(n)
+            if i < n_image and r == 0:
+                q = "<image>\n" + q
+            conv += [{"from": "human", "value": q}, {"from": "gpt", "value": turn(n)}]
+        rec = {"id": f"cli{i}", "conversations": conv}
+        if i < n_image:
+            w, h = CLI_IMAGE_SIZES[i % len(CLI_IMAGE_SIZES)]
+            name = f"{i}.png"
+            Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(
+                os.path.join(images, name))
+            rec["image"] = name
+        records.append(rec)
+    data = os.path.join(root, "data.json")
+    with open(data, "w") as f:
+        json.dump(records, f)
+    corpus = [" ".join(vocab), "A chat between a curious user and an artificial intelligence "
+              "assistant . The assistant gives helpful , detailed , and polite answers to the "
+              "user ' s questions . USER : ASSISTANT :"]
+    return data, images, corpus
+
+
+class CliWatch:
+    """Wraps ``Trainer.train`` and ``Trainer.save`` for one run of the
+    training CLI: the time ``train`` begins (``time.time``, the clock of
+    the metrics stream), each batch's fused length and valid lengths as the
+    trainer takes it, and each save's seconds (synchronized) and bytes."""
+
+    def __init__(self, torch):
+        from dynamic_llava_tpu_torch.train.trainer import Trainer
+
+        self.torch, self.cls = torch, Trainer
+        self.orig = (Trainer.train, Trainer.save)
+        self.train_t0, self.lengths, self.saves = None, [], []
+
+    def __enter__(self):
+        watch, (train, save) = self, self.orig
+
+        def train_wrap(trainer, batches):
+            def record():
+                for plan, images in batches:
+                    watch.lengths.append([plan.seq_len] + plan.valid_len.tolist())
+                    yield plan, images
+            watch.torch.cuda.synchronize()
+            watch.train_t0 = time.time()
+            return train(trainer, record())
+
+        def save_wrap(trainer):
+            import os
+
+            watch.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = save(trainer)
+            watch.saves.append((time.perf_counter() - t0, os.path.getsize(path)))
+            return path
+
+        self.cls.train, self.cls.save = train_wrap, save_wrap
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.train, self.cls.save = self.orig
+
+
+def train_cli(torch, expect, need_bytes):
+    """Phase 9d: the training CLI (``train.train_sparse.train``, in this
+    process so that its launches are counted) at LLaVA-1.5-7B width, full
+    depth, bf16, random weights from its ``--seed``: ``--max_steps
+    CLI_STEPS`` sparse steps at ``--per_device_train_batch_size
+    TRAIN_BATCH`` over a JSON set this phase writes (``write_train_set``:
+    images through the data pipeline's ``pad`` path, native where ``g++``
+    builds it) with a word-level tokenizer it writes
+    (``write_word_tokenizer``; ``AutoTokenizer``'s first load timed apart),
+    then the CLI's unconditional final save into a temporary directory
+    (room for ``need_bytes`` required first; removed at the end). The
+    losses must be finite, K1 / K3 / K4 launch ``expect`` (phase 9's
+    sparse step) a step, and the checkpoint file must exist. Returns the
+    step times (host clock of the metrics stream; a step includes its
+    batch's loading; the first apart), the batches' fused lengths, the
+    peak, the save's seconds and bytes, and whether the native image path
+    ran."""
+    import os
+    import shutil
+    import tempfile
+
+    from dynamic_llava_tpu_torch import native
+    from dynamic_llava_tpu_torch.ops import flash_attention as fa
+    from dynamic_llava_tpu_torch.ops.flash_policy import flash_policy_attention
+    from dynamic_llava_tpu_torch.train import train_sparse
+
+    counters = {"flash_attention_fwd": fa.flash_attention,
+                "flash_attention_bwd_delta": fa.flash_attention_bwd_delta,
+                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+                "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+                "flash_policy_attention_fwd": flash_policy_attention}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_cli_") as root:
+        free = shutil.disk_usage(root).free
+        require(free >= need_bytes, f"train_cli: {free / 2**30:.1f} GiB free under {root}, the "
+                f"final save needs ~{need_bytes / 2**30:.1f} GiB")
+        t0 = time.perf_counter()
+        data, images, corpus = write_train_set(root)
+        tok_dir = write_word_tokenizer(os.path.join(root, "tokenizer"), corpus)
+        data_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        from transformers import AutoTokenizer
+
+        tokenizer = AutoTokenizer.from_pretrained(tok_dir, use_fast=False)
+        tokenizer_s = time.perf_counter() - t0
+        try:
+            import sentencepiece  # noqa: F401
+            has_sentencepiece = True
+        except ImportError:
+            has_sentencepiece = False
+        out_dir = os.path.join(root, "out")
+        argv = ["--model_size", "7b", "--tokenizer_path", tok_dir, "--data_path", data,
+                "--image_folder", images, "--per_device_train_batch_size", str(TRAIN_BATCH),
+                "--max_steps", str(CLI_STEPS), "--logging_steps", "1", "--output_dir", out_dir]
+        native_calls = native.clip_preprocess_batch_native.calls
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with CliWatch(torch) as watch:
+            trainer = train_sparse.train(argv)
+        cli_s = time.perf_counter() - t0
+        got = {n: fn.launches for n, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        native_calls = native.clip_preprocess_batch_native.calls - native_calls
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            metrics = [json.loads(line) for line in f]
+        ckpt = os.path.join(out_dir, "ckpt", f"step_{CLI_STEPS}.pt")
+        saved = os.path.isfile(ckpt)
+        depth = trainer.cfg.text.num_hidden_layers
+        del trainer
+    torch.cuda.empty_cache()
+    want = {n: c * CLI_STEPS for n, c in expect.items()}
+    require(got == want, f"train_cli: launches {got} != {want} (phase 9's sparse step "
+            f"x {CLI_STEPS})")
+    require([m["step"] for m in metrics] == list(range(1, CLI_STEPS + 1)),
+            f"train_cli: logged steps {[m['step'] for m in metrics]}")
+    losses = [{k: m[k] for k in ("loss", "lm_loss", "image_mask_loss", "output_text_mask_loss",
+                                 "grad_norm") if k in m} for m in metrics]
+    require(all(np.isfinite(v) for m in losses for v in m.values()) and
+            all(m["lm_loss"] > 0 for m in losses), f"train_cli: losses {losses}")
+    require(saved and len(watch.saves) == 1, f"train_cli: no checkpoint at {ckpt}")
+    stamps = [watch.train_t0] + [m["time"] for m in metrics]
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    r = dict(depth=depth, batch=TRAIN_BATCH, steps=CLI_STEPS, first_step_ms=step_ms[0],
+             step_ms=step_ms[1:], fused_lengths=watch.lengths, peak_gib=peak,
+             save_s=watch.saves[0][0], save_bytes=watch.saves[0][1], cli_s=cli_s,
+             tokenizer_s=tokenizer_s, data_s=data_s, native_image_path=native_calls > 0,
+             native_calls=native_calls, sentencepiece=has_sentencepiece,
+             tokenizer=type(tokenizer).__name__, launches=got,
+             launches_per_step={n: c // CLI_STEPS for n, c in got.items()}, losses=losses)
+    log(f"  train_cli: depth {depth}, B={TRAIN_BATCH}, {CLI_STEPS} steps in {cli_s:.1f} s; first step "
+        f"{step_ms[0]:.1f} ms, then {' / '.join(f'{ms:.1f}' for ms in step_ms[1:])} ms; fused "
+        f"lengths {watch.lengths}; peak {peak:.2f} GiB; final save {watch.saves[0][0]:.1f} s, "
+        f"{watch.saves[0][1] / 2**30:.2f} GiB; native image path "
+        f"{'ran' if native_calls else 'did not run'} ({native_calls} calls); tokenizer "
+        f"{r['tokenizer']} first load {tokenizer_s:.1f} s; launches {got}; losses {losses}")
+    return r
+
+
 def main() -> int:
     if not (ROOT / "dynamic_llava_tpu_torch" / "csrc").is_dir():
         raise SystemExit(
@@ -3134,9 +3542,43 @@ def main() -> int:
 
     phase("phase 2: build")
     t0 = time.perf_counter()
-    lib = kernels.load_library()
+    # nvcc runs in processes of its own; meanwhile this thread does the
+    # set-up that needs no kernel, each step timed apart
+    built = {}
+
+    def build():
+        try:
+            built["lib"] = kernels.load_library()
+        except BaseException as e:  # raised again below, in this thread
+            built["error"] = e
+
+    builder = threading.Thread(target=build)
+    builder.start()
+    host_s = {}
+    t1 = time.perf_counter()
+    # the profiler's first start sets up CUPTI (seconds, once a process)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.zeros(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    host_s["the profiler's first start"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    try:  # phase 5e's and 9d's tokenizers
+        from transformers import AutoTokenizer  # noqa: F401
+        host_s["importing transformers"] = time.perf_counter() - t1
+    except ImportError:
+        log("  transformers does not import on this machine")
+    t1 = time.perf_counter()
+    from dynamic_llava_tpu_torch import native  # phase 9d's image ops
+    native.load_image_ops()
+    host_s["g++ of the native image ops"] = time.perf_counter() - t1
+    builder.join()
+    if "error" in built:
+        raise built["error"]
+    lib = built["lib"]
     log(f"  built {lib.path.name} in {lib.build_seconds:.1f} s "
-        f"(load_library {time.perf_counter() - t0:.1f} s)")
+        f"(load_library {time.perf_counter() - t0:.1f} s); meanwhile on the host: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in host_s.items()))
     entry, spilled = "", []
     for line in lib.ptxas_log.splitlines():
         if "ptxas info" in line and ("Used" in line or "Compiling" in line):
@@ -3324,23 +3766,31 @@ def main() -> int:
         f"(all params {param_bytes(params) / 2**30:.2f} GiB)")
     drive("int4", params, both[:1])
 
-    phase("phase 7: lean-memory serving at 7B width on the int4 decoder: the fused MLP "
-        "(K9) off and on, int8 and fp8 KV caches, ring overflow")
+    phase(f"phase 7: lean-memory serving at 7B width on the first {LEAN_DEPTH} of the int4 "
+          "decoder's 32 layers: the fused MLP (K9) off and on, int8 and fp8 KV caches, ring "
+          "overflow; the KV cosine on all 32")
+    full_llm = params["llm"]
+    params["llm"] = first_layers(full_llm, LEAN_DEPTH)
+    lean_text = dataclasses.replace(cfg_sparse.text, num_hidden_layers=LEAN_DEPTH)
+    lean_sparse = dataclasses.replace(cfg_sparse, text=lean_text)
+    lean_dense = dataclasses.replace(cfg_dense, text=lean_text)
     int8kv, fp8kv = dict(cache_dtype="int8"), dict(cache_dtype="float8_e4m3fn")
     # two-kernel, fused, fused, two-kernel: the host's pace drifts within a call
     drive("lean", params, [
-        ("sparse bf16-KV two-kernel MLP", cfg_sparse),
-        ("sparse bf16-KV fused MLP", cfg_sparse, dict(fused=True)),
-        ("sparse bf16-KV fused MLP, again", cfg_sparse, dict(fused=True)),
-        ("sparse bf16-KV two-kernel MLP, again", cfg_sparse),
-        ("sparse int8-KV fused MLP", cfg_sparse, dict(fused=True, gen=int8kv)),
-        ("dense int8-KV fused MLP", cfg_dense, dict(fused=True, gen=int8kv)),
-        ("sparse fp8-KV fused MLP", cfg_sparse, dict(fused=True, gen=fp8kv)),
+        ("sparse bf16-KV two-kernel MLP", lean_sparse),
+        ("sparse bf16-KV fused MLP", lean_sparse, dict(fused=True)),
+        ("sparse bf16-KV fused MLP, again", lean_sparse, dict(fused=True)),
+        ("sparse bf16-KV two-kernel MLP, again", lean_sparse),
+        ("sparse int8-KV fused MLP", lean_sparse, dict(fused=True, gen=int8kv)),
+        ("dense int8-KV fused MLP", lean_dense, dict(fused=True, gen=int8kv)),
+        ("sparse fp8-KV fused MLP", lean_sparse, dict(fused=True, gen=fp8kv)),
     ])
     # 256 new tokens at a decode window of 64: both tiers wrap
     ring = dict(cache_dtype="int8", kv_overflow="ring", kv_window=64)
-    drive("ring", params, [("sparse int8-KV fused MLP, 256 new tokens", cfg_sparse,
+    drive("ring", params, [("sparse int8-KV fused MLP, 256 new tokens", lean_sparse,
                             dict(fused=True, gen=ring))], max_new=256)
+    params["llm"] = full_llm
+    del full_llm
     cosine = kv_cosine(torch, params, cfg_sparse)
     del params["llm"]
     torch.cuda.empty_cache()
@@ -3374,19 +3824,7 @@ def main() -> int:
     train_dense = dataclasses.replace(train_sparse, sparse=DENSE_SPARSE_CONFIG)
     params = init_llava_params(
         train_sparse, torch.Generator(device=dev).manual_seed(SEED + 1), dev, torch.bfloat16)
-    # per step: the CLIP tower (to layer -2) runs K1 forward only; a decoder
-    # layer under remat runs its attention forward twice and its backward once
-    clip_layers = train_sparse.vision.num_hidden_layers + train_sparse.vision.select_layer + 1
-    sl = train_sparse.sparse.sparse_layer
-    expect = {
-        "sparse": {"flash_attention_fwd": clip_layers + 2 * sl, "flash_attention_bwd_delta": sl,
-                   "flash_attention_bwd_dq": sl, "flash_attention_bwd_dkv": sl,
-                   "flash_policy_attention_fwd": 2 * (depth - sl)},
-        "dense": {"flash_attention_fwd": clip_layers + 2 * depth,
-                  "flash_attention_bwd_delta": depth,
-                  "flash_attention_bwd_dq": depth, "flash_attention_bwd_dkv": depth,
-                  "flash_policy_attention_fwd": 0},
-    }
+    expect = train_launches(train_sparse)
     results["train"] = {
         "sparse": train(torch, params, train_sparse, "train sparse", expect["sparse"]),
         "dense": train(torch, params, train_dense, "train dense", expect["dense"]),
@@ -3395,6 +3833,8 @@ def main() -> int:
     # (eager: one launch a wrapper call)
     for n in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv", "flash_policy_attention_fwd"):
         launches[n] = calls[n] = results["train"]["sparse"]["launches"][n]
+    # phase 9d's final save holds the params and two moments of (most of) them
+    cli_need = 3 * param_bytes(params)
     del params
     torch.cuda.empty_cache()
 
@@ -3408,6 +3848,17 @@ def main() -> int:
     t0 = time.perf_counter()
     qlora_r = qlora(torch, cfg_sparse)
     log(f"  phase 9c: {time.perf_counter() - t0:.1f} s")
+    phase(f"phase 9d: the training CLI (train_sparse) at LLaVA-1.5-7B width, 32 layers, bf16: "
+          f"{CLI_STEPS} sparse steps over a JSON set, then its final save")
+    t0 = time.perf_counter()
+    cli = train_cli(torch, expect["sparse"], cli_need)
+    cli["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 9d: {cli['phase_s']:.1f} s")
+    # the CLI's launches (eager: one a wrapper call) join K1's, K3's and K4's
+    for n in ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+              "flash_policy_attention_fwd"):
+        launches[n] += cli["launches"][n]
+        calls[n] += cli["launches"][n]
     require("jax" not in sys.modules and "dynamic_llava_tpu" not in sys.modules,
             "jax or the JAX package was imported")
     for label, runs in results.items():
@@ -3477,7 +3928,7 @@ def main() -> int:
     for name in ("flash_attention_fwd", "flash_policy_attention_fwd"):
         kres[name]["launches_per_step_by_policy"] = {
             policy: r["launches_per_step"][name] for policy, r in remat.items()}
-    log(f"  all phases done [at {time.perf_counter() - T0:.0f} s]")
+    phase("  all phases done")
     print("decode_graph " + json.dumps({
         f"{label} {mode}": r["graph"] for label, runs in results.items()
         if label not in ("train", "chat") for mode, r in runs.items()}))
@@ -3499,6 +3950,7 @@ def main() -> int:
         for policy, r in remat.items()}))
     print("qlora " + json.dumps(qlora_r))
     print("checkpoint " + json.dumps(ckpt))
+    print("train_cli " + json.dumps(cli))
     print("continuous " + json.dumps({
         arm: {k: v for k, v in r.items() if k not in ("device_launches", "wrapper_calls")}
         for arm, r in cont.items()}))

@@ -2,6 +2,9 @@
 ``dynamic_llava_tpu/constants.py``). The values are contract: they are
 baked into trained checkpoints and preprocessed datasets."""
 
+# directory for rotating serving logs (``utils.build_logger``)
+LOGDIR = "."
+
 # label value excluded from the LM loss (HF convention)
 IGNORE_INDEX = -100
 # sentinel token id marking where image features splice into the sequence

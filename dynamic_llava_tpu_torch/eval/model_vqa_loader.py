@@ -46,20 +46,34 @@ def build_prompt(question: str, conv_mode: str, mm_use_im_start_end: bool) -> st
     return conv.get_prompt()
 
 
-def eval_model(args, loaded=None) -> None:
+def answer(gen, tokenizer, input_ids, pixels, spec_k: int = 0,
+           temperature: float = 0.0) -> str:
+    """One answer's text: ``gen.generate`` (``generate_speculative`` with
+    ``spec_k`` > 0 at temperature 0: the same greedy answer through verify
+    rounds of 1 + k candidates), a final EOS dropped, decoded without the
+    special tokens. ``pixels`` is None for a text-only prompt."""
+    if spec_k > 0 and temperature <= 0.0:
+        out_ids = gen.generate_speculative([input_ids], pixels, draft_k=spec_k)[0]
+    else:
+        out_ids = gen.generate([input_ids], pixels)[0]
+    if out_ids and out_ids[-1] == tokenizer.eos_token_id:
+        out_ids = out_ids[:-1]
+    return tokenizer.decode(out_ids, skip_special_tokens=True).strip()
+
+
+def eval_model(args, loaded=None, answer_id=lambda: None) -> None:
     """Answer ``args.question_file``'s questions (this chunk of them) into
     ``args.answers_file``. ``loaded`` is ``load_pretrained_model``'s tuple
     where the caller has loaded the model already (or brings its own
-    tokenizer); else the model is loaded from ``args.model_path``."""
+    tokenizer); else the model is loaded from ``args.model_path``. Each
+    record's ``answer_id`` is ``answer_id()`` (``model_vqa``: a random
+    uuid)."""
     from PIL import Image
 
     from ..generation.generate import GenerationConfig, Generator
     from ..mm_utils import process_images, tokenizer_image_token
-    from ..models.builder import load_pretrained_model
 
-    if loaded is None:
-        loaded = load_pretrained_model(args.model_path, args.model_base, device=args.device)
-    tokenizer, runtime, image_processor, _ = loaded
+    tokenizer, runtime, image_processor, _ = load(args, loaded)
     with open(os.path.expanduser(args.question_file)) as f:
         questions = [json.loads(q) for q in f]
     questions = get_chunk(questions, args.num_chunks, args.chunk_idx)
@@ -79,18 +93,12 @@ def eval_model(args, loaded=None) -> None:
             input_ids = np.asarray(tokenizer_image_token(prompt_text, tokenizer), np.int64)
             image = Image.open(os.path.join(args.image_folder, line["image"])).convert("RGB")
             pixels = process_images([image], image_processor, runtime.cfg)
-            if args.spec_k > 0 and args.temperature <= 0.0:
-                out_ids = gen.generate_speculative([input_ids], pixels, draft_k=args.spec_k)[0]
-            else:
-                out_ids = gen.generate([input_ids], pixels)[0]
-            if out_ids and out_ids[-1] == tokenizer.eos_token_id:
-                out_ids = out_ids[:-1]
-            outputs = tokenizer.decode(out_ids, skip_special_tokens=True).strip()
+            outputs = answer(gen, tokenizer, input_ids, pixels, args.spec_k, args.temperature)
             ans_file.write(json.dumps({
                 "question_id": line["question_id"],
                 "prompt": line["text"],
                 "text": outputs,
-                "answer_id": None,
+                "answer_id": answer_id(),
                 "model_id": args.model_path.split("/")[-1],
                 "metadata": {},
             }) + "\n")
@@ -111,12 +119,29 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--top_p", type=float, default=None)
     p.add_argument("--num_beams", type=int, default=1)
     p.add_argument("--max_new_tokens", type=int, default=128)
+    return add_port_flags(p)
+
+
+def add_port_flags(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """The flags every generator of the port has beyond the JAX one's:
+    ``--spec_k`` and ``--device``."""
     p.add_argument("--spec_k", type=int, default=0,
                    help="speculative decoding for greedy runs: verify 1+k candidates per "
                         "pass (0 = off)")
     p.add_argument("--device", type=str, default=None,
                    help="default: the card; 'cpu' runs the plain PyTorch versions")
     return p
+
+
+def load(args, loaded=None):
+    """``loaded`` (``load_pretrained_model``'s tuple, where the caller has
+    loaded the model already or brings its own tokenizer), else the model
+    at ``args.model_path`` over ``args.model_base`` on ``args.device``."""
+    from ..models.builder import load_pretrained_model
+
+    if loaded is None:
+        loaded = load_pretrained_model(args.model_path, args.model_base, device=args.device)
+    return loaded
 
 
 def main(argv=None) -> None:

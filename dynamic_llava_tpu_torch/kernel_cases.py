@@ -765,6 +765,10 @@ TRACE_MARGIN_S = 0.5
 # records at its start (more the longer the process has run), and up to
 # ~0.2 s of records at an edge where the profiler's clock conversion is off
 TRACE_PAD_KERNELS = 1024
+# traces taken by ``kernel_launches``, the kernel records they read, and
+# the seconds they cost beyond the calls they wrap (the margins, the
+# padding, the profiler's start and stop, reading the records)
+TRACE_COST = {"traces": 0, "records": 0, "seconds": 0.0}
 
 
 def serving_kernel(name: str) -> Optional[str]:
@@ -810,15 +814,22 @@ def kernel_launches(fn: Callable):
         torch.cuda.synchronize()
 
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         time.sleep(TRACE_MARGIN_S)
         padding()
+        t_fn = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
+        t_fn = time.perf_counter() - t_fn
         padding()
         time.sleep(TRACE_MARGIN_S)
-    return out, Counter(e.name() for e in prof.profiler.kineto_results.events()
-                        if e.device_type() == DeviceType.CUDA)
+    names = Counter(e.name() for e in prof.profiler.kineto_results.events()
+                    if e.device_type() == DeviceType.CUDA)
+    TRACE_COST["traces"] += 1
+    TRACE_COST["records"] += sum(names.values())
+    TRACE_COST["seconds"] += time.perf_counter() - t0 - t_fn
+    return out, names
 
 
 def wrapper_calls(before: Dict, after: Dict) -> Dict[str, int]:

@@ -13,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import warnings
 from typing import NamedTuple, Optional
 
 import torch
@@ -150,16 +151,20 @@ class _HandOnce(dict):
 
 
 def load_tokenizer(model_path: str):
-    """``transformers.AutoTokenizer`` of the directory, or None where
-    ``transformers`` does not import or the directory holds no tokenizer
-    (as the JAX builder does)."""
+    """``transformers.AutoTokenizer`` of the directory, or None where it
+    cannot be had, as the JAX builder does: ``transformers`` does not
+    import, the directory holds no tokenizer, or its tokenizer class needs
+    a package that is missing (a ``LlamaTokenizer`` without
+    ``sentencepiece`` raises ``ImportError``). A failure other than a
+    missing ``transformers`` is warned about with its type and message."""
     try:
         from transformers import AutoTokenizer
     except ImportError:
         return None
     try:
         return AutoTokenizer.from_pretrained(model_path, use_fast=False)
-    except (OSError, ValueError, TypeError):
+    except Exception as e:  # any failure means "no tokenizer", as in the JAX builder
+        warnings.warn(f"{model_path}: no tokenizer ({type(e).__name__}: {e})", stacklevel=2)
         return None
 
 
@@ -188,6 +193,8 @@ def load_pretrained_model(
             f"{model_path}: MPT checkpoints are not ported yet (ROADMAP A12); the "
             "LLaMA runtime cannot serve MPT weights")
     cfg = llava_config_from_hf_dict(hf_cfg)
+    # before the weights: a directory whose tokenizer fails costs no load first
+    tokenizer = load_tokenizer(model_path)
 
     sd = {}
     for path in (model_base, model_path, tower_path):
@@ -199,5 +206,5 @@ def load_pretrained_model(
     del sd
 
     image_processor = ClipImagePreprocessor(size=cfg.vision.image_size)
-    return (load_tokenizer(model_path), LlavaRuntime(params=params, cfg=cfg),
-            image_processor, cfg.model_max_length)
+    return (tokenizer, LlavaRuntime(params=params, cfg=cfg), image_processor,
+            cfg.model_max_length)

@@ -62,12 +62,28 @@ def _span_mask(s: int, start: torch.Tensor, end: torch.Tensor) -> torch.Tensor:
     return (pos >= start[:, None]) & (pos < end[:, None])
 
 
+def _span_index(start: torch.Tensor, length: int) -> torch.Tensor:
+    return start.long()[:, None] + torch.arange(length, device=start.device)[None, :]
+
+
 def _gather_span(x: torch.Tensor, start: torch.Tensor, length: int) -> torch.Tensor:
     """``[B, S, D] -> [B, length, D]``: the per-sample span starting at
-    ``start``."""
+    ``start``. Positions past the end read the last row, as a JAX gather
+    clamps them: a batch of text-only rows shorter than the image span
+    (``image_start`` 0) gathers rows that nothing uses."""
     b = x.shape[0]
-    idx = start.long()[:, None] + torch.arange(length, device=x.device)[None, :]
+    idx = _span_index(start, length).clamp(max=x.shape[1] - 1)
     return x[torch.arange(b, device=x.device)[:, None], idx]
+
+
+def _scatter_span(dst: torch.Tensor, start: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """``dst`` ``[B, S]`` with ``values`` ``[B, L]`` written from ``start``
+    on (out of place). Positions past the end are dropped, as a JAX scatter
+    drops them."""
+    b, s = dst.shape
+    length = values.shape[1]
+    room = torch.cat([dst, dst.new_zeros((b, length))], dim=1)
+    return room.scatter(1, _span_index(start, length), values)[:, :s]
 
 
 class GenState(NamedTuple):
@@ -145,9 +161,8 @@ def prefill(
                 params["predictors"]["image_score_predictor"], img_hidden, sparse
             )
             scores_img = torch.log_softmax(logits.float(), dim=-1)[..., 0]
-        span_idx = image_start.long()[:, None] + torch.arange(n_img, device=dev)[None, :]
-        scores = torch.zeros((b, s), dtype=torch.float32, device=dev)
-        scores.scatter_(1, span_idx, scores_img)
+        scores = _scatter_span(torch.zeros((b, s), dtype=torch.float32, device=dev),
+                               image_start, scores_img)
         k_budget = sparse.vision_keep_budget(n_img)
         img_keep = topk_keep_mask(scores, k_budget, plan_is_image & valid)
         # samples without an image keep their (empty) image span untouched
@@ -445,9 +460,8 @@ def forward_nocache_eval(
             params["predictors"]["image_score_predictor"], img_hidden, sparse
         )
         scores_img = torch.log_softmax(logits.float(), dim=-1)[..., 0]
-        span_idx = image_start.long()[:, None] + torch.arange(n_img, device=dev)[None, :]
-        scores = torch.zeros((b, s), dtype=torch.float32, device=dev)
-        scores.scatter_(1, span_idx, scores_img)
+        scores = _scatter_span(torch.zeros((b, s), dtype=torch.float32, device=dev),
+                               image_start, scores_img)
         img_keep = topk_keep_mask(
             scores, sparse.vision_keep_budget(n_img), plan_is_image & valid)
         keep = torch.where(has_image[:, None] & plan_is_image, img_keep, keep)
@@ -644,9 +658,8 @@ def forward_train(
             params["predictors"]["image_score_predictor"], img_hidden, sparse
         )
         keep = gumbel_keep_mask(noises[0], logits, gumbel_tau)  # [B, N_img]
-        span_idx = image_start.long()[:, None] + torch.arange(n_img, device=dev)[None, :]
-        mask_full = torch.ones((b, s), dtype=torch.float32, device=dev)
-        mask_full = mask_full.scatter(1, span_idx, keep)
+        mask_full = _scatter_span(torch.ones((b, s), dtype=torch.float32, device=dev),
+                                  image_start, keep)
         image_span = plan_is_image & valid & has_image[:, None]
         mask_full = torch.where(image_span, mask_full, 1.0)
         policy = policy * mask_full

@@ -270,6 +270,43 @@ def test_load_pretrained_model_defaults_to_the_card_and_refuses_mpt(models, tmp_
                                        device="cpu")
 
 
+def test_a_tokenizer_that_cannot_load_gives_none_as_in_jax(tmp_path):
+    """ROADMAP C25: a LLaVA-1.5-style directory (``"tokenizer_class":
+    "LlamaTokenizer"`` and a ``tokenizer.model``) on a machine without
+    ``sentencepiece``: both loaders return tokenizer None and equal params;
+    the port warns with the exception's type, before any weight is read."""
+    try:
+        import sentencepiece  # noqa: F401
+    except ImportError:
+        pass
+    else:
+        pytest.skip("sentencepiece imports here, so a LlamaTokenizer loads and the "
+                    "failure this case holds cannot happen")
+    from helpers import make_tiny_checkpoint
+
+    path = make_tiny_checkpoint(str(tmp_path / "llava-1.5-style"))
+    with open(os.path.join(path, "tokenizer_config.json")) as f:
+        tok_cfg = json.load(f)
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+        json.dump(dict(tok_cfg, tokenizer_class="LlamaTokenizer"), f)
+    with open(os.path.join(path, "tokenizer.model"), "wb") as f:
+        f.write(b"not a sentencepiece model")
+    jtok, jr, _, _ = jbuilder.load_pretrained_model(path, dtype=jnp.bfloat16)
+    reads = []
+    load = tconvert.load_state_dict_from_dir
+    with pytest.MonkeyPatch.context() as mp, pytest.warns(UserWarning, match="ImportError"):
+        mp.setattr(tconvert, "load_state_dict_from_dir",
+                   lambda d: reads.append(d) or load(d))
+        mp.setattr(tbuilder, "load_tokenizer", lambda d, f=tbuilder.load_tokenizer: (
+            reads.append("tokenizer"), f(d))[1])
+        ttok, tr, _, _ = tbuilder.load_pretrained_model(path, dtype=torch.bfloat16,
+                                                        device="cpu")
+    assert jtok is None and ttok is None
+    assert reads == ["tokenizer", path]
+    assert tr.cfg == port_config(jr.cfg)
+    assert_trees_equal(tr.params, jr.params)
+
+
 def test_weight_files_read_the_index_and_safetensors_need_their_package(models, tmp_path,
                                                                        monkeypatch):
     cfg, _, sd = models["base"]

@@ -7,8 +7,11 @@ with fp32 (also speculatively, through the continuous-batching engine and
 with LoRA adapters attached) and then
 int4 weights (also with
 the fused MLP, an int8 and an fp8 KV cache and the ring policy), and takes
-a train step, ends with neither ``jax`` nor ``dynamic_llava_tpu`` in
-``sys.modules``."""
+a train step, then imports the training data pipeline, the training CLI,
+the native image ops (and runs them where ``g++`` builds them), the eval
+generators and scorers, ends with neither ``jax`` nor ``dynamic_llava_tpu``
+in ``sys.modules``; so does ``train_sparse --help`` in an interpreter of
+its own."""
 
 import os
 import re
@@ -92,6 +95,28 @@ assert len(out) == 2 and all(1 <= len(o) <= 12 for o in out), out
 fp8 = GenerationConfig(max_new_tokens=4, cache_dtype="float8_e4m3fn")
 out = Generator(params, cfg, fp8).generate(ids, pix)
 assert len(out) == 2 and all(1 <= len(o) <= 4 for o in out), out
+from dynamic_llava_tpu_torch import native, utils
+from dynamic_llava_tpu_torch.eval import (
+    eval_mme, eval_science_qa, eval_textvqa, model_qa, model_vqa, model_vqa_mmbench,
+    model_vqa_qbench, model_vqa_science, vqa_metrics)
+from dynamic_llava_tpu_torch.train import data, train_sparse
+
+img = np.random.default_rng(0).integers(0, 256, (30, 50, 3), dtype=np.uint8)
+if native.native_available():
+    assert native.clip_preprocess_batch_native([img], 28, (122, 116, 104), (0.5,) * 3,
+                                               (0.25,) * 3).shape == (1, 28, 28, 3)
+print("jax loaded:", "jax" in sys.modules)
+print("jax package loaded:", "dynamic_llava_tpu" in sys.modules)
+"""
+
+HELP = r"""
+import runpy
+import sys
+sys.argv = ["train_sparse", "--help"]
+try:
+    runpy.run_module("dynamic_llava_tpu_torch.train.train_sparse", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
 print("jax loaded:", "jax" in sys.modules)
 print("jax package loaded:", "dynamic_llava_tpu" in sys.modules)
 """
@@ -127,5 +152,15 @@ def test_generate_in_a_fresh_interpreter_never_loads_jax():
     res = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-2:] == [
+        "jax loaded: False", "jax package loaded: False"]
+
+
+def test_train_sparse_help_in_a_fresh_interpreter_never_loads_jax():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", HELP], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "--data_path" in res.stdout and "--device" in res.stdout
     assert res.stdout.strip().splitlines()[-2:] == [
         "jax loaded: False", "jax package loaded: False"]

@@ -248,6 +248,43 @@ def test_total_loss_and_metrics_match_jax(setup):
             _close(tm[k], jm[k], ATOL, RTOL)
 
 
+def test_text_only_rows_shorter_than_the_image_span_match_jax():
+    """ROADMAP C28: a batch of text-only rows shorter than the image span,
+    with pixels (the training CLI's collator stacks a zero image for a
+    text-only sample). The JAX gather clamps the span past the end and its
+    scatter drops it; the port indexed past the end and raised. Every field
+    and the losses match."""
+    cfg = make_cfg("default")
+    jp, tp = make_params(cfg)
+    rng = np.random.default_rng(1)
+    ids, labels = [], []
+    for n in (9, 12):
+        row = rng.integers(3, 500, size=(n,)).astype(np.int64)
+        lab = row.copy()
+        lab[: n // 2] = IGNORE_INDEX
+        ids.append(row)
+        labels.append(lab)
+    plan = plan_batch(ids, cfg.num_image_tokens, labels_list=labels, user_tokens=USER_TOKENS)
+    assert plan.seq_len < cfg.num_image_tokens and not plan.spans.has_image.any()
+    size = cfg.vision.image_size
+    images = np.zeros((2, size, size, 3), np.float32)
+    got, want, tb, jb = _forward_both(cfg, jp, tp, plan, images, return_hidden=True)
+    for field in want._fields:
+        g, w = getattr(got, field), getattr(want, field)
+        assert (g is None) == (w is None), field
+        if w is not None:
+            np.testing.assert_allclose(g.float().numpy(), np.asarray(w, np.float32),
+                                       atol=5e-5, rtol=RTOL, err_msg=field)
+    assert not bool(got.image_span.any())
+    jl, jm = jlosses.total_loss(want, jb.labels, cfg.sparse, llm_params=jp["llm"],
+                                tcfg=cfg.text)
+    with torch.no_grad():
+        tl, tm = tlosses.total_loss(got, tb.labels, port_config(cfg.sparse),
+                                    llm_params=tp["llm"], tcfg=port_config(cfg.text))
+    assert list(tm) == list(jm)
+    _close(tl, jl, ATOL, RTOL)
+
+
 @pytest.mark.parametrize("block_s", [7, 16, 256])
 def test_blockwise_ce_equals_dense_ce_and_jax(block_s):
     cfg = make_cfg("dense")

@@ -48,12 +48,15 @@ K2_SHAPES = [(4, 768, "own"), (4, 768, "int8"), (8, 768, "own"), (8, 256, "own")
 
 def time_ms(torch, fn, iters: int = 100) -> float:
     """Mean device time of ``fn`` over ``iters`` calls replayed from one
-    CUDA graph, after a warm-up replay."""
+    CUDA graph, after a warm-up replay. The capture pauses Python's cyclic
+    garbage collector (``capturing``), as the port's own captures do."""
+    from dynamic_llava_tpu_torch.generation.generate import capturing
+
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with capturing(graph):
         for _ in range(iters):
             fn()
     graph.replay()

@@ -98,7 +98,8 @@ def profile(torch, params, cfg, kind, cache_dtype="bfloat16", fused=False):
     from torch.profiler import profile as torch_profile
 
     from dynamic_llava_tpu_torch.config import IMAGE_TOKEN_INDEX
-    from dynamic_llava_tpu_torch.generation.generate import GenerationConfig, Generator
+    from dynamic_llava_tpu_torch.generation.generate import (
+        GenerationConfig, Generator, capturing)
     from dynamic_llava_tpu_torch.models import dynamic
     from dynamic_llava_tpu_torch.multimodal.fusion import plan_batch
 
@@ -155,7 +156,7 @@ def profile(torch, params, cfg, kind, cache_dtype="bfloat16", fused=False):
         loaded_runner()
         chunk_graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
-        with torch.cuda.graph(chunk_graph):
+        with capturing(chunk_graph):
             for _ in range(runner.chunk):
                 runner.step()
         chunk_capture_ms = (time.perf_counter() - t0) * 1e3
