@@ -115,8 +115,10 @@ else. Phases, each of which raises on failure:
    calls of an eager loop of ``argmax`` + ``decode_step`` written here
    (``eager_decode``) over the same prefill and steps, and the graph's
    tokens the eager loop's;
-5b. multi-round chat at 7B width through ``ChatSession.ask`` on the
-   phase-5 weights, sparse, dense, and sparse with an int8 KV cache: round
+5b. multi-round chat at 7B width through ``ChatSession.ask`` on the first
+   CHAT_DEPTH of the phase-5 decoder's 32 layers (views of its stacked
+   weights; cut for the script's time limit), sparse, dense, and sparse
+   with an int8 KV cache: round
    1 one 336x336 image and 60 text tokens, rounds 2 and 3 chunks of 40 and
    100 tokens through the continuation prefill (K2-M), each round to 64
    new tokens under a two-token keyword stop. On the card, in profiler
@@ -188,6 +190,24 @@ else. Phases, each of which raises on failure:
    scorers; K1, K2 and K2-M counted (wrappers zeroed at the start,
    profiler traces of the calls), the export and load seconds, the host's
    peak RSS and the device's peak printed (the ``checkpoint`` line);
+5f. serving over HTTP at 7B width on phase 5e's checkpoint, before its
+   directory is removed (``serving``): a controller and one worker at a
+   time on the stdlib server (loopback, port 0), each loading the
+   checkpoint itself with a word-level stand-in tokenizer, registered, then
+   closed, shut down and dropped: the ``ModelWorker`` (4 greedy image
+   requests of 64 tokens through the controller one at a time, then at
+   once, each equal to ``Generator.generate`` at B=1 on its weights; one
+   sampled), the ``ModelWorker`` with ``--spec-k 4`` (2 greedy requests,
+   equal or apart at a near tie), the ``BatchedWorker`` window (8 requests
+   at once, each equal to ``Generator.generate`` of the batch the worker
+   formed; the count equal to the solo answers reported) and
+   ``--continuous`` (4 slots; 8 at once, each equal to the window's answer
+   or apart at a near tie). The K1 / K2 / K2-M wrappers are zeroed before
+   each send and read after it (no trace); each must launch. The
+   ``serving`` line: per arm each request's time to first streamed text,
+   completion ms and tok/s (client clock), the concurrent sends' makespan,
+   each worker's load s and captures, the device's peak and the
+   ``requests`` version;
 6. quantized serving at 7B width, the same batches: the phase-5 weights
    quantized in place to int8 (``quantize_llm_params``), sparse and dense;
    then an int4 decoder made directly (``init_quantized_llama_params``)
@@ -259,7 +279,8 @@ step wall of the eager loop and of the graph, the capture's ms and
 whether the tokens were equal, and a ``chat`` line each chat mode's TTFT,
 continuation ms, decode tok/s, capture ms, peak GiB and decode steps, and
 a ``continuous`` line with phase 5d's arms, and a ``checkpoint`` line with
-phase 5e's, and a ``train_cli`` line with phase 9d's. K1's, K2's, K2-M's
+phase 5e's, a ``train_cli`` line with phase 9d's and a ``serving`` line with
+phase 5f's (whose wrapper calls join the ``kernels`` line's). K1's, K2's, K2-M's
 and the int8 GEMV's launches in the ``kernels`` line include the engines'
 traced passes and phase 5e's; K1's, K3's and K4's include phase 9d's.
 """
@@ -288,6 +309,9 @@ TRAIN_DEPTH = 32  # decoder layers of the training phase (width is never cut)
 # so that the script, with phase 5e's generators and phase 9d, stays inside
 # its 1200 s limit; its KV cosine and every other phase keep full depth
 LEAN_DEPTH = 8
+# decoder layers of phase 5b's chat modes (of the phase-5 decoder's 32): cut
+# so that the script, with phase 5f, stays inside its 1200 s limit
+CHAT_DEPTH = 16
 TRAIN_STEPS = 3  # per mode; the first is timed apart
 TRAIN_BATCH, TRAIN_TEXT_LEN = 4, 1088  # fused S = 1088 - 1 + 576 = 1663
 TIMED = 3  # timed generate calls and prefills a serving mode
@@ -306,6 +330,12 @@ CONT_SPEC_K = 4
 # phase 5e: the checkpoint round trip and the entry points
 CKPT_QUESTIONS, CKPT_MAX_NEW, CKPT_SPEC_K = 3, 32, 4  # VQA questions, new tokens an answer, k
 CKPT_TURNS = ("What is in the image ?", "Is there a dog ?")  # the chat CLI's two rounds
+# phase 5f: serving over HTTP on phase 5e's checkpoint
+SERVE_MAX_NEW = 64  # new tokens a request
+SERVE_REQUESTS = 8  # requests sent at once to the batched workers
+SERVE_SENDS, SERVE_SPEC_SENDS = 4, 2  # greedy requests to the model worker, to its --spec-k form
+SERVE_SPEC_K, SERVE_SLOTS, SERVE_WINDOW_MS = 4, 4, 100
+CKPT_NAME = "llava-v1.5-7b-random"  # phase 5e's checkpoint directory: the model name served
 # phase 4b: the quality gates at the JAX tests' configs (text hidden 64 in 4
 # heads, a tower of hidden 32 in 2 heads: head_dim 16, which the attention
 # wrappers zero-pad to 64), fp32, seed 0, at the JAX tests' step counts
@@ -2323,7 +2353,7 @@ def hold_to(torch, params, cfg, gc_fields, reqs, ref, got, which, label):
             f"{t['gap']:.4g} (bound {t['gap_bound']:.4g}); tightest keep margin before it "
             f"{t['margin']} (bound {t['margin_bound']})")
     require(all(t["stands"] for t in found.values()),
-            f"continuous {label}: a divergence at no near tie: {found}")
+            f"{label}: a divergence at no near tie: {found}")
     del gen
     return found
 
@@ -2482,7 +2512,7 @@ def continuous(torch, params, cfg, arms, reqs, holds):
         samples = results[name]["samples"] or results[ref]["samples"]
         which = [i for i in range(len(reqs)) if not (samples and reqs[i]["sampled"])]
         ties = hold_to(torch, params, cfg, dict(arms_by_name[name][2].get("gen", {})), reqs,
-                       outputs[ref], outputs[name], which, f"{name} against {ref}")
+                       outputs[ref], outputs[name], which, f"continuous {name} against {ref}")
         results[name].setdefault("held_to", {})[ref] = dict(
             requests=len(which), near_ties=len(ties),
             matched_prefix=[ties[i]["j"] if i in ties else len(outputs[name][i])
@@ -2680,7 +2710,7 @@ def eval_generators(root, model_path, loaded, images, qfile, traced, layers):
     return out, {k: v for k, v in seen.items() if v}, scores
 
 
-def checkpoint(torch, params, cfg, want_tokens, b=8, n_text=60):
+def checkpoint(torch, params, cfg, want_tokens, b=8, n_text=60, then=None):
     """Phase 5e: the phase-5 weights through a checkpoint and the entry
     points users run. ``export_hf_checkpoint`` writes them (bf16, full
     depth) to a temporary directory, removed at the end; ``load_pretrained_model``
@@ -2699,7 +2729,9 @@ def checkpoint(torch, params, cfg, want_tokens, b=8, n_text=60):
     launch. Returns the export and load seconds (the tokenizer's first try
     apart), the checkpoint's size, the host's peak RSS (and its anonymous
     part, where the kernel reports it) over export and load, the device's
-    peak GiB, and the counts."""
+    peak GiB, and the counts; and what ``then(path)`` returns,
+    called at the end with the loads freed, before the checkpoint's
+    directory is removed (phase 5f), or None."""
     import os
     import resource
     import tempfile
@@ -2736,7 +2768,7 @@ def checkpoint(torch, params, cfg, want_tokens, b=8, n_text=60):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as root:
-        path = os.path.join(root, "llava-v1.5-7b-random")
+        path = os.path.join(root, CKPT_NAME)
         host = HostMemory().start()
         try:
             t0 = time.perf_counter()
@@ -2838,13 +2870,15 @@ def checkpoint(torch, params, cfg, want_tokens, b=8, n_text=60):
         require(gens["model_vqa"]["texts"] == texts[0],
                 f"checkpoint: model_vqa's answers {gens['model_vqa']['texts']} != the VQA "
                 f"CLI's {texts[0]} (both build_prompt, greedy)")
-    calls = {k: fn.launches for k, fn in wrappers.items()}
-    require(all(device[k] > 0 and calls[k] > 0 for k in wrappers),
-            f"checkpoint: a kernel of the path never launched (card {device}, wrappers {calls})")
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    del runtime
-    torch.cuda.empty_cache()
-    return dict(export_s=export_s, tokenizer_s=tokenizer_s, load_s=load_s,
+        calls = {k: fn.launches for k, fn in wrappers.items()}
+        require(all(device[k] > 0 and calls[k] > 0 for k in wrappers),
+                f"checkpoint: a kernel of the path never launched (card {device}, wrappers "
+                f"{calls})")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        del runtime
+        torch.cuda.empty_cache()
+        after = None if then is None else then(path)
+    return after, dict(export_s=export_s, tokenizer_s=tokenizer_s, load_s=load_s,
                 load_fp32_s=load_fp32_s, file_gib=file_gib,
                 host_peak_rss_gib=rss["rss_gib"], host_rss_start_gib=rss["rss_start_gib"],
                 host_peak_anon_gib=rss["anon_gib"],
@@ -2855,6 +2889,337 @@ def checkpoint(torch, params, cfg, want_tokens, b=8, n_text=60):
                 generators={k: {f: v for f, v in g.items() if f != "texts"}
                             for k, g in gens.items()},
                 generator_launches=gen_launches, scores=scores)
+
+
+def serve_requests(tok, processor, cfg, n=SERVE_REQUESTS, seed=SEED + 11):
+    """Phase 5f's requests: ``n`` llava_v1 prompts, each a question of 6-12
+    words about an image of random pixels of its own size (a PNG, base64,
+    as a client sends it), with the token ids and the preprocessed pixels
+    the worker makes of them (``ids``, ``pix``)."""
+    import base64
+    import io
+
+    from PIL import Image
+
+    from dynamic_llava_tpu_torch.constants import DEFAULT_IMAGE_TOKEN
+    from dynamic_llava_tpu_torch.conversation import conv_templates
+    from dynamic_llava_tpu_torch.mm_utils import process_images, tokenizer_image_token
+
+    rng = np.random.default_rng(seed)
+    words = ("what is in the picture where does light fall which colour is the largest "
+             "object how many people are there describe scene briefly").split()
+    reqs = []
+    for i in range(n):
+        conv = conv_templates["llava_v1"].copy()
+        question = " ".join(rng.choice(words, int(rng.integers(6, 13)))) + " ?"
+        conv.append_message(conv.roles[0], DEFAULT_IMAGE_TOKEN + "\n" + question)
+        conv.append_message(conv.roles[1], None)
+        w, h = int(rng.integers(200, 640)), int(rng.integers(200, 640))
+        image = Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+        buf = io.BytesIO()
+        image.save(buf, "PNG")
+        prompt = conv.get_prompt()
+        reqs.append(dict(
+            prompt=prompt, image=base64.b64encode(buf.getvalue()).decode(), stop=conv.sep2,
+            ids=np.asarray(tokenizer_image_token(prompt, tok), np.int64),
+            pix=process_images([image], processor, cfg)[0]))
+    return reqs
+
+
+def http_stream(url, params):
+    """POST ``params`` to ``url`` + ``/worker_generate_stream`` and read the
+    b"\\0"-delimited chunks. Returns the chunks, the seconds to the first
+    chunk with text past the prompt (the first streamed text: a keep-alive
+    ack repeats the prompt alone) and the seconds to the stream's end, on
+    the client's clock."""
+    import requests
+
+    t0 = time.perf_counter()
+    resp = requests.post(url + "/worker_generate_stream", json=params, stream=True,
+                         timeout=(15, 600))
+    chunks, first = [], None
+    for raw in resp.iter_lines(decode_unicode=False, delimiter=b"\0"):
+        if raw:
+            chunks.append(json.loads(raw.decode()))
+            if first is None and chunks[-1]["text"] != params["prompt"]:
+                first = time.perf_counter() - t0
+    end = time.perf_counter() - t0
+    return chunks, end if first is None else first, end
+
+
+def http_at_once(url, params_list):
+    """Every request of ``params_list`` sent together, each from a thread
+    of its own; ``(results of http_stream, makespan s)``."""
+    out = [None] * len(params_list)
+
+    def run(i):
+        out[i] = http_stream(url, params_list[i])
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(params_list))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out, time.perf_counter() - t0
+
+
+class ServeTokenizer(WordTokenizer):
+    """Phase 5f's tokenizer: ``WordTokenizer`` whose ``skip_special_tokens``
+    skips EOS alone, so that an answer's text (the workers decode with it)
+    re-encodes to every token the answer holds."""
+
+    def decode(self, ids, skip_special_tokens: bool = False) -> str:
+        return " ".join(self.words.get(int(i), f"w{int(i)}") for i in ids
+                        if not (skip_special_tokens and int(i) == self.eos_token_id))
+
+
+def serving(torch, path, cfg):
+    """Phase 5f: the serving stack over HTTP at 7B width on phase 5e's
+    bf16 checkpoint ``path`` with a word-level stand-in tokenizer
+    (``ServeTokenizer``). One
+    controller (stdlib, loopback, port 0, shortest queue); one worker at a
+    time, each loading the checkpoint itself, served on the stdlib server
+    (port 0), registered with the controller, and closed, shut down and
+    dropped before the next loads (the controller's ``refresh_all_workers``
+    drops a closed one):
+
+    * ``ModelWorker``: SERVE_SENDS greedy image requests of SERVE_MAX_NEW
+      tokens through the controller one at a time, then the same ones at
+      once, then one sampled; each greedy answer must equal
+      ``Generator.generate`` at B=1 on the worker's weights (same shapes,
+      same kernels: exact);
+    * ``ModelWorker --spec-k SERVE_SPEC_K``: SERVE_SPEC_SENDS greedy
+      requests, each equal to that answer or leaving it at a near tie
+      (``hold_to``, as phase 5d holds its engines);
+    * ``BatchedWorker`` window (``max_batch`` 8): SERVE_REQUESTS requests at
+      once; each answer must equal ``Generator.generate`` of the batch the
+      worker formed (its ``batch_log``: sizes and order), and the count
+      equal to the solo answers is reported;
+    * ``BatchedWorker --continuous`` (SERVE_SLOTS slots, bucket CONT_BUCKET):
+      the same requests at once, each equal to the window's answer or apart
+      at a near tie.
+
+    The K1 / K2 / K2-M wrappers' counts are zeroed just before each send and
+    read just after (the comparisons' own launches do not count); each must
+    launch (K2-M under ``--spec-k``). No profiler trace. Every chunk must
+    have ``error_code`` 0. Returns the ``serving`` line's dict: per arm each
+    request's time to first streamed text, completion ms and tok/s (client
+    clock), the makespan of the concurrent sends, each worker's load s and
+    captures, the device's peak GiB, the wrappers' counts and whether
+    ``requests`` imports (the port's HTTP clients use it)."""
+    import gc
+    import importlib.metadata
+
+    import requests
+
+    from dynamic_llava_tpu_torch import utils
+
+    # the serving modules' log files go to an ignored directory
+    utils.LOGDIR = str(ROOT / "build" / "serve_logs")
+    from dynamic_llava_tpu_torch.generation.generate import GenerationConfig, Generator
+    from dynamic_llava_tpu_torch.models.builder import load_pretrained_model
+    from dynamic_llava_tpu_torch.ops.decode_attention import decode_attention, extend_attention
+    from dynamic_llava_tpu_torch.ops.flash_attention import flash_attention
+    from dynamic_llava_tpu_torch.serve import controller, http_compat, model_worker, sglang_worker
+
+    t_phase = time.perf_counter()
+    tok = ServeTokenizer()
+    wrappers = {"flash_fwd": flash_attention, "decode_kernel": decode_attention,
+                "extend_kernel": extend_attention}
+    served = dict.fromkeys(wrappers, 0)
+
+    def count(fn):
+        """``fn()``, the wrappers' counts zeroed just before it and added to
+        ``served`` just after."""
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn()
+        for k, w in wrappers.items():
+            served[k] += w.launches
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ctrl = controller.Controller("shortest_queue")
+    capp = http_compat.controller_stdlib_app(ctrl, "127.0.0.1", 0)
+    capp.serve(background=True)
+    curl = f"http://127.0.0.1:{capp._httpd.server_address[1]}"
+    loads, captures, arms = {}, {}, {}
+    reqs = None
+
+    def start(name, make):
+        """Load the checkpoint, build the worker on it, serve and register
+        it."""
+        nonlocal reqs
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, runtime, processor, ctx = load_pretrained_model(path)
+        torch.cuda.synchronize()
+        loads[name] = time.perf_counter() - t0
+        if reqs is None:
+            reqs = serve_requests(tok, processor, cfg)
+        worker = make((tok, runtime, processor, ctx))
+        del runtime
+        app = http_compat.worker_stdlib_app(worker, "127.0.0.1", 0)
+        app.serve(background=True)
+        worker.controller_addr = curl
+        worker.worker_addr = f"http://127.0.0.1:{app._httpd.server_address[1]}"
+        worker.register_to_controller()
+        require(requests.post(curl + "/refresh_all_workers").status_code == 200,
+                "serving: refresh_all_workers failed")
+        listed = requests.post(curl + "/get_worker_address", json={"model": CKPT_NAME}).json()
+        require(listed == {"address": worker.worker_addr},
+                f"serving: the controller dispatches {name} requests to {listed}")
+        return worker, app
+
+    def stop(name, worker, app):
+        captures[name] = list(worker.captures)
+        app.shutdown()
+        app._httpd.server_close()
+        worker.close()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def params_of(r, **kw):
+        return {"model": CKPT_NAME, "prompt": r["prompt"], "images": [r["image"]],
+                "temperature": 0.0, "max_new_tokens": SERVE_MAX_NEW, "stop": r["stop"], **kw}
+
+    def answer(r, chunks):
+        require(chunks and all(c["error_code"] == 0 for c in chunks),
+                f"serving: a request got {chunks[-1] if chunks else 'no chunk'}")
+        text = chunks[-1]["text"]
+        require(text.startswith(r["prompt"]), "serving: an answer without its prompt")
+        return text[len(r["prompt"]):]
+
+    def timings(rs, results, makespan=None):
+        """Per request: time to first streamed text and completion ms, tok/s."""
+        out = []
+        for r, (chunks, first, end) in zip(rs, results):
+            n = len(answer(r, chunks).split())  # one word a token (WordTokenizer)
+            out.append(dict(first_text_ms=first * 1e3, completion_ms=end * 1e3, tokens=n,
+                            tok_s=n / end))
+        d = dict(requests=out)
+        if makespan is not None:
+            d["makespan_s"] = makespan
+            d["tok_s"] = sum(o["tokens"] for o in out) / makespan
+        return d
+
+    def texts_of(out_ids):
+        eos = tok.eos_token_id
+        return tok.decode([t for t in out_ids if t != eos], skip_special_tokens=True)
+
+    def tokens_of(text):
+        """An answer's tokens, its EOS included where it stopped early."""
+        ids = tok(text).input_ids[1:]
+        return ids + [tok.eos_token_id] if len(ids) < SERVE_MAX_NEW else ids
+
+    def hold(label, params, ref, got, which):
+        """``got``'s answers equal ``ref``'s, or leave them at a near tie."""
+        ties = hold_to(torch, params, cfg, {}, reqs, {i: tokens_of(ref[i]) for i in which},
+                       {i: tokens_of(got[i]) for i in which}, which, f"serving {label}")
+        return dict(requests=len(which), equal=sum(ref[i] == got[i] for i in which),
+                    near_ties=len(ties))
+
+    # -- the model worker ----------------------------------------------------
+    w, app = start("model_worker", lambda loaded: model_worker.ModelWorker(
+        curl, "", "5f", True, path, None, CKPT_NAME, loaded=loaded))
+    sends = reqs[:SERVE_SENDS]
+    seq = [count(lambda r=r: http_stream(curl, params_of(r))) for r in sends]
+    conc, makespan = count(lambda: http_at_once(curl, [params_of(r) for r in sends]))
+    sampled = count(lambda: http_stream(curl, params_of(reqs[SERVE_SENDS], temperature=0.7,
+                                                         top_p=0.9)))
+    answer(reqs[SERVE_SENDS], sampled[0])
+    gen = Generator(w.runtime.params, cfg, GenerationConfig(
+        max_new_tokens=SERVE_MAX_NEW, eos_token_id=tok.eos_token_id))
+    solo = [texts_of(gen.generate([r["ids"]], r["pix"][None])[0]) for r in reqs]
+    del gen
+    for name, results in (("sequential", seq), ("concurrent", conc)):
+        got = [answer(r, c) for r, (c, _, _) in zip(sends, results)]
+        require(got == solo[:SERVE_SENDS], f"serving: the model worker's {name} answers "
+                f"{[g[:40] for g in got]} != Generator.generate's {[s[:40] for s in solo]}")
+    arms["model_worker sequential"] = timings(sends, seq)
+    arms["model_worker concurrent"] = timings(sends, conc, makespan)
+    arms["model_worker sampled"] = timings(reqs[SERVE_SENDS:SERVE_SENDS + 1], [sampled])
+    arms["model_worker sampled"]["seed"] = w.global_counter
+    require(w.global_counter == 2 * SERVE_SENDS + 1,
+            f"serving: the worker counted {w.global_counter} requests")
+    log(f"  serving: model worker, {SERVE_SENDS} greedy requests one at a time and at once "
+        f"== Generator.generate at B=1; 1 sampled; captures {w.captures}; load "
+        f"{loads['model_worker']:.1f} s")
+    stop("model_worker", w, app)
+
+    # -- the model worker under --spec-k --------------------------------------
+    w, app = start("model_worker spec_k", lambda loaded: model_worker.ModelWorker(
+        curl, "", "5f-spec", True, path, None, CKPT_NAME, spec_k=SERVE_SPEC_K,
+        loaded=loaded))
+    spec = [count(lambda r=r: http_stream(curl, params_of(r))) for r in reqs[:SERVE_SPEC_SENDS]]
+    got = {i: answer(reqs[i], c) for i, (c, _, _) in enumerate(spec)}
+    arms[f"model_worker spec_k={SERVE_SPEC_K}"] = dict(
+        timings(reqs[:SERVE_SPEC_SENDS], spec),
+        held=hold(f"spec_k={SERVE_SPEC_K} against Generator.generate", w.runtime.params,
+                  dict(enumerate(solo)), got, list(got)))
+    require(served["extend_kernel"] > 0, "serving: --spec-k never launched K2-M")
+    log(f"  serving: model worker --spec-k {SERVE_SPEC_K}: "
+        f"{arms[f'model_worker spec_k={SERVE_SPEC_K}']['held']}; captures {w.captures}")
+    stop("model_worker spec_k", w, app)
+
+    # -- the batched worker: window micro-batches ----------------------------
+    w, app = start("window", lambda loaded: sglang_worker.BatchedWorker(
+        path, max_batch=8, batch_window_ms=SERVE_WINDOW_MS, model_name=CKPT_NAME, loaded=loaded))
+    win, makespan = count(lambda: http_at_once(curl, [params_of(r) for r in reqs]))
+    window = {i: answer(r, c) for i, (r, (c, _, _)) in enumerate(zip(reqs, win))}
+    by_prompt = {r["prompt"]: i for i, r in enumerate(reqs)}
+    batches = []
+    for b in w.batch_log:
+        idx = [by_prompt[p] for p in b["prompts"]]
+        gen = Generator(w.runtime.params, cfg, GenerationConfig(
+            max_new_tokens=b["max_new"], eos_token_id=tok.eos_token_id))
+        outs = gen.generate([reqs[i]["ids"] for i in idx], np.stack([reqs[i]["pix"] for i in idx]))
+        del gen
+        require([window[i] for i in idx] == [texts_of(o) for o in outs],
+                f"serving: the window worker's batch {idx} != Generator.generate of that batch")
+        batches.append(idx)
+    require(sorted(i for b in batches for i in b) == list(range(len(reqs))),
+            f"serving: the window worker's batches {batches} do not hold every request once")
+    arms["window"] = dict(timings(reqs, win, makespan), batches=batches,
+                          equal_solo=sum(window[i] == solo[i] for i in window))
+    log(f"  serving: window worker, {len(reqs)} requests at once in batches {batches}, each "
+        f"== Generator.generate of its batch; {arms['window']['equal_solo']} of {len(reqs)} "
+        f"== the solo answers; captures {w.captures}")
+    stop("window", w, app)
+
+    # -- the batched worker: continuous --------------------------------------
+    w, app = start("continuous", lambda loaded: sglang_worker.BatchedWorker(
+        path, model_name=CKPT_NAME, continuous=True, slots=SERVE_SLOTS, prompt_bucket=CONT_BUCKET,
+        max_new_cap=SERVE_MAX_NEW, loaded=loaded))
+    cont, makespan = count(lambda: http_at_once(curl, [params_of(r) for r in reqs]))
+    got = {i: answer(r, c) for i, (r, (c, _, _)) in enumerate(zip(reqs, cont))}
+    arms["continuous"] = dict(timings(reqs, cont, makespan),
+                              held=hold("continuous against the window worker",
+                                        w.runtime.params, window, got, list(got)))
+    log(f"  serving: continuous worker ({SERVE_SLOTS} slots), {len(reqs)} requests at once: "
+        f"{arms['continuous']['held']}; captures {w.captures}")
+    stop("continuous", w, app)
+    capp.shutdown()
+    capp._httpd.server_close()
+
+    require(all(served[k] > 0 for k in wrappers),
+            f"serving: a kernel of the path never launched (wrapper calls {served})")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out = dict(arms=arms, load_s=loads, captures=captures, peak_gib=peak,
+               wrapper_calls=served, requests_version=importlib.metadata.version("requests"),
+               phase_s=time.perf_counter() - t_phase)
+    for name, r in arms.items():
+        firsts = [q["first_text_ms"] for q in r["requests"]]
+        done = [q["completion_ms"] for q in r["requests"]]
+        log(f"  serving {name}: first text {min(firsts):.0f}-{max(firsts):.0f} ms, completion "
+            f"{min(done):.0f}-{max(done):.0f} ms"
+            + (f", makespan {r['makespan_s']:.2f} s, {r['tok_s']:.1f} tok/s"
+               if "makespan_s" in r else ""))
+    log(f"  serving: peak {peak:.2f} GiB, wrapper calls {served}, requests "
+        f"{out['requests_version']} [{out['phase_s']:.1f} s]")
+    return out
 
 
 def gate_configs():
@@ -3674,11 +4039,15 @@ def main() -> int:
             f"bf16 path: K1 launched {launches['flash_attention_fwd']} times "
             f"({calls['flash_attention_fwd']} wrapper calls), not {2 * 2 * per_prefill}")
 
-    phase("phase 5b: multi-round chat at LLaVA-1.5-7B width through ChatSession.ask, the "
-        "phase-5 weights: sparse, dense, sparse with an int8 KV cache")
-    results["chat"] = chat(torch, params, [
-        ("sparse", cfg_sparse, {}), ("dense", cfg_dense, {}),
-        ("sparse int8-KV", cfg_sparse, dict(cache_dtype="int8")),
+    phase(f"phase 5b: multi-round chat at LLaVA-1.5-7B width through ChatSession.ask, the first "
+          f"{CHAT_DEPTH} of the phase-5 decoder's 32 layers: sparse, dense, sparse with an int8 "
+          "KV cache")
+    chat_text = dataclasses.replace(cfg_sparse.text, num_hidden_layers=CHAT_DEPTH)
+    chat_sparse = dataclasses.replace(cfg_sparse, text=chat_text)
+    results["chat"] = chat(torch, {**params, "llm": first_layers(params["llm"], CHAT_DEPTH)}, [
+        ("sparse", chat_sparse, {}),
+        ("dense", dataclasses.replace(cfg_dense, text=chat_text), {}),
+        ("sparse int8-KV", chat_sparse, dict(cache_dtype="int8")),
     ])
 
     phase("phase 5c: speculative decoding and beam search at LLaVA-1.5-7B width, the phase-5 "
@@ -3706,8 +4075,17 @@ def main() -> int:
     phase("phase 5e: checkpoint: the phase-5 weights exported, loaded back onto the card, and "
           "served through generate, the chat CLI's loop and the VQA CLI")
     t5e = time.perf_counter()
-    ckpt = checkpoint(torch, params, cfg_sparse, results["bf16"]["sparse"]["tokens"])
-    log(f"  phase 5e: {time.perf_counter() - t5e:.1f} s")
+
+    def serve_http(path):
+        phase("phase 5f: serving over HTTP at LLaVA-1.5-7B width on phase 5e's checkpoint: the "
+              "controller, the model worker (plain, --spec-k), the batched worker (window, "
+              "continuous)")
+        return serving(torch, path, cfg_sparse)
+
+    served, ckpt = checkpoint(torch, params, cfg_sparse, results["bf16"]["sparse"]["tokens"],
+                              then=serve_http)
+    log(f"  phase 5e: {time.perf_counter() - t5e - served['phase_s']:.1f} s; phase 5f: "
+        f"{served['phase_s']:.1f} s")
 
     phase("phase 6: quantized serving at 7B width")
     t0 = time.perf_counter()
@@ -3757,6 +4135,11 @@ def main() -> int:
         t["launches"]["extend_kernel"] for t in traced) + sum(
         r["wrapper_calls"]["extend_kernel"] for r in engines) + ckpt["wrapper_calls"][
         "extend_kernel"]
+    # phase 5f's wrapper calls (it takes no trace: its graph replays are not counted)
+    for name, label in (("flash_attention_fwd", "flash_fwd"),
+                        ("decode_attention_appended", "decode_kernel"),
+                        ("extend_attention_appended", "extend_kernel")):
+        calls[name] += served["wrapper_calls"][label]
     del params["llm"]
     torch.cuda.empty_cache()
     params["llm"] = init_quantized_llama_params(
@@ -3951,6 +4334,7 @@ def main() -> int:
     print("qlora " + json.dumps(qlora_r))
     print("checkpoint " + json.dumps(ckpt))
     print("train_cli " + json.dumps(cli))
+    print("serving " + json.dumps(served))
     print("continuous " + json.dumps({
         arm: {k: v for k, v in r.items() if k not in ("device_launches", "wrapper_calls")}
         for arm, r in cont.items()}))

@@ -1,6 +1,11 @@
-"""Model and data sentinels (the port's own copy of the values in
-``dynamic_llava_tpu/constants.py``). The values are contract: they are
-baked into trained checkpoints and preprocessed datasets."""
+"""Model, data and serving constants (the port's own copy of the values in
+``dynamic_llava_tpu/constants.py``). The sentinel values are contract: they
+are baked into trained checkpoints and preprocessed datasets."""
+
+# seconds without a heartbeat before the controller drops a worker
+CONTROLLER_HEART_BEAT_EXPIRATION = 30
+# seconds between worker heartbeat posts
+WORKER_HEART_BEAT_INTERVAL = 15
 
 # directory for rotating serving logs (``utils.build_logger``)
 LOGDIR = "."

@@ -771,11 +771,14 @@ class Generator:
             self.decode_runner = kind(self.params, self.cfg, self.gen_cfg, key, self.device)
         return self.decode_runner
 
-    def runner(self, plan: FusionPlan, pixel_values, max_new_tokens: int) -> DecodeRunner:
+    def runner(self, plan: FusionPlan, pixel_values, max_new_tokens: int,
+               chunk: int = 0) -> DecodeRunner:
         """The runner for this batch shape, the tier capacities of
-        ``max_new_tokens`` and the current dispatch settings: the one kept
-        if its key is the same, else a new one that replaces it."""
-        key = runner_key(plan.batch, self.cache_sizes(plan, pixel_values, max_new_tokens))
+        ``max_new_tokens``, ``chunk`` steps a chunk (0: ``decode_chunk_len``
+        of the config) and the current dispatch settings: the one kept if
+        its key is the same, else a new one that replaces it."""
+        key = runner_key(plan.batch, self.cache_sizes(plan, pixel_values, max_new_tokens),
+                         chunk=chunk)
         return self._keep_runner(key, DecodeRunner)
 
     def spec_runner(self, plan: FusionPlan, pixel_values, max_new_tokens: int, m: int,
@@ -791,8 +794,11 @@ class Generator:
             m=m, ctx_cap=plan.seq_len + max_new_tokens + m, draft=tuple(draft))
         return self._keep_runner(key, SpecRunner)
 
-    def prefill_from_plan(self, plan: FusionPlan, pixel_values, max_new_tokens: int):
-        cache = self.runner(plan, pixel_values, max_new_tokens).fresh_cache()
+    def prefill_from_plan(self, plan: FusionPlan, pixel_values, max_new_tokens: int,
+                          chunk: int = 0):
+        """``dynamic.prefill`` of ``plan`` into the cache of ``runner(plan,
+        pixel_values, max_new_tokens, chunk)``."""
+        cache = self.runner(plan, pixel_values, max_new_tokens, chunk).fresh_cache()
         return self.prefill_into(plan, pixel_values, cache)
 
     def prefill_into(self, plan: FusionPlan, pixel_values, cache: TieredCache):

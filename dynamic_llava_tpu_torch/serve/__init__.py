@@ -1,1 +1,2 @@
-"""Serving entry points of the port (the chat CLI)."""
+"""Serving entry points of the port: the chat CLI, the HTTP controller, the
+model worker, the batched / continuous worker and the Gradio front end."""

@@ -9,7 +9,9 @@ constructors (``from_hf_dict``, and the builder's
 the keyword stop). ``port_config`` is the helper the other port tests use to
 build the port's config from the JAX package's field values."""
 
+import ast
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -75,7 +77,8 @@ def test_sliding_window_with_predictors_raises_in_both():
 def test_constants_match():
     for name in ("IGNORE_INDEX", "IMAGE_TOKEN_INDEX", "DEFAULT_IMAGE_TOKEN",
                  "DEFAULT_IMAGE_PATCH_TOKEN", "DEFAULT_IM_START_TOKEN",
-                 "DEFAULT_IM_END_TOKEN", "IMAGE_PLACEHOLDER"):
+                 "DEFAULT_IM_END_TOKEN", "IMAGE_PLACEHOLDER", "LOGDIR",
+                 "CONTROLLER_HEART_BEAT_EXPIRATION", "WORKER_HEART_BEAT_INTERVAL"):
         assert getattr(tconstants, name) == getattr(jconstants, name)
     assert tconfig.IMAGE_TOKEN_INDEX == jconstants.IMAGE_TOKEN_INDEX
     assert tfusion.VICUNA_USER_TOKENS == jfusion.VICUNA_USER_TOKENS
@@ -296,3 +299,48 @@ def test_keywords_stopping_criteria_matches():
         seq = [int(x) for x in rng.choice(words, size=n)]
         assert t(seq) == j(seq), seq
     assert t([7, 7, words[3], words[4]]) and not t([7, 7])
+
+
+SERVE_COPIES = ["http_compat", "controller", "register_worker", "test_message",
+                "gradio_web_server"]
+ROOT = Path(__file__).resolve().parent.parent
+
+
+class _DropImportsOf(ast.NodeTransformer):
+    def __init__(self, module):
+        self.module = module
+
+    def visit_Import(self, node):
+        return None if [a.name for a in node.names] == [self.module] else node
+
+
+def _code(path: Path, drop_requests_imports: bool) -> str:
+    """The module's code without its docstring (and, if asked, without its
+    ``import requests`` statements), as an AST dump."""
+    tree = ast.parse(path.read_text())
+    if ast.get_docstring(tree) is not None:
+        tree.body = tree.body[1:]
+    if drop_requests_imports:
+        tree = _DropImportsOf("requests").visit(tree)
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("name", SERVE_COPIES)
+def test_serve_copies_match_their_originals(name):
+    """The port's own copies of the framework-free serving modules: the same
+    code as the JAX package's but for the docstring. The Gradio front end
+    imports ``requests`` inside the functions that post instead of at the
+    top (it then imports where ``requests`` is missing); that is the one
+    difference allowed."""
+    port = ROOT / "dynamic_llava_tpu_torch" / "serve" / f"{name}.py"
+    orig = ROOT / "dynamic_llava_tpu" / "serve" / f"{name}.py"
+    lazy = name == "gradio_web_server"
+    assert _code(port, lazy) == _code(orig, lazy)
+    if lazy:
+        tree = ast.parse(port.read_text())
+        assert not [n for n in tree.body if isinstance(n, ast.Import)
+                    and n.names[0].name == "requests"]
+        posting = {n.name for n in tree.body if isinstance(n, ast.FunctionDef)
+                   and any(isinstance(s, ast.Import) and s.names[0].name == "requests"
+                           for s in n.body)}
+        assert posting == {"get_model_list", "http_bot"}

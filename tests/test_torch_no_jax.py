@@ -9,7 +9,9 @@ int4 weights (also with
 the fused MLP, an int8 and an fp8 KV cache and the ring policy), and takes
 a train step, then imports the training data pipeline, the training CLI,
 the native image ops (and runs them where ``g++`` builds them), the eval
-generators and scorers, ends with neither ``jax`` nor ``dynamic_llava_tpu``
+generators and scorers, the serving stack (controller, model worker,
+batched worker, Gradio front end, client scripts) and the cog predictor
+``predict_torch``, ends with neither ``jax`` nor ``dynamic_llava_tpu``
 in ``sys.modules``; so does ``train_sparse --help`` in an interpreter of
 its own."""
 
@@ -101,6 +103,18 @@ from dynamic_llava_tpu_torch.eval import (
     model_vqa_qbench, model_vqa_science, vqa_metrics)
 from dynamic_llava_tpu_torch.train import data, train_sparse
 
+utils.LOGDIR = tempfile.mkdtemp()  # the serving modules' log files
+from dynamic_llava_tpu_torch.serve import (
+    controller, gradio_web_server, http_compat, model_worker, register_worker,
+    sglang_worker, test_message)
+import predict_torch
+
+loaded = (None, runtime, None, 0)
+for worker in (model_worker.ModelWorker("", "", "w", True, "tiny", None, "tiny", device="cpu",
+                                        loaded=loaded),
+               sglang_worker.BatchedWorker("tiny", device="cpu", loaded=loaded)):
+    assert worker.get_status()["model_names"] == ["tiny"]
+    worker.close()
 img = np.random.default_rng(0).integers(0, 256, (30, 50, 3), dtype=np.uint8)
 if native.native_available():
     assert native.clip_preprocess_batch_native([img], 28, (122, 116, 104), (0.5,) * 3,
@@ -121,7 +135,7 @@ print("jax loaded:", "jax" in sys.modules)
 print("jax package loaded:", "dynamic_llava_tpu" in sys.modules)
 """
 
-SOURCES = (sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = (sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "predict_torch.py"]
            + sorted((ROOT / "tools").glob("*.py")))
 # `import jax`, `from jax...`, `import dynamic_llava_tpu[.x]`, `from dynamic_llava_tpu[.x] ...`:
 # the word boundary keeps `dynamic_llava_tpu_torch` out
@@ -141,7 +155,8 @@ def test_forbidden_pattern_sees_what_it_should():
 
 def test_package_sources_import_no_jax():
     assert len(SOURCES) > 20 and all(p.is_file() for p in SOURCES)
-    assert {"profile_decode.py", "profile_mlp.py", "profile_train.py"} <= {
+    assert {"profile_decode.py", "profile_mlp.py", "profile_train.py", "predict_torch.py",
+            "model_worker.py", "sglang_worker.py", "gradio_web_server.py"} <= {
         p.name for p in SOURCES}
     offenders = [str(p.relative_to(ROOT)) for p in SOURCES if FORBIDDEN.search(p.read_text())]
     assert offenders == []

@@ -52,7 +52,7 @@ def main() -> int:
     want = Generator(params, cfg, GenerationConfig(
         max_new_tokens=64, temperature=0.0, eos_token_id=-1)).generate(ids, pix)
     t0 = time.perf_counter()
-    result = cs.checkpoint(torch, params, cfg, want)
+    _, result = cs.checkpoint(torch, params, cfg, want)
     print(f"phase 5e {time.perf_counter() - t0:.1f} s")
     print(json.dumps({k: v for k, v in result.items() if k != "vqa_answers"}))
     return 0
