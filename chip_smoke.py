@@ -129,9 +129,10 @@ else. Phases, each of which raises on failure:
    session driven by the eager per-token path must give the same tokens,
    tier lengths and ``next_pos`` after every round; a third is timed:
    round-1 TTFT, the continuation's ms a chunk, decode tok/s at B=1;
-5c. speculative decoding and beam search at 7B width on the phase-5
-   weights: B=1 and B=8 (an image and 60 text tokens a request, 128 new
-   tokens, EOS off), sparse and dense, and after phase 6's int8 serving a
+5c. speculative decoding and beam search at 7B width on the first
+   SPEC_DEPTH of the phase-5 decoder's 32 layers (views of its stacked
+   weights; cut for the script's time limit): B=1 and B=8 (an image and 60
+   text tokens a request, 128 new tokens, EOS off), sparse and dense, and after phase 6's int8 serving a
    B=8 sparse arm on the int8 decoder; each arm at k = 4 and 7 draft tokens
    (``speculate``): plain ``generate``, ``generate_speculative`` with an
    oracle draft (plain greedy's continuation), a self oracle (the device
@@ -150,7 +151,9 @@ else. Phases, each of which raises on failure:
    bound derived from bf16 rounding (``near_tie_bound``), printed with the
    matched prefix. Then ``beam_search`` (4 beams, 16 tokens): its wall time
    and its length-normalised log-probability against greedy's;
-5d. continuous batching at 7B width on the phase-5 weights (``continuous``):
+5d. continuous batching at 7B width (``continuous``) on the first
+   CONT_DEPTH of the phase-5 decoder's 32 layers (views; cut for the
+   script's time limit):
    16 requests of one 336x336 image and 60 text tokens (bucket 640), 64 and
    128 new tokens in turn, EOS off, arriving every 300 ms; 8 slots, chunks
    of 16. Arms, each prewarmed first on the object then timed: the
@@ -208,6 +211,30 @@ else. Phases, each of which raises on failure:
    completion ms and tok/s (client clock), the concurrent sends' makespan,
    each worker's load s and captures, the device's peak and the
    ``requests`` version;
+5g. the generation-quality probes and the bench core at 7B width, 32
+   layers, after 5f on phase 5e's checkpoint (``ppl_tools``): the tools on
+   the checkpoint loaded again in fp32 with the word-level tokenizer,
+   through ``eval_model(args, loaded=...)``: ``run_llava_for_ppl`` (one
+   image prompt, 32 tokens; its greedy tokens must equal
+   ``Generator.generate`` at B=1 on the same load), ``model_vqa_science_for_ppl``
+   (two problems), ``model_lvis_for_ppl`` sparse and dense (two records
+   with 33-token answers; sparse, the post tier after the prefill must be
+   shorter than the pre tier and the decode tokens it persisted at most
+   the answer's; the dense PPL must equal exp of the mean NLL of one dense
+   ``forward_nocache_eval`` pass over the prompt and the answer's prefixes
+   within PPL_RTOL relative), ``model_lvis_for_meteor`` (two records),
+   ``model_lvis_multi_round`` in ppl mode (three rounds: K2-M once a layer
+   a continued round) and ``visualize`` (the keep budget kept); then on
+   the phase-5 bf16 weights ``bench_config`` sparse and dense (B=8, 640
+   tokens, 64 new tokens, 3 prefill repetitions; its greedy tokens and
+   cache capacities must equal ``Generator.generate``'s and
+   ``Generator.cache_sizes``' for the same batch) and
+   ``long_text_memory`` at one length (64 tokens). The K1 / K2 / K2-M
+   wrappers are zeroed at its start and read at its end (no trace); each
+   must launch. The ``ppl_tools`` line (per tool its PPL, cache lengths,
+   seconds, wrapper calls, memory fields) and the ``bench_core`` line
+   (TTFT, device TTFT, decode tok/s, capacities, peak GiB, sparse and
+   dense; the long-text records);
 6. quantized serving at 7B width, the same batches: the phase-5 weights
    quantized in place to int8 (``quantize_llm_params``), sparse and dense;
    then an int4 decoder made directly (``init_quantized_llama_params``)
@@ -227,8 +254,9 @@ else. Phases, each of which raises on failure:
    B=8), the cosine of each
    sample's last logits against bf16 KV's at decode steps 1, 16 and 64
    (the ``kv_cosine`` line), every one finite;
-8. LLaVA-1.5-13B width (40 layers, hidden 5120, ffn 13824), an int4
-   decoder made directly, fused MLP, B=1, 256 new tokens, sparse and dense;
+8. LLaVA-1.5-13B width (hidden 5120, ffn 13824) on DEPTH_13B of its 40
+   layers (cut for the script's time limit), an int4 decoder made directly,
+   fused MLP, B=1, 256 new tokens, sparse and dense;
 9. training at 7B width (TRAIN_DEPTH decoder layers, fresh random bf16
    weights): ``Trainer.train`` over TRAIN_STEPS sparse steps (B=4, one
    336x336 image + 1088 text tokens each, half of them labels, fused
@@ -280,7 +308,8 @@ whether the tokens were equal, and a ``chat`` line each chat mode's TTFT,
 continuation ms, decode tok/s, capture ms, peak GiB and decode steps, and
 a ``continuous`` line with phase 5d's arms, and a ``checkpoint`` line with
 phase 5e's, a ``train_cli`` line with phase 9d's and a ``serving`` line with
-phase 5f's (whose wrapper calls join the ``kernels`` line's). K1's, K2's, K2-M's
+phase 5f's and the ``ppl_tools`` and ``bench_core`` lines with phase 5g's
+(whose wrapper calls, as phase 5f's, join the ``kernels`` line's). K1's, K2's, K2-M's
 and the int8 GEMV's launches in the ``kernels`` line include the engines'
 traced passes and phase 5e's; K1's, K3's and K4's include phase 9d's.
 """
@@ -289,6 +318,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -312,6 +342,13 @@ LEAN_DEPTH = 8
 # decoder layers of phase 5b's chat modes (of the phase-5 decoder's 32): cut
 # so that the script, with phase 5f, stays inside its 1200 s limit
 CHAT_DEPTH = 16
+# decoder layers of phase 5c's speculative arms and beam search and of phase
+# 5d's continuous-batching arms (of the phase-5 decoder's 32), and of phase
+# 8's 13B decoder (of its 40): cut so that the script, with phases 5e-5g at
+# full depth, keeps a wide margin inside its 1200 s limit
+SPEC_DEPTH = 16
+CONT_DEPTH = 16
+DEPTH_13B = 10
 TRAIN_STEPS = 3  # per mode; the first is timed apart
 TRAIN_BATCH, TRAIN_TEXT_LEN = 4, 1088  # fused S = 1088 - 1 + 576 = 1663
 TIMED = 3  # timed generate calls and prefills a serving mode
@@ -336,6 +373,13 @@ SERVE_REQUESTS = 8  # requests sent at once to the batched workers
 SERVE_SENDS, SERVE_SPEC_SENDS = 4, 2  # greedy requests to the model worker, to its --spec-k form
 SERVE_SPEC_K, SERVE_SLOTS, SERVE_WINDOW_MS = 4, 4, 100
 CKPT_NAME = "llava-v1.5-7b-random"  # phase 5e's checkpoint directory: the model name served
+# phase 5g: the generation-quality probes on phase 5e's checkpoint (fp32) and
+# the bench core on the phase-5 weights at phase 5's batch shape (B=8, an
+# image + 64 text tokens: 640 fused)
+PPL_SIZES = dict(max_new=32, answer_words=32, round_words=12, rounds=3,
+                 bench_batch=8, bench_text=65, bench_new=64, bench_reps=3,
+                 long_new=64, long_every=32)
+PPL_RTOL = 1e-3  # the dense teacher-forced PPL against one forward pass, fp32
 # phase 4b: the quality gates at the JAX tests' configs (text hidden 64 in 4
 # heads, a tower of hidden 32 in 2 heads: head_dim 16, which the attention
 # wrappers zero-pad to 64), fp32, seed 0, at the JAX tests' step counts
@@ -3222,6 +3266,289 @@ def serving(torch, path, cfg):
     return out
 
 
+def ppl_tools(torch, path, params, cfg, device="cuda", sizes=None):
+    """Phase 5g: the generation-quality probes and the bench core at 7B
+    width, full depth, on phase 5e's checkpoint ``path`` (loaded again in
+    fp32, ``WordTokenizer``) and on the phase-5 bf16 weights ``params``
+    (bit-equal to the checkpoint's bf16 load, phase 5e). Each tool through
+    the entry a user calls (``eval_model(args, loaded=...)``, ``visualize``,
+    ``bench_config``, ``long_text_memory``): ``run_llava_for_ppl`` (one
+    image prompt; its greedy tokens must equal ``Generator.generate`` at
+    B=1 on the same load, padded to the same length: (a)),
+    ``model_vqa_science_for_ppl`` (two problems), ``model_lvis_for_ppl``
+    sparse and dense (two records, answers of ``answer_words`` words; the
+    dense record's PPL must equal exp of the mean NLL of one dense
+    ``forward_nocache_eval`` pass over the prompt + answer prefixes within
+    ``PPL_RTOL`` relative: (b); sparse, the prefill's post tier must be
+    shorter than its pre tier and the decode tokens persisted at most the
+    answer's: (c)), ``model_lvis_for_meteor`` (two records),
+    ``model_lvis_multi_round`` in ppl mode (``PPL_ROUNDS`` rounds: K2-M
+    once a layer a continued round), ``visualize`` (the keep budget kept);
+    then on the bf16 weights ``bench_config`` sparse and dense (B, prompt,
+    new tokens and prefill repetitions of ``sizes``: its greedy tokens and
+    cache capacities must equal ``Generator.generate``'s and
+    ``Generator.cache_sizes``' for the same batch: (d)) and
+    ``long_text_memory`` at one length. The K1 / K2 / K2-M wrappers are
+    zeroed at the start and read at the end (no trace). Returns the
+    ``ppl_tools`` and ``bench_core`` records and the wrapper calls."""
+    import os
+    import tempfile
+
+    from PIL import Image
+
+    from dynamic_llava_tpu_torch.constants import DEFAULT_IMAGE_TOKEN
+    from dynamic_llava_tpu_torch.conversation import conv_templates
+    from dynamic_llava_tpu_torch.eval import (
+        bench, bench_test, model_lvis_for_meteor, model_lvis_for_ppl, model_lvis_multi_round,
+        model_vqa_science_for_ppl, run_llava_for_ppl, visualize)
+    from dynamic_llava_tpu_torch.generation.generate import GenerationConfig, Generator
+    from dynamic_llava_tpu_torch.mm_utils import process_images, tokenizer_image_token
+    from dynamic_llava_tpu_torch.models import dynamic
+    from dynamic_llava_tpu_torch.models.builder import LlavaRuntime, load_pretrained_model
+    from dynamic_llava_tpu_torch.multimodal.fusion import plan_batch
+    from dynamic_llava_tpu_torch.ops.decode_attention import decode_attention, extend_attention
+    from dynamic_llava_tpu_torch.ops.flash_attention import flash_attention
+
+    sz = dict(PPL_SIZES, **(sizes or {}))
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    wrappers = {"flash_fwd": flash_attention, "decode_kernel": decode_attention,
+                "extend_kernel": extend_attention}
+    for fn in wrappers.values():
+        fn.launches = 0
+    t_phase = time.perf_counter()
+    tools, timings = {}, {}
+
+    def run(name, fn):
+        """``fn()`` timed (synchronized), with its wrapper calls."""
+        before = {k: w.launches for k, w in wrappers.items()}
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        timings[name] = dict(seconds=time.perf_counter() - t0, wrapper_calls={
+            k: w.launches - before[k] for k, w in wrappers.items()})
+        return out
+
+    rng = np.random.default_rng(SEED + 13)
+    words = ("a red cat sits on the old wooden table near the window while light falls "
+             "across its fur and two birds watch from outside").split()
+
+    def sentence(n):
+        return " ".join(rng.choice(words, n)) + " ."
+
+    question = "Describe the picture in detail ."
+    layers = cfg.text.num_hidden_layers
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ppl_") as root:
+        images = []
+        for i in range(2):
+            img = Image.fromarray(rng.integers(0, 256, (300, 400, 3), dtype=np.uint8))
+            img.save(os.path.join(root, f"q{i}.png"))
+            images.append(img)
+
+        def write(name, rows, lines=True):
+            p = os.path.join(root, name)
+            with open(p, "w") as f:
+                f.write("".join(json.dumps(r) + "\n" for r in rows) if lines
+                        else json.dumps(rows))
+            return p
+
+        lvis = write("lvis.jsonl", [
+            {"question_id": i, "image": f"q{i}.png", "text": question,
+             "answer": sentence(sz["answer_words"])} for i in range(2)])
+        sqa = write("sqa.json", [
+            {"id": f"p{i}", "image": f"q{i}.png",
+             "conversations": [{"value": "<image>\nWhat is in the picture ?"}]}
+            for i in range(2)], lines=False)
+        multi = write("multi.jsonl", [{"question_id": 0, "image": "q0.png", "rounds": [
+            {"text": question if r == 0 else f"And what is in corner {r} ?",
+             "answer": sentence(sz["round_words"])} for r in range(sz["rounds"])]}])
+        tok = WordTokenizer()
+        t0 = time.perf_counter()
+        _, runtime, proc, ctx = load_pretrained_model(path, dtype=torch.float32, device=dev)
+        sync()
+        load_s = time.perf_counter() - t0
+        loaded = (tok, runtime, proc, ctx)
+        base = ["--model-path", path, "--conv-mode", "llava_v1", "--device", str(dev)]
+        new = ["--max_new_tokens", str(sz["max_new"])]
+
+        # (a) run_llava_for_ppl against Generator.generate at B=1
+        args = run_llava_for_ppl.parser().parse_args(
+            base + new + ["--image-file", os.path.join(root, "q0.png"), "--query", question])
+        res = run("run_llava_for_ppl", lambda: run_llava_for_ppl.eval_model(args, loaded=loaded))
+        conv = conv_templates["llava_v1"].copy()
+        conv.append_message(conv.roles[0], DEFAULT_IMAGE_TOKEN + "\n" + question)
+        conv.append_message(conv.roles[1], None)
+        ids = np.asarray(tokenizer_image_token(conv.get_prompt(), tok), np.int64)
+        pix = process_images([images[0]], proc, runtime.cfg)
+        n_img = runtime.cfg.num_image_tokens
+        gen = Generator(runtime.params, runtime.cfg, GenerationConfig(
+            max_new_tokens=sz["max_new"], eos_token_id=tok.eos_token_id))
+        ref = gen.generate([ids], pix, pad_to=plan_batch([ids], n_img).seq_len)[0]
+        del gen
+        if ref and ref[-1] == tok.eos_token_id:
+            ref = ref[:-1]
+        require(res["tokens"] == ref, f"ppl tools: run_llava_for_ppl's tokens "
+                f"{res['tokens'][:8]}... != Generator.generate's {ref[:8]}...")
+        tools["run_llava_for_ppl"] = dict(self_ppl=res["self_ppl"],
+                                          answer_token_len=res["answer_token_len"])
+
+        args = model_vqa_science_for_ppl.parser().parse_args(
+            base + new + ["--image-folder", root, "--question-file", sqa, "--temperature", "0",
+                          "--answers-file", os.path.join(root, "sqa_ppl.jsonl")])
+        mean = run("model_vqa_science_for_ppl",
+                   lambda: model_vqa_science_for_ppl.eval_model(args, loaded=loaded))
+        with open(args.answers_file) as f:
+            recs = [json.loads(line) for line in f]
+        require(len(recs) == 3 and math.isfinite(mean) and mean >= 1.0,
+                f"ppl tools: science records {len(recs)}, mean self-PPL {mean}")
+        tools["model_vqa_science_for_ppl"] = dict(
+            mean_self_ppl=mean, self_ppl=[float(r["self_ppl"]) for r in recs[:-1]],
+            answer_token_len=[int(r["answer_token_len"]) for r in recs[:-1]])
+
+        # (b), (c): the LVIS teacher-forced probe, sparse and dense
+        dense = LlavaRuntime(runtime.params, bench.dense_config(runtime.cfg))
+        for mode, rt in (("sparse", runtime), ("dense", dense)):
+            args = model_lvis_for_ppl.parser().parse_args(
+                base + ["--image-folder", root, "--question-file", lvis,
+                        "--answers-file", os.path.join(root, f"lvis_{mode}.jsonl")])
+            tools[f"model_lvis_for_ppl {mode}"] = run(
+                f"model_lvis_for_ppl {mode}",
+                lambda: model_lvis_for_ppl.eval_model(args, loaded=(tok, rt, proc, ctx)))
+        for rec in tools["model_lvis_for_ppl sparse"]:
+            require(rec["prefill_cache_length"] < rec["prefill_full_length"]
+                    and 0 <= rec["output_cache_length"] <= rec["output_token_length"]
+                    and math.isfinite(rec["ppl"]),
+                    f"ppl tools: sparse LVIS record {rec}")
+        dense_rec = tools["model_lvis_for_ppl dense"][0]
+        with open(lvis) as f:
+            answer = json.loads(f.readline())["answer"]
+        answer_ids = tok(answer).input_ids[1:]
+        conv = conv_templates["llava_v1"].copy()
+        conv.append_message(conv.roles[0], DEFAULT_IMAGE_TOKEN + "\n" + question)
+        conv.append_message(conv.roles[1], None)
+        prompt = np.asarray(tokenizer_image_token(conv.get_prompt(), tok), np.int64)
+        prefixes = [np.concatenate([prompt, np.asarray(answer_ids[:t], np.int64)])
+                    for t in range(len(answer_ids))]
+        plan = plan_batch(prefixes, n_img)
+        pix_t = torch.from_numpy(np.repeat(pix, len(prefixes), axis=0)).to(dev)
+
+        def forward():
+            with torch.inference_mode():
+                return dynamic.forward_nocache_eval(
+                    dense.params, dense.cfg, *bench_test.plan_tensors(plan, dev, True), pix_t)
+
+        logits, kept = run("forward_nocache_eval dense", forward)
+        logp = torch.log_softmax(logits.double(), dim=-1)
+        nll = -logp[torch.arange(len(answer_ids)), torch.tensor(answer_ids)]
+        ppl_fwd = float(torch.exp(nll.mean()))
+        require(torch.equal(kept.cpu(), torch.as_tensor(np.asarray(plan.valid_len))),
+                "ppl tools: the dense forward dropped tokens")
+        ppl_rel = abs(dense_rec["ppl"] - ppl_fwd) / ppl_fwd
+        require(ppl_rel <= PPL_RTOL, f"ppl tools: dense teacher-forced PPL {dense_rec['ppl']} != "
+                f"{ppl_fwd} of one forward_nocache_eval pass (rel {ppl_rel:.2e} > {PPL_RTOL})")
+        tools["forward_nocache_eval dense"] = dict(ppl=ppl_fwd, rel_diff=ppl_rel,
+                                                   rows=len(prefixes), seq_len=plan.seq_len)
+        del logits, logp, pix_t
+
+        args = model_lvis_for_meteor.parser().parse_args(
+            base + new + ["--image-folder", root, "--question-file", lvis,
+                          "--answers-file", os.path.join(root, "meteor.jsonl")])
+        recs = run("model_lvis_for_meteor",
+                   lambda: model_lvis_for_meteor.eval_model(args, loaded=loaded))
+        require(len(recs) == 2 and all(0 < r["prefill_cache_length"] for r in recs),
+                f"ppl tools: meteor records {recs}")
+        tools["model_lvis_for_meteor"] = [
+            {k: r[k] for k in ("meteor", "output_token_length", "prefill_cache_length")}
+            for r in recs]
+
+        args = model_lvis_multi_round.parser().parse_args(
+            base + new + ["--image-folder", root, "--question-file", multi, "--mode", "ppl",
+                          "--answers-file", os.path.join(root, "multi.jsonl")])
+        recs = run("model_lvis_multi_round",
+                   lambda: model_lvis_multi_round.eval_model(args, loaded=loaded))[0]["rounds"]
+        # a wrapper counts launches: none on the CPU, where it runs its plain version
+        k2m = timings["model_lvis_multi_round"]["wrapper_calls"]["extend_kernel"]
+        require(len(recs) == sz["rounds"] and k2m == (sz["rounds"] - 1) * layers * cuda,
+                f"ppl tools: multi-round {len(recs)} rounds, K2-M {k2m} wrapper calls "
+                f"(once a layer a continued round: {(sz['rounds'] - 1) * layers})")
+        pre = [r["pre_cache_length"] for r in recs]
+        require(pre == sorted(set(pre)) and all(math.isfinite(r["ppl"]) for r in recs),
+                f"ppl tools: multi-round records {recs}")
+        tools["model_lvis_multi_round"] = recs
+
+        args = visualize.parser().parse_args(
+            ["--model-path", path, "--image-file", os.path.join(root, "q1.png"), "--output",
+             os.path.join(root, "kept.png"), "--conv-mode", "llava_v1", "--device", str(dev)])
+        grid, _ = run("visualize", lambda: visualize.visualize(args, loaded=loaded))
+        budget = runtime.cfg.sparse.vision_keep_budget(n_img)
+        require(int(grid.sum()) == budget, f"ppl tools: visualize kept {int(grid.sum())} "
+                f"patches, not the budget {budget}")
+        tools["visualize"] = dict(kept=int(grid.sum()), patches=int(grid.size))
+        # the fp32 load goes before the bench (its loop variable and the
+        # forward's closure hold it too)
+        del loaded, runtime, dense, rt, forward, proc
+        if cuda:
+            torch.cuda.empty_cache()
+
+    # the bench core on the bf16 weights
+    b, text_len, new_tokens = sz["bench_batch"], sz["bench_text"], sz["bench_new"]
+    core = {}
+    for mode, c in (("sparse", cfg), ("dense", bench.dense_config(cfg))):
+        toks = []
+        r = run(f"bench_config {mode}", lambda: bench.bench_config(
+            params, c, batch=b, text_len=text_len, new_tokens=new_tokens,
+            prefill_reps=sz["bench_reps"], tokens=toks))
+        ids_b, imgs = bench.random_prompts(c, b, text_len)
+        imgs = bench.bf16_pixels(imgs)
+        g = Generator(params, c, bench.bench_generation_config(new_tokens)._replace(
+            decode_chunk=32))
+        gen_toks = g.generate(ids_b, imgs)
+        plan_b = plan_batch(ids_b, c.num_image_tokens, max_length=c.model_max_length,
+                            pad_multiple=1)
+        caps = g.cache_sizes(plan_b, imgs, new_tokens)
+        del g
+        require(gen_toks == toks, f"bench core {mode}: bench_config's tokens {toks[0][:8]}... "
+                f"!= Generator.generate's {gen_toks[0][:8]}...")
+        require(caps == (r["pre_cache_capacity"], r["post_cache_capacity"]),
+                f"bench core {mode}: capacities {r['pre_cache_capacity']}, "
+                f"{r['post_cache_capacity']} != Generator.cache_sizes {caps}")
+        core[mode] = r
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    core["long_text_memory"] = run("long_text_memory", lambda: bench_test.long_text_memory(
+        params, cfg, batch=1, text_len=text_len, max_new=sz["long_new"],
+        checkpoint_every=sz["long_every"]))
+    pre = [r["pre_cache_length"] for r in core["long_text_memory"]]
+    require(np.all(np.diff(pre) == sz["long_every"]),
+            f"bench core: long_text_memory pre-tier lengths {pre}")
+    calls = {k: w.launches for k, w in wrappers.items()}
+    require(all(v > 0 for v in calls.values()) or not cuda,
+            f"ppl tools: a kernel of the path never launched (wrapper calls {calls})")
+    phase_s = time.perf_counter() - t_phase
+    for name, t in timings.items():
+        log(f"  ppl tools: {name}: {t['seconds']:.2f} s, wrapper calls {t['wrapper_calls']}")
+    log(f"  ppl tools: fp32 load {load_s:.1f} s; (a) run_llava_for_ppl == generate "
+        f"({len(ref)} tokens); (b) dense PPL {dense_rec['ppl']:.6g} vs one forward "
+        f"{ppl_fwd:.6g} (rel {ppl_rel:.2e}); (c) sparse prefill "
+        f"{[(r['prefill_cache_length'], r['prefill_full_length']) for r in tools['model_lvis_for_ppl sparse']]}"
+        f", decode kept {[(r['output_cache_length'], r['output_token_length']) for r in tools['model_lvis_for_ppl sparse']]}")
+    for mode in ("sparse", "dense"):
+        r = core[mode]
+        log(f"  bench core {mode}: (d) tokens and capacities == Generator's; TTFT "
+            f"{r['ttft_ms']:.1f} ms (device {r['ttft_device_ms']:.1f}), decode "
+            f"{r['decode_tok_s']:.1f} tok/s, capacities {r['pre_cache_capacity']:.0f} / "
+            f"{r['post_cache_capacity']:.0f}, peak {r['peak_est_gb']:.2f} GiB")
+    log(f"  phase 5g: {phase_s:.1f} s, wrapper calls {calls}")
+    return dict(tools=tools, timings=timings, load_s=load_s, phase_s=phase_s,
+                wrapper_calls=calls), core
+
+
 def gate_configs():
     """The gates' configs at the JAX tests' values: the vision gate's sparse
     and dense configs, the text gate's, and its dense one."""
@@ -4050,22 +4377,36 @@ def main() -> int:
         ("sparse int8-KV", chat_sparse, dict(cache_dtype="int8")),
     ])
 
-    phase("phase 5c: speculative decoding and beam search at LLaVA-1.5-7B width, the phase-5 "
-          "weights: B=1 and 8, sparse and dense, k = 4 and 7")
+    def cut(cfg, depth):
+        return dataclasses.replace(
+            cfg, text=dataclasses.replace(cfg.text, num_hidden_layers=depth))
+
+    def cut_params(depth):
+        return {**params, "llm": first_layers(params["llm"], depth)}
+
+    phase(f"phase 5c: speculative decoding and beam search at LLaVA-1.5-7B width, the first "
+          f"{SPEC_DEPTH} of the phase-5 decoder's 32 layers: B=1 and 8, sparse and dense, "
+          "k = 4 and 7")
     t5c = time.perf_counter()
-    spec = speculate(torch, params, [("B=1 sparse", cfg_sparse, 1), ("B=1 dense", cfg_dense, 1),
-                                     ("B=8 sparse", cfg_sparse, 8), ("B=8 dense", cfg_dense, 8)],
-                     "bf16")
-    beam = beam_phase(torch, params, cfg_sparse)
+    spec_sparse, spec_dense = cut(cfg_sparse, SPEC_DEPTH), cut(cfg_dense, SPEC_DEPTH)
+    spec_params = cut_params(SPEC_DEPTH)
+    spec = speculate(torch, spec_params, [("B=1 sparse", spec_sparse, 1),
+                                          ("B=1 dense", spec_dense, 1),
+                                          ("B=8 sparse", spec_sparse, 8),
+                                          ("B=8 dense", spec_dense, 8)], "bf16")
+    beam = beam_phase(torch, spec_params, spec_sparse)
+    del spec_params
     log(f"  phase 5c bf16 arms and beam: {time.perf_counter() - t5c:.1f} s")
 
-    phase("phase 5d: continuous batching at LLaVA-1.5-7B width, the phase-5 weights: "
-          f"{CONT_REQUESTS} requests every {CONT_ARRIVAL_S} s, {CONT_SLOTS} slots; the engine, "
-          f"the window batcher, the engine with spec_k={CONT_SPEC_K}")
+    phase(f"phase 5d: continuous batching at LLaVA-1.5-7B width, the first {CONT_DEPTH} of the "
+          f"phase-5 decoder's 32 layers: {CONT_REQUESTS} requests every {CONT_ARRIVAL_S} s, "
+          f"{CONT_SLOTS} slots; the engine, the window batcher, the engine with "
+          f"spec_k={CONT_SPEC_K}")
     t5d = time.perf_counter()
-    trace = continuous_trace(cfg_sparse)
+    cont_sparse = cut(cfg_sparse, CONT_DEPTH)
+    trace = continuous_trace(cont_sparse)
     spec_arm = f"engine spec k={CONT_SPEC_K}"
-    cont = continuous(torch, params, cfg_sparse, [
+    cont = continuous(torch, cut_params(CONT_DEPTH), cont_sparse, [
         ("engine", "engine", {}),
         ("window", "window", {}),
         (spec_arm, "engine", dict(spec_k=CONT_SPEC_K)),
@@ -4080,12 +4421,16 @@ def main() -> int:
         phase("phase 5f: serving over HTTP at LLaVA-1.5-7B width on phase 5e's checkpoint: the "
               "controller, the model worker (plain, --spec-k), the batched worker (window, "
               "continuous)")
-        return serving(torch, path, cfg_sparse)
+        served = serving(torch, path, cfg_sparse)
+        phase("phase 5g: the generation-quality probes at LLaVA-1.5-7B width, 32 layers, on "
+              "phase 5e's checkpoint in fp32 (self-PPL, LVIS PPL sparse and dense, METEOR, "
+              "multi-round, the keep mask), the bench core on the phase-5 weights")
+        return served, ppl_tools(torch, path, params, cfg_sparse)
 
-    served, ckpt = checkpoint(torch, params, cfg_sparse, results["bf16"]["sparse"]["tokens"],
-                              then=serve_http)
-    log(f"  phase 5e: {time.perf_counter() - t5e - served['phase_s']:.1f} s; phase 5f: "
-        f"{served['phase_s']:.1f} s")
+    (served, (tools, core)), ckpt = checkpoint(
+        torch, params, cfg_sparse, results["bf16"]["sparse"]["tokens"], then=serve_http)
+    log(f"  phase 5e: {time.perf_counter() - t5e - served['phase_s'] - tools['phase_s']:.1f} s; "
+        f"phase 5f: {served['phase_s']:.1f} s; phase 5g: {tools['phase_s']:.1f} s")
 
     phase("phase 6: quantized serving at 7B width")
     t0 = time.perf_counter()
@@ -4096,12 +4441,12 @@ def main() -> int:
         f"{param_bytes(params) / 2**30:.2f} GiB)")
     drive("int8", params, both)
     t0 = time.perf_counter()
-    spec.update(speculate(torch, params, [("B=8 sparse", cfg_sparse, 8)], "int8",
-                          gemv_kernel="gemv int8"))
+    spec.update(speculate(torch, cut_params(SPEC_DEPTH), [("B=8 sparse", spec_sparse, 8)],
+                          "int8", gemv_kernel="gemv int8"))
     log(f"  phase 5c int8 arm: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     fp8_kv = dict(cache_dtype="float8_e4m3fn")
-    cont.update(continuous(torch, params, cfg_sparse, [
+    cont.update(continuous(torch, cut_params(CONT_DEPTH), cont_sparse, [
         ("engine int8 fp8-KV", "engine", dict(gen=fp8_kv, int8=True)),
         ("window int8 fp8-KV", "window", dict(gen=fp8_kv)),
     ], trace, holds=[("engine int8 fp8-KV", "window int8 fp8-KV")]))
@@ -4135,11 +4480,12 @@ def main() -> int:
         t["launches"]["extend_kernel"] for t in traced) + sum(
         r["wrapper_calls"]["extend_kernel"] for r in engines) + ckpt["wrapper_calls"][
         "extend_kernel"]
-    # phase 5f's wrapper calls (it takes no trace: its graph replays are not counted)
+    # phase 5f's and 5g's wrapper calls (they take no trace: their graph
+    # replays are not counted)
     for name, label in (("flash_attention_fwd", "flash_fwd"),
                         ("decode_attention_appended", "decode_kernel"),
                         ("extend_attention_appended", "extend_kernel")):
-        calls[name] += served["wrapper_calls"][label]
+        calls[name] += served["wrapper_calls"][label] + tools["wrapper_calls"][label]
     del params["llm"]
     torch.cuda.empty_cache()
     params["llm"] = init_quantized_llama_params(
@@ -4178,9 +4524,9 @@ def main() -> int:
     del params["llm"]
     torch.cuda.empty_cache()
 
-    phase("phase 8: LLaVA-1.5-13B width (40 layers, hidden 5120, ffn 13824), int4 decoder "
-        "made directly, fused MLP, B=1, 256 new tokens")
-    text13 = LlamaConfig.llama_13b()
+    phase(f"phase 8: LLaVA-1.5-13B width (hidden 5120, ffn 13824), the first {DEPTH_13B} of its "
+          "40 layers, int4 decoder made directly, fused MLP, B=1, 256 new tokens")
+    text13 = dataclasses.replace(LlamaConfig.llama_13b(), num_hidden_layers=DEPTH_13B)
     cfg13 = LlavaConfig(text=text13)
     # tower, projector and predictors at the 13B decoder's width, without a
     # bf16 decoder (26 GB that the int4 path never holds)
@@ -4335,6 +4681,8 @@ def main() -> int:
     print("checkpoint " + json.dumps(ckpt))
     print("train_cli " + json.dumps(cli))
     print("serving " + json.dumps(served))
+    print("ppl_tools " + json.dumps(tools))
+    print("bench_core " + json.dumps(core))
     print("continuous " + json.dumps({
         arm: {k: v for k, v in r.items() if k not in ("device_launches", "wrapper_calls")}
         for arm, r in cont.items()}))

@@ -128,6 +128,11 @@ def add_port_flags(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--spec_k", type=int, default=0,
                    help="speculative decoding for greedy runs: verify 1+k candidates per "
                         "pass (0 = off)")
+    return add_device_flag(p)
+
+
+def add_device_flag(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """``--device``: the card by default (raises where there is none)."""
     p.add_argument("--device", type=str, default=None,
                    help="default: the card; 'cpu' runs the plain PyTorch versions")
     return p

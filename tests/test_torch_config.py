@@ -344,3 +344,24 @@ def test_serve_copies_match_their_originals(name):
                    and any(isinstance(s, ast.Import) and s.names[0].name == "requests"
                            for s in n.body)}
         assert posting == {"get_model_list", "http_bot"}
+
+
+EVAL_COPIES = ["convert_gqa_for_eval", "convert_mmbench_for_submission",
+               "convert_mmvet_for_eval", "convert_seed_for_submission", "convert_sqa_to_llava",
+               "convert_sqa_to_llava_base_prompt", "convert_vizwiz_for_submission",
+               "convert_vqav2_for_submission", "summarize_gpt_review", "generate_webpage_data"]
+
+
+@pytest.mark.parametrize("name", EVAL_COPIES)
+def test_eval_copies_match_their_originals(name):
+    """The port's own copies of the framework-free eval converters and
+    report scripts: the same code as the JAX package's but for the
+    docstring (the VizWiz converter's relative import of ``vqa_metrics``
+    resolves to the port's own copy; the MMBench converter imports
+    ``pandas`` inside the function that writes the sheet, as the original
+    does)."""
+    port = ROOT / "dynamic_llava_tpu_torch" / "eval" / f"{name}.py"
+    orig = ROOT / "dynamic_llava_tpu" / "eval" / f"{name}.py"
+    assert _code(port, False) == _code(orig, False)
+    top = [n for n in ast.parse(port.read_text()).body if isinstance(n, (ast.Import, ast.ImportFrom))]
+    assert not [n for n in top if isinstance(n, ast.Import) and n.names[0].name == "pandas"]
