@@ -34,7 +34,10 @@ else. Phases, each of which raises on failure:
    with 4 query heads a KV head; a ``kv_length`` of 0 and one in mid-tile;
    K1 with a ``q_offset`` and Sq < Sk; bf16 and fp32; head_dim 16 and 32,
    zero-padded to 64 by the wrappers), each launched twice with
-   ``torch.equal`` results; K1 is timed beside SDPA both with the masks
+   ``torch.equal`` results; K1 is timed (at the decoder's pre tier, the
+   CLIP tower and ``kernel_cases.TIMED_FLASH_SHAPES``: an anyres prefill
+   at S=2944, Mistral's GQA 32 / 8 at S=4096, the tower over S2's 14
+   tiles) beside SDPA both with the masks
    as a bool tensor and, at full lengths, with ``is_causal``; K3's delta
    kernel beside ``torch.linalg.vecdot`` on the fp32 values it forms;
    ``torch.autograd.grad`` through K1 + K3 against autograd through the
@@ -46,7 +49,9 @@ else. Phases, each of which raises on failure:
    and 32, zero-padded); 1-8 query heads a KV head; B = 8; each launched
    twice with ``torch.equal``
    results; timed at max_len 768 / 256 and B = 4 / 8 beside one SDPA call
-   (for int8 / fp8 storage: on the dequantized bf16 cache). K2's M-query
+   (for int8 / fp8 storage: on the dequantized bf16 cache), and past
+   Mistral's window (B=1, GQA 32 / 8, length 4700, window 4096) beside
+   SDPA over the window's rows. K2's M-query
    form (K2-M, the continuation prefill's chunk attention; a bf16 q over a
    bf16, int8 or fp8 cache on the tensor cores, ``extend_mma_kernel``, an
    fp32 q or cache on the CUDA cores, ``extend_kernel``) at every
@@ -176,11 +181,14 @@ else. Phases, each of which raises on failure:
    batcher's on the same weights and cache (the speculative engine's also
    the plain engine's), or leave them only at a near tie
    (``near_tie_bound``, as in phase 5c);
-5e. the checkpoint path at 7B width on the phase-5 weights (``checkpoint``):
+5e. the checkpoint path at 7B width on the first CKPT_DEPTH (16) of the
+   phase-5 decoder's 32 layers (views; cut for the script's time limit, as
+   are 5f and 5g, which serve this checkpoint) (``checkpoint``):
    ``export_hf_checkpoint`` to a temporary directory (removed at the end of
    the phase), ``load_pretrained_model`` back onto the card (every leaf
    ``torch.equal`` to the phase-5 weights, the config equal), greedy
-   ``Generator.generate`` of phase 5's sparse batch (phase 5's tokens),
+   ``Generator.generate`` of phase 5's sparse batch (the tokens the same
+   views give before the export),
    two rounds of the chat CLI's loop (``serve.cli.chat_loop``, a word-level
    stand-in tokenizer) against the same loop on the phase-5 weights, and
    the VQA CLI (``eval.model_vqa_loader.eval_model``) on three questions,
@@ -211,8 +219,9 @@ else. Phases, each of which raises on failure:
    completion ms and tok/s (client clock), the concurrent sends' makespan,
    each worker's load s and captures, the device's peak and the
    ``requests`` version;
-5g. the generation-quality probes and the bench core at 7B width, 32
-   layers, after 5f on phase 5e's checkpoint (``ppl_tools``): the tools on
+5g. the generation-quality probes and the bench core at 7B width,
+   CKPT_DEPTH of 32 layers, after 5f on phase 5e's checkpoint
+   (``ppl_tools``): the tools on
    the checkpoint loaded again in fp32 with the word-level tokenizer,
    through ``eval_model(args, loaded=...)``: ``run_llava_for_ppl`` (one
    image prompt, 32 tokens; its greedy tokens must equal
@@ -235,10 +244,30 @@ else. Phases, each of which raises on failure:
    seconds, wrapper calls, memory fields) and the ``bench_core`` line
    (TTFT, device TTFT, decode tok/s, capacities, peak GiB, sparse and
    dense; the long-text records);
-6. quantized serving at 7B width, the same batches: the phase-5 weights
-   quantized in place to int8 (``quantize_llm_params``), sparse and dense;
-   then an int4 decoder made directly (``init_quantized_llama_params``)
-   beside the bf16 tower, projector and predictors, sparse;
+5h. high resolution and the other towers at 7B width, 32 layers, on the
+   phase-5 weights (``hires``), ``model_max_length`` 4096 and the
+   LLaVA-1.6 grid pinpoints: ``Generator.generate_anyres`` at B=2 on a
+   672x672 and a 1008x336 image (2928 and 2328 merged image tokens; the
+   tiles through the tower at B = 5 and 4), 32 new tokens, dense and
+   sparse, and each image alone at B=1; ``s2_tower_features`` at scales
+   336 / 672 / 1008; TokenPacker's tower taps (12, 16, 22, 23) and
+   projector at raw grid 24, scale factor 2; ``preprocess_batch`` on two
+   uint8 480x640 frames. Holds: the merged counts equal the host's
+   ``merge_anyres_features`` on the images' geometry; the dense prefill's
+   last logits and the first 4 decode steps' within ``logits_hold``'s
+   bf16 bound of ``run_layers_nocache`` + ``lm_head`` over the same fused
+   embeddings and tokens; each row's tokens at B=2 equal its tokens at
+   B=1 or leave them at a near tie (``explain_divergence``); S2's first
+   channel block bit for bit the tower's; TokenPacker's output [1, 144,
+   4096] and finite; preprocessing within ``tests/test_preprocess.py``'s
+   bounds of the PIL pipeline. The ``hires`` line (token counts, prefill
+   ms, seconds, the holds' numbers, wrapper calls, peak GiB);
+6. quantized serving at 7B width on the first QUANT_DEPTH (16) of 32
+   layers (views; cut for the script's time limit), the same batches: the
+   phase-5 weights quantized in place to int8 (``quantize_llm_params``),
+   sparse and dense; then an int4 decoder made directly (32 layers,
+   ``init_quantized_llama_params``) beside the bf16 tower, projector and
+   predictors, sparse;
 7. lean-memory serving at 7B width on the first LEAN_DEPTH of the int4
    decoder's 32 layers (views of its stacked weights; cut for the script's
    time limit), the same batches, within one process so that the modes can
@@ -287,7 +316,20 @@ else. Phases, each of which raises on failure:
    save (~38 GiB; the room checked first, the directory removed after);
    K1 / K3 / K4 held to phase 9's sparse step, losses finite, the
    checkpoint file present (the ``train_cli`` line: step ms, fused lengths,
-   peak, save seconds and bytes, whether the native image path ran).
+   peak, save seconds and bytes, whether the native image path ran);
+10. the other families at 7B width on the first FAMILY_DEPTH (8) of 32
+   layers, random bf16 weights (``families``): Mistral-7B (GQA 32 / 8,
+   window 4096), dense, ``Generator.generate`` on text prompts of 4608
+   tokens (the window binds in the prefill, on the plain path, and in K2)
+   and 2048 (K1 at GQA 32 / 8), 32 new tokens each, the prefill's and
+   every decode step's logits within ``logits_hold``'s bound of
+   ``llama.forward_dense`` over prompt + tokens, and without the window
+   the rows past it outside that bound; MPT-7B (d_model 4096, 32 heads,
+   vocab 50368): one image + text prompt through ``mpt.forward_multimodal``,
+   finite, and ``mpt.generate_greedy``'s 32 tokens each the teacher-forced
+   argmax or at a near tie; a tiny MPT checkpoint through
+   ``load_pretrained_model`` gives an ``MptRuntime`` with the saved
+   weights. The ``families`` line.
 
 After the main path of each serving mode, outside its counts and trace,
 TIMED more batches are timed (the graph is reused), each followed by its
@@ -308,8 +350,10 @@ whether the tokens were equal, and a ``chat`` line each chat mode's TTFT,
 continuation ms, decode tok/s, capture ms, peak GiB and decode steps, and
 a ``continuous`` line with phase 5d's arms, and a ``checkpoint`` line with
 phase 5e's, a ``train_cli`` line with phase 9d's and a ``serving`` line with
-phase 5f's and the ``ppl_tools`` and ``bench_core`` lines with phase 5g's
-(whose wrapper calls, as phase 5f's, join the ``kernels`` line's). K1's, K2's, K2-M's
+phase 5f's and the ``ppl_tools`` and ``bench_core`` lines with phase 5g's,
+the ``hires`` line with phase 5h's and the ``families`` line with phase
+10's (whose wrapper calls, as phase 5f's and 5g's, join the ``kernels``
+line's). K1's, K2's, K2-M's
 and the int8 GEMV's launches in the ``kernels`` line include the engines'
 traced passes and phase 5e's; K1's, K3's and K4's include phase 9d's.
 """
@@ -337,18 +381,25 @@ FP32_TOL = 1e-4
 TRAIN_DEPTH = 32  # decoder layers of the training phase (width is never cut)
 # decoder layers of phase 7's serving modes (of the int4 decoder's 32): cut
 # so that the script, with phase 5e's generators and phase 9d, stays inside
-# its 1200 s limit; its KV cosine and every other phase keep full depth
+# its 1200 s limit; its KV cosine keeps full depth
 LEAN_DEPTH = 8
 # decoder layers of phase 5b's chat modes (of the phase-5 decoder's 32): cut
 # so that the script, with phase 5f, stays inside its 1200 s limit
 CHAT_DEPTH = 16
 # decoder layers of phase 5c's speculative arms and beam search and of phase
 # 5d's continuous-batching arms (of the phase-5 decoder's 32), and of phase
-# 8's 13B decoder (of its 40): cut so that the script, with phases 5e-5g at
-# full depth, keeps a wide margin inside its 1200 s limit
+# 8's 13B decoder (of its 40): cut so that the script keeps a wide margin
+# inside its 1200 s limit
 SPEC_DEPTH = 16
 CONT_DEPTH = 16
 DEPTH_13B = 10
+# decoder layers of the checkpoint path (phases 5e-5g: the export, the loads
+# and everything served from them) and of phase 6's quantized serving modes
+# (of the phase-5 / int4 decoders' 32): cut so that the script, with phases
+# 5h and 10, stays inside ~950 s; phase 5's bf16 serving, 5h, the KV cosine
+# and training keep full depth
+CKPT_DEPTH = 16
+QUANT_DEPTH = 16
 TRAIN_STEPS = 3  # per mode; the first is timed apart
 TRAIN_BATCH, TRAIN_TEXT_LEN = 4, 1088  # fused S = 1088 - 1 + 576 = 1663
 TIMED = 3  # timed generate calls and prefills a serving mode
@@ -401,6 +452,20 @@ CLI_WORDS, CLI_TURN_WORDS = 4000, 250  # synthetic vocabulary; words a turn (~1.
 CLI_IMAGE_SIZES = ((640, 480), (480, 640), (336, 336), (800, 300), (300, 800), (500, 375),
                    (375, 500), (1024, 768), (448, 336), (336, 448), (700, 350), (350, 700))
 # published peaks of one H100 SXM (NVIDIA's data sheet)
+HIRES_PINPOINTS = [[336, 672], [672, 336], [672, 672], [1008, 336], [336, 1008]]
+HIRES_SIZES = ((672, 672), (1008, 336))  # (width, height) of phase 5h's two images
+HIRES_MAX_NEW = 32
+HIRES_CHECK_STEPS = 4  # decode steps whose logits hold (b) besides the prefill's
+S2_SCALES = (336, 672, 1008)
+TP_LAYERS = (12, 16, 22, 23)  # TokenPacker's tower taps
+# phase 10's 7B-width families run their first 8 of 32 layers (the script's
+# time limit; neither hold depends on depth)
+FAMILY_DEPTH = 8
+MISTRAL_PROMPTS = (4608, 2048)  # past the 4096 window, and inside it
+FAMILY_MAX_NEW = 32
+# the cached paths' logits against the no-cache forward's, relative to the
+# largest: 16 bf16 units of roundoff (``logits_hold``)
+LOGITS_HOLD_REL = 2.0**-4
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 
@@ -561,13 +626,17 @@ def check_kernels(torch):
             f"{lse_err:.3e} (atol=rtol={tol:g}), two launches equal: ok")
         res["flash_attention_fwd"]["max_abs_err"] = max(
             res["flash_attention_fwd"]["max_abs_err"], err)
-        if case.label not in ("decoder pre tier", "clip tower"):
+        if case.label not in ("decoder pre tier", "clip tower") + kc.TIMED_FLASH_SHAPES:
             continue
         q, k, v, _, kvl = kc.make_flash_inputs(case, dev)
         b, s, h, d = q.shape
         causal, lens = case.causal, case.lengths
+        gqa = dict(enable_gqa=True) if case.hkv != h else {}
+        # the longest shapes' plain versions hold GiBs of fp32 scores a call
+        iters = 20 if b * h * s * s <= 2**28 else 3
         kms = time_ms(lambda: flash_attention(q, k, v, kv_length=kvl, causal=causal))
-        pms = time_ms(lambda: flash_attention_plain(q, k, v, kv_length=kvl, causal=causal))
+        pms = time_ms(lambda: flash_attention_plain(q, k, v, kv_length=kvl, causal=causal),
+                      iters)
         # yardstick: one SDPA call on the same inputs, the masks as a bool mask
         ql, kl, vl = sdpa_layout(q), sdpa_layout(k), sdpa_layout(v)
         cols = torch.arange(s, device=dev)
@@ -576,12 +645,12 @@ def check_kernels(torch):
             mask = mask & (cols[None, :] <= cols[:, None])
         if kvl is not None:
             mask = mask & (cols[None, :] < kvl[:, None])[:, None, None, :]
-        lms = time_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask))
+        lms = time_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask, **gqa))
         # the bool mask keeps SDPA off its flash backend: also at full
         # lengths without a mask tensor, the kernel on the same inputs
         full_ms = time_ms(lambda: flash_attention(q, k, v, causal=causal))
         lfull_ms = time_ms(
-            lambda: F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal))
+            lambda: F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal, **gqa))
         pairs = attended_pairs(b, s, s, causal, lens)
         bms, bby = bound_ms(2 * (2 * q.numel() + 2 * k.numel()), 4 * pairs * d * h)
         log(f"  K1 {case.label} time: kernel {kms:.4f} ms, plain {pms:.4f} ms, SDPA "
@@ -592,8 +661,11 @@ def check_kernels(torch):
                       full_length_ms=full_ms, library_full_length_ms=lfull_ms)
         if case.label == "decoder pre tier":
             res["flash_attention_fwd"].update(timing)
-        else:
+        elif case.label == "clip tower":
             res["flash_attention_fwd"]["clip"] = timing
+        else:
+            res["flash_attention_fwd"].setdefault("shapes", {})[
+                f"{case.label} B={b} S={s} H={h} Hkv={case.hkv} d={d}"] = timing
 
     torch.cuda.synchronize()
     return res
@@ -665,6 +737,29 @@ def check_decode_kernel(torch):
             (res if storage == "own" else res[storage]).update(timing)
         else:
             res["shapes"][f"B={b} max_len={max_len} {storage}"] = timing
+
+    # Mistral past its window: GQA 32 / 8, only the window's rows are read
+    case = next(c for c in kc.DECODE_CASES if c.label == "mistral window")
+    (q, kc_, vc, kn, vn, live), kw = kc.make_decode_inputs(case, dev, SEED + 3)
+    kms = time_ms(lambda: decode_attention(q, kc_, vc, kn, vn, live, **kw), 100)
+    pms = time_ms(lambda: decode_attention_plain(q, kc_, vc, kn, vn, live, **kw), 100)
+    n_live, q_pos = case.lengths[0], int(kw["q_pos"][0])
+    first = max(0, q_pos - case.window + 1)  # the window's first cache row
+    rows = n_live - first
+    ql = sdpa_layout(q)
+    kl = sdpa_layout(torch.cat([kc_[:, first:n_live], kn], dim=1))
+    vl = sdpa_layout(torch.cat([vc[:, first:n_live], vn], dim=1))
+    lms = time_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl, enable_gqa=True), 100)
+    b, h, hkv, d = case.b, case.h, case.hkv, case.d
+    bms, bby = bound_ms(2 * b * rows * hkv * d * 2 + 2 * (2 * q.numel() + 2 * kn.numel()),
+                        4 * b * (rows + 1) * h * d)
+    log(f"  K2 time, Mistral window: B={b} H={h} Hkv={hkv} max_len={case.max_len}, length "
+        f"{n_live}, window {case.window} ({rows} cache rows read): kernel {kms:.4f} ms, "
+        f"plain {pms:.4f} ms, SDPA over the window's rows {lms:.4f} ms, bound {bms:.4f} ms "
+        f"({bby})")
+    res["shapes"][f"mistral window B={b} H={h} Hkv={hkv} max_len={case.max_len} "
+                  f"length {n_live} window {case.window}"] = dict(
+        ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms, bound_by=bby)
     torch.cuda.synchronize()
     return res
 
@@ -2755,13 +2850,14 @@ def eval_generators(root, model_path, loaded, images, qfile, traced, layers):
 
 
 def checkpoint(torch, params, cfg, want_tokens, b=8, n_text=60, then=None):
-    """Phase 5e: the phase-5 weights through a checkpoint and the entry
-    points users run. ``export_hf_checkpoint`` writes them (bf16, full
-    depth) to a temporary directory, removed at the end; ``load_pretrained_model``
-    loads it onto the card, and every leaf must be ``torch.equal`` to the
-    phase-5 weights and the config equal to ``cfg``. On the loaded runtime:
-    greedy ``Generator.generate`` of phase 5's sparse batch must give phase
-    5's tokens (``want_tokens``); two rounds of the chat CLI's loop
+    """Phase 5e: the phase-5 weights (``params``, the depth of ``cfg``)
+    through a checkpoint and the entry points users run.
+    ``export_hf_checkpoint`` writes them (bf16) to a temporary directory,
+    removed at the end; ``load_pretrained_model`` loads it onto the card,
+    and every leaf must be ``torch.equal`` to ``params`` and the config
+    equal to ``cfg``. On the loaded runtime: greedy ``Generator.generate``
+    of phase 5's sparse batch must give ``want_tokens`` (the same call's on
+    ``params``); two rounds of the chat CLI's loop
     (``serve.cli.chat_loop``, a 400x300 image, ``WordTokenizer``) must give
     the answers the same loop gives on the phase-5 weights, K2-M once a
     layer in the continued round. Then the checkpoint is loaded again in
@@ -3268,8 +3364,8 @@ def serving(torch, path, cfg):
 
 def ppl_tools(torch, path, params, cfg, device="cuda", sizes=None):
     """Phase 5g: the generation-quality probes and the bench core at 7B
-    width, full depth, on phase 5e's checkpoint ``path`` (loaded again in
-    fp32, ``WordTokenizer``) and on the phase-5 bf16 weights ``params``
+    width (the checkpoint's depth), on phase 5e's checkpoint ``path`` (loaded
+    again in fp32, ``WordTokenizer``) and on the phase-5 bf16 weights ``params``
     (bit-equal to the checkpoint's bf16 load, phase 5e). Each tool through
     the entry a user calls (``eval_model(args, loaded=...)``, ``visualize``,
     ``bench_config``, ``long_text_memory``): ``run_llava_for_ppl`` (one
@@ -4200,6 +4296,487 @@ def train_cli(torch, expect, need_bytes):
     return r
 
 
+def logits_hold(got, ref):
+    """``(max |got - ref|, bound)`` of two bf16 paths' fp32 logits, the
+    bound ``LOGITS_HOLD_REL`` of the reference's largest magnitude. Two
+    paths that compute the same function round in other places: K1 rounds
+    its probabilities to bf16 for the tensor cores, K2 and the plain path
+    keep them in fp32, and every attention output and residual add rounds
+    to bf16 after sums in another order; on random weights the layers
+    amplify that (on an H100: at 7B width 0.14-0.18 on logits up to 5.6 on
+    32 layers' anyres decode rows, none on the prefill's rows that share
+    its kernels; 0.11-0.16 on up to ~6 for 8 Mistral layers; with fp32
+    weights 0.004, the bf16 cache's rounding). A wrong row, position, mask
+    or feature moves logits by their own magnitude (Mistral without its
+    window: 8.1 on up to ~6)."""
+    err = float((got.float() - ref.float()).abs().max())
+    return err, LOGITS_HOLD_REL * float(ref.float().abs().max())
+
+
+def teacher_forced_logits(torch, params, cfg, gen, plan, feats, tokens, steps):
+    """An eager loop along ``tokens`` (the greedy tokens a sample, from the
+    graph) on the anyres prefill of ``plan``: the prefill's last logits and
+    each step's, ``[steps + 1, B, V]``, and the near-tie record of
+    ``explain_divergence`` (top-two gaps, top logits, keep margins)."""
+    from dynamic_llava_tpu_torch.models.dynamic import decode_step
+
+    logits, gaps, tops, margins = [], [], [], []
+    with torch.inference_mode(), KeepMargins() as rec:
+        state, _ = gen.prefill_anyres(plan, feats, HIRES_MAX_NEW)
+        for j in range(steps + 1):
+            last = state.last_logits.float()
+            logits.append(last.clone())
+            top2 = torch.topk(last, 2, dim=-1).values
+            gaps.append((top2[:, 0] - top2[:, 1]).cpu().numpy())
+            tops.append(top2[:, 0].abs().cpu().numpy())
+            if j == steps:
+                break
+            tok = torch.tensor([t[j] for t in tokens], device=gen.device)
+            n = len(rec.calls)
+            state = decode_step(params, cfg, tok, state)
+            margins.append(next(((a.cpu().numpy(), sc.cpu().numpy())
+                                 for a, sc in rec.calls[n:]), None))
+    return torch.stack(logits), (np.stack(gaps), np.stack(tops), margins)
+
+
+def nocache_logits(torch, params, cfg, gen, plan, feats, tokens, steps):
+    """The no-cache reference of the cached path: the plan's fused
+    embeddings (tokens + the merged anyres features) with each sample's
+    first ``steps`` generated tokens appended, through
+    ``run_layers_nocache`` + ``lm_head`` (K1, no cache, no runner, no
+    planner); the logits at each sample's last prompt row and the next
+    ``steps`` rows, ``[steps + 1, B, V]``."""
+    from dynamic_llava_tpu_torch.models import llama
+    from dynamic_llava_tpu_torch.multimodal.fusion import fuse_embeddings
+
+    dev = gen.device
+    b = plan.batch
+    valid = [int(v) for v in plan.valid_len]
+    s = max(valid) + steps
+    ids = np.zeros((b, s), np.int64)
+    is_img = np.zeros((b, s), bool)
+    slot = np.zeros((b, s), np.int32)
+    for i in range(b):
+        ids[i, :valid[i]] = plan.token_ids[i, :valid[i]]
+        ids[i, valid[i]:valid[i] + steps] = tokens[i][:steps]
+        is_img[i, :valid[i]] = plan.is_image[i, :valid[i]]
+        slot[i, :valid[i]] = plan.image_slot[i, :valid[i]]
+    with torch.inference_mode():
+        x = llama.embed_tokens(params["llm"], torch.from_numpy(ids).to(dev))
+        x = fuse_embeddings(x, torch.from_numpy(feats).to(dev), torch.from_numpy(is_img).to(dev),
+                            torch.from_numpy(slot).to(dev))
+        pos = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
+        h = llama.run_layers_nocache(params["llm"], cfg.text, x, pos)
+        rows = torch.tensor([[valid[i] - 1 + j for i in range(b)] for j in range(steps + 1)],
+                            device=dev)  # [steps + 1, B]
+        picked = h[torch.arange(b, device=dev)[None, :], rows]  # [steps + 1, B, D]
+        return llama.lm_head(params["llm"], cfg.text, picked)
+
+
+def hires(torch, params, cfg_sparse, device="cuda", sizes=None):
+    """Phase 5h: high resolution and the other towers at 7B width, 32
+    layers, on the phase-5 bf16 weights (and a random ``image_newline``
+    leaf), ``model_max_length`` 4096 and the LLaVA-1.6 grid pinpoints:
+    ``Generator.generate_anyres`` at B=2 on a 672x672 and a 1008x336 image
+    (random pixels), HIRES_MAX_NEW tokens, dense and sparse, and each image
+    alone at B=1; ``s2_tower_features`` at S2_SCALES; TokenPacker's tower
+    taps and projector (random bf16 weights at 7B width, raw grid 24, scale
+    factor 2); ``preprocess_batch`` on two uint8 frames. Holds: (a) the
+    merged token counts equal ``merge_anyres_features``' on the host from
+    the images' geometry; (b) dense, the prefill's last logits and the
+    first HIRES_CHECK_STEPS decode steps' lie within ``logits_hold``'s
+    bound of ``run_layers_nocache`` + ``lm_head`` over the same fused
+    embeddings and generated tokens; (c) each row's tokens at B=2 equal its
+    tokens alone at B=1, or leave them at a near tie (``explain_divergence``
+    on the B=2 path); (d) S2's first channel block equals
+    ``vision_tower_features``; (e) TokenPacker's output is [1, 144, 4096]
+    and finite; (f) on-device preprocessing lies within
+    ``tests/test_preprocess.py``'s bounds of the port's PIL pipeline. The
+    K1 / K2 wrappers are zeroed at its start and read at its end (no
+    trace); each must launch. ``device="cpu"`` with ``sizes`` (``pinpoints``,
+    ``images``, ``s2_scales``, ``tp_layers``, ``frame``) for a tiny config
+    rehearses the phase on the plain versions. Returns the ``hires``
+    record."""
+    from PIL import Image
+
+    from dynamic_llava_tpu_torch.config import DENSE_SPARSE_CONFIG, IMAGE_TOKEN_INDEX
+    from dynamic_llava_tpu_torch.generation.generate import GenerationConfig, Generator
+    from dynamic_llava_tpu_torch.mm_utils import (
+        ClipImagePreprocessor, expand2square, get_anyres_image_grid_shape)
+    from dynamic_llava_tpu_torch.models import clip, towers
+    from dynamic_llava_tpu_torch.multimodal.anyres import merge_anyres_features
+    from dynamic_llava_tpu_torch.ops.decode_attention import decode_attention
+    from dynamic_llava_tpu_torch.ops.flash_attention import flash_attention
+    from dynamic_llava_tpu_torch.ops.preprocess import preprocess_batch
+
+    sz = {**dict(pinpoints=HIRES_PINPOINTS, images=HIRES_SIZES, s2_scales=S2_SCALES,
+                 tp_layers=TP_LAYERS, frame=(480, 640)), **(sizes or {})}
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    for fn in (flash_attention, decode_attention):
+        fn.launches = 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(SEED + 5)
+    vis = cfg_sparse.vision
+    d = cfg_sparse.text.hidden_size
+    dtype = params["llm"]["final_ln"].dtype
+    params = dict(params, image_newline=torch.randn(
+        d, generator=torch.Generator(device=dev).manual_seed(SEED + 5), device=dev,
+        dtype=dtype) * 0.02)
+    images = [Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+              for w, h in sz["images"]]
+    vocab = cfg_sparse.text.vocab_size
+    ids = [np.concatenate([rng.integers(3, vocab, 12), [IMAGE_TOKEN_INDEX],
+                           rng.integers(3, vocab, 4 + 8 * i)]) for i in range(2)]
+    proc = ClipImagePreprocessor(size=vis.image_size)
+    gc = GenerationConfig(max_new_tokens=HIRES_MAX_NEW, eos_token_id=-1)
+    out = {"images": [list(s) for s in sz["images"]], "max_new_tokens": HIRES_MAX_NEW}
+    pps = vis.num_patches_per_side
+
+    # (a) the merged counts from the geometry alone, on the host
+    want_counts = []
+    for im in images:
+        gw, gh = get_anyres_image_grid_shape(im.size, sz["pinpoints"], vis.image_size)
+        zeros = np.zeros((gw * gh + 1, pps * pps, 1), np.float32)
+        want_counts.append(merge_anyres_features(zeros, im.size, sz["pinpoints"],
+                                                 vis.image_size, pps,
+                                                 np.zeros(1, np.float32)).shape[0])
+    arms = {}
+    for arm, sparse in (("dense", DENSE_SPARSE_CONFIG), ("sparse", cfg_sparse.sparse)):
+        cfg = dataclasses.replace(cfg_sparse, sparse=sparse, model_max_length=4096,
+                                  image_aspect_ratio="anyres")
+        gen = Generator(params, cfg, gc)
+        r = {}
+        sync()
+        t0 = time.perf_counter()
+        plan, feats, counts = gen.anyres_inputs(ids, images, sz["pinpoints"], proc)
+        sync()
+        r["encode_merge_ms"] = (time.perf_counter() - t0) * 1e3
+        require(counts == want_counts, f"5h {arm} (a): merged counts {counts}, the host's "
+                f"geometry gives {want_counts}")
+        require(list(plan.valid_len) == [len(p) - 1 + n for p, n in zip(ids, counts)],
+                f"5h {arm}: planned lengths {list(plan.valid_len)}")
+        r["merged_tokens"], r["prompt_tokens"] = counts, [int(v) for v in plan.valid_len]
+        t0 = time.perf_counter()
+        tokens = gen.generate_anyres(ids, images, sz["pinpoints"], proc)
+        sync()
+        r["first_call_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again = gen.generate_anyres(ids, images, sz["pinpoints"], proc)
+        sync()
+        r["call_s"] = time.perf_counter() - t0
+        require(again == tokens, f"5h {arm}: a second call gave other tokens")
+        prefill_ms = []
+        with torch.inference_mode():
+            for _ in range(3):
+                sync()
+                t0 = time.perf_counter()
+                gen.prefill_anyres(plan, feats, HIRES_MAX_NEW)
+                sync()
+                prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        r["prefill_ms"] = statistics.median(prefill_ms[1:])
+        steps = HIRES_MAX_NEW - 1
+        logits, record = teacher_forced_logits(torch, params, cfg, gen, plan, feats, tokens,
+                                               steps)
+        if arm == "dense":  # (b)
+            ref = nocache_logits(torch, params, cfg, gen, plan, feats, tokens,
+                                 HIRES_CHECK_STEPS)
+            err, bound = logits_hold(logits[:HIRES_CHECK_STEPS + 1], ref)
+            r["nocache_max_abs_err"], r["nocache_bound"] = err, bound
+            r["nocache_prefill_max_abs_err"] = float((logits[0] - ref[0]).abs().max())
+            require(err <= bound, f"5h (b): the cached anyres path's logits leave the no-cache "
+                    f"forward's by {err:.4f} (bound {bound:.4f})")
+        # (c) each image alone at B=1
+        alone = [gen.generate_anyres([ids[i]], [images[i]], sz["pinpoints"], proc)[0]
+                 for i in range(2)]
+        firsts = first_divergence(alone, tokens)
+        found = explain_divergence(cfg, firsts, record, [[] for _ in range(2)])
+        r["b1_equal"] = [f is None for f in firsts]
+        r["b1_divergence"] = {str(i): v for i, v in found.items()}
+        for i, v in found.items():
+            require(v["stands"], f"5h {arm} (c): row {i} at B=2 leaves its B=1 tokens at "
+                    f"{v['j']} without a near tie: {v}")
+        r["tokens_b2"] = [t[:8] for t in tokens]
+        arms[arm] = r
+        log(f"  5h {arm}: merged {counts} image tokens, prompts {r['prompt_tokens']}; "
+            f"encode + merge {r['encode_merge_ms']:.1f} ms, prefill {r['prefill_ms']:.1f} ms, "
+            f"generate_anyres {r['first_call_s']:.2f} s first (capture), {r['call_s']:.2f} s "
+            f"again; B=1 tokens equal {r['b1_equal']}"
+            + (f"; no-cache hold {r['nocache_max_abs_err']:.4f} <= {r['nocache_bound']:.4f}"
+               if arm == "dense" else ""))
+        del gen
+    out["arms"] = arms
+
+    # (d) S2, (e) TokenPacker, on one preprocessed image
+    frames = rng.integers(0, 256, (2, *sz["frame"], 3), dtype=np.uint8)
+    t0 = time.perf_counter()
+    pix = preprocess_batch(torch.from_numpy(frames).to(dev), out_size=vis.image_size)
+    sync()
+    out["preprocess_ms"] = (time.perf_counter() - t0) * 1e3
+    errs = []
+    for i in range(2):  # (f)
+        ref = proc(expand2square(Image.fromarray(frames[i]), proc.background_color))
+        e = np.abs(pix[i].cpu().numpy() - ref)
+        errs.append((float(e.mean()), float(np.quantile(e, 0.99))))
+    out["preprocess_err_mean_q99"] = errs
+    require(all(m < 0.02 and q < 0.15 for m, q in errs),
+            f"5h (f): preprocessing against PIL: {errs} (bounds 0.02 / 0.15)")
+    with torch.inference_mode():
+        x = pix[:1].to(dtype)
+        t0 = time.perf_counter()
+        s2 = towers.s2_tower_features(params["vision_tower"], vis, x, scales=sz["s2_scales"])
+        sync()
+        out["s2_ms"] = (time.perf_counter() - t0) * 1e3
+        base = clip.vision_tower_features(params["vision_tower"], vis, x)
+        out["s2_shape"] = list(s2.shape)
+        out["s2_base_max_abs_err"] = float((s2[..., :vis.hidden_size] - base).abs().max())
+        require(tuple(s2.shape) == (1, vis.num_patches, vis.hidden_size * len(sz["s2_scales"]))
+                and bool(torch.isfinite(s2).all()), f"5h (d): S2 features {tuple(s2.shape)}")
+        require(torch.equal(s2[..., :vis.hidden_size], base),
+                f"5h (d): S2's first channel block leaves the tower's by "
+                f"{out['s2_base_max_abs_err']:.3e}")
+        tp = towers.init_tokenpacker_params(torch.Generator(device=dev).manual_seed(SEED + 6),
+                                            kv_dim=vis.hidden_size,
+                                            multi_dim=vis.hidden_size * len(sz["tp_layers"]),
+                                            embed_dim=vis.hidden_size, hidden_size=d,
+                                            num_heads=8, device=dev, dtype=dtype)
+        t0 = time.perf_counter()
+        single, multi = towers.tokenpacker_tower_features(params["vision_tower"], vis, x,
+                                                          multi_layers=sz["tp_layers"])
+        packed = towers.tokenpacker_project(tp, single, multi, raw_grid=pps, scale_factor=2)
+        sync()
+        out["tokenpacker_ms"] = (time.perf_counter() - t0) * 1e3
+        out["tokenpacker_shape"] = list(packed.shape)
+        require(tuple(packed.shape) == (1, (pps // 2) ** 2, d)
+                and bool(torch.isfinite(packed).all()),
+                f"5h (e): TokenPacker gave {tuple(packed.shape)}")
+    out["wrapper_calls"] = {"flash_fwd": flash_attention.launches,
+                            "decode_kernel": decode_attention.launches}
+    require(not cuda or all(out["wrapper_calls"].values()),
+            f"5h: a kernel never ran: {out['wrapper_calls']}")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30 if cuda else None
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  5h: S2 {out['s2_ms']:.1f} ms, TokenPacker {out['tokenpacker_ms']:.1f} ms, "
+        f"preprocessing {out['preprocess_ms']:.1f} ms (PIL mean / q99 {errs}); wrapper calls "
+        f"{out['wrapper_calls']}; peak {out['peak_gib']} GiB; {out['phase_s']:.1f} s")
+    return out
+
+
+def families(torch, device="cuda", sizes=None):
+    """Phase 10: the other base families at 7B width on the first
+    FAMILY_DEPTH of 32 layers, random bf16 weights from ``SEED``. Mistral-7B
+    (hidden 4096, ffn 14336, GQA 32 / 8, window 4096), dense,
+    ``model_max_length`` 8192: ``Generator.generate`` on text prompts of
+    MISTRAL_PROMPTS tokens, FAMILY_MAX_NEW new tokens each (the first binds
+    the window in prefill, the plain path, and in K2; the second runs K1 at
+    GQA 32 / 8 inside it). Hold: the prefill's last logits and every decode
+    step's (an eager loop along the graph's tokens) lie within
+    ``logits_hold``'s bound of ``llama.forward_dense`` over prompt + tokens
+    (the no-cache path with the window mask); control: without the window
+    the rows past the window leave the windowed forward's by more than the
+    bound. MPT-7B (d_model 4096, 32 heads, vocab 50368): one image + text
+    prompt through ``mpt.forward_multimodal`` (the CLIP tower: K1), finite;
+    ``mpt.generate_greedy`` FAMILY_MAX_NEW tokens on a text prompt, each
+    the argmax of the teacher-forced ``mpt.forward_dense`` logits at its
+    position or at a near tie (``near_tie_bound``). Then a tiny MPT
+    checkpoint directory through ``load_pretrained_model``, which must give
+    an ``MptRuntime`` with the saved weights. The K1 / K2 wrappers are
+    zeroed at its start and read at its end (no trace); each must launch.
+    ``device="cpu"`` with ``sizes`` (tiny ``mistral`` / ``mpt`` configs at
+    their full depth, ``vision``, ``prompts``, ``image_prompt``: text tokens
+    each side of the image) rehearses the phase on the plain versions.
+    Returns the ``families`` record."""
+    import json as _json
+    import os
+    import tempfile
+
+    from dynamic_llava_tpu_torch.config import (
+        DENSE_SPARSE_CONFIG, IMAGE_TOKEN_INDEX, ClipVisionConfig, LlamaConfig, LlavaConfig,
+        MptConfig)
+    from dynamic_llava_tpu_torch.generation.generate import GenerationConfig, Generator
+    from dynamic_llava_tpu_torch.models import llama, mpt
+    from dynamic_llava_tpu_torch.models.builder import MptRuntime, load_pretrained_model
+    from dynamic_llava_tpu_torch.models.dynamic import decode_step
+    from dynamic_llava_tpu_torch.multimodal.fusion import plan_batch
+    from dynamic_llava_tpu_torch.ops.decode_attention import decode_attention
+    from dynamic_llava_tpu_torch.ops.flash_attention import flash_attention
+    from dynamic_llava_tpu_torch.weights import init_llava_params, param_bytes
+
+    sz = {**dict(mistral=dataclasses.replace(LlamaConfig.mistral_7b(),
+                                             num_hidden_layers=FAMILY_DEPTH),
+                 mpt=dataclasses.replace(MptConfig(), n_layers=FAMILY_DEPTH),
+                 vision=ClipVisionConfig(), prompts=MISTRAL_PROMPTS, image_prompt=30),
+          **(sizes or {})}
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    for fn in (flash_attention, decode_attention):
+        fn.launches = 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    dtype = torch.bfloat16 if cuda else torch.float32
+    rng = np.random.default_rng(SEED + 10)
+    out = {}
+
+    # Mistral-7B
+    text = sz["mistral"]
+    cfg = LlavaConfig(text=text, vision=sz["vision"], sparse=DENSE_SPARSE_CONFIG,
+                      model_max_length=8192)
+    params = init_llava_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 10), dev,
+                               dtype)
+    gen = Generator(params, cfg, GenerationConfig(max_new_tokens=FAMILY_MAX_NEW,
+                                                  eos_token_id=-1))
+    win = text.sliding_window
+    out["depth"] = text.num_hidden_layers
+    mistral = {}
+    for n in sz["prompts"]:
+        prompt = rng.integers(3, text.vocab_size, n)
+        r = {"prompt_tokens": n}
+        t0 = time.perf_counter()
+        tokens = gen.generate([prompt])[0]
+        sync()
+        r["generate_s"] = time.perf_counter() - t0
+        plan = plan_batch([prompt], 0, max_length=cfg.model_max_length,
+                          pad_multiple=gen.gen_cfg.pad_multiple)
+        steps = FAMILY_MAX_NEW - 1
+        with torch.inference_mode():
+            sync()
+            t0 = time.perf_counter()
+            state, _ = gen.prefill_from_plan(plan, None, FAMILY_MAX_NEW)
+            sync()
+            r["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+            got = [state.last_logits.float()[0].clone()]
+            for j in range(steps):
+                state = decode_step(params, cfg, torch.tensor([tokens[j]], device=dev), state)
+                got.append(state.last_logits.float()[0].clone())
+            got = torch.stack(got)
+            seq = torch.tensor(np.concatenate([prompt, tokens[:steps]])[None], device=dev)
+            t0 = time.perf_counter()
+            full = llama.forward_dense(params["llm"], text, seq)[0]
+            sync()
+            r["forward_dense_ms"] = (time.perf_counter() - t0) * 1e3
+            err, bound = logits_hold(got, full[n - 1:])
+            r["max_abs_err"], r["bound"] = err, bound
+            r["greedy_equal"] = bool(torch.equal(torch.argmax(got, dim=-1).cpu(),
+                                                 torch.tensor(tokens[:steps + 1])))
+            require(err <= bound, f"10 Mistral {n}: cached logits leave forward_dense's by "
+                    f"{err:.4f} (bound {bound:.4f})")
+            if n > win:  # control: the window is live
+                no_win = llama.forward_dense(
+                    params["llm"], dataclasses.replace(text, sliding_window=None), seq)[0]
+                gap = float((no_win[win:] - full[win:]).abs().max())
+                r["unwindowed_rows_past_window_max_abs_diff"] = gap
+                require(gap > bound, f"10 Mistral: without the window the rows past it "
+                        f"differ by only {gap:.4f} (bound {bound:.4f})")
+                del no_win
+            del full, got, seq, state
+        mistral[str(n)] = r
+        log(f"  10 Mistral-7B {text.num_hidden_layers} layers, prompt {n}: generate {r['generate_s']:.2f} "
+            f"s, prefill {r['prefill_ms']:.1f} ms, forward_dense {r['forward_dense_ms']:.1f} "
+            f"ms; logits hold {err:.4f} <= {bound:.4f}; greedy equal {r['greedy_equal']}"
+            + (f"; unwindowed past the window {r['unwindowed_rows_past_window_max_abs_diff']:.3f}"
+               if n > win else ""))
+    out["mistral"] = mistral
+    out["mistral_params_gib"] = param_bytes(params["llm"]) / 2**30
+    tower = {"vision_tower": params["vision_tower"], "mm_projector": params["mm_projector"]}
+    del gen, params
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # MPT-7B
+    mcfg = sz["mpt"]
+    llm = mpt.init_mpt_params(torch.Generator(device=dev).manual_seed(SEED + 11), mcfg, dev,
+                              dtype)
+    vis = cfg.vision
+    r = {"params_gib": param_bytes(llm) / 2**30}
+    side = sz["image_prompt"]
+    prompt = np.concatenate([rng.integers(3, mcfg.vocab_size, side), [IMAGE_TOKEN_INDEX],
+                             rng.integers(3, mcfg.vocab_size, side)])
+    plan = plan_batch([prompt], vis.num_patches)
+    pix = torch.from_numpy(rng.standard_normal((1, vis.image_size, vis.image_size, 3),
+                                               dtype=np.float32)).to(dev, dtype)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        mm = mpt.forward_multimodal(
+            {"llm": llm, **tower}, mcfg, vis, *(torch.from_numpy(np.asarray(a)).to(dev) for a in
+                                               (plan.token_ids, plan.is_image, plan.image_slot)),
+            pix, valid_len=torch.from_numpy(plan.valid_len).to(dev))
+        sync()
+        r["forward_multimodal_ms"] = (time.perf_counter() - t0) * 1e3
+        r["multimodal_shape"] = list(mm.shape)
+        require(tuple(mm.shape) == (1, plan.seq_len, mcfg.vocab_size)
+                and bool(torch.isfinite(mm).all()),
+                f"10 MPT: forward_multimodal gave {tuple(mm.shape)}, or non-finite values")
+        del mm
+        text_prompt = torch.from_numpy(rng.integers(3, mcfg.vocab_size, (1, 64))).to(dev)
+        t0 = time.perf_counter()
+        toks = mpt.generate_greedy(llm, mcfg, text_prompt, FAMILY_MAX_NEW)[0]
+        sync()
+        r["generate_greedy_s"] = time.perf_counter() - t0
+        seq = torch.cat([text_prompt[0], toks[:-1].to(text_prompt.dtype)])[None]
+        ref = mpt.forward_dense(llm, mcfg, seq)[0, 63:]
+        top2 = torch.topk(ref, 2, dim=-1).values
+        gap = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+        tops = top2[:, 0].abs().cpu().numpy()
+        same = (torch.argmax(ref, dim=-1) == toks).cpu().numpy()
+    ties = [j for j in range(FAMILY_MAX_NEW) if not same[j]]
+    r["argmax_equal"] = int(same.sum())
+    r["near_ties"] = {str(j): dict(gap=float(gap[j]),
+                                   bound=near_tie_bound(float(tops[j]), 2 * mcfg.n_layers + 1))
+                      for j in ties}
+    for j, v in r["near_ties"].items():
+        require(v["gap"] < v["bound"], f"10 MPT: token {j} is not the teacher-forced argmax "
+                f"and not at a near tie: {v}")
+    out["mpt"] = r
+    log(f"  10 MPT-7B {mcfg.n_layers} layers: forward_multimodal ({plan.seq_len} tokens) "
+        f"{r['forward_multimodal_ms']:.1f} ms, generate_greedy {r['generate_greedy_s']:.2f} s; "
+        f"{r['argmax_equal']} of {FAMILY_MAX_NEW} tokens the teacher-forced argmax, near ties "
+        f"{r['near_ties']}")
+    del llm, tower
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # the builder's MPT route, on a tiny checkpoint directory
+    tiny = MptConfig.tiny()
+    small = mpt.init_mpt_params(torch.Generator(device=dev).manual_seed(SEED + 12), tiny, dev)
+    with tempfile.TemporaryDirectory() as d:
+        torch.save({k: v.cpu() for k, v in mpt.mpt_state_dict(small).items()},
+                   os.path.join(d, "pytorch_model.bin"))
+        with open(os.path.join(d, "config.json"), "w") as f:
+            _json.dump({"model_type": "mpt", "vocab_size": tiny.vocab_size,
+                        "d_model": tiny.d_model, "n_heads": tiny.n_heads,
+                        "n_layers": tiny.n_layers, "max_seq_len": tiny.max_seq_len}, f)
+        _, runtime, _, ctx = load_pretrained_model(d, dtype=torch.float32, device=dev)
+    require(isinstance(runtime, MptRuntime) and runtime.cfg == tiny and ctx == tiny.max_seq_len,
+            f"10: the builder gave {type(runtime).__name__}")
+    loaded = runtime.params["llm"]
+    require(all(torch.equal(loaded["layers"][k], w) for k, w in small["layers"].items())
+            and torch.equal(loaded["wte"], small["wte"]),
+            "10: the loaded MPT weights are not the saved ones")
+    out["builder_route"] = type(runtime).__name__
+    out["wrapper_calls"] = {"flash_fwd": flash_attention.launches,
+                            "decode_kernel": decode_attention.launches}
+    require(not cuda or all(out["wrapper_calls"].values()),
+            f"10: a kernel never ran: {out['wrapper_calls']}")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30 if cuda else None
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  10: builder route {out['builder_route']}; wrapper calls {out['wrapper_calls']}; "
+        f"peak {out['peak_gib']} GiB; {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not (ROOT / "dynamic_llava_tpu_torch" / "csrc").is_dir():
         raise SystemExit(
@@ -4228,6 +4805,7 @@ def main() -> int:
     from dynamic_llava_tpu_torch.ops.decode_attention import decode_attention
     from dynamic_llava_tpu_torch.ops import quant_matmul as qm
     from dynamic_llava_tpu_torch.ops.flash_attention import flash_attention
+    from dynamic_llava_tpu_torch.generation.generate import GenerationConfig, Generator
     from dynamic_llava_tpu_torch.ops.quant import (
         init_quantized_llama_params, quantize_llm_params)
     from dynamic_llava_tpu_torch.weights import init_llava_params, param_bytes
@@ -4413,33 +4991,47 @@ def main() -> int:
     ], trace, holds=[("engine", "window"), (spec_arm, "window"), (spec_arm, "engine")])
     log(f"  phase 5d bf16 arms: {time.perf_counter() - t5d:.1f} s")
 
-    phase("phase 5e: checkpoint: the phase-5 weights exported, loaded back onto the card, and "
-          "served through generate, the chat CLI's loop and the VQA CLI")
+    phase(f"phase 5e: checkpoint: the first {CKPT_DEPTH} of the phase-5 decoder's 32 layers "
+          "exported, loaded back onto the card, and served through generate, the chat CLI's "
+          "loop and the VQA CLI")
     t5e = time.perf_counter()
 
     def serve_http(path):
         phase("phase 5f: serving over HTTP at LLaVA-1.5-7B width on phase 5e's checkpoint: the "
               "controller, the model worker (plain, --spec-k), the batched worker (window, "
               "continuous)")
-        served = serving(torch, path, cfg_sparse)
-        phase("phase 5g: the generation-quality probes at LLaVA-1.5-7B width, 32 layers, on "
-              "phase 5e's checkpoint in fp32 (self-PPL, LVIS PPL sparse and dense, METEOR, "
+        served = serving(torch, path, ckpt_sparse)
+        phase(f"phase 5g: the generation-quality probes at LLaVA-1.5-7B width, {CKPT_DEPTH} of "
+              "32 layers, on phase 5e's checkpoint in fp32 (self-PPL, LVIS PPL sparse and dense, METEOR, "
               "multi-round, the keep mask), the bench core on the phase-5 weights")
-        return served, ppl_tools(torch, path, params, cfg_sparse)
+        return served, ppl_tools(torch, path, ckpt_params, ckpt_sparse)
 
+    # the checkpoint path on the first CKPT_DEPTH layers: phase 5's sparse
+    # batch generated on those views is what the loaded checkpoint must give
+    ckpt_sparse, ckpt_params = cut(cfg_sparse, CKPT_DEPTH), cut_params(CKPT_DEPTH)
+    want = Generator(ckpt_params, ckpt_sparse, GenerationConfig(
+        max_new_tokens=64, temperature=0.0, eos_token_id=-1)).generate(
+        *serving_batch(ckpt_sparse, 8, 60))
     (served, (tools, core)), ckpt = checkpoint(
-        torch, params, cfg_sparse, results["bf16"]["sparse"]["tokens"], then=serve_http)
+        torch, ckpt_params, ckpt_sparse, want, then=serve_http)
+    del ckpt_params
     log(f"  phase 5e: {time.perf_counter() - t5e - served['phase_s'] - tools['phase_s']:.1f} s; "
         f"phase 5f: {served['phase_s']:.1f} s; phase 5g: {tools['phase_s']:.1f} s")
 
-    phase("phase 6: quantized serving at 7B width")
+    phase("phase 5h: high resolution and the other towers at LLaVA-1.5-7B width, 32 layers, on "
+          "the phase-5 weights: generate_anyres at B=2 (672x672, 1008x336) dense and sparse, "
+          "S2, TokenPacker, on-device preprocessing")
+    hires_r = hires(torch, params, cfg_sparse)
+
+    phase(f"phase 6: quantized serving at 7B width, the first {QUANT_DEPTH} of 32 layers")
     t0 = time.perf_counter()
     quantize_llm_params(params, bits=8)
     torch.cuda.synchronize()
     log(f"  int8: decoder quantized in place in {time.perf_counter() - t0:.1f} s, "
         f"{param_bytes(params['llm']) / 2**30:.2f} GiB (all params "
         f"{param_bytes(params) / 2**30:.2f} GiB)")
-    drive("int8", params, both)
+    quant_both = [(mode, cut(cfg, QUANT_DEPTH)) for mode, cfg in both]
+    drive("int8", cut_params(QUANT_DEPTH), quant_both)
     t0 = time.perf_counter()
     spec.update(speculate(torch, cut_params(SPEC_DEPTH), [("B=8 sparse", spec_sparse, 8)],
                           "int8", gemv_kernel="gemv int8"))
@@ -4480,12 +5072,13 @@ def main() -> int:
         t["launches"]["extend_kernel"] for t in traced) + sum(
         r["wrapper_calls"]["extend_kernel"] for r in engines) + ckpt["wrapper_calls"][
         "extend_kernel"]
-    # phase 5f's and 5g's wrapper calls (they take no trace: their graph
+    # phase 5f's, 5g's and 5h's wrapper calls (they take no trace: their graph
     # replays are not counted)
     for name, label in (("flash_attention_fwd", "flash_fwd"),
                         ("decode_attention_appended", "decode_kernel"),
                         ("extend_attention_appended", "extend_kernel")):
-        calls[name] += served["wrapper_calls"][label] + tools["wrapper_calls"][label]
+        calls[name] += (served["wrapper_calls"][label] + tools["wrapper_calls"][label]
+                        + hires_r["wrapper_calls"].get(label, 0))
     del params["llm"]
     torch.cuda.empty_cache()
     params["llm"] = init_quantized_llama_params(
@@ -4493,7 +5086,7 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"  int4: decoder made directly, {param_bytes(params['llm']) / 2**30:.2f} GiB "
         f"(all params {param_bytes(params) / 2**30:.2f} GiB)")
-    drive("int4", params, both[:1])
+    drive("int4", cut_params(QUANT_DEPTH), quant_both[:1])
 
     phase(f"phase 7: lean-memory serving at 7B width on the first {LEAN_DEPTH} of the int4 "
           "decoder's 32 layers: the fused MLP (K9) off and on, int8 and fp8 KV caches, ring "
@@ -4588,6 +5181,15 @@ def main() -> int:
               "flash_policy_attention_fwd"):
         launches[n] += cli["launches"][n]
         calls[n] += cli["launches"][n]
+    torch.cuda.empty_cache()
+
+    phase(f"phase 10: the other families at 7B width, the first {FAMILY_DEPTH} of 32 layers, "
+          f"random bf16 weights: Mistral-7B dense (prompts {MISTRAL_PROMPTS}, window 4096), "
+          "MPT-7B (forward_multimodal, generate_greedy), the builder's MPT route")
+    fam = families(torch)
+    for name, label in (("flash_attention_fwd", "flash_fwd"),
+                        ("decode_attention_appended", "decode_kernel")):
+        calls[name] += fam["wrapper_calls"][label]
     require("jax" not in sys.modules and "dynamic_llava_tpu" not in sys.modules,
             "jax or the JAX package was imported")
     for label, runs in results.items():
@@ -4645,7 +5247,7 @@ def main() -> int:
              "q4_mlp": ("two_kernel_ms", "shapes"),
              "flash_policy_attention_fwd": ("vsum_ms", "main_ms", "sdpa_log_policy_mask_ms",
                                             "bf16_rounding_err", "launches_per_step_by_policy"),
-             "flash_attention_fwd": ("full_length_ms", "library_full_length_ms", "clip",
+             "flash_attention_fwd": ("full_length_ms", "library_full_length_ms", "clip", "shapes",
                                      "train_shape", "launches_per_step_by_policy"),
              "flash_attention_bwd_dq": ("delta_ms", "delta_plain_ms", "delta_bound_ms",
                                         "delta_library_ms", "delta_max_abs_err",
@@ -4683,6 +5285,8 @@ def main() -> int:
     print("serving " + json.dumps(served))
     print("ppl_tools " + json.dumps(tools))
     print("bench_core " + json.dumps(core))
+    print("hires " + json.dumps(hires_r))
+    print("families " + json.dumps(fam))
     print("continuous " + json.dumps({
         arm: {k: v for k, v in r.items() if k not in ("device_launches", "wrapper_calls")}
         for arm, r in cont.items()}))

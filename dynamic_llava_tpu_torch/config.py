@@ -4,7 +4,7 @@ The port's own copy of the JAX package's frozen dataclasses
 (``dynamic_llava_tpu/config.py``): the same fields and defaults, so a
 config built from the same values means the same model in both packages,
 without either importing the other. Frozen dataclasses are hashable and
-compare by value. The MPT family is not ported (ROADMAP A12).
+compare by value.
 """
 
 from __future__ import annotations
@@ -187,6 +187,74 @@ class LlamaConfig:
             attention_bias=d.get("attention_bias", False),
             tie_word_embeddings=d.get("tie_word_embeddings", False),
             sliding_window=d.get("sliding_window"),
+        )
+
+
+@dataclass(frozen=True)
+class MptConfig:
+    """MPT decoder config (the third base family, HF ``MptForCausalLM``).
+    LLaMA differences: ALiBi position bias instead of RoPE, fused Wqkv,
+    bias-free LayerNorm instead of RMSNorm, a plain 4x GELU MLP instead of
+    the gated SiLU one, a tied lm_head. HF field names (d_model / n_heads /
+    n_layers) are kept so ``config.json`` dicts map 1:1."""
+
+    vocab_size: int = 50368
+    d_model: int = 4096
+    n_heads: int = 32
+    n_layers: int = 32
+    expansion_ratio: int = 4
+    max_seq_len: int = 2048
+    layer_norm_epsilon: float = 1e-5
+    alibi_bias_max: int = 8
+    clip_qkv: Optional[float] = None
+    softmax_scale: Optional[float] = None  # None -> 1/sqrt(head_dim)
+    tie_word_embeddings: bool = True
+
+    # the LLaMA field names, so shared code (ops.kv_cache.init_cache) takes it
+    @property
+    def hidden_size(self) -> int:
+        return self.d_model
+
+    @property
+    def num_hidden_layers(self) -> int:
+        return self.n_layers
+
+    @property
+    def num_attention_heads(self) -> int:
+        return self.n_heads
+
+    @property
+    def num_key_value_heads(self) -> int:
+        return self.n_heads  # MPT is MHA
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+    @classmethod
+    def tiny(cls, **overrides) -> "MptConfig":
+        base = dict(
+            vocab_size=512, d_model=64, n_heads=4, n_layers=4,
+            max_seq_len=512,
+        )
+        base.update(overrides)
+        return cls(**base)
+
+    @classmethod
+    def from_hf_dict(cls, d: dict) -> "MptConfig":
+        attn = d.get("attn_config") or {}
+        return cls(
+            vocab_size=d.get("vocab_size", 50368),
+            d_model=d.get("d_model", 4096),
+            n_heads=d.get("n_heads", 32),
+            n_layers=d.get("n_layers", 32),
+            expansion_ratio=d.get("expansion_ratio", 4),
+            max_seq_len=d.get("max_seq_len", 2048),
+            layer_norm_epsilon=d.get("layer_norm_epsilon", 1e-5),
+            alibi_bias_max=attn.get("alibi_bias_max", 8),
+            clip_qkv=attn.get("clip_qkv"),
+            softmax_scale=attn.get("softmax_scale"),
+            tie_word_embeddings=d.get("tie_word_embeddings", True),
         )
 
 

@@ -801,12 +801,16 @@ class Generator:
         cache = self.runner(plan, pixel_values, max_new_tokens, chunk).fresh_cache()
         return self.prefill_into(plan, pixel_values, cache)
 
-    def prefill_into(self, plan: FusionPlan, pixel_values, cache: TieredCache):
+    def prefill_into(self, plan: FusionPlan, pixel_values, cache: TieredCache,
+                     image_features=None):
         """``dynamic.prefill`` of ``plan`` into ``cache`` (zeroed, of the
-        capacities of ``cache_sizes``)."""
+        capacities of ``cache_sizes``); ``image_features`` ``[B, N, D]``
+        (pre-encoded, in place of ``pixel_values``) are fused at the plan's
+        image slots."""
         gc = self.gen_cfg
         all_have_image = self._all_have_image(plan, pixel_values)
         pix = None if pixel_values is None else self._tensor(pixel_values)
+        feats = None if image_features is None else self._tensor(image_features)
         i32 = torch.int32
         return dynamic.prefill(
             self.params, self.cfg,
@@ -820,6 +824,7 @@ class Generator:
             self._tensor(plan.spans.has_image, torch.bool),
             pix,
             cache,
+            image_features=feats,
             all_have_image=all_have_image,
             ring_mode=gc.kv_overflow == "ring",
         )
@@ -873,7 +878,14 @@ class Generator:
         runner = self.runner(plan, pixel_values, n_chunks * chunk)
         runner.load(state, gc.seed if seed is None else seed)
         del state
+        return self._drain(runner, plan, n_chunks, stopping_criteria, on_chunk)
 
+    def _drain(self, runner: DecodeRunner, plan: FusionPlan, n_chunks: int,
+               stopping_criteria=None, on_chunk=None) -> List[List[int]]:
+        """Runs up to ``n_chunks`` chunks of a loaded ``runner`` and returns
+        each sample's tokens, cut at EOS, ``max_new_tokens`` or
+        ``stopping_criteria``."""
+        gc = self.gen_cfg
         b = plan.batch
         done = np.zeros(b, bool)
         out: List[List[int]] = [[] for _ in range(b)]
@@ -913,6 +925,68 @@ class Generator:
                 break
             pending = following
         return out
+
+    def anyres_inputs(self, input_ids_list: List[np.ndarray], images, grid_pinpoints,
+                      image_processor, merge_type: str = "spatial_unpad"):
+        """High-resolution inputs: each PIL image tiled on the host
+        (``mm_utils.process_anyres_image``), its tiles encoded on the device
+        and merged on the host (``multimodal.anyres``), and the batch
+        planned with each image's merged token count, cut at
+        ``model_max_length`` as the JAX ``generate_anyres`` plans it.
+        Returns ``(plan, features [B, N_max, D] float32, per-image token
+        counts)``."""
+        from ..mm_utils import process_anyres_image
+        from ..multimodal.anyres import encode_images_anyres
+
+        tiles_list = [process_anyres_image(im, image_processor, grid_pinpoints)
+                      for im in images]
+        feats = encode_images_anyres(self.params, self.cfg, tiles_list,
+                                     [im.size for im in images], grid_pinpoints, merge_type)
+        counts = [f.shape[0] for f in feats]
+        feat_pad = np.zeros((len(feats), max(counts), feats[0].shape[1]), np.float32)
+        for i, f in enumerate(feats):
+            feat_pad[i, : f.shape[0]] = f
+        plan = plan_batch(input_ids_list, 0, tokens_per_image_list=[[n] for n in counts],
+                          max_length=self.cfg.model_max_length)
+        return plan, feat_pad, counts
+
+    def prefill_anyres(self, plan: FusionPlan, features, max_new_tokens: int):
+        """``dynamic.prefill`` of ``plan`` with pre-encoded ``features`` into
+        the cache of the kept runner for ``max_new_tokens`` new tokens. The
+        capacities are the JAX ``generate_anyres``'s ``make_gen_cache``:
+        the bounded output budget, no bucket, the post tier at the full
+        prompt (no vision prune)."""
+        gc = self.gen_cfg
+        sizes = dynamic.gen_cache_sizes(
+            self.cfg, plan.seq_len, max_new_tokens, all_have_image=False,
+            decode_window=gc.kv_window, ring=gc.kv_overflow == "ring")
+        runner = self._keep_runner(runner_key(plan.batch, sizes), DecodeRunner)
+        return self.prefill_into(plan, None, runner.fresh_cache(), image_features=features)
+
+    @torch.inference_mode()
+    def generate_anyres(
+        self,
+        input_ids_list: List[np.ndarray],
+        images,  # PIL images
+        grid_pinpoints,
+        image_processor,
+        merge_type: str = "spatial_unpad",
+    ) -> List[List[int]]:
+        """High-resolution (anyres) generation: tile and encode
+        (``anyres_inputs``), prefill on the pre-encoded features
+        (``prefill_anyres``), then the decode chunks of ``generate`` on the
+        kept runner. The vision predictor is skipped (it assumes the
+        standard tower); the instruct and output-text predictors apply."""
+        gc = self.gen_cfg
+        plan, feats, _ = self.anyres_inputs(input_ids_list, images, grid_pinpoints,
+                                            image_processor, merge_type)
+        chunk = decode_chunk_len(gc)
+        n_chunks = -(-gc.max_new_tokens // chunk)
+        state, _ = self.prefill_anyres(plan, feats, n_chunks * chunk)
+        runner = self.decode_runner
+        runner.load(state, gc.seed)
+        del state
+        return self._drain(runner, plan, n_chunks)
 
 
 class ChatSession:

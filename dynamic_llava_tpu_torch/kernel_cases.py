@@ -78,7 +78,15 @@ FLASH_FWD_CASES = [
     FlashCase("d 16, padded", 32, 35, 35, 4, 4, 16, True, (35, 20) * 16, FP32),
     FlashCase("d 16 non-causal, padded", 8, 26, 26, 2, 2, 16, False, None, FP32),
     FlashCase("d 32 gqa, padded", 2, 70, 70, 4, 2, 32, True, (70, 33), BF16),
+    # the shapes of the high-resolution and family phases (chip_smoke.py times
+    # them): an anyres prefill of ~2.9k tokens, Mistral's GQA 32 / 8 at the
+    # window's length, the CLIP tower over S2's 1 + 4 + 9 tiles
+    FlashCase("anyres prefill", 1, 2944, 2944, 32, 32, 128, True, None, BF16),
+    FlashCase("mistral gqa", 1, 4096, 4096, 32, 8, 128, True, None, BF16),
+    FlashCase("clip s2", 14, 577, 577, 16, 16, 64, False, None, BF16),
 ]
+# K1 cases that chip_smoke.py times beside the decoder's and the tower's
+TIMED_FLASH_SHAPES = ("anyres prefill", "mistral gqa", "clip s2")
 # K3: the training shape (chip_smoke.py times the bf16 one) and the edges of
 # the 64-row tiles: GQA with 4 query heads a kv head at d 64, a kv_length of
 # 0 and one in mid-tile, one tile and one row more, Sq != Sk without a causal
@@ -256,6 +264,9 @@ DECODE_CASES = [
                _lens(200, 300, 400, 767), 150),
     DecodeCase("window inside a split int8", 4, 768, 8, 2, 64, BF16, "int8",
                _lens(200, 300, 400, 767), 150),
+    # Mistral-7B (GQA 32 / 8) past its 4096-token window: the cache holds
+    # more than the window (chip_smoke.py times it)
+    DecodeCase("mistral window", 1, 4736, 32, 8, 128, BF16, "own", _lens(4700), 4096),
     # head_dim 16 and 32, zero-padded to 64 by the wrapper (the quality gates)
     DecodeCase("d 16, padded", 4, 40, 4, 4, 16, FP32, "own", _lens(0, 1, 20, 39)),
     DecodeCase("d 16 int8, padded", 4, 40, 4, 4, 16, BF16, "int8", _lens(0, 1, 20, 39)),

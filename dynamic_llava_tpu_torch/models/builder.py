@@ -4,8 +4,9 @@ runtime. The port's own copy of ``dynamic_llava_tpu/models/builder.py``.
 ``load_pretrained_model`` reads ``config.json`` and the weights, converts
 them into the stacked param tree (``convert.py``) on the card, and returns
 ``(tokenizer, runtime, image_processor, context_len)``, the call shape the
-serve and eval entry points expect. The LoRA-merge and delta tools are in
-``weight_tools.py``; the MPT family is not ported (ROADMAP A12).
+serve and eval entry points expect; an MPT checkpoint (by its
+``model_type`` or the model name) gives an ``MptRuntime`` instead. The
+LoRA-merge and delta tools are in ``weight_tools.py``.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..config import ClipVisionConfig, LlamaConfig, LlavaConfig, SparseConfig
+from ..config import ClipVisionConfig, LlamaConfig, LlavaConfig, MptConfig, SparseConfig
 from ..mm_utils import ClipImagePreprocessor
 from ..weights import resolve_device
 from . import convert
@@ -32,6 +33,20 @@ class LlavaRuntime(NamedTuple):
 
     @property
     def config(self) -> LlavaConfig:
+        return self.cfg
+
+
+class MptRuntime(NamedTuple):
+    """Loaded MPT-family bundle (a dense baseline). A type of its own: MPT
+    params and config do not fit the LLaMA runners, so a misuse fails at
+    the type."""
+
+    params: dict  # {"llm": MPT tree, ["vision_tower", "mm_projector"]}
+    cfg: MptConfig
+    vision: Optional[ClipVisionConfig] = None  # where a tower was loaded
+
+    @property
+    def config(self) -> MptConfig:
         return self.cfg
 
 
@@ -74,13 +89,16 @@ TOWER_PREFIXES = (
     "vision_tower.vision_tower.vision_model.",
     "vision_model.",
 )
+# an MPT checkpoint hangs the tower and projector under HF MPT's inner
+# module, "transformer."
+MPT_TOWER_PREFIX = "transformer.vision_tower.vision_tower.vision_model."
 
 
 def infer_vision_config_from_sd(sd: dict, base: ClipVisionConfig) -> ClipVisionConfig:
     """The tower's sizes read from the weights' shapes. The head count is
     not in the shapes: ``base``'s where ``base`` has the tower's width, else
     hidden / 64 (CLIP's head_dim), as the JAX package reads it."""
-    for pref in TOWER_PREFIXES:
+    for pref in (TOWER_PREFIXES[0], MPT_TOWER_PREFIX, *TOWER_PREFIXES[1:]):
         pe = sd.get(f"{pref}embeddings.patch_embedding.weight")
         if pe is None:
             continue
@@ -168,6 +186,40 @@ def load_tokenizer(model_path: str):
         return None
 
 
+def _load_mpt_model(model_path: str, model_base: Optional[str], hf_cfg: dict,
+                    dtype: torch.dtype, device: torch.device):
+    """The MPT route: the decoder through ``mpt.mpt_params_from_state_dict``,
+    a LLaVA-MPT checkpoint's tower and projector (under ``transformer.`` or
+    ``model.``) through the shared converters; the context length is the
+    config's ``max_seq_len``. Returns ``(tokenizer, MptRuntime,
+    image_processor, context_len)``."""
+    from . import mpt
+
+    cfg = MptConfig.from_hf_dict(hf_cfg)
+    tokenizer = load_tokenizer(model_path)
+    sd = {}
+    for path in (model_base, model_path):
+        if path is not None:
+            sd.update(convert.load_state_dict_from_dir(path))
+    params = {"llm": mpt.mpt_params_from_state_dict(sd, cfg, device=device, dtype=dtype)}
+    vision = None
+    for pref in (MPT_TOWER_PREFIX, TOWER_PREFIXES[0]):
+        if f"{pref}embeddings.class_embedding" in sd:
+            vision = infer_vision_config_from_sd(sd, ClipVisionConfig())
+            params["vision_tower"] = convert.clip_params_from_state_dict(
+                sd, vision, prefix=pref, device=device, dtype=dtype)
+            break
+    proj_type = hf_cfg.get("mm_projector_type", "linear")
+    for pref in ("transformer.mm_projector.", "model.mm_projector."):
+        if any(k.startswith(pref) for k in sd):
+            params["mm_projector"] = convert.projector_params_from_state_dict(
+                sd, proj_type, prefix=pref, device=device, dtype=dtype)
+            break
+    image_processor = ClipImagePreprocessor(size=(vision or ClipVisionConfig()).image_size)
+    return (tokenizer, MptRuntime(params=params, cfg=cfg, vision=vision), image_processor,
+            hf_cfg.get("max_seq_len", 2048))
+
+
 def load_pretrained_model(
     model_path: str,
     model_base: Optional[str] = None,
@@ -179,7 +231,9 @@ def load_pretrained_model(
 ):
     """Returns ``(tokenizer, LlavaRuntime, image_processor, context_len)``,
     the params on ``device`` (default: the card; ``"cpu"`` runs the plain
-    versions) with every floating leaf in ``dtype``.
+    versions) with every floating leaf in ``dtype``; for an MPT checkpoint
+    (``model_type`` or ``model_name`` naming ``mpt``) the runtime is an
+    ``MptRuntime`` and the context length its ``max_seq_len``.
 
     ``model_base`` serves projector-only and delta checkpoints as the
     reference does: the base's weights, then ``model_path``'s over them.
@@ -189,9 +243,7 @@ def load_pretrained_model(
         hf_cfg = json.load(f)
     model_type = (hf_cfg.get("model_type") or "").lower()
     if "mpt" in model_type or "mpt" in (model_name or "").lower():
-        raise NotImplementedError(
-            f"{model_path}: MPT checkpoints are not ported yet (ROADMAP A12); the "
-            "LLaMA runtime cannot serve MPT weights")
+        return _load_mpt_model(model_path, model_base, hf_cfg, dtype, device)
     cfg = llava_config_from_hf_dict(hf_cfg)
     # before the weights: a directory whose tokenizer fails costs no load first
     tokenizer = load_tokenizer(model_path)

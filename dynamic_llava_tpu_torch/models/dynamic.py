@@ -116,16 +116,23 @@ def prefill(
     pixel_values: Optional[torch.Tensor],  # [B, H, W, 3] or None (text-only)
     cache: TieredCache,
     *,
+    image_features: Optional[torch.Tensor] = None,  # [B, N_pad, D] pre-encoded
     all_have_image: bool = False,
     ring_mode: bool = False,  # records the ring bases for kv_overflow="ring"
     vision_score_override: Optional[torch.Tensor] = None,  # [B, N_img] ablation
 ) -> Tuple[GenState, PrefillInfo]:
-    """``all_have_image`` is the host-known promise that every sample has
+    """``image_features`` replaces the tower for pre-encoded inputs (anyres
+    tiling gives per-sample token counts that the planner already encodes
+    in ``plan_image_slot``); ``pixel_values`` is then ignored, and the
+    vision predictor, whose fixed-span top-k assumes the standard tower, is
+    skipped, as in the JAX ``prefill``.
+
+    ``all_have_image`` is the host-known promise that every sample has
     exactly one image; only then may the compacted sequence be cut to
     ``S - N_img + K`` (a text-only sample keeps all its tokens). The
-    options are keyword-only: the reference's ``prefill`` has
-    ``image_features`` in the next positional slot, so a positional call
-    written for it raises here instead of misbinding.
+    options are keyword-only: the JAX ``prefill`` has ``image_features`` in
+    the next positional slot, so a positional call written for it raises
+    here instead of misbinding.
 
     ``vision_score_override`` is an evaluation hook (the ablations of
     ``run/sparse_quality.py`` in the JAX package): it replaces the vision
@@ -137,7 +144,10 @@ def prefill(
     dev = plan_token_ids.device
 
     x = llama.embed_tokens(params["llm"], plan_token_ids)
-    if pixel_values is not None:
+    if image_features is not None:
+        x = fuse_embeddings(x, image_features, plan_is_image, plan_image_slot)
+        pixel_values = None
+    elif pixel_values is not None:
         img_feats = encode_images(params, cfg, pixel_values)
         x = fuse_embeddings(x, img_feats, plan_is_image, plan_image_slot)
     positions = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)

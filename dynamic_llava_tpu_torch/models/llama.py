@@ -21,7 +21,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from ..config import LlamaConfig
-from ..ops.attention import attend, attend_with_policy, self_attend
+from ..ops.attention import (
+    attend, attend_with_policy, make_attention_mask, self_attend, sliding_window_mask)
 from ..ops.decode_attention import decode_attention, extend_attention
 from ..ops import flash_policy  # noqa: F401  (registers the F2 dispatcher ops)
 from ..ops.kv_cache import (
@@ -90,6 +91,22 @@ def _mlp(lp, h: torch.Tensor) -> torch.Tensor:
     return linear(lp, "down", F.silu(g) * u)
 
 
+def _window_mask(cfg: LlamaConfig, positions: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> Optional[torch.Tensor]:
+    """``mask`` with the sliding window applied where it binds: for ``S >
+    window``, the causal mask (or ``mask``) AND ``q_pos - k_pos < window``
+    by position (exact on compacted sequences). ``S <= window`` cannot bind
+    on sequential positions, so ``mask`` comes back as it was."""
+    win = cfg.sliding_window
+    b, s = positions.shape
+    if win is None or s <= win:
+        return mask
+    wmask = sliding_window_mask(positions, positions, win)
+    if mask is None:
+        mask = make_attention_mask(s, s, causal=True, batch=b, device=positions.device)
+    return mask & wmask
+
+
 def layer_nocache(
     lp,
     cfg: LlamaConfig,
@@ -101,10 +118,13 @@ def layer_nocache(
     """One decoder layer without a KV cache (the training path). With no
     explicit mask, attention goes through the differentiable kernels (K1
     with K3, or K4 with a policy); padding is NOT masked, as in the JAX
-    training path."""
+    training path. A Mistral sliding window binds only past ``window``
+    tokens: there the mask is the causal one (or ``mask``) ANDed with the
+    window by position, on the plain path, as in JAX."""
     b, s, _ = x.shape
     h = rms_norm(x, lp["input_ln"], cfg.rms_norm_eps)
     q, k, v = _qkv(lp, cfg, h, positions)
+    mask = _window_mask(cfg, positions, mask)
     if mask is not None:
         if policy is not None:
             o = attend_with_policy(q, k, v, policy, mask=mask)
@@ -208,23 +228,25 @@ def run_layers_prefill(
     ``length = valid_len``. Attention runs on the unrounded K/V and is
     masked to ``valid_len`` so K1 skips padding tiles; padding rows (which
     the JAX version lets attend the padding too) hold values that are
-    never read. The Mistral prefill window mask is not ported: a prompt
-    longer than ``cfg.sliding_window`` raises."""
+    never read. A prompt longer than a Mistral ``sliding_window`` attends
+    on the plain path under the causal mask AND the window by position, as
+    in JAX (padding rows, unmasked by length there, are never read); within
+    the window K1 runs."""
     hi = cfg.num_hidden_layers if hi is None else hi
     if cache.num_layers != hi - lo:
         raise ValueError(f"cache has {cache.num_layers} layers for [{lo}, {hi})")
     length = valid_len.to(torch.int32)[None, :].expand(cache.length.shape).clone()
     b, s, _ = x.shape
-    if cfg.sliding_window is not None and s > cfg.sliding_window:
-        raise NotImplementedError(
-            f"prefill of {s} tokens with sliding_window={cfg.sliding_window}: "
-            "the prefill window mask is not ported yet")
+    win_mask = _window_mask(cfg, positions)
     for li in range(hi - lo):
         lp = layer_params(params["layers"], li + lo)
         h = rms_norm(x, lp["input_ln"], cfg.rms_norm_eps)
         q, k, v = _qkv(lp, cfg, h, positions)
         write_prefill(cache, li, k, v)
-        o = self_attend(q, k, v, valid_len=valid_len)
+        if win_mask is not None:
+            o = attend(q, k, v, mask=win_mask)
+        else:
+            o = self_attend(q, k, v, valid_len=valid_len)
         x = x + linear(lp, "o", o.reshape(b, s, -1))
         x = x + _mlp(lp, rms_norm(x, lp["post_ln"], cfg.rms_norm_eps))
     return PrefillResult(x=x, cache=cache._replace(length=length))
@@ -360,3 +382,21 @@ def run_layers_extend(
         v_new.append(v)
     write_chunk_layers(cache, torch.stack(k_new), torch.stack(v_new), target)
     return DecodeResult(x=x, cache=cache, kept=kept)
+
+
+def forward_dense(
+    params,
+    cfg: LlamaConfig,
+    input_ids: torch.Tensor,  # [B, S]
+    *,
+    positions: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Full dense causal-LM forward without a cache (``run_layers_nocache``,
+    the sliding window applied where it binds); fp32 logits ``[B, S, V]``.
+    The no-cache reference the cached paths are held to."""
+    b, s = input_ids.shape
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32, device=input_ids.device)[None].expand(b, s)
+    x = embed_tokens(params, input_ids)
+    x = run_layers_nocache(params, cfg, x, positions)
+    return lm_head(params, cfg, x)

@@ -69,17 +69,22 @@ def attend(
     v: torch.Tensor,  # [B, Sk, Hkv, d]
     *,
     mask: Optional[torch.Tensor] = None,  # [B, 1, Sq, Sk] bool
+    bias: Optional[torch.Tensor] = None,  # [B|1, H, Sq, Sk] additive (ALiBi)
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Plain masked attention, fp32 scores and softmax; ``[B, Sq, H, d]``
     in q's dtype. A fully masked row averages v uniformly (the -1e30
-    fill), exactly as the JAX oracle does."""
+    fill), exactly as the JAX oracle does. ``bias`` is added to the scaled
+    logits before the mask: the MPT family's ALiBi, which takes this path
+    only (the flash kernels are rope-only), as in the JAX package."""
     n_rep = q.shape[2] // k.shape[2]
     k = repeat_kv_heads(k, n_rep)
     v = repeat_kv_heads(v, n_rep)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if bias is not None:
+        logits = logits + bias.float()
     if mask is not None:
         logits = torch.where(mask, logits, NEG_INF)
     w = torch.softmax(logits, dim=-1)

@@ -64,3 +64,15 @@ def gather_tokens(x: torch.Tensor, gather_idx: torch.Tensor) -> torch.Tensor:
         idx.shape + x.shape[2:]
     )
     return torch.gather(x, 1, idx)
+
+
+def remap_span_starts(
+    span_pos: torch.Tensor,  # [B] int original position
+    keep_mask: torch.Tensor,  # [B, S] bool
+) -> torch.Tensor:
+    """New index of an original position after compaction: the number of
+    kept tokens strictly before it. ``[B]`` int32."""
+    s = keep_mask.shape[1]
+    pos = torch.arange(s, dtype=torch.int32, device=keep_mask.device)[None, :]
+    before = keep_mask & (pos < span_pos.to(torch.int32)[:, None])
+    return before.sum(dim=1, dtype=torch.int32)

@@ -37,8 +37,8 @@ def port_config(cfg):
     })
 
 
-CLASSES = ["SparseConfig", "RopeScalingConfig", "LlamaConfig", "ClipVisionConfig",
-           "LlavaConfig"]
+CLASSES = ["SparseConfig", "RopeScalingConfig", "LlamaConfig", "MptConfig",
+           "ClipVisionConfig", "LlavaConfig"]
 
 
 @pytest.mark.parametrize("name", CLASSES)
@@ -199,6 +199,27 @@ def test_from_hf_dict_matches(name):
             jconfig.ClipVisionConfig.from_hf_dict(d, *args))
 
 
+MPT_DICTS = [
+    {},
+    {"vocab_size": 512, "d_model": 96, "n_heads": 6, "n_layers": 3, "expansion_ratio": 2,
+     "max_seq_len": 256, "layer_norm_epsilon": 1e-6, "tie_word_embeddings": False,
+     "attn_config": {"alibi_bias_max": 16, "clip_qkv": 6.0, "softmax_scale": 0.125}},
+    {"d_model": 2048, "attn_config": None},
+]
+
+
+@pytest.mark.parametrize("i", range(len(MPT_DICTS)))
+def test_mpt_config_from_hf_dict_and_aliases_match(i):
+    d = MPT_DICTS[i]
+    j, t = jconfig.MptConfig.from_hf_dict(d), tconfig.MptConfig.from_hf_dict(d)
+    assert t == port_config(j)
+    for name in ("hidden_size", "num_hidden_layers", "num_attention_heads",
+                 "num_key_value_heads", "head_dim"):
+        assert getattr(t, name) == getattr(j, name), name
+    assert tconfig.MptConfig.tiny(n_heads=6, d_model=96) == port_config(
+        jconfig.MptConfig.tiny(n_heads=6, d_model=96))
+
+
 LLAVA_DICTS = [
     {},
     {"mm_vision_tower": "openai/clip-vit-large-patch14", "mm_projector_type": "mlp2x_gelu",
@@ -349,7 +370,11 @@ def test_serve_copies_match_their_originals(name):
 EVAL_COPIES = ["convert_gqa_for_eval", "convert_mmbench_for_submission",
                "convert_mmvet_for_eval", "convert_seed_for_submission", "convert_sqa_to_llava",
                "convert_sqa_to_llava_base_prompt", "convert_vizwiz_for_submission",
-               "convert_vqav2_for_submission", "summarize_gpt_review", "generate_webpage_data"]
+               "convert_vqav2_for_submission", "summarize_gpt_review", "generate_webpage_data",
+               # the scripts that call an external API import ``openai`` inside the
+               # functions that call it, as the originals do
+               "eval_gpt_review", "eval_gpt_review_bench", "eval_gpt_review_visual",
+               "eval_science_qa_gpt4", "eval_science_qa_gpt4_requery", "qa_baseline_gpt35"]
 
 
 @pytest.mark.parametrize("name", EVAL_COPIES)
@@ -364,4 +389,5 @@ def test_eval_copies_match_their_originals(name):
     orig = ROOT / "dynamic_llava_tpu" / "eval" / f"{name}.py"
     assert _code(port, False) == _code(orig, False)
     top = [n for n in ast.parse(port.read_text()).body if isinstance(n, (ast.Import, ast.ImportFrom))]
-    assert not [n for n in top if isinstance(n, ast.Import) and n.names[0].name == "pandas"]
+    assert not [n for n in top if isinstance(n, ast.Import)
+                and n.names[0].name in ("pandas", "openai")]

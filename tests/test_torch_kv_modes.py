@@ -342,16 +342,6 @@ def test_decode_write_slot_and_attend_bound_match_jax(decoder):
     assert not np.array_equal(td.cache.k[:, 1, 4].numpy(), k[:, 1, 4])  # the slot was written
 
 
-def test_prefill_longer_than_the_sliding_window_is_refused(decoder):
-    cfg, _, tp = decoder
-    tcfg = port_config(LlamaConfig.tiny(num_key_value_heads=2, sliding_window=8))
-    tc = tkv.init_cache(tcfg, 1, 16, torch.float32)
-    x = torch.from_numpy(_np((1, 12, cfg.hidden_size), 0))
-    pos = torch.arange(12, dtype=torch.int32)[None]
-    with pytest.raises(NotImplementedError, match="window"):
-        tllama.run_layers_prefill(tp, tcfg, x, pos, tc, torch.tensor([12], dtype=torch.int32))
-
-
 # --- ring slots ---------------------------------------------------------------
 
 
