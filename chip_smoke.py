@@ -317,6 +317,18 @@ else. Phases, each of which raises on failure:
    K1 / K3 / K4 held to phase 9's sparse step, losses finite, the
    checkpoint file present (the ``train_cli`` line: step ms, fused lengths,
    peak, save seconds and bytes, whether the native image path ran);
+9e. the parallel layer (``parallel_phase``) on a world-size-1 NCCL group
+   made in this process and a ``(1, 1, 1, 1)`` mesh, at 7B width on the
+   first PARALLEL_DEPTH (8) of 32 layers, bf16: the sharded train step
+   (``make_train_step(mesh=, param_specs=)``) and the pipelined one (one
+   stage, two microbatches) against the unsharded step, PARALLEL_STEPS
+   sparse steps each on the same weights and noise (losses, grad norms and
+   the updated ``q`` within ``parallel_hold``'s bounds); sharded
+   ``prefill``, decode steps and speculative rounds at B=2 against the
+   unsharded calls (tokens, acceptance and post-tier lengths identical);
+   K1 / K3 / K4 / K2 / K2-M counted on the sharded paths and held to the
+   layer layout (the ``parallel`` line: world size, mesh, step ms of the
+   three, the holds, the wrapper calls, which join the ``kernels`` line's);
 10. the other families at 7B width on the first FAMILY_DEPTH (8) of 32
    layers, random bf16 weights (``families``): Mistral-7B (GQA 32 / 8,
    window 4096), dense, ``Generator.generate`` on text prompts of 4608
@@ -349,13 +361,15 @@ step wall of the eager loop and of the graph, the capture's ms and
 whether the tokens were equal, and a ``chat`` line each chat mode's TTFT,
 continuation ms, decode tok/s, capture ms, peak GiB and decode steps, and
 a ``continuous`` line with phase 5d's arms, and a ``checkpoint`` line with
-phase 5e's, a ``train_cli`` line with phase 9d's and a ``serving`` line with
+phase 5e's, a ``train_cli`` line with phase 9d's, a ``parallel`` line with
+phase 9e's and a ``serving`` line with
 phase 5f's and the ``ppl_tools`` and ``bench_core`` lines with phase 5g's,
 the ``hires`` line with phase 5h's and the ``families`` line with phase
 10's (whose wrapper calls, as phase 5f's and 5g's, join the ``kernels``
 line's). K1's, K2's, K2-M's
 and the int8 GEMV's launches in the ``kernels`` line include the engines'
-traced passes and phase 5e's; K1's, K3's and K4's include phase 9d's.
+traced passes and phase 5e's; K1's, K3's and K4's include phase 9d's; K1's,
+K3's, K4's, K2's and K2-M's phase 9e's.
 """
 
 from __future__ import annotations
@@ -445,6 +459,12 @@ REMAT_STEPS = 2  # per policy; the first is timed apart
 REMAT_DEPTHS = (32, 24, 16, 8)  # tried in turn until a policy's steps fit the card
 REMAT_CHECK_DEPTH = 4  # the gradient check's depth (the same weights for every policy)
 LORA_RANK, LORA_ALPHA = 128, 256.0  # run/finetune_qlora.sh's adapters
+# phase 9e: the parallel layer on a world-size-1 mesh
+PARALLEL_DEPTH = 8  # decoder layers (of 32)
+PARALLEL_STEPS = 3  # train steps a variant; the first is timed apart
+PARALLEL_LR = 1e-3  # an Adam step then moves bf16 weights of ~0.02 (5e-6 would not)
+PARALLEL_RTOL = 1e-2  # every step's loss and grad_norm (microbatches change the GEMM shapes)
+PARALLEL_DECODE, PARALLEL_SPEC_ROUNDS, PARALLEL_SPEC_M = 8, 2, 5
 # phase 9d: the training CLI on a JSON set the phase writes
 CLI_STEPS = 3
 CLI_IMAGE_RECORDS, CLI_TEXT_RECORDS = 12, 4
@@ -4296,6 +4316,261 @@ def train_cli(torch, expect, need_bytes):
     return r
 
 
+
+def parallel_phase(torch, device="cuda", sizes=None):
+    """Phase 9e: the parallel layer (``parallel/``) on a world-size-1 group
+    made in this process (a ``FileStore`` in a temporary directory; NCCL on
+    the card, gloo on the CPU) and a ``(1, 1, 1, 1)`` mesh, at LLaVA-1.5-7B
+    width on the first PARALLEL_DEPTH of 32 layers, bf16:
+
+    (a) ``make_train_step(mesh=..., param_specs=...)`` against the
+        unsharded step: PARALLEL_STEPS sparse steps each (B=4, S=1663, the
+        same fresh weights, batch and noise tensors; lr PARALLEL_LR, so that
+        an Adam step moves bf16 weights of ~0.02);
+    (b) ``make_layer_runner`` with 1 stage and 2 microbatches through the
+        same steps, held to (a);
+    (c) sharded ``prefill``, PARALLEL_DECODE greedy ``decode_step``s and
+        PARALLEL_SPEC_ROUNDS ``decode_speculative_step`` rounds at B=2
+        against the unsharded calls: tokens, acceptance counts and post-tier
+        lengths identical (each side called twice, the second timed).
+
+    A size-1 collective is a copy, so the sharded path computes what the
+    unsharded one does; the holds (``parallel_hold``) still leave room for
+    the backward's atomics, which may sum in another order from run to run.
+    Each sharded main path runs with the counts of K1, K3, K4, K2 and K2-M
+    zeroed just before and read just after, held to the layer layout's
+    counts on the card. Returns the ``parallel`` line's fields."""
+    import contextlib
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from dynamic_llava_tpu_torch.config import LlavaConfig
+    from dynamic_llava_tpu_torch.models import dynamic
+    from dynamic_llava_tpu_torch.multimodal.fusion import plan_batch
+    from dynamic_llava_tpu_torch.ops import flash_attention as fa
+    from dynamic_llava_tpu_torch.ops.decode_attention import decode_attention, extend_attention
+    from dynamic_llava_tpu_torch.ops.flash_policy import flash_policy_attention
+    from dynamic_llava_tpu_torch.parallel import pipeline, sharding
+    from dynamic_llava_tpu_torch.train.optimizer import label_params, make_optimizer
+    from dynamic_llava_tpu_torch.train.step import batch_from_plan, draw_noise, make_train_step
+    from dynamic_llava_tpu_torch.weights import init_llava_params
+
+    sizes = sizes or {}
+    cfg = sizes.get("cfg") or LlavaConfig()
+    cfg = dataclasses.replace(cfg, text=dataclasses.replace(
+        cfg.text, num_hidden_layers=sizes.get("depth", PARALLEL_DEPTH)))
+    batch_rows, text_len = sizes.get("train", (TRAIN_BATCH, TRAIN_TEXT_LEN))
+    n_text = sizes.get("n_text", 60)
+    dev = torch.device(device)
+    card = dev.type == "cuda"
+    counters = {"flash_attention_fwd": fa.flash_attention,
+                "flash_attention_bwd_delta": fa.flash_attention_bwd_delta,
+                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+                "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+                "flash_policy_attention_fwd": flash_policy_attention,
+                "decode_attention_appended": decode_attention,
+                "extend_attention_appended": extend_attention}
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read():
+        return {n: fn.launches for n, fn in counters.items()}
+
+    def sync():
+        if card:
+            torch.cuda.synchronize()
+
+    def fresh():  # the same weights every time
+        return init_llava_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 3), dev,
+                                 torch.bfloat16)
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl" if card else "gloo",
+                            store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = sharding.make_mesh(1, 1, 1, 1, device_type=dev.type)
+        init_s = time.perf_counter() - t0
+        sl, depth = cfg.sparse.sparse_layer, cfg.text.num_hidden_layers
+        plan, images = train_batch(cfg, batch_rows, text_len)
+        batch = batch_from_plan(plan, images, dev)
+        b, s = plan.token_ids.shape
+        gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+        noises = [draw_noise(gen, cfg, batch) for _ in range(PARALLEL_STEPS)]
+
+        def steps(label, params, counted, **kw):
+            opt = make_optimizer(base_lr=PARALLEL_LR, predictor_lr=PARALLEL_LR)
+            step = make_train_step(cfg, opt, labels=label_params(params), **kw)
+            state = opt.init(params)
+            if counted:
+                zero()
+            times, metrics = [], []
+            for nz in noises:
+                sync()
+                t0 = time.perf_counter()
+                _, _, m = step(params, state, batch, nz, 1.0)
+                sync()
+                times.append(time.perf_counter() - t0)
+                metrics.append({k: float(v) for k, v in m.items()})
+            got = read() if counted else None
+            q = params["llm"]["layers"]["q"].float().clone()
+            log(f"  {label}: B={b}, S={s}; first step {times[0] * 1e3:.1f} ms, then "
+                + " / ".join(f"{t * 1e3:.1f}" for t in times[1:]) + " ms; "
+                + "; ".join(f"step {i + 1} loss={m['loss']:.6f} grad_norm={m['grad_norm']:.6f}"
+                            for i, m in enumerate(metrics))
+                + (f"; wrapper calls {got}" if counted else ""))
+            return dict(step_ms=[t * 1e3 for t in times[1:]], first_step_ms=times[0] * 1e3,
+                        metrics=metrics, q=q, calls=got)
+
+        ref = steps("(a) unsharded step", fresh(), False)
+        specs = sharding.llava_param_specs(cfg, fresh())
+        sharded = steps("(a) sharded step, mesh (1, 1, 1, 1)",
+                        sharding.shard_params(fresh(), mesh, specs), True, mesh=mesh,
+                        param_specs=specs)
+        pplan = pipeline.plan_pipeline(depth, sl, 1, 2)
+        full = fresh()
+        full["llm"] = dict(full["llm"], layers=pipeline.permute_stack(full["llm"]["layers"],
+                                                                      pplan.order))
+        pspecs = sharding.llava_param_specs(cfg, full, pipe=True)
+        piped = steps("(b) pipelined step, 1 stage, 2 microbatches",
+                      sharding.shard_params(full, mesh, pspecs), True, mesh=mesh,
+                      param_specs=pspecs, layer_runner=pipeline.make_layer_runner(mesh, pplan))
+        del full
+        holds = {"sharded_vs_unsharded": parallel_hold(ref, sharded),
+                 "pipelined_vs_sharded": parallel_hold(sharded, piped)}
+        for name, h in holds.items():
+            log(f"  hold {name}: {h}")
+            require(h["ok"], f"phase 9e: {name} outside its bounds: {h}")
+        if card:
+            want = train_launches(cfg)["sparse"]
+            want = {n: want.get(n, 0) * PARALLEL_STEPS for n in counters}
+            require(sharded["calls"] == want,
+                    f"phase 9e (a): wrapper calls {sharded['calls']} != {want}")
+            clip = cfg.vision.num_hidden_layers + cfg.vision.select_layer + 1
+            # 2 microbatches: each decoder layer's attention runs twice as often
+            want_pipe = {n: (c if n == "flash_attention_fwd" else 2 * c) for n, c in want.items()}
+            want_pipe["flash_attention_fwd"] = PARALLEL_STEPS * (clip + 2 * 2 * sl)
+            require(piped["calls"] == want_pipe,
+                    f"phase 9e (b): wrapper calls {piped['calls']} != {want_pipe}")
+        ref.pop("q"), sharded.pop("q"), piped.pop("q")
+        if card:
+            torch.cuda.empty_cache()
+
+        # (c) sharded inference against the unsharded calls, B=2
+        ids, pix = serving_batch(cfg, 2, n_text)
+        gplan = plan_batch(ids, cfg.num_image_tokens)
+        sp = gplan.spans
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+            gplan.token_ids, gplan.is_image, gplan.image_slot, gplan.valid_len, sp.image_start,
+            sp.last_instruct_start, sp.last_instruct_end, sp.has_image)]
+        args.append(torch.from_numpy(pix).to(dev, torch.bfloat16))
+        drafts = torch.from_numpy(np.random.default_rng(SEED + 5).integers(
+            3, cfg.text.vocab_size, (PARALLEL_SPEC_ROUNDS, 2, PARALLEL_SPEC_M - 1))).to(dev)
+        max_new = PARALLEL_DECODE + PARALLEL_SPEC_ROUNDS * PARALLEL_SPEC_M
+
+        def infer(params, on_mesh):
+            with torch.inference_mode(), (mesh if on_mesh else contextlib.nullcontext()):
+                cache = dynamic.make_gen_cache(cfg, 2, gplan.seq_len, max_new, device=dev)
+                sync()
+                t0 = time.perf_counter()
+                state, _ = dynamic.prefill(params, cfg, *args, cache, all_have_image=True)
+                toks, accs, nexts = [], [], []
+                for _ in range(PARALLEL_DECODE):
+                    tok = torch.argmax(state.last_logits, dim=-1)
+                    state = dynamic.decode_step(params, cfg, tok, state)
+                    toks.append(tok)
+                logits = state.last_logits.float().clone()
+                for r in range(PARALLEL_SPEC_ROUNDS):
+                    cand = torch.cat([torch.argmax(state.last_logits, dim=-1)[:, None],
+                                      drafts[r]], dim=1)
+                    state, n_acc, nxt = dynamic.decode_speculative_step(
+                        params, cfg, cand, state, eos_token_id=2)
+                    accs.append(n_acc)
+                    nexts.append(nxt)
+                sync()
+                return dict(tokens=torch.stack(toks).cpu(), acc=torch.stack(accs).cpu(),
+                            next=torch.stack(nexts).cpu(), logits=logits,
+                            post_len=state.cache.post.length.cpu(),
+                            ms=(time.perf_counter() - t0) * 1e3)
+
+        # each side's second call is the one timed (the first warms it up)
+        params = fresh()
+        want_inf = infer(params, False)
+        want_inf["first_ms"], want_inf["ms"] = want_inf["ms"], infer(params, False)["ms"]
+        local = sharding.shard_params(params, mesh, specs)
+        del params
+        zero()
+        got_inf = infer(local, True)
+        inf_calls = read()
+        got_inf["first_ms"], got_inf["ms"] = got_inf["ms"], infer(local, True)["ms"]
+        del local
+        err, bound = logits_hold(got_inf["logits"], want_inf["logits"])
+        same = {k: bool(torch.equal(got_inf[k], want_inf[k]))
+                for k in ("tokens", "acc", "next", "post_len")}
+        log(f"  (c) sharded prefill + {PARALLEL_DECODE} decode steps + {PARALLEL_SPEC_ROUNDS} "
+            f"speculative rounds (M={PARALLEL_SPEC_M}) at B=2: identical {same}; logits after "
+            f"the decode steps max |diff| {err:.3e} (bound {bound:.3e}); acceptance "
+            f"{got_inf['acc'].tolist()}; {got_inf['ms']:.1f} ms sharded, "
+            f"{want_inf['ms']:.1f} ms unsharded (first calls {got_inf['first_ms']:.1f} / "
+            f"{want_inf['first_ms']:.1f} ms); wrapper calls {inf_calls}")
+        require(all(same.values()) and err <= bound,
+                f"phase 9e (c): the sharded calls differ from the unsharded ones: {same}, "
+                f"logits {err} > {bound}")
+        if card:
+            clip = cfg.vision.num_hidden_layers + cfg.vision.select_layer + 1
+            want_c = dict.fromkeys(counters, 0)
+            want_c.update(flash_attention_fwd=clip + depth,
+                          decode_attention_appended=PARALLEL_DECODE * depth,
+                          extend_attention_appended=PARALLEL_SPEC_ROUNDS * depth)
+            require(inf_calls == want_c, f"phase 9e (c): wrapper calls {inf_calls} != {want_c}")
+        calls = {n: sharded["calls"][n] + piped["calls"][n] + inf_calls[n] for n in counters} \
+            if card else None
+        world = dist.get_world_size()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    r = dict(world_size=world, mesh=mesh.shape, backend="nccl" if card else "gloo",
+             depth=depth, batch=b, seq=s, init_s=init_s,
+             step_ms={"unsharded": ref["step_ms"], "sharded": sharded["step_ms"],
+                      "pipelined": piped["step_ms"]},
+             first_step_ms={"unsharded": ref["first_step_ms"],
+                            "sharded": sharded["first_step_ms"],
+                            "pipelined": piped["first_step_ms"]},
+             holds=holds, inference=dict(same, logits_err=err, logits_bound=bound,
+                                         acceptance=got_inf["acc"].tolist(), ms=got_inf["ms"],
+                                         unsharded_ms=want_inf["ms"],
+                                         first_ms=got_inf["first_ms"],
+                                         unsharded_first_ms=want_inf["first_ms"]),
+             wrapper_calls=calls, phase_s=time.perf_counter() - t_phase)
+    return r
+
+
+def parallel_hold(ref, got):
+    """Phase 9e's hold of two runs of the same steps: every step's loss and
+    ``grad_norm`` within PARALLEL_RTOL relative, and the updated ``q``
+    within ``2 * PARALLEL_STEPS * PARALLEL_LR`` (two Adam runs whose
+    gradients differ by summation order can move a weight in opposite
+    directions by at most about lr a step) plus one bf16 ulp of its
+    largest magnitude."""
+    worst = {k: max(abs(g[k] - r[k]) / max(abs(r[k]), 1e-30)
+                    for r, g in zip(ref["metrics"], got["metrics"]))
+             for k in ("loss", "grad_norm")}
+    q_err = float((got["q"] - ref["q"]).abs().max())
+    q_bound = 2 * PARALLEL_STEPS * PARALLEL_LR + 2.0**-7 * float(ref["q"].abs().max())
+    moved = float((got["q"] != ref["q"]).float().mean())
+    return dict(loss_rel=worst["loss"], grad_norm_rel=worst["grad_norm"],
+                q_max_abs_diff=q_err, q_bound=q_bound, q_share_differing=moved,
+                ok=worst["loss"] <= PARALLEL_RTOL and worst["grad_norm"] <= PARALLEL_RTOL
+                and q_err <= q_bound)
+
 def logits_hold(got, ref):
     """``(max |got - ref|, bound)`` of two bf16 paths' fp32 logits, the
     bound ``LOGITS_HOLD_REL`` of the reference's largest magnitude. Two
@@ -5183,6 +5458,21 @@ def main() -> int:
         calls[n] += cli["launches"][n]
     torch.cuda.empty_cache()
 
+    phase(f"phase 9e: the parallel layer on a world-size-1 NCCL group, mesh (1, 1, 1, 1), at "
+          f"LLaVA-1.5-7B width, the first {PARALLEL_DEPTH} of 32 layers, bf16: the sharded and "
+          "the pipelined train step against the unsharded one, sharded prefill / decode / "
+          "speculative rounds against the unsharded calls")
+    par = parallel_phase(torch)
+    log(f"  phase 9e: {par['phase_s']:.1f} s")
+    # the sharded main paths' launches (eager: one a wrapper call) join the
+    # kernels line's
+    for n in ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+              "flash_policy_attention_fwd", "decode_attention_appended",
+              "extend_attention_appended"):
+        launches[n] += par["wrapper_calls"][n]
+        calls[n] += par["wrapper_calls"][n]
+    torch.cuda.empty_cache()
+
     phase(f"phase 10: the other families at 7B width, the first {FAMILY_DEPTH} of 32 layers, "
           f"random bf16 weights: Mistral-7B dense (prompts {MISTRAL_PROMPTS}, window 4096), "
           "MPT-7B (forward_multimodal, generate_greedy), the builder's MPT route")
@@ -5282,6 +5572,7 @@ def main() -> int:
     print("qlora " + json.dumps(qlora_r))
     print("checkpoint " + json.dumps(ckpt))
     print("train_cli " + json.dumps(cli))
+    print("parallel " + json.dumps(par))
     print("serving " + json.dumps(served))
     print("ppl_tools " + json.dumps(tools))
     print("bench_core " + json.dumps(core))

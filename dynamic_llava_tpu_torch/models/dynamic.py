@@ -42,6 +42,7 @@ from ..multimodal.fusion import fuse_embeddings
 from ..ops.gumbel import gumbel_keep_mask
 from ..ops.kv_cache import TieredCache, advance_tiered, init_tiered_cache
 from ..ops.sparsify import gather_tokens, plan_compaction, topk_keep_mask
+from ..parallel.sharding import clip_param_specs, gather_tree
 from . import clip, llama, projector
 from .predictors import text_predictor, vision_predictor
 
@@ -50,10 +51,12 @@ def encode_images(params, cfg: LlavaConfig, pixel_values: torch.Tensor,
                   frozen_tower: bool = False) -> torch.Tensor:
     """Tower + projector: ``[B, H, W, 3]`` normalized NHWC -> ``[B, N_img, D]``.
     ``frozen_tower`` stops gradients at the tower features (the tower runs
-    without an autograd graph) and leaves the projector trainable."""
+    without an autograd graph) and leaves the projector trainable. Under a
+    mesh the tower runs replicated on its gathered weights (the projector
+    is replicated already)."""
     with torch.set_grad_enabled(torch.is_grad_enabled() and not frozen_tower):
         feats = clip.vision_tower_features(
-            params["vision_tower"], cfg.vision, pixel_values)
+            gather_tree(params["vision_tower"], clip_param_specs()), cfg.vision, pixel_values)
     return projector.apply_projector(params["mm_projector"], feats)
 
 
@@ -629,6 +632,7 @@ def forward_train(
     remat: bool = True,
     remat_policy: str = "nothing",
     return_hidden: bool = False,
+    layer_runner=None,
 ) -> TrainForwardOut:
     """Full-sequence training forward with Gumbel policy masks (T1/T2/T3).
 
@@ -637,7 +641,11 @@ def forward_train(
     predictors: ``[B, N_img, 2]``, ``[B, S, 2]``, ``[B, S, 2]`` (an unused
     one may be None). ``return_hidden=True`` skips the lm_head and returns
     the final hidden states, so that the loss can run the blockwise CE
-    without the ``[B, S, V]`` fp32 logits ever existing."""
+    without the ``[B, S, V]`` fp32 logits ever existing.
+
+    ``layer_runner`` overrides how the two decoder layer ranges run (the
+    signature of ``llama.run_layers_nocache``): the hook pipeline
+    parallelism plugs into (``parallel.pipeline.make_layer_runner``)."""
     tcfg, sparse = cfg.text, cfg.sparse
     b, s = plan_token_ids.shape
     n_img = cfg.num_image_tokens
@@ -651,7 +659,8 @@ def forward_train(
         x = fuse_embeddings(x, img_feats, plan_is_image, plan_image_slot)
     positions = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
 
-    x = llama.run_layers_nocache(
+    run_layers = layer_runner or llama.run_layers_nocache
+    x = run_layers(
         params["llm"], tcfg, x, positions, lo=0, hi=sl, remat=remat,
         remat_policy=remat_policy,
     )
@@ -695,7 +704,7 @@ def forward_train(
             last_instruct_end, sparse.instruct_len_for_training)
         policy = policy * instruct_mask
 
-    x = llama.run_layers_nocache(
+    x = run_layers(
         params["llm"], tcfg, x, positions, lo=sl, hi=tcfg.num_hidden_layers,
         policy=policy if sparse.any_predictor else None,
         remat=remat, remat_policy=remat_policy,
@@ -760,6 +769,8 @@ def make_gen_cache(
     decode_window: Optional[int] = None, ring: bool = False,
     device=None,
 ) -> TieredCache:
+    """The tiered cache for a generation. Under a mesh, ``batch`` is the
+    rows this rank holds and the cache holds its KV heads."""
     pre, post = gen_cache_sizes(
         cfg, prompt_len, max_new_tokens,
         bound_output_budget=bound_output_budget,

@@ -33,6 +33,8 @@ from ..ops.quant import (
     dequantize_weight, is_quantized, linear, linear_group, matmul, matmul_q4_mlp,
     unpack_int4)
 from ..ops.rope import apply_rope_for_config
+from ..parallel.sharding import (
+    EMBED_SPEC, LM_HEAD_SPEC, enter_tensor, exit_tensor, gather_full, gather_layer)
 
 
 def _layer_leaf(w, i: int):
@@ -46,8 +48,15 @@ def layer_params(layers: dict, i: int) -> dict:
     """Layer ``i``'s weights as views into the stacked tensors; a quantized
     leaf gives ``{"q"|"q4": w[i], "s": s[i]}``, a LoRA adapter
     ``{"a": a[i], "b": b[i], "s": s}``. A leaf may also be a list of
-    per-layer tensors (the trainer's gradient-carrying views)."""
+    per-layer tensors (the trainer's gradient-carrying views). Under a mesh
+    these are local shards; the layer gathers them itself
+    (``parallel.sharding.gather_layer``)."""
     return {name: _layer_leaf(w, i) for name, w in layers.items()}
+
+
+def _local_layer(layers: dict, i: int) -> dict:
+    """Layer ``i``'s weights as the (sharded) layer computes with them."""
+    return gather_layer(layer_params(layers, i))
 
 
 def embed_tokens(params, ids: torch.Tensor) -> torch.Tensor:
@@ -57,7 +66,7 @@ def embed_tokens(params, ids: torch.Tensor) -> torch.Tensor:
         scale = emb["s"][ids]
         q = unpack_int4(emb["q4"][ids]) if "q4" in emb else emb["q"][ids]
         return q.to(scale.dtype) * scale
-    return F.embedding(ids.long(), emb)
+    return F.embedding(ids.long(), gather_full(emb, EMBED_SPEC))
 
 
 def lm_head(params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
@@ -66,16 +75,22 @@ def lm_head(params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
     goes through the GEMVs; a tied quantized embedding is dequantized."""
     x = rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
     if not cfg.tie_word_embeddings:
-        return linear(params, "lm_head", x, out_fp32=True)
-    return matmul(x, dequantize_weight(params["embed"], x.dtype).T, out_fp32=True)
+        if is_quantized(params["lm_head"]):
+            return linear(params, "lm_head", x, out_fp32=True)
+        return matmul(x, gather_full(params["lm_head"], LM_HEAD_SPEC), out_fp32=True)
+    emb = params["embed"]
+    if not is_quantized(emb):
+        emb = gather_full(emb, EMBED_SPEC)
+    return matmul(x, dequantize_weight(emb, x.dtype).T, out_fp32=True)
 
 
 def _qkv(lp, cfg: LlamaConfig, h: torch.Tensor, positions: torch.Tensor):
+    # under a mesh q / k / v hold this rank's heads (the 'tensor' slice)
     b, s, _ = h.shape
-    q, k, v = linear_group(lp, ("q", "k", "v"), h)
-    q = q.reshape(b, s, cfg.num_attention_heads, cfg.head_dim)
-    k = k.reshape(b, s, cfg.num_key_value_heads, cfg.head_dim)
-    v = v.reshape(b, s, cfg.num_key_value_heads, cfg.head_dim)
+    q, k, v = linear_group(lp, ("q", "k", "v"), enter_tensor(h))
+    q = q.reshape(b, s, -1, cfg.head_dim)
+    k = k.reshape(b, s, -1, cfg.head_dim)
+    v = v.reshape(b, s, -1, cfg.head_dim)
     q = apply_rope_for_config(q, positions, cfg)
     k = apply_rope_for_config(k, positions, cfg)
     return q, k, v
@@ -87,8 +102,8 @@ def _mlp(lp, h: torch.Tensor) -> torch.Tensor:
     y = matmul_q4_mlp(h, lp)
     if y is not None:
         return y
-    g, u = linear_group(lp, ("gate", "up"), h)
-    return linear(lp, "down", F.silu(g) * u)
+    g, u = linear_group(lp, ("gate", "up"), enter_tensor(h))
+    return exit_tensor(linear(lp, "down", F.silu(g) * u))
 
 
 def _window_mask(cfg: LlamaConfig, positions: torch.Tensor,
@@ -122,6 +137,7 @@ def layer_nocache(
     tokens: there the mask is the causal one (or ``mask``) ANDed with the
     window by position, on the plain path, as in JAX."""
     b, s, _ = x.shape
+    lp = gather_layer(lp)
     h = rms_norm(x, lp["input_ln"], cfg.rms_norm_eps)
     q, k, v = _qkv(lp, cfg, h, positions)
     mask = _window_mask(cfg, positions, mask)
@@ -132,7 +148,7 @@ def layer_nocache(
             o = attend(q, k, v, mask=mask)
     else:
         o = self_attend(q, k, v, policy=policy)
-    x = x + linear(lp, "o", o.reshape(b, s, -1))
+    x = x + exit_tensor(linear(lp, "o", o.reshape(b, s, -1)))
     return x + _mlp(lp, rms_norm(x, lp["post_ln"], cfg.rms_norm_eps))
 
 
@@ -239,7 +255,7 @@ def run_layers_prefill(
     b, s, _ = x.shape
     win_mask = _window_mask(cfg, positions)
     for li in range(hi - lo):
-        lp = layer_params(params["layers"], li + lo)
+        lp = _local_layer(params["layers"], li + lo)
         h = rms_norm(x, lp["input_ln"], cfg.rms_norm_eps)
         q, k, v = _qkv(lp, cfg, h, positions)
         write_prefill(cache, li, k, v)
@@ -247,7 +263,7 @@ def run_layers_prefill(
             o = attend(q, k, v, mask=win_mask)
         else:
             o = self_attend(q, k, v, valid_len=valid_len)
-        x = x + linear(lp, "o", o.reshape(b, s, -1))
+        x = x + exit_tensor(linear(lp, "o", o.reshape(b, s, -1)))
         x = x + _mlp(lp, rms_norm(x, lp["post_ln"], cfg.rms_norm_eps))
     return PrefillResult(x=x, cache=cache._replace(length=length))
 
@@ -294,7 +310,7 @@ def run_layers_decode(
              else positions[:, 0].to(i32).contiguous())
     k_new, v_new = [], []
     for li in range(hi - lo):
-        lp = layer_params(params["layers"], li + lo)
+        lp = _local_layer(params["layers"], li + lo)
         h = rms_norm(x, lp["input_ln"], cfg.rms_norm_eps)
         q, k, v = _qkv(lp, cfg, h, positions)
         o = decode_attention(
@@ -304,7 +320,7 @@ def run_layers_decode(
             k_scale=cache.k_scale[li] if cache.quantized else None,
             v_scale=cache.v_scale[li] if cache.quantized else None,
         )
-        x = x + linear(lp, "o", o.reshape(b, 1, -1))
+        x = x + exit_tensor(linear(lp, "o", o.reshape(b, 1, -1)))
         x = x + _mlp(lp, rms_norm(x, lp["post_ln"], cfg.rms_norm_eps))
         k_new.append(k)
         v_new.append(v)
@@ -367,7 +383,7 @@ def run_layers_extend(
     attend = None if chunk_attend is None else chunk_attend.to(torch.bool).contiguous()
     k_new, v_new = [], []
     for li in range(hi - lo):
-        lp = layer_params(params["layers"], li + lo)
+        lp = _local_layer(params["layers"], li + lo)
         h = rms_norm(x, lp["input_ln"], cfg.rms_norm_eps)
         q, k, v = _qkv(lp, cfg, h, positions)
         o = extend_attention(
@@ -376,7 +392,7 @@ def run_layers_extend(
             k_scale=cache.k_scale[li] if cache.quantized else None,
             v_scale=cache.v_scale[li] if cache.quantized else None,
         )
-        x = x + linear(lp, "o", o.reshape(b, m, -1))
+        x = x + exit_tensor(linear(lp, "o", o.reshape(b, m, -1)))
         x = x + _mlp(lp, rms_norm(x, lp["post_ln"], cfg.rms_norm_eps))
         k_new.append(k)
         v_new.append(v)

@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..config import LlamaConfig
+from ..parallel.sharding import local_heads
 
 STORAGE_DTYPES = (torch.bfloat16, torch.float32, torch.int8, torch.float8_e4m3fn)
 
@@ -106,7 +107,8 @@ def init_cache(
     device=None,
 ) -> KVCache:
     n = cfg.num_hidden_layers if num_layers is None else num_layers
-    shape = (n, batch, max_len, cfg.num_key_value_heads, cfg.head_dim)
+    # under a mesh: this rank's KV heads (``batch`` is its own rows)
+    shape = (n, batch, max_len, local_heads(cfg.num_key_value_heads), cfg.head_dim)
     if dtype not in STORAGE_DTYPES:
         raise ValueError(f"KV storage dtype {dtype} is not one of {STORAGE_DTYPES}")
 

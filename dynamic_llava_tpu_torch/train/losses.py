@@ -7,6 +7,10 @@
   by ``mask_loss_weight``. A sample whose span is empty (or shorter than
   the training threshold, which empties it) contributes 0 but still counts
   in the batch mean.
+
+Under a mesh every rank holds its own rows and the means are global: the
+sums and counts are summed over ``data`` (``parallel.sharding.data_sum``)
+before the division, never a mean of per-rank means.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from ..config import LlamaConfig, SparseConfig
 from ..constants import IGNORE_INDEX
 from ..models import llama
 from ..models.dynamic import TrainForwardOut
+from ..parallel.sharding import data_size, data_sum
 
 
 def _nll_sum(logits: torch.Tensor, labels: torch.Tensor):
@@ -36,7 +41,7 @@ def lm_cross_entropy(
     labels: torch.Tensor,  # [B, S] int with IGNORE_INDEX
 ) -> torch.Tensor:
     total, n = _nll_sum(logits[:, :-1], labels[:, 1:])
-    return total / n.clamp(min=1)
+    return data_sum(total) / data_sum(n).clamp(min=1)
 
 
 def lm_cross_entropy_blockwise(
@@ -68,7 +73,7 @@ def lm_cross_entropy_blockwise(
         else:
             ds, dn = block(xi, yi)
         total, n = total + ds, n + dn
-    return total / n.clamp(min=1)
+    return data_sum(total) / data_sum(n).clamp(min=1)
 
 
 def _span_ratio_loss(
@@ -80,7 +85,7 @@ def _span_ratio_loss(
     count = span.sum(dim=1)
     ratio = (mask * span).sum(dim=1) / count.clamp(min=1)
     sqerr = torch.where(count > 0, (target_rate - ratio) ** 2, 0.0)
-    return sqerr.mean()
+    return data_sum(sqerr.sum()) / (sqerr.shape[0] * data_size())
 
 
 def total_loss(

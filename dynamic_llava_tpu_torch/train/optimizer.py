@@ -117,10 +117,20 @@ class GroupedAdamW:
 
     @torch.no_grad()
     def update(self, params, grads: Dict[str, torch.Tensor],
-               state: Dict[str, Any]) -> torch.Tensor:
+               state: Dict[str, Any],
+               reduce_sumsq: Optional[Callable[[Dict[str, torch.Tensor]],
+                                               Dict[str, torch.Tensor]]] = None
+               ) -> torch.Tensor:
+        """``reduce_sumsq`` turns the per-leaf sums of squares of local
+        shards into those of the whole leaves (a sharded step's
+        ``parallel.sharding.reduce_sumsq``); the group norms, the clip and
+        the returned global norm are then the unsharded ones, and AdamW runs
+        elementwise on the local shards."""
         labels = self.labels(params)
         leaves = dict(named_leaves(params))
         sumsq = {p: sum_squares(p, g) for p, g in grads.items()}
+        if reduce_sumsq is not None:
+            sumsq = reduce_sumsq(sumsq)
         count = state["count"]
         t = count + 1
         bc1, bc2 = 1.0 - self.b1**t, 1.0 - self.b2**t

@@ -1,10 +1,17 @@
-"""The training step (counterpart of ``dynamic_llava_tpu/train/step.py``,
-single device).
+"""The training step (counterpart of ``dynamic_llava_tpu/train/step.py``).
 
 One step: forward (Gumbel policy path) + losses + ``backward()`` + grouped
 AdamW update. Activation checkpointing is applied per decoder layer. Where
 the JAX step returns new parameters and optimizer state, this one updates
 both IN PLACE and returns the same objects.
+
+With a mesh (``parallel.sharding``) the parameters are each rank's local
+shards, the step takes the GLOBAL batch on every rank and runs its own rows
+of each micro-batch (``shard_batch``), the Gumbel noise is drawn for the
+global batch from the same generator on every rank (so the sharded step
+sees the noise the single-device step sees), the gradients are summed over
+``data`` after the backward, and the optimizer's norms are those of the
+whole leaves.
 """
 
 from __future__ import annotations
@@ -17,6 +24,8 @@ import torch
 from ..config import LlavaConfig
 from ..models import dynamic
 from ..multimodal.fusion import FusionPlan
+from ..ops.gumbel import uniform_noise
+from ..parallel import sharding
 from ..weights import named_leaves, trainable_view
 from .losses import total_loss
 from .optimizer import GroupedAdamW
@@ -62,8 +71,29 @@ def batch_from_plan(plan: FusionPlan, pixel_values, device=None) -> TrainBatch:
     )
 
 
+def shard_batch(batch: TrainBatch, mesh) -> TrainBatch:
+    """This rank's rows of a global batch: every field's leading dim split
+    over ``data`` (the JAX ``shard_batch`` with ``batch_specs``)."""
+    return TrainBatch(*(sharding.local_rows(f, mesh) for f in batch))
+
+
+def draw_noise(generator: torch.Generator, cfg: LlavaConfig, batch: TrainBatch) -> list:
+    """The uniform tensors ``forward_train`` would draw from ``generator``
+    for ``batch``, drawn here, in its order and shapes (None for a predictor
+    that is off)."""
+    sp = cfg.sparse
+    b, s = batch.token_ids.shape
+    dev = batch.token_ids.device
+    vision = sp.use_vision_predictor and batch.pixel_values is not None
+    shapes = [(b, cfg.num_image_tokens, 2) if vision else None,
+              (b, s, 2) if sp.use_output_text_predictor else None,
+              (b, s, 2) if sp.use_instruct_predictor else None]
+    return [None if shape is None else uniform_noise(generator, shape, dev)
+            for shape in shapes]
+
+
 def loss_fn(params, cfg: LlavaConfig, batch: TrainBatch, noise, tau, remat=True,
-            remat_policy="nothing", fused_ce=True):
+            remat_policy="nothing", fused_ce=True, layer_runner=None):
     """``(loss, metrics)``. ``fused_ce``: the ``[B, S, V]`` fp32 logits never
     exist; the lm_head and the CE run blockwise inside the loss."""
     out = dynamic.forward_train(
@@ -72,7 +102,7 @@ def loss_fn(params, cfg: LlavaConfig, batch: TrainBatch, noise, tau, remat=True,
         batch.image_start, batch.answer_start, batch.answer_end,
         batch.last_instruct_start, batch.last_instruct_end, batch.has_image,
         batch.pixel_values, noise, tau, remat=remat, remat_policy=remat_policy,
-        return_hidden=fused_ce,
+        return_hidden=fused_ce, layer_runner=layer_runner,
     )
     return total_loss(out, batch.labels, cfg.sparse,
                       llm_params=params["llm"], tcfg=cfg.text)
@@ -89,6 +119,9 @@ def make_train_step(
     labels=None,
     remat_policy: str = "nothing",
     fused_ce: bool = True,
+    mesh=None,
+    param_specs=None,
+    layer_runner=None,
 ):
     """Returns ``step(params, opt_state, batch, noise, tau) -> (params,
     opt_state, metrics)``; ``params`` and ``opt_state`` are updated in
@@ -107,7 +140,18 @@ def make_train_step(
     values and its scales) and a LoRA scale never train, labels or not.
     The gradient buffers live as long as the step function and are zeroed
     at each step; ``step.grad_buffers`` holds them (path -> gradient of
-    the last step, after the optimizer's update)."""
+    the last step, after the optimizer's update).
+
+    ``mesh`` (a ``parallel.sharding.Mesh``) with ``param_specs`` (the spec
+    tree ``params`` was sharded with) makes the step a sharded one: see the
+    module docstring; ``noise`` then stands for the GLOBAL batch.
+    ``layer_runner`` replaces how the decoder's two layer ranges run
+    (``parallel.pipeline.make_layer_runner``)."""
+    if mesh is not None:
+        if param_specs is None:
+            raise ValueError("a sharded step needs the param_specs its params were sharded with")
+        sharding.check_heads(cfg.text, mesh)
+        specs_of = sharding.specs_by_path(param_specs)
     frozen = set()
     if labels is not None:
         frozen = {p for p, label in named_leaves(labels) if label == "frozen"}
@@ -151,18 +195,34 @@ def make_train_step(
                       if isinstance(noise, torch.Generator) else list(noise))
         metrics: Dict[str, torch.Tensor] = {}
         for mb, nz in zip(micro, noises):
-            loss, m = loss_fn(view, cfg, mb, nz, tau, remat, remat_policy, fused_ce)
+            if mesh is not None:
+                if isinstance(nz, torch.Generator):
+                    nz = draw_noise(nz, cfg, mb)
+                nz = [sharding.local_rows(u, mesh) for u in nz]
+                mb = shard_batch(mb, mesh)
+            loss, m = loss_fn(view, cfg, mb, nz, tau, remat, remat_policy, fused_ce,
+                              layer_runner)
             loss.backward()  # accumulates into ``grads`` in place
             for k, v in m.items():
                 metrics[k] = metrics.get(k, 0.0) + v.detach()
+        update_kw = {}
+        if mesh is not None:
+            sharding.reduce_grads(grads, mesh)
+            update_kw["reduce_sumsq"] = lambda sumsq: sharding.reduce_sumsq(
+                sumsq, specs_of, mesh)
         if grad_accum_steps > 1:
             inv = 1.0 / grad_accum_steps
             for g in grads.values():
                 g.mul_(inv)
             metrics = {k: v * inv for k, v in metrics.items()}
         del view
-        metrics["grad_norm"] = optimizer.update(params, grads, opt_state)
+        metrics["grad_norm"] = optimizer.update(params, grads, opt_state, **update_kw)
         return params, opt_state, metrics
 
-    step.grad_buffers = buffers
-    return step
+    def sharded_step(params, opt_state, batch: TrainBatch, noise: Noise, tau):
+        with mesh:  # the backward's recomputations gather under it too
+            return step(params, opt_state, batch, noise, tau)
+
+    out = step if mesh is None else sharded_step
+    out.grad_buffers = buffers
+    return out

@@ -1,6 +1,6 @@
 """Sparse fine-tuning entry point: the port's counterpart of
 ``dynamic_llava_tpu/train/train_sparse.py`` (the reference's
-``llava/train/train_sparse.py:940-1198``), on one device.
+``llava/train/train_sparse.py:940-1198``).
 
 Loads (or randomly initializes) a LLaVA model, sets the sparse config,
 builds the mix665k data pipeline (``train.data``) and trains the
@@ -16,15 +16,23 @@ predictors and the decoder with the Gumbel policy path through
 
 The flags are the JAX CLI's, faults included: ``--bf16`` and
 ``--group_by_modality_length`` are ``store_true`` with a default of True,
-so neither can be turned off (ROADMAP C27). The mesh flags take their
-defaults only: the port trains on one device, and a value above one raises
-(ROADMAP A14), where the JAX CLI shards.
+so neither can be turned off (ROADMAP C27). Across several cards it runs
+under ``torchrun``, one rank a card, sharded over the mesh flags
+(``parallel.sharding``); their product must be the number of ranks:
+
+    torchrun --nproc_per_node=8 -m dynamic_llava_tpu_torch.train.train_sparse \
+        ... --data_parallel 2 --tensor_parallel 2   # fsdp takes the other 2
+
+Every rank reads the same global batch of ``per_device_train_batch_size x
+data_parallel x gradient_accumulation_steps`` rows and computes on its
+``data`` share of them.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 
 import torch
 
@@ -67,14 +75,16 @@ def parse_args(argv=None):
     p.add_argument("--gumbel_start_tau", type=float, default=1.0)
     p.add_argument("--gumbel_end_tau", type=float, default=0.1)
     p.add_argument("--report_to", type=str, default="jsonl")
-    # mesh: one device only (ROADMAP A14)
+    # mesh
     p.add_argument("--data_parallel", type=int, default=1)
     p.add_argument("--fsdp_parallel", type=int, default=-1)
     p.add_argument("--tensor_parallel", type=int, default=1)
     p.add_argument("--pipeline_parallel", type=int, default=1,
-                   help="GPipe stages over the layer stack (1 = off)")
+                   help="GPipe stages over the layer stack (1 = off); "
+                        "must divide num_hidden_layers")
     p.add_argument("--pipeline_microbatches", type=int, default=0,
-                   help="microbatches per pipelined sweep (0 -> = stages)")
+                   help="microbatches per pipelined sweep (0 -> = stages); "
+                        "must divide the per-step batch size")
     # sparse flags (reference SparseArguments, train_sparse.py:145-165)
     p.add_argument("--use_vision_predictor", type=lambda s: s.lower() != "false", default=True)
     p.add_argument("--vision_keep_rate", type=float, default=0.2)
@@ -112,19 +122,48 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def check_mesh(args) -> None:
-    """The port trains on one device: a mesh flag above one raises, and so
-    does any ``--pipeline_microbatches`` but its default 0 (there is no
-    pipeline to split)."""
-    sharded = {name: getattr(args, name) for name in
-               ("data_parallel", "fsdp_parallel", "tensor_parallel", "pipeline_parallel")
-               if getattr(args, name) > 1}
-    if args.pipeline_microbatches != 0:
-        sharded["pipeline_microbatches"] = args.pipeline_microbatches
-    if sharded:
-        raise SystemExit(
-            f"train_sparse: {sharded}: the port trains on one device; data, FSDP, tensor "
-            "and pipeline parallelism are not ported yet (ROADMAP A14)")
+def check_mesh(args, world_size: int) -> None:
+    """The mesh the flags describe must cover the ranks: its product, with
+    ``--fsdp_parallel -1`` taking what the other axes leave, must be the
+    world size (one rank, the default flags)."""
+    from ..parallel.sharding import mesh_shape
+
+    try:
+        mesh_shape(world_size, args.data_parallel, args.fsdp_parallel, args.tensor_parallel,
+                   max(args.pipeline_parallel, 1))
+    except ValueError as e:
+        raise SystemExit(f"train_sparse: {e}") from None
+
+
+def trainer_config(args, num_steps: int):
+    """The ``TrainerConfig`` of the flags (the JAX CLI's, field for field)."""
+    from .trainer import TrainerConfig
+
+    return TrainerConfig(
+        output_dir=args.output_dir,
+        learning_rate=args.learning_rate,
+        predictor_lr=args.predictor_lr,
+        weight_decay=args.weight_decay,
+        warmup_ratio=args.warmup_ratio,
+        num_train_steps=num_steps,
+        gumbel_start_tau=args.gumbel_start_tau,
+        gumbel_end_tau=args.gumbel_end_tau,
+        logging_steps=args.logging_steps,
+        save_steps=args.save_steps,
+        seed=args.seed,
+        gradient_checkpointing=args.gradient_checkpointing,
+        remat_policy=args.remat_policy,
+        grad_accum_steps=args.gradient_accumulation_steps,
+        report_to=args.report_to,
+        data_parallel=args.data_parallel,
+        fsdp_parallel=args.fsdp_parallel,
+        tensor_parallel=args.tensor_parallel,
+        pipeline_parallel=args.pipeline_parallel,
+        pipeline_microbatches=args.pipeline_microbatches,
+        lora_mode=args.lora_enable,
+        tune_mm_mlp_adapter=args.tune_mm_mlp_adapter,
+        mm_projector_lr=args.mm_projector_lr,
+    )
 
 
 def build_config(args):
@@ -162,17 +201,25 @@ def build_config(args):
 def train(argv=None):
     """Parse ``argv``, train, save, and return the ``Trainer``."""
     args = parse_args(argv)
-    check_mesh(args)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    check_mesh(args, world)
     from .. import conversation as conversation_lib
     from ..mm_utils import ClipImagePreprocessor
     from ..models.builder import load_pretrained_model
+    from ..parallel import sharding
     from ..weights import init_llava_params, init_predictors, resolve_device
     from .data import Collator, DataArguments, LazySupervisedDataset, data_loader
-    from .trainer import Trainer, TrainerConfig
+    from .trainer import Trainer
 
     conversation_lib.default_conversation = conversation_lib.conv_templates[args.version]
 
     device = resolve_device(args.device)
+    if world > 1:  # under torchrun: one card a rank, the group from its environment
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+            torch.cuda.set_device(device)
+        if not torch.distributed.is_initialized():
+            torch.distributed.init_process_group("nccl" if device.type == "cuda" else "gloo")
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     generator = torch.Generator(device=device).manual_seed(args.seed)
     tokenizer = None
@@ -229,33 +276,15 @@ def train(argv=None):
         requires_image=args.requires_image,
     )
     dataset = LazySupervisedDataset(args.data_path, tokenizer, data_args, image_processor)
-    global_batch = args.per_device_train_batch_size * args.gradient_accumulation_steps
+    global_batch = (args.per_device_train_batch_size * max(args.data_parallel, 1)
+                    * args.gradient_accumulation_steps)
     steps_per_epoch = max(1, len(dataset) // global_batch)
     num_steps = (args.max_steps if args.max_steps > 0
                  else int(steps_per_epoch * args.num_train_epochs))
 
-    tc = TrainerConfig(
-        output_dir=args.output_dir,
-        learning_rate=args.learning_rate,
-        predictor_lr=args.predictor_lr,
-        weight_decay=args.weight_decay,
-        warmup_ratio=args.warmup_ratio,
-        num_train_steps=num_steps,
-        gumbel_start_tau=args.gumbel_start_tau,
-        gumbel_end_tau=args.gumbel_end_tau,
-        logging_steps=args.logging_steps,
-        save_steps=args.save_steps,
-        seed=args.seed,
-        gradient_checkpointing=args.gradient_checkpointing,
-        remat_policy=args.remat_policy,
-        grad_accum_steps=args.gradient_accumulation_steps,
-        report_to=args.report_to,
-        lora_mode=args.lora_enable,
-        tune_mm_mlp_adapter=args.tune_mm_mlp_adapter,
-        mm_projector_lr=args.mm_projector_lr,
-    )
-    trainer = Trainer(cfg, params, tc, device=device)
-    if trainer.maybe_resume():
+    tc = trainer_config(args, num_steps)
+    trainer = Trainer(cfg, params, tc, device=device, use_mesh=world > 1)
+    if trainer.maybe_resume() and sharding.rank() == 0:
         print(f"resumed from step {trainer.step}")
 
     collator = Collator(num_image_tokens=cfg.num_image_tokens,
@@ -273,7 +302,8 @@ def train(argv=None):
     metrics = trainer.train(batches())
     trainer.save()
     trainer.logger.close()
-    print("final:", metrics)
+    if sharding.rank() == 0:
+        print("final:", metrics)
     return trainer
 
 

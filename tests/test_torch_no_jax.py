@@ -8,7 +8,8 @@ with LoRA adapters attached) and then
 int4 weights (also with
 the fused MLP, an int8 and an fp8 KV cache and the ring policy), and takes
 a train step, then imports the training data pipeline, the training CLI,
-the native image ops (and runs them where ``g++`` builds them), the eval
+the native image ops (and runs them where ``g++`` builds them), the
+parallel layer (mesh, sharding, pipeline), the eval
 generators and scorers, the serving stack (controller, model worker,
 batched worker, Gradio front end, client scripts) and the cog predictor
 ``predict_torch``, ends with neither ``jax`` nor ``dynamic_llava_tpu``
@@ -35,6 +36,7 @@ from dynamic_llava_tpu_torch.config import IMAGE_TOKEN_INDEX, LlavaConfig
 from dynamic_llava_tpu_torch.generation.generate import GenerationConfig, Generator
 from dynamic_llava_tpu_torch.multimodal.fusion import plan_batch
 from dynamic_llava_tpu_torch.ops import flash_policy, gumbel, quant, quant_matmul
+from dynamic_llava_tpu_torch.parallel import pipeline, sharding
 from dynamic_llava_tpu_torch.train.trainer import Trainer, TrainerConfig
 from dynamic_llava_tpu_torch.weights import init_llava_params
 
@@ -156,7 +158,8 @@ def test_forbidden_pattern_sees_what_it_should():
 def test_package_sources_import_no_jax():
     assert len(SOURCES) > 20 and all(p.is_file() for p in SOURCES)
     assert {"profile_decode.py", "profile_mlp.py", "profile_train.py", "predict_torch.py",
-            "model_worker.py", "sglang_worker.py", "gradio_web_server.py"} <= {
+            "model_worker.py", "sglang_worker.py", "gradio_web_server.py", "sharding.py",
+            "pipeline.py"} <= {
         p.name for p in SOURCES}
     offenders = [str(p.relative_to(ROOT)) for p in SOURCES if FORBIDDEN.search(p.read_text())]
     assert offenders == []

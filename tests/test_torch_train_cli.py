@@ -16,8 +16,9 @@ relative. The JAX CLI runs once, in a module fixture.
 The port alone: sparse steps are finite and leave a checkpoint; a second
 run resumes; ``--lora_enable``, ``--lora_enable --bits 4`` and
 ``--tune_mm_mlp_adapter`` change only the leaves they should;
-``--pretrain_mm_mlp_adapter`` loads the projector; a mesh flag above one
-raises, naming ROADMAP A14."""
+``--pretrain_mm_mlp_adapter`` loads the projector; the mesh flags reach
+``TrainerConfig`` as in the JAX CLI, and a mesh whose product is not the
+world size raises."""
 
 import contextlib
 import dataclasses
@@ -151,8 +152,8 @@ def test_dense_cli_matches_jax(setup, monkeypatch):
     batches = []
     trainer, _ = run(setup, "port_dense", *DENSE, monkeypatch=monkeypatch, batches=batches)
     assert trainer.cfg == port_config(setup["jax_cfg"])
-    # the TrainerConfig the CLI builds: every field the port has, the output
-    # directory apart; the JAX mesh fields (ROADMAP A14) at their defaults
+    # the TrainerConfig the CLI builds: every field, the output directory
+    # apart; the mesh fields at their defaults
     jtc = setup["jax_tc"]
     for f in dataclasses.fields(trainer.tc):
         if f.name != "output_dir":
@@ -244,10 +245,49 @@ def test_pretrain_mm_mlp_adapter_loads_the_projector(setup, tmp_path):
         assert torch.equal(layer["b"], b.to(torch.bfloat16)), i
 
 
+class _Captured(Exception):
+    """Raised by a stand-in ``Trainer`` once it has the CLI's config."""
+
+
+def capture_trainer_config(monkeypatch, trainer_module, cli, argv):
+    """The ``TrainerConfig`` the CLI's ``train(argv)`` builds, taken from a
+    stand-in for ``trainer_module.Trainer`` before anything trains."""
+    seen = []
+
+    def stand_in(cfg, params, tc, *args, **kwargs):
+        seen.append(tc)
+        raise _Captured
+
+    monkeypatch.setattr(trainer_module, "Trainer", stand_in)
+    with pytest.raises(_Captured):
+        cli.train(argv)
+    return seen[0]
+
+
 @pytest.mark.parametrize("flag", ["--data_parallel", "--fsdp_parallel", "--tensor_parallel",
                                   "--pipeline_parallel", "--pipeline_microbatches"])
-def test_a_mesh_flag_above_one_raises_naming_a14(setup, flag):
-    with pytest.raises(SystemExit, match="A14"):
-        tcli.train(setup["base"] + [flag, "2", "--output_dir", str(setup["root"] / "mesh"),
-                                    "--device", "cpu"])
+def test_a_mesh_flag_above_one_raises_naming_a14(setup, flag, monkeypatch):
+    """A mesh flag reaches ``TrainerConfig`` field for field as in the JAX
+    CLI, and a mesh whose product is not the world size raises before
+    anything is loaded. (The name is kept from the single-device CLI, which
+    refused every mesh flag until the parallel layer, ROADMAP A14, was
+    ported.) ``--fsdp_parallel -1`` takes the ranks the other axes leave, so
+    ``--pipeline_microbatches 2`` alone fits any world."""
+    out = str(setup["root"] / "mesh")
+    argv = setup["base"] + [flag, "2", "--output_dir", out]
+    with monkeypatch.context() as mp:
+        jtc = capture_trainer_config(mp, jtrainer, jcli, argv)
+    args = tcli.parse_args(argv + ["--device", "cpu"])
+    tc = tcli.trainer_config(args, jtc.num_train_steps)
+    assert dataclasses.asdict(tc) == dataclasses.asdict(jtc)
+    assert getattr(tc, flag.lstrip("-")) == 2
+    if flag == "--pipeline_microbatches":
+        for world in (1, 3):
+            tcli.check_mesh(args, world)
+    else:
+        tcli.check_mesh(args, 2)
+        with pytest.raises(SystemExit, match="does not cover the 5 ranks"):
+            tcli.check_mesh(args, 5)
+        with pytest.raises(SystemExit, match="does not cover the 1 ranks"):
+            tcli.train(argv + ["--device", "cpu"])
     assert not (setup["root"] / "mesh").exists()
