@@ -106,6 +106,19 @@ else. Phases, each of which raises on failure:
    noise; the JAX tests' thresholds computed for each gate and printed with
    its rows on the ``quality`` line (which of them must hold: see
    ``quality_gates``);
+4c. the production-boundary quality harness on the card (``deep_quality``):
+   ``dynamic_llava_tpu_torch/run/deep_sparse_quality.py`` at its default
+   widths (``DEEP_SIZES``: hidden 128, 8 layers, sparse_layer 2, 3
+   predictor blocks, batch 48, holdout 64, hops 2; head_dim 32 / 24,
+   zero-padded to 64), fp32, seed 0, at 100 dense + 40 sparse steps (of
+   the harness's 1500 + 600; cut for the script's time limit). First the first
+   ``DEEP_CHECK_STEPS`` steps of each training stage (on given uniform
+   noise) and ``eval_arm``'s dense, learned and random arms are held
+   against the CPU's on the same weights, at phase 4b's tolerances; then
+   ``run_all`` trains both stages and evaluates every arm at chain depths 1
+   (the negative control) and 2, the K1 / K3 / K4 / K2 counters zeroed
+   before it and each required to rise, every row finite; the gaps are
+   reported, not required (the ``deep_quality`` line);
 5. serving at LLaVA-1.5-7B width (32 layers, random bf16 weights made on
    the card from a seed): two batches of 8 requests (one 336x336 image
    and 60 text tokens each, 64 new tokens, greedy) through
@@ -244,6 +257,18 @@ else. Phases, each of which raises on failure:
    seconds, wrapper calls, memory fields) and the ``bench_core`` line
    (TTFT, device TTFT, decode tok/s, capacities, peak GiB, sparse and
    dense; the long-text records);
+5i. the weights-drop golden's twin (``weights_drop``), after 5g on phase
+   5e's checkpoint: ``run.weights_drop_check`` on its hermetic fixture (a
+   tiny checkpoint with a real tokenizer, 4 GQA-format questions, 2 chunks)
+   on the CPU and then on the card, whose predictions must equal the CPU's
+   or part from them only at a near tie (``near_tie_bound``, as in phase
+   5c); then on phase 5e's checkpoint (a word-level tokenizer over its
+   32000 ids written beside it) with ``WDROP_QUESTIONS`` GQA-format
+   questions over phase 5e's images at ``--chunks 2`` and ``--chunks 1``:
+   every question answered, the predictions parsing, the two merged
+   prediction files equal. K1 and K2 counted by their wrappers (no trace);
+   the ``weights_drop`` line (seconds a chunk, answered, ``format_ok``,
+   wrapper calls);
 5h. high resolution and the other towers at 7B width, 32 layers, on the
    phase-5 weights (``hires``), ``model_max_length`` 4096 and the
    LLaVA-1.6 grid pinpoints: ``Generator.generate_anyres`` at B=2 on a
@@ -364,9 +389,10 @@ a ``continuous`` line with phase 5d's arms, and a ``checkpoint`` line with
 phase 5e's, a ``train_cli`` line with phase 9d's, a ``parallel`` line with
 phase 9e's and a ``serving`` line with
 phase 5f's and the ``ppl_tools`` and ``bench_core`` lines with phase 5g's,
-the ``hires`` line with phase 5h's and the ``families`` line with phase
-10's (whose wrapper calls, as phase 5f's and 5g's, join the ``kernels``
-line's). K1's, K2's, K2-M's
+the ``deep_quality`` line with phase 4c's, the ``weights_drop`` line with
+phase 5i's, the ``hires`` line with phase 5h's and the ``families`` line
+with phase 10's (whose wrapper calls, as phase 5f's, 5g's and 5i's, join
+the ``kernels`` line's). K1's, K2's, K2-M's
 and the int8 GEMV's launches in the ``kernels`` line include the engines'
 traced passes and phase 5e's; K1's, K3's and K4's include phase 9d's; K1's,
 K3's, K4's, K2's and K2-M's phase 9e's.
@@ -452,6 +478,16 @@ GATE_VISION_STEPS = 150  # dense, then as many sparse
 GATE_TEXT_STEPS = (300, 400)  # dense, sparse
 GATE_CHAIN_STEPS = 40
 GATE_CHECK_STEPS = 5  # training steps of each stage held card against CPU
+# phase 4c: the production-boundary harness (run/deep_sparse_quality.py) at
+# its default widths, fp32, seed 0, batch 48, holdout 64, hops 2; its step
+# counts (the harness's: 1500 dense + 600 sparse) cut so that the phase stays
+# well within ~90 s on the card (~0.1 s a step; 54.9-64.8 s at 300 + 120,
+# 17.4-22.9 s at 100 + 40), and the script well within its 1200 s on a slow card
+DEEP_SIZES = dict(hidden=128, layers=8, sparse_layer=2, pred_layers=3, batch=48, holdout=64,
+                  hops=2, dense_steps=100, steps=40)
+DEEP_CHECK_STEPS = 3  # training steps of each stage held card against CPU
+# phase 5i: the weights-drop golden's twin on the fixture and on phase 5e's checkpoint
+WDROP_QUESTIONS = 8  # GQA-format questions over phase 5e's images
 COSINE_STEPS = (1, 16, 64)  # phase 7: decode steps at which the KV modes' logits are compared
 # phase 9b / 9c: the JAX package's remat policies and QLoRA at 7B width
 REMAT_POLICIES = ("nothing", "dots", "flash", "flash_dots", "alternate")
@@ -3856,6 +3892,294 @@ def quality_gates(torch):
     return out
 
 
+def deep_on_card_and_cpu(torch, sz, device):
+    """Phase 4c's plain checks of the deep harness, at phase 4b's
+    tolerances. Training: ``DEEP_CHECK_STEPS`` steps of each stage of
+    ``train_fresh`` (dense with the progressive curriculum from random
+    weights, seed 0; sparse with the depth cycle and the stage-2 lr split
+    from the same weights with fresh predictors, seed 1, as ``run_all``
+    chains them) on the same uniform Gumbel noise, on the card (K1 / K3, K4
+    under the predictor) and on the CPU: every depth's last ``lm_loss``
+    within 1e-4 relative. Evaluation: ``eval_arm`` at depth ``hops`` on
+    those weights, the dense, learned@0.2 and random@0.2 arms (the random
+    scores from one numpy generator), on the card (K1, K2) and on the CPU:
+    accuracy, F1 and every ``chain*_kept`` equal, PPL within 1e-3 relative.
+    Returns the losses and the card's rows."""
+    from dynamic_llava_tpu_torch.run import deep_sparse_quality as dq
+    from dynamic_llava_tpu_torch.weights import init_llava_params, init_predictors, map_leaves
+
+    widths = (sz["hidden"], sz["layers"])
+    cfg = dq.make_cfg(*widths, 0.2, sz["sparse_layer"], pred_layers=sz["pred_layers"])
+    dense = dq.make_cfg(*widths, 1.0, sz["sparse_layer"], use_vision_predictor=False,
+                        pred_layers=sz["pred_layers"])
+    image, patch, hops = cfg.vision.image_size, cfg.vision.patch_size, sz["hops"]
+    n, b = DEEP_CHECK_STEPS, sz["batch"]
+    s = len(dq.QUESTION) + 1 + cfg.num_image_tokens
+    base = init_llava_params(dense, torch.Generator().manual_seed(SEED), "cpu", torch.float32)
+    with_pred = dict(base)
+    with_pred["predictors"] = init_predictors(cfg, torch.Generator().manual_seed(SEED + 1),
+                                              "cpu", torch.float32)
+    rng = np.random.default_rng(SEED + 5)
+    out = {"train": {}, "eval": {}}
+    stages = [("dense", dense, base, SEED, dict(curriculum=True)),
+              ("sparse", cfg, with_pred, SEED + 1,
+               dict(curriculum="cycle", base_lr=dq.STAGE2_BASE_LR))]
+    for name, c, weights, seed, kw in stages:
+        draws = [[np.clip(rng.uniform(size=shape), 1e-12, None).astype(np.float32)
+                  for shape in ((b, c.num_image_tokens, 2), (b, s, 2), (b, s, 2))]
+                 for _ in range(n)]
+        losses = {}
+        for dev in ("cpu", device):
+            prm = map_leaves(lambda _, x: x.clone().to(dev), weights)
+            _, losses[dev] = dq.train_fresh(
+                c, n, b, seed, image, patch, hops, params=prm, device=dev,
+                noise=lambda i, dev=dev: [torch.from_numpy(u).to(dev) for u in draws[i]], **kw)
+        card, cpu = losses[device], losses["cpu"]
+        log(f"  train {name}: lm_loss by depth after {n} steps card {card}, CPU {cpu}")
+        require(sorted(card) == sorted(cpu) and all(
+            abs(card[h] - cpu[h]) <= 1e-4 * abs(cpu[h]) for h in cpu),
+            f"deep train {name}: lm_loss on the card {card} != on the CPU {cpu}")
+        out["train"][name] = {"card": card, "cpu": cpu}
+
+    ho = dq.build_corpus(sz["holdout"], image, patch, seed=SEED + 999_999 + hops, hops=hops)
+    scores = np.random.default_rng(SEED + 7).uniform(size=(sz["holdout"], cfg.num_image_tokens))
+    arms = [("dense", dense, None), ("learned@0.2", cfg, None), ("random@0.2", cfg, scores)]
+    for name, c, override in arms:
+        rows = {dev: dq.eval_arm(map_leaves(lambda _, x: x.to(dev), with_pred), c, *ho,
+                                 score_override=override, device=dev)
+                for dev in ("cpu", device)}
+        log(f"  eval {name}, card: {json.dumps(rows[device])}")
+        for k, want in rows["cpu"].items():
+            got = rows[device][k]
+            same = (abs(got - want) <= 1e-3 * abs(want) + 1e-4 if k == "holdout_answer_ppl"
+                    else got == want)
+            require(same, f"deep eval {name}: {k} on the card {got} != on the CPU {want}")
+        out["eval"][name] = rows[device]
+    return out
+
+
+def deep_quality(torch, device="cuda", sizes=None):
+    """Phase 4c: the production-boundary quality harness
+    (``dynamic_llava_tpu_torch.run.deep_sparse_quality``) on the card at its
+    default widths (``DEEP_SIZES``: hidden 128 in 4 heads, 8 layers,
+    sparse_layer 2, 3 predictor blocks, a tower of hidden 48 in 2 heads;
+    head_dim 32 / 24, zero-padded to 64), fp32, seed 0, batch 48, holdout
+    64, hops 2, at the cut step counts of ``DEEP_SIZES``. First its pieces
+    are held card against CPU (``deep_on_card_and_cpu``); then ``run_all``
+    runs both stages and every arm at depths 1 (the negative control) and
+    2, the K1, K3, K4 and K2 counters zeroed before it and each required to
+    rise, every row finite. The gaps are reported, not required: the
+    training is chaotic (ROADMAP difference 20), and at the cut step counts
+    the model may not have learned the chase. ``device="cpu"`` with small
+    ``sizes`` rehearses the phase (the counters rise only on the card)."""
+    import contextlib
+    import io
+
+    from dynamic_llava_tpu_torch.ops import flash_attention as fa
+    from dynamic_llava_tpu_torch.ops.decode_attention import decode_attention
+    from dynamic_llava_tpu_torch.ops.flash_policy import flash_policy_attention
+    from dynamic_llava_tpu_torch.run import deep_sparse_quality as dq
+
+    sz = dict(DEEP_SIZES, **(sizes or {}))
+    t0 = time.perf_counter()
+    holds = deep_on_card_and_cpu(torch, sz, device)
+    check_s = time.perf_counter() - t0
+    counters = {"K1": (fa.flash_attention,),
+                "K3": (fa.flash_attention_bwd_delta, fa.flash_attention_bwd_dq,
+                       fa.flash_attention_bwd_dkv),
+                "K4": (flash_policy_attention,), "K2": (decode_attention,)}
+    for fns in counters.values():
+        for fn in fns:
+            fn.launches = 0
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):  # the harness's own JSON lines
+        rows, gaps = dq.run_all(sz["steps"], sz["dense_steps"], sz["batch"], sz["holdout"],
+                                sz["hidden"], sz["layers"], sz["sparse_layer"], sz["hops"],
+                                seed=SEED, pred_layers=sz["pred_layers"], device=device)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    run_s = time.perf_counter() - t1
+    calls = {k: sum(fn.launches for fn in fns) for k, fns in counters.items()}
+    log(f"  run_all: {sz['dense_steps']} dense + {sz['steps']} sparse steps at batch "
+        f"{sz['batch']} in {run_s:.1f} s; wrapper calls {calls}")
+    for h, by_arm in rows.items():
+        for arm, row in by_arm.items():
+            log(f"    hops {h} {arm}: {json.dumps(row)}")
+        log(f"    hops {h} gaps {json.dumps(gaps[h])} (reported)")
+    require(device == "cpu" or all(calls[k] > 0 for k in counters),
+            f"deep quality: a kernel of its path did not launch: {calls}")
+    require(all(np.isfinite(v) for by_arm in rows.values() for row in by_arm.values()
+                for v in row.values() if v is not None), f"deep quality: a row is not finite")
+    phase_s = time.perf_counter() - t0
+    log(f"  phase 4c: {phase_s:.1f} s (the card-against-CPU checks {check_s:.1f} s)")
+    return dict(sizes=sz, steps={"dense": sz["dense_steps"], "sparse": sz["steps"]},
+                seconds=round(run_s, 1), check_s=round(check_s, 1), phase_s=round(phase_s, 1),
+                rows={str(h): r for h, r in rows.items()},
+                gaps={str(h): g for h, g in gaps.items()}, wrapper_calls=calls, holds=holds)
+
+
+def fixture_divergence(torch, ckpt, question, image_folder, args, device="cuda"):
+    """Phase 5i: why the card's answer to ``question`` (a question-file
+    record) leaves the CPU's on the hermetic fixture, ``args`` the twin's
+    parsed flags. The CPU and ``device`` load ``ckpt`` as ``model_vqa_loader`` does
+    (bf16) and generate greedily the same prompt; at the first token j where
+    they part, the card's top-two logit gap along the shared prefix
+    (``plain_near_ties``) is held to ``near_tie_bound`` of its top logit,
+    and the output-text predictor's keep margins before j to theirs
+    (``explain_divergence``). Returns its dict (``stands``: a near tie)."""
+    import os
+
+    from PIL import Image
+
+    from dynamic_llava_tpu_torch.eval.model_vqa_loader import build_prompt
+    from dynamic_llava_tpu_torch.generation.generate import GenerationConfig, Generator
+    from dynamic_llava_tpu_torch.mm_utils import process_images, tokenizer_image_token
+    from dynamic_llava_tpu_torch.models.builder import load_pretrained_model
+    from dynamic_llava_tpu_torch.multimodal.fusion import plan_batch
+
+    image = Image.open(os.path.join(image_folder, question["image"])).convert("RGB")
+    tokens = []
+    for dev in ("cpu", device):
+        tok, runtime, processor, _ = load_pretrained_model(ckpt, device=dev)
+        gen = Generator(runtime.params, runtime.cfg, GenerationConfig(
+            max_new_tokens=args.max_new_tokens, temperature=0.0,
+            eos_token_id=tok.eos_token_id))
+        ids = np.asarray(tokenizer_image_token(build_prompt(
+            question["text"], args.conv_mode, runtime.cfg.mm_use_im_start_end), tok), np.int64)
+        pix = process_images([image], processor, runtime.cfg)
+        tokens.append(gen.generate([ids], pix)[0])
+    cpu, card = tokens
+    j = first_divergence([cpu], [card])[0]
+    if j is None:  # one answer is the other's prefix: they part where the shorter ended
+        j = min(len(cpu), len(card))
+    path = cpu if len(cpu) > j else card
+    plan = plan_batch([ids], runtime.cfg.num_image_tokens, max_length=runtime.cfg.model_max_length,
+                      pad_multiple=gen.gen_cfg.pad_multiple)
+    plain = plain_near_ties(torch, gen, plan, pix, [path], j + 1)
+    found = explain_divergence(runtime.cfg, [j], plain, [[]])[0]
+    return dict(found, cpu_tokens=cpu, card_tokens=card)
+
+
+def weights_drop(torch, path, image_folder, images, device="cuda"):
+    """Phase 5i: the weights-drop golden's twin
+    (``dynamic_llava_tpu_torch.run.weights_drop_check.run``), the chain a
+    user runs from a checkpoint directory to scored GQA answers. First on
+    its hermetic fixture (the tiny checkpoint with a real tokenizer, 4
+    questions, 2 chunks), built and answered on the CPU, then answered on
+    the card from the same files: every question answered and the
+    predictions parsing on both, the card's predictions equal to the CPU's
+    or apart only where ``fixture_divergence`` shows a near tie. Then on
+    ``path`` (phase 5e's 7B-width checkpoint, bf16, loaded by the twin's
+    generator itself; a word-level tokenizer over its vocabulary (32000 ids) written
+    beside its weights) with a GQA-format file of ``WDROP_QUESTIONS``
+    questions over phase 5e's ``images`` in ``image_folder``, at ``--chunks
+    2`` and ``--chunks 1``: every question answered, the predictions
+    parsing, and the two merged prediction files equal. The K1 / K2 wrappers
+    are zeroed at the start and read at the end (no trace); each must
+    launch. ``device="cpu"`` with a small checkpoint rehearses the phase
+    (the counters rise only on the card). Returns the ``weights_drop``
+    line's dict."""
+    import os
+    import tempfile
+
+    from dynamic_llava_tpu_torch.ops.decode_attention import decode_attention
+    from dynamic_llava_tpu_torch.ops.flash_attention import flash_attention
+    from dynamic_llava_tpu_torch.run import weights_drop_check as wdc
+
+    wrappers = {"flash_fwd": flash_attention, "decode_kernel": decode_attention}
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+
+    def answered(label, result):
+        require(result["format_ok"] and result["answered"] == result["questions"],
+                f"weights drop {label}: {result['answered']} of {result['questions']} answered, "
+                f"format_ok {result['format_ok']}")
+        with open(result["predictions"]) as f:
+            return json.load(f)
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_wdrop_") as root:
+        # the hermetic fixture: built and answered on the CPU, then on the card
+        fixture = os.path.join(root, "fixture_cpu")
+        cpu, cpu_s = wdc.run(["--device", "cpu", "--work-dir", fixture])
+        files = ["--model-path", os.path.join(fixture, "ckpt"),
+                 "--question-file", os.path.join(fixture, "questions.jsonl"),
+                 "--image-folder", os.path.join(fixture, "images"),
+                 "--answers-json", os.path.join(fixture, "golden_answers.json")]
+        card, card_s = wdc.run(files + ["--device", device,
+                                        "--work-dir", os.path.join(root, "fixture_card")])
+        want, got = answered("fixture, CPU", cpu), answered("fixture, card", card)
+        require([p["questionId"] for p in got] == [p["questionId"] for p in want],
+                f"weights drop fixture: questions {got} != the CPU's {want}")
+        args = wdc.parser().parse_args(files)
+        with open(os.path.join(fixture, "questions.jsonl")) as f:
+            questions = {q["question_id"]: q for q in map(json.loads, f)}
+        ties = {}
+        for g, w in zip(got, want):
+            if g["prediction"] != w["prediction"]:
+                ties[g["questionId"]] = fixture_divergence(
+                    torch, args.model_path, questions[g["questionId"]], args.image_folder, args,
+                    device)
+        log(f"  fixture: CPU {cpu_s[0]:.1f} + {cpu_s[1]:.1f} s, card {card_s[0]:.1f} + "
+            f"{card_s[1]:.1f} s a chunk; {card['answered']} of {card['questions']} answered, "
+            f"accuracy card {card['accuracy']} / CPU {cpu['accuracy']}; predictions "
+            + ("equal" if not ties else f"apart at {json.dumps(ties)}"))
+        require(all(t["stands"] for t in ties.values()),
+                f"weights drop fixture: the card's predictions leave the CPU's without a near "
+                f"tie: {ties}")
+        out["fixture"] = dict(cpu_chunk_s=cpu_s, card_chunk_s=card_s, questions=card["questions"],
+                              answered=card["answered"], format_ok=card["format_ok"],
+                              accuracy_card=card["accuracy"], accuracy_cpu=cpu["accuracy"],
+                              equal=not ties, near_ties=ties)
+
+        # the 7B-width checkpoint: a tokenizer over its vocabulary beside it,
+        # GQA-format questions
+        words = ("A chat between a curious user and an artificial intelligence assistant . The "
+                 "assistant gives helpful , detailed , and polite answers to the user ' s "
+                 "questions . USER : ASSISTANT : Is there a dog in picture ? What color is "
+                 "the").split()
+        with open(os.path.join(path, "config.json")) as f:
+            vocab = json.load(f)["vocab_size"]  # every id the decoder emits decodes to a word
+        fillers = [f"w{i}" for i in range(vocab - 3 - len(set(words)))]
+        write_word_tokenizer(path, [" ".join(words + fillers)], vocab_size=vocab)
+        qfile = os.path.join(root, "gqa_questions.jsonl")
+        with open(qfile, "w") as f:
+            for i in range(WDROP_QUESTIONS):
+                text = (f"Is there a dog in picture {i} ?" if i % 2
+                        else f"What color is the picture {i} ?")
+                f.write(json.dumps({"question_id": f"g{i}", "image": images[i % len(images)],
+                                    "text": text}) + "\n")
+        runs = {}
+        for chunks in (2, 1):
+            res, secs = wdc.run(["--model-path", path, "--question-file", qfile,
+                                 "--image-folder", image_folder, "--chunks", str(chunks),
+                                 "--device", device,
+                                 "--work-dir", os.path.join(root, f"ckpt_chunks{chunks}")])
+            runs[chunks] = (answered(f"7B --chunks {chunks}", res), res, secs)
+            log(f"  7B width, --chunks {chunks}: {res['answered']} of {res['questions']} "
+                f"answered, format_ok {res['format_ok']}, "
+                f"{' + '.join(f'{s:.1f}' for s in secs)} s")
+        require(runs[2][0] == runs[1][0],
+                f"weights drop 7B: --chunks 2 predictions {runs[2][0]} != --chunks 1's "
+                f"{runs[1][0]}")
+        out["ckpt_7b"] = {f"chunks{c}": dict(chunk_s=secs, questions=res["questions"],
+                                             answered=res["answered"],
+                                             format_ok=res["format_ok"])
+                          for c, (_, res, secs) in runs.items()}
+        out["ckpt_7b"]["equal"] = True
+        out["ckpt_7b"]["predictions"] = [p["prediction"] for p in runs[1][0]]
+    calls = {k: fn.launches for k, fn in wrappers.items()}
+    require(device == "cpu" or all(v > 0 for v in calls.values()),
+            f"weights drop: a kernel of its path never launched: {calls}")
+    out["wrapper_calls"] = calls
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 5i: {out['phase_s']:.1f} s, wrapper calls {calls}")
+    return out
+
+
 def first_layers(llm: dict, n: int) -> dict:
     """A decoder's params cut to its first ``n`` layers: views of the
     stacked layer weights, the embedding, final norm and lm_head shared."""
@@ -4103,11 +4427,12 @@ def qlora(torch, cfg_sparse):
     return r
 
 
-def write_word_tokenizer(out_dir, corpus) -> str:
+def write_word_tokenizer(out_dir, corpus, vocab_size: int = 30000) -> str:
     """A word-level tokenizer directory trained on ``corpus`` with
     ``tokenizers`` (``<unk>`` 0, ``<s>`` 1 leading every encoding, ``</s>``
-    2), as a LLaMA tokenizer numbers them, and the ``tokenizer_config.json``
-    that ``AutoTokenizer`` reads."""
+    2), as a LLaMA tokenizer numbers them, of at most ``vocab_size`` tokens
+    (the trainer's default), and the ``tokenizer_config.json`` that
+    ``AutoTokenizer`` reads."""
     import os
 
     from tokenizers import Tokenizer, models, pre_tokenizers, trainers
@@ -4116,7 +4441,7 @@ def write_word_tokenizer(out_dir, corpus) -> str:
     tok = Tokenizer(models.WordLevel(unk_token="<unk>"))
     tok.pre_tokenizer = pre_tokenizers.Whitespace()
     tok.train_from_iterator(corpus, trainers.WordLevelTrainer(
-        special_tokens=["<unk>", "<s>", "</s>"]))
+        vocab_size=vocab_size, special_tokens=["<unk>", "<s>", "</s>"]))
     tok.post_processor = TemplateProcessing(
         single="<s> $A", special_tokens=[("<s>", tok.token_to_id("<s>"))])
     os.makedirs(out_dir, exist_ok=True)
@@ -5160,6 +5485,11 @@ def main() -> int:
           "(the JAX tests' configs, head_dim 16 zero-padded to 64, fp32)")
     quality = quality_gates(torch)
 
+    phase("phase 4c: the production-boundary quality harness on the card: sparse_layer 2, "
+          "hops 1 and 2, its default widths (head_dim 32 / 24 zero-padded to 64), fp32, "
+          f"{DEEP_SIZES['dense_steps']} dense + {DEEP_SIZES['steps']} sparse steps")
+    deep = deep_quality(torch)
+
     counters = {"flash_attention_fwd": flash_attention,
                 "decode_attention_appended": decode_attention,
                 "q8_gemv": qm.q8_gemv, "q8_gemv_group": qm.q8_gemv_group,
@@ -5279,7 +5609,13 @@ def main() -> int:
         phase(f"phase 5g: the generation-quality probes at LLaVA-1.5-7B width, {CKPT_DEPTH} of "
               "32 layers, on phase 5e's checkpoint in fp32 (self-PPL, LVIS PPL sparse and dense, METEOR, "
               "multi-round, the keep mask), the bench core on the phase-5 weights")
-        return served, ppl_tools(torch, path, ckpt_params, ckpt_sparse)
+        tools = ppl_tools(torch, path, ckpt_params, ckpt_sparse)
+        phase("phase 5i: the weights-drop golden (checkpoint -> chunked VQA answers -> GQA "
+              "predictions) on its fixture, card against CPU, and on phase 5e's checkpoint at "
+              "--chunks 2 and 1")
+        wdrop = weights_drop(torch, path, str(Path(path).parent),
+                             [f"q{i}.png" for i in range(CKPT_QUESTIONS)])
+        return served, tools, wdrop
 
     # the checkpoint path on the first CKPT_DEPTH layers: phase 5's sparse
     # batch generated on those views is what the loaded checkpoint must give
@@ -5287,11 +5623,13 @@ def main() -> int:
     want = Generator(ckpt_params, ckpt_sparse, GenerationConfig(
         max_new_tokens=64, temperature=0.0, eos_token_id=-1)).generate(
         *serving_batch(ckpt_sparse, 8, 60))
-    (served, (tools, core)), ckpt = checkpoint(
+    (served, (tools, core), wdrop), ckpt = checkpoint(
         torch, ckpt_params, ckpt_sparse, want, then=serve_http)
     del ckpt_params
-    log(f"  phase 5e: {time.perf_counter() - t5e - served['phase_s'] - tools['phase_s']:.1f} s; "
-        f"phase 5f: {served['phase_s']:.1f} s; phase 5g: {tools['phase_s']:.1f} s")
+    later_s = served["phase_s"] + tools["phase_s"] + wdrop["phase_s"]
+    log(f"  phase 5e: {time.perf_counter() - t5e - later_s:.1f} s; "
+        f"phase 5f: {served['phase_s']:.1f} s; phase 5g: {tools['phase_s']:.1f} s; "
+        f"phase 5i: {wdrop['phase_s']:.1f} s")
 
     phase("phase 5h: high resolution and the other towers at LLaVA-1.5-7B width, 32 layers, on "
           "the phase-5 weights: generate_anyres at B=2 (672x672, 1008x336) dense and sparse, "
@@ -5347,12 +5685,13 @@ def main() -> int:
         t["launches"]["extend_kernel"] for t in traced) + sum(
         r["wrapper_calls"]["extend_kernel"] for r in engines) + ckpt["wrapper_calls"][
         "extend_kernel"]
-    # phase 5f's, 5g's and 5h's wrapper calls (they take no trace: their graph
-    # replays are not counted)
+    # phase 5f's, 5g's, 5i's and 5h's wrapper calls (they take no trace: their
+    # graph replays are not counted)
     for name, label in (("flash_attention_fwd", "flash_fwd"),
                         ("decode_attention_appended", "decode_kernel"),
                         ("extend_attention_appended", "extend_kernel")):
         calls[name] += (served["wrapper_calls"][label] + tools["wrapper_calls"][label]
+                        + wdrop["wrapper_calls"].get(label, 0)
                         + hires_r["wrapper_calls"].get(label, 0))
     del params["llm"]
     torch.cuda.empty_cache()
@@ -5563,6 +5902,7 @@ def main() -> int:
                                  "round_decode_tok_s", "capture_ms", "peak_gib", "steps")}
         for mode, r in results["chat"].items()}))
     print("quality " + json.dumps(quality))
+    print("deep_quality " + json.dumps(deep))
     print("kv_cosine " + json.dumps(cosine))
     print("remat " + json.dumps({
         policy: {k: r[k] for k in ("depth", "first_step_s", "step_ms", "tok_s", "peak_gib",
@@ -5575,6 +5915,7 @@ def main() -> int:
     print("parallel " + json.dumps(par))
     print("serving " + json.dumps(served))
     print("ppl_tools " + json.dumps(tools))
+    print("weights_drop " + json.dumps(wdrop))
     print("bench_core " + json.dumps(core))
     print("hires " + json.dumps(hires_r))
     print("families " + json.dumps(fam))

@@ -159,10 +159,35 @@ def test_package_sources_import_no_jax():
     assert len(SOURCES) > 20 and all(p.is_file() for p in SOURCES)
     assert {"profile_decode.py", "profile_mlp.py", "profile_train.py", "predict_torch.py",
             "model_worker.py", "sglang_worker.py", "gradio_web_server.py", "sharding.py",
-            "pipeline.py"} <= {
+            "pipeline.py", "deep_sparse_quality.py", "weights_drop_check.py"} <= {
         p.name for p in SOURCES}
     offenders = [str(p.relative_to(ROOT)) for p in SOURCES if FORBIDDEN.search(p.read_text())]
     assert offenders == []
+
+
+LAUNCHERS = sorted((ROOT / "run_torch").rglob("*.sh"))
+# a module path of the JAX package (`dynamic_llava_tpu.` not followed by
+# `_torch`), or `import jax` in an inline Python
+JAX_IN_SHELL = re.compile(r"\bdynamic_llava_tpu\.|\bimport\s+jax\b|\bfrom\s+jax\b")
+
+
+def test_shell_pattern_sees_what_it_should():
+    for line in ("python -m dynamic_llava_tpu.eval.model_vqa \\",
+                 "python -c 'import jax'", "python -c 'from jax import numpy'"):
+        assert JAX_IN_SHELL.search(line), line
+    for line in ("python -m dynamic_llava_tpu_torch.eval.model_vqa \\",
+                 "torchrun -m dynamic_llava_tpu_torch.train.train_sparse",
+                 "python -c 'import jaxtyping'"):
+        assert not JAX_IN_SHELL.search(line), line
+
+
+def test_launchers_run_no_jax():
+    assert len(LAUNCHERS) == 22 and "eval_for_gqa.sh" in {p.name for p in LAUNCHERS}
+    offenders = [str(p.relative_to(ROOT)) for p in LAUNCHERS
+                 if JAX_IN_SHELL.search(p.read_text())]
+    assert offenders == []
+    # each original names the JAX package, so the scan would see a twin left unported
+    assert all(JAX_IN_SHELL.search(p.read_text()) for p in (ROOT / "run").rglob("*.sh"))
 
 
 def test_generate_in_a_fresh_interpreter_never_loads_jax():
