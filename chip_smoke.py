@@ -293,6 +293,26 @@ else. Phases, each of which raises on failure:
    sparse and dense; then an int4 decoder made directly (32 layers,
    ``init_quantized_llama_params``) beside the bf16 tower, projector and
    predictors, sparse;
+5j. the root measurement harnesses' twins (``harnesses``), after phase 6's
+   int8 arms, each through its tool's ``measure`` on the int8 decoder's
+   first SPEC_DEPTH (16) of 32 layers (views), horizons cut for the time
+   limit: ``tools/spec_bench.py``'s four arms at B=1, k=7, 32 new tokens;
+   ``tools/spec_batch_bench.py`` plain and k=7 at B=8, 32 new;
+   ``tools/long_gen_bench.py`` ring and drop at B=8, 128 new, window 64;
+   ``tools/serve_bench.py`` on the same weights (64 new);
+   ``tools/ladder_probe.py``'s probe over an out-of-memory row (a real
+   child, started with the phase so that its host work runs beside the
+   other tools: dense, a bf16 KV cache, its batch reckoned past the card's
+   memory) and a row that fits (in this process). Holds: each speculative
+   arm's tokens equal plain greedy's or leave them only at a near tie
+   (``explain_divergence``); drop's capacities equal ``gen_cache_sizes``',
+   the ring's too, its post tier within the prefill's length plus the
+   window; the worker's streamed text, tokenized, is
+   ``Generator.generate``'s greedy tokens up to EOS (but the unknown
+   token); the out-of-memory row is recorded with its error and the next
+   row measured. The K1 / K2 / K2-M / GEMV wrappers are zeroed at its
+   start and read at its end (no trace); each must launch. The
+   ``harnesses`` line;
 7. lean-memory serving at 7B width on the first LEAN_DEPTH of the int4
    decoder's 32 layers (views of its stacked weights; cut for the script's
    time limit), the same batches, within one process so that the modes can
@@ -390,12 +410,12 @@ phase 5e's, a ``train_cli`` line with phase 9d's, a ``parallel`` line with
 phase 9e's and a ``serving`` line with
 phase 5f's and the ``ppl_tools`` and ``bench_core`` lines with phase 5g's,
 the ``deep_quality`` line with phase 4c's, the ``weights_drop`` line with
-phase 5i's, the ``hires`` line with phase 5h's and the ``families`` line
-with phase 10's (whose wrapper calls, as phase 5f's, 5g's and 5i's, join
-the ``kernels`` line's). K1's, K2's, K2-M's
-and the int8 GEMV's launches in the ``kernels`` line include the engines'
-traced passes and phase 5e's; K1's, K3's and K4's include phase 9d's; K1's,
-K3's, K4's, K2's and K2-M's phase 9e's.
+phase 5i's, the ``hires`` line with phase 5h's, the ``harnesses`` line
+with phase 5j's and the ``families`` line with phase 10's (whose wrapper
+calls, as phase 5f's, 5g's, 5i's and 5j's, join the ``kernels`` line's).
+K1's, K2's, K2-M's and the int8 GEMV's launches in the ``kernels`` line
+include the engines' traced passes and phase 5e's; K1's, K3's and K4's
+include phase 9d's; K1's, K3's, K4's, K2's and K2-M's phase 9e's.
 """
 
 from __future__ import annotations
@@ -488,6 +508,15 @@ DEEP_SIZES = dict(hidden=128, layers=8, sparse_layer=2, pred_layers=3, batch=48,
 DEEP_CHECK_STEPS = 3  # training steps of each stage held card against CPU
 # phase 5i: the weights-drop golden's twin on the fixture and on phase 5e's checkpoint
 WDROP_QUESTIONS = 8  # GQA-format questions over phase 5e's images
+# phase 5j: the root measurement harnesses' twins on the int8 decoder's first
+# SPEC_DEPTH layers (the tools' defaults but for the horizons, cut for the
+# script's time limit); ``ladder_fail`` None: a row of ``ladder_oom`` (the
+# largest cache a sample: few samples, little input to make) reckoned past
+# the card
+HARNESS_SIZES = dict(model="7b", quant="int8", text=64, spec_new=32, spec_k=7, batch=8,
+                     batch_new=32, ring_new=128, window=64, serve_new=64,
+                     ladder_fit="sparse:int8:int8:8", ladder_new=64, ladder_fail=None,
+                     ladder_oom="dense:int8:-")
 COSINE_STEPS = (1, 16, 64)  # phase 7: decode steps at which the KV modes' logits are compared
 # phase 9b / 9c: the JAX package's remat policies and QLoRA at 7B width
 REMAT_POLICIES = ("nothing", "dots", "flash", "flash_dots", "alternate")
@@ -1944,49 +1973,6 @@ def chat(torch, params, modes):
     return results
 
 
-BF16_U = 2.0**-8  # bf16 unit roundoff
-
-
-def near_tie_bound(scale: float, roundings: int) -> float:
-    """How close two values computed by the plain and the speculative path
-    must be for their order to flip by rounding alone. Both paths compute
-    the same function and round it to bf16 at the same points (each of a
-    decoder layer's two residual adds, the norms, a predictor layer), but
-    over B rows against B x M rows the GEMMs and K2 / K2-M sum in other
-    orders, so a rounding may land on the other side: a relative difference
-    of up to ``u = 2^-8`` at each of ``roundings`` points. Taken as a random
-    walk, two values of magnitude ``scale`` differ by up to ``u *
-    sqrt(roundings) * scale``, and a pair closer than that may swap."""
-    return BF16_U * roundings**0.5 * scale
-
-
-class KeepMargins:
-    """Records the output-text predictor's keep margins (keep logit minus
-    drop logit, and the larger magnitude of the two) of every token the
-    decode paths score, by patching ``models.dynamic.text_predictor`` while
-    it is entered."""
-
-    def __init__(self):
-        self.calls = []
-
-    def __enter__(self):
-        from dynamic_llava_tpu_torch.models import dynamic
-
-        self.module, self.real = dynamic, dynamic.text_predictor
-
-        def recording(p, x):
-            tp = self.real(p, x)
-            tp32 = tp.float()
-            self.calls.append((tp32[..., 0] - tp32[..., 1], tp32.abs().amax(dim=-1)))
-            return tp
-
-        dynamic.text_predictor = recording
-        return self
-
-    def __exit__(self, *exc):
-        self.module.text_predictor = self.real
-
-
 def eager_speculative(torch, gen, plan, pix, m, max_new, rounds, margins=None):
     """The graph runner's reference: prefill, then at most ``rounds`` rounds
     of host prompt-lookup drafts (``prompt_lookup_draft``, the host form of
@@ -2077,66 +2063,11 @@ def graph_rounds(torch, gen, plan, pix, m, max_new, rounds):
         *runner_state(torch, runner)
 
 
-def plain_near_ties(torch, gen, plan, pix, tokens, steps):
-    """The plain path's near ties along its own greedy tokens: an eager loop
-    of ``decode_step`` over ``tokens`` (the graph's, which the eager loop
-    reproduces bit for bit), recording before each token the top-two logit
-    gap and the top logit, and each token's keep margin. Returns ``(gap
-    [steps, B], top [steps, B], margins: a step's (margin [B], scale [B]) or
-    None)``."""
-    from dynamic_llava_tpu_torch.models.dynamic import decode_step
-
-    gaps, tops, margins = [], [], []
-    with torch.inference_mode(), KeepMargins() as rec:
-        state, _ = gen.prefill_from_plan(plan, pix, steps)
-        for j in range(steps):
-            top2 = torch.topk(state.last_logits.float(), 2, dim=-1).values
-            gaps.append((top2[:, 0] - top2[:, 1]).cpu().numpy())
-            tops.append(top2[:, 0].abs().cpu().numpy())
-            tok = torch.from_numpy(np.asarray([t[j] for t in tokens])).to(gen.device)
-            n = len(rec.calls)
-            state = decode_step(gen.params, gen.cfg, tok, state)
-            margins.append(next(((a.cpu().numpy(), s.cpu().numpy())
-                                 for a, s in rec.calls[n:]), None))
-    return np.stack(gaps), np.stack(tops), margins
-
-
 def first_divergence(ref, spec):
     """Per sample, the first position where ``spec`` leaves ``ref``, or
     None."""
     return [next((p for p, (x, y) in enumerate(zip(r, s)) if x != y), None)
             for r, s in zip(ref, spec)]
-
-
-def explain_divergence(cfg, firsts, plain, spec_margins):
-    """For each sample whose speculative tokens leave plain greedy's at
-    ``firsts[i]`` = j, whether that stands: plain greedy's top-two logit gap
-    at j below ``near_tie_bound`` of its top logit (roundings: two a layer
-    and the final norm), or the keep margin of a token before j below the
-    bound of its magnitude (roundings: two a layer below the sparse layer
-    and the predictor's four), on the plain path (``plain``, from
-    ``plain_near_ties``) or the speculative one (``spec_margins``, the
-    eager loop's). Returns ``{sample: dict(j, gap, gap_bound, margin,
-    margin_bound, stands)}``."""
-    gaps, tops, plain_margins = plain
-    layers, sl = cfg.text.num_hidden_layers, cfg.sparse.sparse_layer
-    found = {}
-    for i, j in enumerate(firsts):
-        if j is None:
-            continue
-        gap, gap_bound = float(gaps[j, i]), near_tie_bound(float(tops[j, i]), 2 * layers + 1)
-        close = []  # (|margin|, bound) of the tokens before j, both paths
-        for p in range(j):
-            if plain_margins[p] is not None:
-                a, sc = plain_margins[p]
-                close.append((abs(float(a[i])), near_tie_bound(float(sc[i]), 2 * sl + 4)))
-        close += [(abs(a), near_tie_bound(sc, 2 * sl + 4))
-                  for p, a, sc in spec_margins[i] if p < j]
-        tightest = min(close, key=lambda c: c[0] - c[1], default=(None, None))
-        found[i] = dict(j=j, gap=gap, gap_bound=gap_bound, margin=tightest[0],
-                        margin_bound=tightest[1],
-                        stands=gap < gap_bound or any(a < bd for a, bd in close))
-    return found
 
 
 def speculate(torch, params, arms, label, gemv_kernel=None):
@@ -2170,6 +2101,8 @@ def speculate(torch, params, arms, label, gemv_kernel=None):
     from dynamic_llava_tpu_torch import kernel_cases as kc
     from dynamic_llava_tpu_torch.config import IMAGE_TOKEN_INDEX
     from dynamic_llava_tpu_torch.generation.generate import GenerationConfig, Generator
+    from dynamic_llava_tpu_torch.generation.near_tie import (
+        BF16_U, KeepMargins, explain_divergence, plain_near_ties)
     from dynamic_llava_tpu_torch.generation.speculative import ROUNDS_PER_CHUNK
     from dynamic_llava_tpu_torch.multimodal.fusion import plan_batch
 
@@ -2336,7 +2269,7 @@ def speculate(torch, params, arms, label, gemv_kernel=None):
         # against plain greedy: equal, or apart only at a near tie
         firsts = {k: first_divergence(ref, spec_out[k]) for k in SPEC_KS}
         far = max((j for f in firsts.values() for j in f if j is not None), default=None)
-        plain = None if far is None else plain_near_ties(torch, ref_gen, plan, pix, ref, far + 1)
+        plain = None if far is None else plain_near_ties(ref_gen, plan, pix, ref, far + 1)
         for k in SPEC_KS:
             ties = {} if plain is None else explain_divergence(cfg, firsts[k], plain,
                                                                spec_margins[k])
@@ -2527,6 +2460,7 @@ def hold_to(torch, params, cfg, gc_fields, reqs, ref, got, which, label):
     an earlier keep margin below ``near_tie_bound`` (``explain_divergence``).
     Returns ``{request: the tie}``."""
     from dynamic_llava_tpu_torch.generation.generate import GenerationConfig, Generator
+    from dynamic_llava_tpu_torch.generation.near_tie import explain_divergence, plain_near_ties
     from dynamic_llava_tpu_torch.multimodal.fusion import plan_batch
 
     firsts = first_divergence([ref[i] for i in which], [got[i] for i in which])
@@ -2540,7 +2474,7 @@ def hold_to(torch, params, cfg, gc_fields, reqs, ref, got, which, label):
                       pad_to=CONT_BUCKET)
     pix = np.stack([reqs[i]["pix"] for i, _ in div])
     tokens = [list(ref[i]) + [0] * (steps - len(ref[i])) for i, _ in div]
-    plain = plain_near_ties(torch, gen, plan, pix, tokens, steps)
+    plain = plain_near_ties(gen, plan, pix, tokens, steps)
     ties = explain_divergence(cfg, [j for _, j in div], plain, [[] for _ in div])
     found = {div[k][0]: t for k, t in ties.items()}
     for i, t in found.items():
@@ -4035,6 +3969,7 @@ def fixture_divergence(torch, ckpt, question, image_folder, args, device="cuda")
 
     from dynamic_llava_tpu_torch.eval.model_vqa_loader import build_prompt
     from dynamic_llava_tpu_torch.generation.generate import GenerationConfig, Generator
+    from dynamic_llava_tpu_torch.generation.near_tie import explain_divergence, plain_near_ties
     from dynamic_llava_tpu_torch.mm_utils import process_images, tokenizer_image_token
     from dynamic_llava_tpu_torch.models.builder import load_pretrained_model
     from dynamic_llava_tpu_torch.multimodal.fusion import plan_batch
@@ -4057,7 +3992,7 @@ def fixture_divergence(torch, ckpt, question, image_folder, args, device="cuda")
     path = cpu if len(cpu) > j else card
     plan = plan_batch([ids], runtime.cfg.num_image_tokens, max_length=runtime.cfg.model_max_length,
                       pad_multiple=gen.gen_cfg.pad_multiple)
-    plain = plain_near_ties(torch, gen, plan, pix, [path], j + 1)
+    plain = plain_near_ties(gen, plan, pix, [path], j + 1)
     found = explain_divergence(runtime.cfg, [j], plain, [[]])[0]
     return dict(found, cpu_tokens=cpu, card_tokens=card)
 
@@ -4177,6 +4112,203 @@ def weights_drop(torch, path, image_folder, images, device="cuda"):
     out["wrapper_calls"] = calls
     out["phase_s"] = time.perf_counter() - t0
     log(f"  phase 5i: {out['phase_s']:.1f} s, wrapper calls {calls}")
+    return out
+
+
+def harnesses(torch, params, layers, device="cuda", sizes=None):
+    """Phase 5j: the twins of the root measurement harnesses, each through
+    its tool's ``measure`` on ``params`` (a decoder cut to ``layers``; on the
+    card phase 6's int8 one) at ``HARNESS_SIZES``' horizons:
+    ``tools/spec_bench.py``'s four arms at B=1 (each speculative arm's
+    tokens equal plain greedy's, or leave them only at a near tie:
+    ``explain_divergence``, which the tool applies on the card; the
+    oracle's ``ceiling`` reached); ``tools/spec_batch_bench.py``'s plain
+    and speculative sides at B = ``batch``; ``tools/long_gen_bench.py``'s
+    ring and drop modes (both modes' capacities equal
+    ``gen_cache_sizes``'; the ring's decode region of the post tier at
+    most the window); ``tools/serve_bench.py`` on ``params`` (the worker's
+    streamed text, tokenized, is ``Generator.generate``'s greedy tokens up
+    to EOS but the unknown token, which decodes to nothing);
+    ``tools/ladder_probe.py``'s probe over a failing row, a real child (on
+    the card a ``ladder_oom`` row whose cache alone is reckoned past the
+    card's memory: out of memory), and ``ladder_fit`` in this process: the
+    failing row recorded with its error, the next row measured. The
+    failing row's child starts with the phase and runs beside the other
+    tools (its work is on the host until its cache fails to allocate); the
+    probe takes its record in turn. The serving wrappers are zeroed at its
+    start and read at its end (no trace); on the card K1, K2, K2-M and the
+    int8 GEMVs must launch.
+    ``device="cpu"`` with ``sizes`` for a small model rehearses the phase
+    on the plain versions. Returns the ``harnesses`` record."""
+    tools_dir = str(ROOT / "tools")
+    if tools_dir not in sys.path:
+        sys.path.insert(0, tools_dir)
+    import harness
+    import ladder_probe
+    import long_gen_bench
+    import serve_bench
+    import spec_batch_bench
+    import spec_bench
+
+    from dynamic_llava_tpu_torch.eval.bench import build_inputs
+    from dynamic_llava_tpu_torch.generation.generate import GenerationConfig, Generator
+    from dynamic_llava_tpu_torch.mm_utils import tokenizer_image_token
+    from dynamic_llava_tpu_torch.models.dynamic import gen_cache_sizes
+    from dynamic_llava_tpu_torch.ops import quant_matmul as qm
+    from dynamic_llava_tpu_torch.ops.decode_attention import decode_attention, extend_attention
+    from dynamic_llava_tpu_torch.ops.flash_attention import flash_attention
+
+    sz = {**HARNESS_SIZES, **(sizes or {})}
+    cuda = device != "cpu"
+    common = ["--model", sz["model"], "--layers", str(layers)] + ([] if cuda else ["--cpu"])
+    quant = ["--quant", sz["quant"] or "none"]
+    wrappers = {"flash_attention_fwd": flash_attention,
+                "decode_attention_appended": decode_attention,
+                "extend_attention_appended": extend_attention,
+                "q8_gemv": qm.q8_gemv, "q8_gemv_group": qm.q8_gemv_group,
+                "q4_gemv": qm.q4_gemv, "q4_gemv_group": qm.q4_gemv_group, "q4_mlp": qm.q4_mlp}
+    for fn in wrappers.values():
+        fn.launches = 0
+    t_phase = time.perf_counter()
+    out, seconds = {}, {}
+
+    # ladder_probe's failing row: a real child, started now
+    fail = sz["ladder_fail"]
+    if fail is None:  # the cache alone past the card's memory
+        row = ladder_probe.parse_row(sz["ladder_oom"] + ":1")
+        cfg = harness.model_config(types.SimpleNamespace(model=sz["model"], layers=layers),
+                                   dense=row["side"] == "dense")
+        capacity = torch.cuda.mem_get_info()[1]
+        kv = ladder_probe.kv_bytes_per_sample(cfg, row["cache_dtype"], sz["text"],
+                                              sz["ladder_new"])
+        fail = f"{sz['ladder_oom']}:{capacity // kv + 1}"
+    probe_args = ladder_probe.parser().parse_args(common + [
+        "--rows", fail, sz["ladder_fit"], "--new-tokens", str(sz["ladder_new"]),
+        "--text-len", str(sz["text"]), "--budget-s", "600"])
+    failed = {}
+    child = threading.Thread(target=lambda: failed.update(
+        ladder_probe.child_row(probe_args, fail, 500)))
+    child.start()
+
+    # spec_bench: the four arms at B=1
+    t0 = time.perf_counter()
+    toks, spec = {}, {}
+    for arm in spec_bench.ARMS:
+        args = spec_bench.parser().parse_args(common + quant + [
+            "--arm", arm, "--text", str(sz["text"]), "--new", str(sz["spec_new"]),
+            "--k", str(sz["spec_k"])])
+        toks[arm] = []
+        spec[arm] = spec_bench.measure(args, params, tokens=toks[arm])
+    plain = toks["plain"][0]
+    for arm in spec_bench.ARMS[1:]:
+        n = spec[arm]["matched_prefix"]
+        require(toks[arm][0][:n] == plain[:n] and (n == len(plain)
+                                                   or spec[arm]["near_tie"]["stands"]),
+                f"5j: {arm}'s tokens leave plain greedy's at {n} at no near tie")
+    require(spec["spec_oracle"]["ceiling"],
+            f"5j: the oracle's drafts never reproduced its tokens: {spec['spec_oracle']}")
+    out["spec_bench"] = spec_bench.summarize(args, spec)
+    seconds["spec_bench"] = time.perf_counter() - t0
+
+    # spec_batch_bench: plain and k drafts at one batch
+    t0 = time.perf_counter()
+    sides = {}
+    for k in (0, sz["spec_k"]):
+        args = spec_batch_bench.parser().parse_args(common + quant + [
+            "--side-batch", str(sz["batch"]), "--side-spec-k", str(k), "--text", str(sz["text"]),
+            "--new", str(sz["batch_new"]), "--k", str(sz["spec_k"])])
+        sides[k] = spec_batch_bench.measure(args, params)
+    plain_s, spec_s = sides[0], sides[sz["spec_k"]]
+    out["spec_batch_bench"] = spec_batch_bench.summarize(args, [dict(
+        batch=sz["batch"], plain=plain_s, spec=spec_s,
+        speedup=round(spec_s["decode_tok_s"] / plain_s["decode_tok_s"], 3))])
+    seconds["spec_batch_bench"] = time.perf_counter() - t0
+
+    # long_gen_bench: ring and drop
+    t0 = time.perf_counter()
+    modes = {}
+    for mode in ("ring", "drop"):
+        args = long_gen_bench.parser().parse_args(common + quant + [
+            "--mode", mode, "--batch", str(sz["batch"]), "--text", str(sz["text"]),
+            "--new", str(sz["ring_new"]), "--window", str(sz["window"])])
+        modes[mode] = long_gen_bench.measure(args, params)
+    cfg = harness.model_config(args)
+    plan, _ = build_inputs(cfg, sz["batch"], sz["text"])
+    new, window = sz["ring_new"], sz["window"]
+    post_prefill = (plan.seq_len - cfg.num_image_tokens
+                    + cfg.sparse.vision_keep_budget(cfg.num_image_tokens))
+    for mode, want in (("drop", gen_cache_sizes(cfg, plan.seq_len, new)),
+                       ("ring", gen_cache_sizes(cfg, plan.seq_len, new, decode_window=window,
+                                                ring=True))):
+        got = (modes[mode]["pre_cache_capacity"], modes[mode]["post_cache_capacity"])
+        require(got == want, f"5j: {mode}'s capacities {got}, not gen_cache_sizes' {want}")
+    ring_region = modes["ring"]["post_cache_capacity"] - post_prefill - 8 - 1  # margin, scratch
+    require(ring_region <= window,
+            f"5j: the ring's post tier holds {ring_region} decode tokens, past its window")
+    out["long_gen_bench"] = long_gen_bench.summarize(args, modes)
+    out["long_gen_bench"]["ring_post_decode_region"] = ring_region
+    seconds["long_gen_bench"] = time.perf_counter() - t0
+
+    # serve_bench: the worker's stream on the same weights
+    t0 = time.perf_counter()
+    args = serve_bench.parser().parse_args(
+        ["--model", sz["model"], "--layers", str(layers), "--new-tokens", str(sz["serve_new"]),
+         "--text-len", str(sz["text"])] + ([] if cuda else ["--cpu"]))
+    cfg = harness.model_config(args)
+    texts = []
+    out["serve_bench"] = serve = serve_bench.measure(args, params, texts=texts)
+    tok = serve_bench.make_tokenizer(cfg.text.vocab_size)
+    prompt = " ".join(f"t{100 + i}" for i in range(sz["text"]))
+    ids = np.asarray(tokenizer_image_token(prompt, tok), np.int64)
+    greedy = Generator(params, cfg, GenerationConfig(
+        max_new_tokens=sz["serve_new"], eos_token_id=tok.eos_token_id)).generate([ids])[0]
+    # the stream stops before EOS, and the unknown token decodes to nothing
+    if tok.eos_token_id in greedy:
+        greedy = greedy[: greedy.index(tok.eos_token_id)]
+    want = [t for t in greedy if t != tok.unk_token_id]
+    got = tok(texts[0]).input_ids
+    require(got == want, f"5j: the worker streamed {got[:8]}..., generate's greedy tokens "
+                         f"are {want[:8]}...")
+    seconds["serve_bench"] = time.perf_counter() - t0
+
+    # ladder_probe: the failing row's child, then a row in this process
+    t0 = time.perf_counter()
+
+    def run_row(a, s, timeout):
+        if s == sz["ladder_fit"]:
+            return ladder_probe.measure(
+                ladder_probe.parser().parse_args(common + [
+                    "--row", s, "--new-tokens", str(sz["ladder_new"]),
+                    "--text-len", str(sz["text"])]), params)
+        child.join()
+        return failed
+
+    rows = ladder_probe.probe(probe_args, run_row)
+    require("error" in rows[0] and (not cuda or "out of memory" in rows[0]["error"]),
+            f"5j: the row past the card was not recorded as out of memory: {rows[0]}")
+    require("decode_tok_s" in rows[1], f"5j: the probe did not go on after it: {rows[1]}")
+    out["ladder_probe"] = rows
+    seconds["ladder_probe"] = time.perf_counter() - t0
+
+    calls = {k: fn.launches for k, fn in wrappers.items()}
+    need = ("flash_attention_fwd", "decode_attention_appended", "extend_attention_appended",
+            "q8_gemv", "q8_gemv_group")
+    require(not cuda or all(calls[k] > 0 for k in need),
+            f"5j: a kernel of the path never launched (wrapper calls {calls})")
+    out.update(seconds=seconds, wrapper_calls=calls, phase_s=time.perf_counter() - t_phase)
+    log(f"  5j: spec B=1 plain / oracle / lookup / device "
+        f"{' / '.join(str(spec[a]['decode_tok_s']) for a in spec_bench.ARMS)} tok/s, matched "
+        f"prefixes {[spec[a]['matched_prefix'] for a in spec_bench.ARMS[1:]]}; B={sz['batch']} "
+        f"plain {plain_s['decode_tok_s']:.1f} / k={sz['spec_k']} {spec_s['decode_tok_s']:.1f} "
+        f"tok/s ({spec_s['tokens_per_round']} a round); ring / drop "
+        f"{modes['ring']['decode_tok_s']} / {modes['drop']['decode_tok_s']} tok/s, post "
+        f"capacities {modes['ring']['post_cache_capacity']} / "
+        f"{modes['drop']['post_cache_capacity']}; worker {serve['worker_decode_tok_s']} tok/s "
+        f"against the bench's {serve['raw_decode_tok_s']}, TTFT {serve['worker_ttft_s']} s; "
+        f"ladder {[r['row'] for r in rows]}: "
+        f"{['error' if 'error' in r else r['decode_tok_s'] for r in rows]}")
+    log(f"  phase 5j: {out['phase_s']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()) + f"), wrapper calls {calls}")
     return out
 
 
@@ -4345,18 +4477,14 @@ def qlora(torch, cfg_sparse):
     from dynamic_llava_tpu_torch.generation.generate import GenerationConfig, Generator
     from dynamic_llava_tpu_torch.multimodal.fusion import plan_batch
     from dynamic_llava_tpu_torch.ops import quant_matmul as qm
-    from dynamic_llava_tpu_torch.ops.quant import init_quantized_llama_params
+    from dynamic_llava_tpu_torch.eval.bench import build_bench_params
     from dynamic_llava_tpu_torch.train.lora import attach_lora, init_lora_params
     from dynamic_llava_tpu_torch.train.trainer import Trainer, TrainerConfig
-    from dynamic_llava_tpu_torch.weights import init_llava_params, named_leaves, param_bytes
+    from dynamic_llava_tpu_torch.weights import named_leaves, param_bytes
 
     dev = torch.device("cuda")
     text = cfg_sparse.text
-    params = init_llava_params(
-        dataclasses.replace(cfg_sparse, text=dataclasses.replace(text, num_hidden_layers=0)),
-        torch.Generator(device=dev).manual_seed(SEED + 4), dev, torch.bfloat16)
-    params["llm"] = init_quantized_llama_params(
-        text, torch.Generator(device=dev).manual_seed(SEED + 4), dev, bits=4)
+    params = build_bench_params(cfg_sparse, "int4", dev, SEED + 4)
     adapters = init_lora_params(text, torch.Generator(device=dev).manual_seed(SEED + 5),
                                 rank=LORA_RANK, alpha=LORA_ALPHA, dtype=torch.bfloat16,
                                 device=dev)
@@ -4918,6 +5046,7 @@ def teacher_forced_logits(torch, params, cfg, gen, plan, feats, tokens, steps):
     graph) on the anyres prefill of ``plan``: the prefill's last logits and
     each step's, ``[steps + 1, B, V]``, and the near-tie record of
     ``explain_divergence`` (top-two gaps, top logits, keep margins)."""
+    from dynamic_llava_tpu_torch.generation.near_tie import KeepMargins
     from dynamic_llava_tpu_torch.models.dynamic import decode_step
 
     logits, gaps, tops, margins = [], [], [], []
@@ -5001,6 +5130,7 @@ def hires(torch, params, cfg_sparse, device="cuda", sizes=None):
 
     from dynamic_llava_tpu_torch.config import DENSE_SPARSE_CONFIG, IMAGE_TOKEN_INDEX
     from dynamic_llava_tpu_torch.generation.generate import GenerationConfig, Generator
+    from dynamic_llava_tpu_torch.generation.near_tie import explain_divergence
     from dynamic_llava_tpu_torch.mm_utils import (
         ClipImagePreprocessor, expand2square, get_anyres_image_grid_shape)
     from dynamic_llava_tpu_torch.models import clip, towers
@@ -5201,6 +5331,7 @@ def families(torch, device="cuda", sizes=None):
         DENSE_SPARSE_CONFIG, IMAGE_TOKEN_INDEX, ClipVisionConfig, LlamaConfig, LlavaConfig,
         MptConfig)
     from dynamic_llava_tpu_torch.generation.generate import GenerationConfig, Generator
+    from dynamic_llava_tpu_torch.generation.near_tie import near_tie_bound
     from dynamic_llava_tpu_torch.models import llama, mpt
     from dynamic_llava_tpu_torch.models.builder import MptRuntime, load_pretrained_model
     from dynamic_llava_tpu_torch.models.dynamic import decode_step
@@ -5406,6 +5537,7 @@ def main() -> int:
     from dynamic_llava_tpu_torch.ops import quant_matmul as qm
     from dynamic_llava_tpu_torch.ops.flash_attention import flash_attention
     from dynamic_llava_tpu_torch.generation.generate import GenerationConfig, Generator
+    from dynamic_llava_tpu_torch.eval.bench import build_bench_params
     from dynamic_llava_tpu_torch.ops.quant import (
         init_quantized_llama_params, quantize_llm_params)
     from dynamic_llava_tpu_torch.weights import init_llava_params, param_bytes
@@ -5656,6 +5788,10 @@ def main() -> int:
         ("window int8 fp8-KV", "window", dict(gen=fp8_kv)),
     ], trace, holds=[("engine int8 fp8-KV", "window int8 fp8-KV")]))
     log(f"  phase 5d int8 fp8-KV arms: {time.perf_counter() - t0:.1f} s")
+    phase(f"phase 5j: the root measurement harnesses' twins (tools/) at LLaVA-1.5-7B width, the "
+          f"first {SPEC_DEPTH} of the int8 decoder's 32 layers: spec_bench, spec_batch_bench, "
+          "long_gen_bench, serve_bench, ladder_probe")
+    harn = harnesses(torch, cut_params(SPEC_DEPTH), SPEC_DEPTH)
     # the engines' launches on the card (their traced passes) join each
     # kernel's count
     engines = [r for r in cont.values() if r["kind"] == "engine"]
@@ -5735,13 +5871,10 @@ def main() -> int:
           "40 layers, int4 decoder made directly, fused MLP, B=1, 256 new tokens")
     text13 = dataclasses.replace(LlamaConfig.llama_13b(), num_hidden_layers=DEPTH_13B)
     cfg13 = LlavaConfig(text=text13)
-    # tower, projector and predictors at the 13B decoder's width, without a
-    # bf16 decoder (26 GB that the int4 path never holds)
-    params = init_llava_params(
-        dataclasses.replace(cfg13, text=dataclasses.replace(text13, num_hidden_layers=0)),
-        torch.Generator(device=dev).manual_seed(SEED + 2), dev, torch.bfloat16)
-    params["llm"] = init_quantized_llama_params(
-        text13, torch.Generator(device=dev).manual_seed(SEED + 2), dev, bits=4)
+    # the int4 decoder made directly beside a bf16 tower, projector and
+    # predictors at its width: no bf16 decoder (26 GB that the int4 path
+    # never holds)
+    params = build_bench_params(cfg13, "int4", dev, SEED + 2)
     torch.cuda.synchronize()
     log(f"  13B int4: decoder {param_bytes(params['llm']) / 2**30:.2f} GiB (all params "
         f"{param_bytes(params) / 2**30:.2f} GiB)")
@@ -5819,6 +5952,8 @@ def main() -> int:
     for name, label in (("flash_attention_fwd", "flash_fwd"),
                         ("decode_attention_appended", "decode_kernel")):
         calls[name] += fam["wrapper_calls"][label]
+    for name, n in harn["wrapper_calls"].items():  # phase 5j's (untraced)
+        calls[name] += n
     require("jax" not in sys.modules and "dynamic_llava_tpu" not in sys.modules,
             "jax or the JAX package was imported")
     for label, runs in results.items():
@@ -5918,6 +6053,7 @@ def main() -> int:
     print("weights_drop " + json.dumps(wdrop))
     print("bench_core " + json.dumps(core))
     print("hires " + json.dumps(hires_r))
+    print("harnesses " + json.dumps(harn))
     print("families " + json.dumps(fam))
     print("continuous " + json.dumps({
         arm: {k: v for k, v in r.items() if k not in ("device_launches", "wrapper_calls")}

@@ -19,6 +19,10 @@ resets the peak at its start on the card, so the peak is its own run's).
 The caches are sized as the JAX bench sizes them (``bucket`` 1), so a
 ``Generator`` with ``pad_multiple=1`` and the same config runs the same
 prefill and decode (``bench_generation_config``).
+
+``bench_cfg`` and ``build_bench_params`` are the root ``bench.py``'s
+configurations (``_cfg``) and random weights (``build_bench_params``), on
+which the harnesses of ``tools/`` measure.
 """
 
 from __future__ import annotations
@@ -30,8 +34,75 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..config import LlavaConfig
+from ..config import ClipVisionConfig, LlamaConfig, LlavaConfig, SparseConfig
 from ..multimodal.fusion import plan_batch
+
+
+def bench_cfg(name: str) -> LlavaConfig:
+    """The bench's model configurations, sparse (vision keep 0.2, output
+    text keep 0.5, no instruct predictor): ``7b`` and ``13b`` are
+    LLaVA-1.5's decoders; ``1b`` a 16-layer, 2048-wide proxy; ``small`` a
+    structural model for CPU runs. Any other name is ``small``, as in the
+    root ``bench.py``."""
+    sparse = SparseConfig(
+        use_vision_predictor=True,
+        vision_keep_rate=0.2,
+        use_output_text_predictor=True,
+        output_text_keep_rate=0.5,
+        use_instruct_predictor=False,
+    )
+    if name == "7b":
+        return LlavaConfig(text=LlamaConfig.llama_7b(), sparse=sparse)
+    if name == "13b":
+        return LlavaConfig(text=LlamaConfig.llama_13b(), sparse=sparse)
+    if name == "1b":
+        return LlavaConfig(
+            text=LlamaConfig(
+                vocab_size=32000, hidden_size=2048, intermediate_size=5504,
+                num_hidden_layers=16, num_attention_heads=16,
+                num_key_value_heads=16,
+            ),
+            sparse=sparse,
+        )
+    return LlavaConfig(
+        text=LlamaConfig(
+            vocab_size=1024, hidden_size=256, intermediate_size=512,
+            num_hidden_layers=4, num_attention_heads=4, num_key_value_heads=4,
+        ),
+        vision=ClipVisionConfig(
+            hidden_size=128, intermediate_size=256, num_hidden_layers=3,
+            num_attention_heads=2, image_size=336, patch_size=14,
+        ),
+        sparse=dataclasses.replace(
+            sparse, d_model=64, nhead=2, dim_feedforward=128, num_layers=1
+        ),
+    )
+
+
+def build_bench_params(cfg: LlavaConfig, quant: Optional[str] = None, device=None,
+                       seed: int = 0) -> dict:
+    """Random bench weights from a ``torch.Generator`` seeded with ``seed``,
+    on ``device`` (default: the card, ``weights.resolve_device``; ``"meta"``
+    gives the structure and bytes without memory). bf16, or with
+    ``quant="int8"`` / ``"int4"`` the decoder made directly quantized
+    (``ops.quant.init_quantized_llama_params``: a 13B bf16 decoder would
+    not fit long enough to be quantized in place) beside a bf16 tower,
+    projector and predictors."""
+    from ..ops.quant import init_quantized_llama_params
+    from ..weights import init_llava_params, resolve_device
+
+    if quant not in (None, "int8", "int4"):
+        raise ValueError(f"quant must be None, 'int8' or 'int4', got {quant!r}")
+    dev = resolve_device(device)
+    # the meta device has no generator of its own; its tensors draw nothing
+    generator = torch.Generator(device="cpu" if dev.type == "meta" else dev)
+    generator.manual_seed(seed)
+    if quant is None:
+        return init_llava_params(cfg, generator, dev, torch.bfloat16)
+    llm = init_quantized_llama_params(cfg.text, generator, dev,
+                                      bits=4 if quant == "int4" else 8)
+    return {"llm": llm, **init_llava_params(cfg, generator, dev, torch.bfloat16,
+                                            decoder=False)}
 
 
 def random_prompts(cfg: LlavaConfig, batch: int, text_len: int, seed: int = 0):

@@ -262,21 +262,21 @@ def init_llava_params(
     generator: torch.Generator,
     device=None,
     dtype: torch.dtype = torch.bfloat16,
+    decoder: bool = True,
 ) -> dict:
     """Random params with the structure of the JAX ``init_llava_params``,
     drawn from ``generator`` (which must live on ``device``; default: the
     card, see ``resolve_device``). The values
     differ from the JAX ones for the same seed; tests that compare the two
-    packages bridge the JAX params instead."""
+    packages bridge the JAX params instead. ``decoder=False`` leaves out
+    ``"llm"``, for a caller that makes the decoder apart (quantized)."""
     it = _Init(generator, resolve_device(device), dtype)
     dims = [cfg.vision.hidden_size] + [cfg.text.hidden_size] * _projector_depth(
         cfg.mm_projector_type
     )
-    params = {
-        "llm": _init_llama(it, cfg.text),
-        "vision_tower": _init_clip(it, cfg.vision),
-        "mm_projector": [it.linear(dims[i], dims[i + 1]) for i in range(len(dims) - 1)],
-    }
+    params = {"llm": _init_llama(it, cfg.text)} if decoder else {}
+    params["vision_tower"] = _init_clip(it, cfg.vision)
+    params["mm_projector"] = [it.linear(dims[i], dims[i + 1]) for i in range(len(dims) - 1)]
     preds = _init_predictors(it, cfg)
     if preds:
         params["predictors"] = preds

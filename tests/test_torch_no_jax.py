@@ -159,7 +159,9 @@ def test_package_sources_import_no_jax():
     assert len(SOURCES) > 20 and all(p.is_file() for p in SOURCES)
     assert {"profile_decode.py", "profile_mlp.py", "profile_train.py", "predict_torch.py",
             "model_worker.py", "sglang_worker.py", "gradio_web_server.py", "sharding.py",
-            "pipeline.py", "deep_sparse_quality.py", "weights_drop_check.py"} <= {
+            "pipeline.py", "deep_sparse_quality.py", "weights_drop_check.py",
+            "long_gen_bench.py", "spec_bench.py", "spec_batch_bench.py", "serve_bench.py",
+            "ladder_probe.py", "harness.py"} <= {
         p.name for p in SOURCES}
     offenders = [str(p.relative_to(ROOT)) for p in SOURCES if FORBIDDEN.search(p.read_text())]
     assert offenders == []

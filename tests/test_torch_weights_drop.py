@@ -34,6 +34,7 @@ import pytest
 import torch
 
 from dynamic_llava_tpu_torch.eval import model_vqa_loader
+from dynamic_llava_tpu_torch.generation import near_tie
 from dynamic_llava_tpu_torch.generation.generate import Generator
 from dynamic_llava_tpu_torch.run import weights_drop_check as wdc
 
@@ -167,7 +168,7 @@ def test_fixture_divergence_finds_a_planted_divergence(golden, monkeypatch, boun
         return out
 
     monkeypatch.setattr(Generator, "generate", second_call_differs)
-    monkeypatch.setattr(chip_smoke, "near_tie_bound", lambda scale, roundings: bound)
+    monkeypatch.setattr(near_tie, "near_tie_bound", lambda scale, roundings: bound)
     files = ["--model-path", str(work / "ckpt"),
              "--question-file", str(work / "questions.jsonl"),
              "--image-folder", str(work / "images")]

@@ -22,7 +22,6 @@ to standard error. It needs one card.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import sys
 import time
 from pathlib import Path
@@ -47,25 +46,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("probe_trace.py: torch.cuda.is_available() is False")
     from dynamic_llava_tpu_torch.config import DENSE_SPARSE_CONFIG, LlavaConfig
+    from dynamic_llava_tpu_torch.eval.bench import build_bench_params
     from dynamic_llava_tpu_torch.ops import quant_matmul as qm
     from dynamic_llava_tpu_torch.ops.decode_attention import decode_attention
     from dynamic_llava_tpu_torch.ops.flash_attention import flash_attention
-    from dynamic_llava_tpu_torch.ops.quant import init_quantized_llama_params
-    from dynamic_llava_tpu_torch.weights import init_llava_params
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     cfg = LlavaConfig()
-    if args.mode == "bf16":
-        params = init_llava_params(cfg, torch.Generator(device=dev).manual_seed(0), dev,
-                                   torch.bfloat16)
-    else:
-        no_decoder = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text,
-                                                                       num_hidden_layers=0))
-        params = init_llava_params(no_decoder, torch.Generator(device=dev).manual_seed(0),
-                                   dev, torch.bfloat16)
-        params["llm"] = init_quantized_llama_params(
-            cfg.text, torch.Generator(device=dev).manual_seed(0), dev, bits=4)
+    params = build_bench_params(cfg, None if args.mode == "bf16" else "int4", dev)
     counters = {"flash_attention_fwd": flash_attention,
                 "decode_attention_appended": decode_attention,
                 "q8_gemv": qm.q8_gemv, "q8_gemv_group": qm.q8_gemv_group,
