@@ -128,28 +128,31 @@ else. Phases, each of which raises on failure:
    serving mode of phases 5-8 the wrappers' counters (host calls: eager
    launches and the capture's) are zeroed just before the two calls and
    read just after, and the serving kernels' launches on the card are
-   counted by name in a ``torch.profiler`` trace of the same two calls
-   (``kernel_cases.device_launches``). Those must equal twice the wrapper
-   calls of an eager loop of ``argmax`` + ``decode_step`` written here
-   (``eager_decode``) over the same prefill and steps, and the graph's
-   tokens the eager loop's;
-5b. multi-round chat at 7B width through ``ChatSession.ask`` on the first
-   CHAT_DEPTH of the phase-5 decoder's 32 layers (views of its stacked
-   weights; cut for the script's time limit), sparse, dense, and sparse
+   counted over each call by the wrappers' launch counter
+   (``dynamic_llava_tpu_torch/kernels/counts.py``: eager launches, and a
+   graph's captured launches once a replay; ``kernel_cases.counted_launches``).
+   Each call's must equal the wrapper calls of an eager loop of ``argmax`` +
+   ``decode_step`` written here (``eager_decode``) over the same prefill and
+   steps, and the graph's tokens the eager loop's. The first call of phase
+   5's sparse mode is also traced with ``torch.profiler``
+   (``kernel_cases.device_launches``), and the counter's launches must equal
+   the trace's exactly: the script's one launch-counting trace;
+5b. multi-round chat at 7B width through ``ChatSession.ask`` on all
+   CHAT_DEPTH (32) of the phase-5 decoder's layers (views of its stacked
+   weights), sparse, dense, and sparse
    with an int8 KV cache: round
    1 one 336x336 image and 60 text tokens, rounds 2 and 3 chunks of 40 and
    100 tokens through the continuation prefill (K2-M), each round to 64
-   new tokens under a two-token keyword stop. On the card, in profiler
-   traces of one session's three rounds (one a round), K2-M launches once a
-   layer in each
+   new tokens under a two-token keyword stop. On the card, counted over
+   one session's three rounds, K2-M launches once a layer in each
    continued round and K2 once a layer in every decode step the session's
    stopping runner (one captured CUDA graph, replayed) ran; a second
    session driven by the eager per-token path must give the same tokens,
    tier lengths and ``next_pos`` after every round; a third is timed:
    round-1 TTFT, the continuation's ms a chunk, decode tok/s at B=1;
-5c. speculative decoding and beam search at 7B width on the first
-   SPEC_DEPTH of the phase-5 decoder's 32 layers (views of its stacked
-   weights; cut for the script's time limit): B=1 and B=8 (an image and 60
+5c. speculative decoding and beam search at 7B width on all SPEC_DEPTH
+   (32) of the phase-5 decoder's layers (views of its stacked weights):
+   B=1 and B=8 (an image and 60
    text tokens a request, 128 new tokens, EOS off), sparse and dense, and after phase 6's int8 serving a
    B=8 sparse arm on the int8 decoder; each arm at k = 4 and 7 draft tokens
    (``speculate``): plain ``generate``, ``generate_speculative`` with an
@@ -161,7 +164,7 @@ else. Phases, each of which raises on failure:
    tokens, tier lengths and ``next_pos`` must equal an eager loop of
    ``decode_speculative_step`` with the same drafts over its first
    ``SPEC_EAGER_ROUNDS`` rounds, and the host-drafted runner's after a
-   whole generation; in a profiler trace of
+   whole generation; counted over
    a host-drafted generation K2-M must launch once a layer a round and K2
    never, and on the int8 decoder the GEMV kernel ``4 x layers + 1`` times
    a round; the tokens must equal plain greedy's, or leave them only where
@@ -182,7 +185,7 @@ else. Phases, each of which raises on failure:
    after phase 6's int8 serving, the engine and the window batcher on the
    int8 decoder with an fp8 KV cache. Each arm's main path is one pass with
    every request submitted at once, its wrapper counts zeroed just before
-   and read just after and its launches counted in a profiler trace: an
+   and read just after and its launches on the card counted: an
    engine's chunks replay graphs (no eager step after a form's capture, no
    decode / verify wrapper call), K2 (plain) or K2-M (speculative) launches
    once a layer a step, the int8 GEMV ``4 x layers + 1`` times a step plus
@@ -212,7 +215,7 @@ else. Phases, each of which raises on failure:
    ``model_vqa_qbench``, ``model_qa`` text-only, and ``model_vqa_mmbench``
    where ``pandas`` imports; three questions, 32 tokens each) and their
    scorers; K1, K2 and K2-M counted (wrappers zeroed at the start,
-   profiler traces of the calls), the export and load seconds, the host's
+   the launch counter over the calls), the export and load seconds, the host's
    peak RSS and the device's peak printed (the ``checkpoint`` line);
 5f. serving over HTTP at 7B width on phase 5e's checkpoint, before its
    directory is removed (``serving``): a controller and one worker at a
@@ -287,15 +290,15 @@ else. Phases, each of which raises on failure:
    4096] and finite; preprocessing within ``tests/test_preprocess.py``'s
    bounds of the PIL pipeline. The ``hires`` line (token counts, prefill
    ms, seconds, the holds' numbers, wrapper calls, peak GiB);
-6. quantized serving at 7B width on the first QUANT_DEPTH (16) of 32
-   layers (views; cut for the script's time limit), the same batches: the
+6. quantized serving at 7B width on all QUANT_DEPTH (32) layers, the
+   same batches: the
    phase-5 weights quantized in place to int8 (``quantize_llm_params``),
    sparse and dense; then an int4 decoder made directly (32 layers,
    ``init_quantized_llama_params``) beside the bf16 tower, projector and
    predictors, sparse;
 5j. the root measurement harnesses' twins (``harnesses``), after phase 6's
    int8 arms, each through its tool's ``measure`` on the int8 decoder's
-   first SPEC_DEPTH (16) of 32 layers (views), horizons cut for the time
+   first HARNESS_DEPTH (16) of 32 layers (views), horizons cut for the time
    limit: ``tools/spec_bench.py``'s four arms at B=1, k=7, 32 new tokens;
    ``tools/spec_batch_bench.py`` plain and k=7 at B=8, 32 new;
    ``tools/long_gen_bench.py`` ring and drop at B=8, 128 new, window 64;
@@ -388,7 +391,7 @@ else. Phases, each of which raises on failure:
    ``load_pretrained_model`` gives an ``MptRuntime`` with the saved
    weights. The ``families`` line.
 
-After the main path of each serving mode, outside its counts and trace,
+After the main path of each serving mode, outside its counts,
 TIMED more batches are timed (the graph is reused), each followed by its
 prefill timed again alone; with the medians of both, TTFT is the prefill's
 and decode tok/s is ``B * 64 / (batch time - TTFT)``. The
@@ -399,8 +402,8 @@ around the decode steps alone after a prefill (``graph_decode``,
 are a JSON object with each kernel's error, times, bound (the larger of
 its bytes over 3.35 TB/s and its operations over the card's peak for its
 input type, from this run's inputs), launches (on the card, from the
-trace: a GEMV wrapper and its group form launch one kernel, whose count
-both report) and wrapper calls, and ``{"ok": true, "device": {...}}``.
+launch counter: a GEMV wrapper and its group form launch one kernel, whose
+count both report) and wrapper calls, and ``{"ok": true, "device": {...}}``.
 Before them a ``decode_graph`` line gives, per serving mode, the decode
 step wall of the eager loop and of the graph, the capture's ms and
 whether the tokens were equal, and a ``chat`` line each chat mode's TTFT,
@@ -414,7 +417,7 @@ phase 5i's, the ``hires`` line with phase 5h's, the ``harnesses`` line
 with phase 5j's and the ``families`` line with phase 10's (whose wrapper
 calls, as phase 5f's, 5g's, 5i's and 5j's, join the ``kernels`` line's).
 K1's, K2's, K2-M's and the int8 GEMV's launches in the ``kernels`` line
-include the engines' traced passes and phase 5e's; K1's, K3's and K4's
+include the engines' counted passes and phase 5e's; K1's, K3's and K4's
 include phase 9d's; K1's, K3's, K4's, K2's and K2-M's phase 9e's.
 """
 
@@ -439,27 +442,24 @@ SEED = 0
 BF16_TOL = 2e-2
 FP32_TOL = 1e-4
 TRAIN_DEPTH = 32  # decoder layers of the training phase (width is never cut)
-# decoder layers of phase 7's serving modes (of the int4 decoder's 32): cut
-# so that the script, with phase 5e's generators and phase 9d, stays inside
-# its 1200 s limit; its KV cosine keeps full depth
-LEAN_DEPTH = 8
-# decoder layers of phase 5b's chat modes (of the phase-5 decoder's 32): cut
-# so that the script, with phase 5f, stays inside its 1200 s limit
-CHAT_DEPTH = 16
-# decoder layers of phase 5c's speculative arms and beam search and of phase
-# 5d's continuous-batching arms (of the phase-5 decoder's 32), and of phase
-# 8's 13B decoder (of its 40): cut so that the script keeps a wide margin
-# inside its 1200 s limit
-SPEC_DEPTH = 16
-CONT_DEPTH = 16
+# decoder layers of the serving paths (of the 7B decoders' 32, the 13B's
+# 40). Full depth since launches are counted without traces: phase 6's
+# quantized serving, phase 5b's chat, phase 5c's speculative arms and beam
+# search. Cut so that the script stays inside ~850 s of its 1200 s limit on
+# an H100 (with every serving path at full depth it took 955.6 s; phase 7
+# took 109 s on 32 layers and 36 s on 8, phase 8 72 s on 40 and 17 s on
+# 10): phase 7's lean modes (its KV cosine keeps full depth), phase 8's 13B
+# decoder, phase 5d's continuous batching, the checkpoint path (phases
+# 5e-5i: the export, the loads and everything served from them) and phase
+# 5j's harnesses
+QUANT_DEPTH = 32
+CHAT_DEPTH = 32
+SPEC_DEPTH = 32
+LEAN_DEPTH = 16
 DEPTH_13B = 10
-# decoder layers of the checkpoint path (phases 5e-5g: the export, the loads
-# and everything served from them) and of phase 6's quantized serving modes
-# (of the phase-5 / int4 decoders' 32): cut so that the script, with phases
-# 5h and 10, stays inside ~950 s; phase 5's bf16 serving, 5h, the KV cosine
-# and training keep full depth
+CONT_DEPTH = 16
 CKPT_DEPTH = 16
-QUANT_DEPTH = 16
+HARNESS_DEPTH = 16
 TRAIN_STEPS = 3  # per mode; the first is timed apart
 TRAIN_BATCH, TRAIN_TEXT_LEN = 4, 1088  # fused S = 1088 - 1 + 576 = 1663
 TIMED = 3  # timed generate calls and prefills a serving mode
@@ -509,7 +509,7 @@ DEEP_CHECK_STEPS = 3  # training steps of each stage held card against CPU
 # phase 5i: the weights-drop golden's twin on the fixture and on phase 5e's checkpoint
 WDROP_QUESTIONS = 8  # GQA-format questions over phase 5e's images
 # phase 5j: the root measurement harnesses' twins on the int8 decoder's first
-# SPEC_DEPTH layers (the tools' defaults but for the horizons, cut for the
+# HARNESS_DEPTH layers (the tools' defaults but for the horizons, cut for the
 # script's time limit); ``ladder_fail`` None: a row of ``ladder_oom`` (the
 # largest cache a sample: few samples, little input to make) reckoned past
 # the card
@@ -564,8 +564,8 @@ def log(msg: str) -> None:
 
 def phase(msg: str) -> None:
     """A phase's first line, with the seconds since the script started and,
-    once the port is imported, the launch-counting traces taken so far and
-    the seconds they cost beyond the calls they wrapped."""
+    once the port is imported, the launch-counting traces taken so far (one,
+    in phase 5) and the seconds they cost beyond the calls they wrapped."""
     cost = ""
     kc = sys.modules.get("dynamic_llava_tpu_torch.kernel_cases")
     if kc is not None:
@@ -770,6 +770,7 @@ def check_decode_kernel(torch):
     readings under ``int8`` / ``fp8`` / ``shapes``."""
     import torch.nn.functional as F
 
+    from chip_launches import counted_against_trace
     from dynamic_llava_tpu_torch import kernel_cases as kc
     from dynamic_llava_tpu_torch.ops.decode_attention import (
         decode_attention, decode_attention_plain)
@@ -1675,14 +1676,18 @@ def serving_batch(cfg, b: int, n_text: int):
 
 
 def serve(torch, params, modes, counters, need, label, b=8, max_new=64, n_text=60,
-          batches=2):
+          batches=2, hold_trace=False):
     """For each mode of ``modes`` on the same weights, the main path:
     ``batches`` batches of ``b`` requests (one image and ``n_text`` text
     tokens each, the same prompts for every call) through
     ``Generator.generate``, with every wrapper's count in ``counters``
     (name -> wrapper) zeroed just before and read just after, and the
-    serving kernels' launches on the card counted in a profiler trace of
-    those calls (``kernel_cases.device_launches``). A mode is ``(name,
+    serving kernels' launches on the card counted by the wrappers' launch
+    counter over each call (``kernel_cases.counted_launches``). With
+    ``hold_trace`` the first call of the first mode (its prefill, the eager
+    first step, the capture and the replays) is also traced, and the
+    counter's launches must equal the trace's (``kernel_cases.device_launches``)
+    exactly: the script's one launch-counting trace. A mode is ``(name,
     cfg)`` or ``(name, cfg, opts)``: ``opts["gen"]`` are
     ``GenerationConfig`` fields (``cache_dtype``, ``kv_overflow``,
     ``kv_window``), ``opts["fused"]`` switches the fused int4 MLP (K9) on
@@ -1694,9 +1699,11 @@ def serve(torch, params, modes, counters, need, label, b=8, max_new=64, n_text=6
     from the counts and the trace: ``TIMED`` more ``generate`` calls timed, the prefill
     timed alone (TTFT), the graph's and the eager loop's step walls, and the
     graph's tokens held against the eager loop's. Returns the per-mode
-    measurements."""
+    measurements (with ``hold_trace``, the first mode's ``trace_hold``: the
+    counter's and the trace's launches of the traced call)."""
     import os
 
+    from chip_launches import counted_against_trace
     from dynamic_llava_tpu_torch import kernel_cases as kc
     from dynamic_llava_tpu_torch.generation.generate import GenerationConfig, Generator
     from dynamic_llava_tpu_torch.models.dynamic import gen_cache_sizes
@@ -1726,21 +1733,27 @@ def serve(torch, params, modes, counters, need, label, b=8, max_new=64, n_text=6
                 fn.launches = 0
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            # the main path (the first call captures the decode step); one
-            # trace a call keeps the profiler's buffers small
-            outs, per_call = [], []
+            # the main path (the first call captures the decode step), its
+            # launches counted a call
+            outs, per_call, trace_hold = [], [], None
             t_stage = time.perf_counter()
-            for _ in range(batches):
-                out, seen = kc.device_launches(lambda: gen.generate(ids, pix))
+            for i in range(batches):
+                if hold_trace and i == 0 and not results:
+                    out, seen, trace_hold = counted_against_trace(
+                        kc, lambda: gen.generate(ids, pix), f"{label} {mode}")
+                    log(f"  {label} {mode}: the launch counter equals the trace on the first "
+                        f"call: {seen}")
+                else:
+                    out, seen = kc.counted_launches(lambda: gen.generate(ids, pix))
                 outs.append(out)
                 per_call.append(seen)
             device = {k: sum(c[k] for c in per_call) for k in kc.SERVING_KERNELS}
             calls = {name: fn.launches for name, fn in counters.items()}
             peak = torch.cuda.max_memory_allocated() / 2**30
             runner = gen.decode_runner
-            stage_s = {"traced": time.perf_counter() - t_stage}
+            stage_s = {"counted": time.perf_counter() - t_stage}
             t_stage = time.perf_counter()
-            # timed apart from the trace: TIMED calls and as many prefills
+            # timed apart from the counts: TIMED calls and as many prefills
             # alone, the median of each kept (the host's pace varies)
             e2es, ttfts = [], []
             for _ in range(TIMED):
@@ -1808,6 +1821,8 @@ def serve(torch, params, modes, counters, need, label, b=8, max_new=64, n_text=6
         results[mode] = dict(e2e_s=e2e, ttft_ms=ttft * 1e3, decode_tok_s=tok_s,
                              peak_gib=peak, kv_gib=kv_gib, pre=sizes[0], post=sizes[1],
                              launches=calls, device_launches=device, graph=graph, tokens=out)
+        if trace_hold is not None:
+            results[mode]["trace_hold"] = trace_hold
         log(f"  {label} {mode}: B={b}, prompt length {plan.seq_len}, {max_new} new tokens, "
             f"tier capacities pre={sizes[0]} post={sizes[1]}, KV cache "
             f"{kv_dtype} {kv_gib:.3f} GiB; generate {e2e:.3f} s, TTFT "
@@ -1843,14 +1858,14 @@ def chat(torch, params, modes):
     continuation prefill; each round runs to ``CHAT_MAX_NEW`` new tokens
     under a two-token keyword stop, EOS off (so every round does the same
     work). The main path, one session's three rounds, runs with the
-    wrappers' counters zeroed just before and read just after, inside a
-    profiler trace that counts the launches on the card: the M-query
+    wrappers' counters zeroed just before and read just after, and the
+    launch counter counts the launches on the card: the M-query
     kernel once a layer in each continued round, K2 once a layer in every
     decode step the session's runner ran (its chunks, the frozen one
     enqueued past the stop included). A second session driven by
     ``_ask_tokenwise`` (eager, one host read a token) must give the same
     tokens, tier lengths and ``next_pos`` after every round. A third,
-    untraced session through ``ask`` is timed with each round's prefill or
+    uncounted session through ``ask`` is timed with each round's prefill or
     continuation timed apart (host clock after ``synchronize``): round-1
     TTFT, the continuation's ms a chunk, and decode tok/s at B=1 over
     rounds 2 and 3 (round 1's decode includes the step's capture)."""
@@ -1890,7 +1905,7 @@ def chat(torch, params, modes):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
 
-        # the main path: three rounds through ChatSession.ask, one trace a
+        # the main path: three rounds through ChatSession.ask, counted a
         # round
         session = ChatSession(gen, CHAT_BUDGET)
         for fn in wrappers.values():
@@ -1898,7 +1913,7 @@ def chat(torch, params, modes):
         t_main = time.perf_counter()
         outs, states, device = [], [], dict.fromkeys(kc.SERVING_KERNELS, 0)
         for ids, px in rounds:
-            out, seen = kc.device_launches(
+            out, seen = kc.counted_launches(
                 lambda: session.ask(ids, px, stopping_criteria=stop))
             outs.append(out)
             states.append(after_round(session))
@@ -1968,7 +1983,7 @@ def chat(torch, params, modes):
             f"next_pos after each round {[(st[0][0], st[0][-1], st[1]) for st in states]}; "
             f"launches on the card {device['extend_kernel']} M-query, {device['decode_kernel']} "
             f"K2 ({steps} steps), wrapper calls {calls}; ask == the per-token path: ok "
-            f"(seconds: traced session {t_main:.1f}, per-token session {t_ref:.1f})")
+            f"(seconds: counted session {t_main:.1f}, per-token session {t_ref:.1f})")
         del session, timed, gen, runner
     return results
 
@@ -2088,7 +2103,7 @@ def speculate(torch, params, arms, label, gemv_kernel=None):
     ``next_pos`` after its first ``SPEC_EAGER_ROUNDS`` rounds equal an
     eager loop of ``decode_speculative_step`` with the same drafts
     (``eager_speculative``), and after a whole generation the host-drafted
-    runner's (prompt lookup on the host); in a profiler trace of the self
+    runner's (prompt lookup on the host); counted over the self
     oracle's first generation at the largest k (the wrappers' counters
     zeroed just before and read just after) K2-M launches once a layer a
     round, K2 never, and ``gemv_kernel`` (quantized
@@ -2202,7 +2217,7 @@ def speculate(torch, params, arms, label, gemv_kernel=None):
             # verified as a chunk row or read back from the cache sums in
             # another order), so its drafts are not all accepted either. Its
             # first call captures the key: at the largest k, the counted and
-            # traced main path of the phase.
+            # counted main path of the phase.
             call = lambda stats=None: gen.generate_speculative(  # noqa: E731
                 ids, pix, draft=oracle_of(dev_out), draft_k=k, stats=stats)
             if k != SPEC_KS[-1]:
@@ -2211,7 +2226,7 @@ def speculate(torch, params, arms, label, gemv_kernel=None):
                 for fn in kc.read_counters():
                     fn.launches = 0
                 st = {}
-                _, seen = kc.device_launches(lambda: call(st))
+                _, seen = kc.counted_launches(lambda: call(st))
                 calls = kc.wrapper_calls(dict.fromkeys(kc.read_counters(), 0),
                                          kc.read_counters())
                 run = st["rounds"]
@@ -2230,7 +2245,7 @@ def speculate(torch, params, arms, label, gemv_kernel=None):
                             f"times on the card over {run} rounds, the eager loop "
                             f"{per_round} a round (layer layout: {4 * layers + 1}), a "
                             f"prefill {prefill}")
-                kr.update(device_launches=seen, launches=calls, traced_rounds=run)
+                kr.update(device_launches=seen, launches=calls, counted_rounds=run)
             kr["host_capture_ms"] = gen.decode_runner.capture_ms
             st = {}
             out, sec = sync_time(lambda: call(st))
@@ -2498,11 +2513,11 @@ def continuous(torch, params, cfg, arms, reqs, holds):
     ``Generator`` a ``max_new`` value, each prewarmed by one full batch. For
     each arm, the main path: one pass with every request submitted at once,
     the wrappers' counts zeroed just before and read just after and the
-    serving kernels' launches counted in a profiler trace of it; then the
+    serving kernels' launches on the card counted over it; then the
     timed pass, requests submitted at their arrival times (admissions timed
     between synchronizations). Checks: an engine's chunks replay graphs
     (no step runs eagerly after its form's capture, no decode / verify
-    wrapper is called in the traced pass, K2 (plain) or K2-M (speculative)
+    wrapper is called in the counted pass, K2 (plain) or K2-M (speculative)
     launches once a layer for each step of each chunk on the card, and on
     int8 weights the GEMV kernel ``4 x layers + 1`` times a step), its
     admissions launch K1, its admission cache is one cache of
@@ -2562,14 +2577,14 @@ def continuous(torch, params, cfg, arms, reqs, holds):
                 torch, gens, reqs, CONT_SLOTS, timed)
         r.update(prewarm_s=time.perf_counter() - t0, capture_ms=capture)
 
-        # the main path: every request at once, counted and traced
+        # the main path: every request at once, counted
         t0 = time.perf_counter()
         for fn in kc.read_counters():
             fn.launches = 0
-        traced_admissions = {}
-        main, seen = kc.device_launches(lambda: drive_once(False, traced_admissions))
+        counted_admissions = {}
+        main, seen = kc.counted_launches(lambda: drive_once(False, counted_admissions))
         calls = kc.wrapper_calls(dict.fromkeys(kc.read_counters(), 0), kc.read_counters())
-        r["traced_pass_s"] = time.perf_counter() - t0
+        r["counted_pass_s"] = time.perf_counter() - t0
         # the timed pass: arrivals at their times
         admissions = {}
         run = drive_once(True, admissions)
@@ -2582,7 +2597,7 @@ def continuous(torch, params, cfg, arms, reqs, holds):
                  device_launches=seen, wrapper_calls=calls)
         greedy = [i for i in range(len(reqs)) if not (sample and reqs[i]["sampled"])]
         require([main["outputs"][i] for i in greedy] == [run["outputs"][i] for i in greedy],
-                f"continuous {name}: the traced and the timed pass differ")
+                f"continuous {name}: the counted and the timed pass differ")
         require(all(len(o) == q["max_new"] for o, q in zip(run["outputs"], reqs))
                 and all(0 <= t < cfg.text.vocab_size for o in run["outputs"] for t in o),
                 f"continuous {name}: wrong output lengths or token ids")
@@ -2591,7 +2606,7 @@ def continuous(torch, params, cfg, arms, reqs, holds):
             steps = main["chunks"] * CONT_CHUNK
             r.update(admission_ms={k: float(np.mean(v)) for k, v in sorted(admissions.items())},
                      admissions_by_k={k: len(v) for k, v in sorted(admissions.items())},
-                     chunks=run["chunks"], traced_chunks=main["chunks"],
+                     chunks=run["chunks"], counted_chunks=main["chunks"],
                      cache_gib=cache_bytes(runner.state.cache) / 2**30,
                      admission_pool_gib=cache_bytes(engine.admission_cache) / 2**30)
             kernel, other = (("extend_kernel", "decode_kernel") if spec_k
@@ -2605,7 +2620,7 @@ def continuous(torch, params, cfg, arms, reqs, holds):
             if opts.get("int8"):
                 # a step: q/k/v, o, gate/up, down a layer and the lm_head; an
                 # admission: the lm_head on its k rows (the rest is above 64 rows)
-                admits = sum(len(v) for v in traced_admissions.values())
+                admits = sum(len(v) for v in counted_admissions.values())
                 require(seen["gemv int8"] == (4 * layers + 1) * steps + admits,
                         f"continuous {name}: {seen['gemv int8']} int8 GEMV launches, not "
                         f"{4 * layers + 1} x {steps} steps + {admits} admissions")
@@ -2630,7 +2645,7 @@ def continuous(torch, params, cfg, arms, reqs, holds):
             f"{r.get('admissions_by_k')} at {r.get('admission_ms')} ms; capture {capture} ms; "
             f"prewarm {r['prewarm_s']:.1f} s; peak {r['peak_gib']:.2f} GiB, cache "
             f"{r.get('cache_gib', 0):.3f} GiB, admission pool {r.get('admission_pool_gib', 0):.3f} "
-            f"GiB; traced pass: launches {r['launches']}, wrapper calls {calls} "
+            f"GiB; counted pass: launches {r['launches']}, wrapper calls {calls} "
             f"[{r['seconds']:.1f} s]")
         if kind == "engine":
             del engine, runner, drive_once
@@ -2729,7 +2744,7 @@ class HostMemory:
                              ("rss_start_gib", self.at_start))}
 
 
-def eval_generators(root, model_path, loaded, images, qfile, traced, layers):
+def eval_generators(root, model_path, loaded, images, qfile, counted, layers):
     """Phase 5e: the offline eval generators through ``eval_model(args,
     loaded=...)`` on the loaded runtime, ``CKPT_QUESTIONS`` questions each,
     ``CKPT_MAX_NEW`` new tokens, greedy: ``model_vqa`` on the VQA CLI's
@@ -2740,8 +2755,8 @@ def eval_generators(root, model_path, loaded, images, qfile, traced, layers):
     hold one record a question. The VQA answers are scored with the TextVQA
     accuracy and the ScienceQA answers with its parser (on random weights:
     this shows that the scorers run, not what they score). The five run in
-    one profiler trace (``traced``). Returns each generator's records,
-    seconds (traced), K1 launches and texts, the five's launches on the
+    one count of the launch counter (``counted``). Returns each generator's
+    records, seconds (counted), K1 launches and texts, the five's launches on the
     card, and the scores."""
     import base64
     import io
@@ -2811,14 +2826,14 @@ def eval_generators(root, model_path, loaded, images, qfile, traced, layers):
             require(len(records) == n, f"checkpoint: {name} wrote {len(records)} records for "
                     f"{n} questions")
             # K1 runs eagerly in the prefill: a wrapper call is a launch
-            out[name] = dict(records=len(records), traced_s=seconds,
+            out[name] = dict(records=len(records), counted_s=seconds,
                              k1_launches=flash_attention.launches - k1,
                              texts=[r[key] for r in records])
-            log(f"  checkpoint: {name}: {len(records)} answers in {seconds:.1f} s (traced), "
+            log(f"  checkpoint: {name}: {len(records)} answers in {seconds:.1f} s (counted), "
                 f"K1 {out[name]['k1_launches']}")
 
-    # one trace over the five: a trace costs its margins and its processing
-    _, seen = traced(run_all)
+    # one count over the five
+    _, seen = counted(run_all)
     log(f"  checkpoint: the generators' launches on the card {seen}")
     qa_k1 = out["model_qa"]["k1_launches"]
     require(qa_k1 == n * layers, f"checkpoint: model_qa launched K1 {qa_k1} times, not once a "
@@ -2854,8 +2869,8 @@ def checkpoint(torch, params, cfg, want_tokens, b=8, n_text=60, then=None):
     fp32 (the bf16 weights widened, exactly), and the VQA CLI
     (``model_vqa_loader.eval_model``) on ``CKPT_QUESTIONS`` questions must
     write the same answers plain and with ``--spec_k CKPT_SPEC_K``. The wrappers' counts are zeroed at the
-    start and read at the end, the launches on the card counted in profiler
-    traces of the generate, chat and VQA calls; K1, K2 and K2-M must each
+    start and read at the end, the launches on the card counted by the
+    launch counter over the generate, chat and VQA calls; K1, K2 and K2-M must each
     launch. Returns the export and load seconds (the tokenizer's first try
     apart), the checkpoint's size, the host's peak RSS (and its anonymous
     part, where the kernel reports it) over export and load, the device's
@@ -2885,8 +2900,8 @@ def checkpoint(torch, params, cfg, want_tokens, b=8, n_text=60, then=None):
         fn.launches = 0
     device = dict.fromkeys(kc.SERVING_KERNELS, 0)
 
-    def traced(fn):
-        out, seen = kc.device_launches(fn)
+    def counted(fn):
+        out, seen = kc.counted_launches(fn)
         for k in device:
             device[k] += seen[k]
         return out, seen
@@ -2936,7 +2951,7 @@ def checkpoint(torch, params, cfg, want_tokens, b=8, n_text=60, then=None):
         gen = Generator(runtime.params, runtime.cfg, GenerationConfig(
             max_new_tokens=64, temperature=0.0, eos_token_id=-1))
         ids, pix = serving_batch(cfg, b, n_text)
-        out, seen = traced(lambda: gen.generate(ids, pix))
+        out, seen = counted(lambda: gen.generate(ids, pix))
         require(out == want_tokens, "checkpoint: generate on the loaded weights gave "
                 f"{out[0][:8]}..., phase 5 {want_tokens[0][:8]}...")
         log(f"  checkpoint: generate B={b}, 64 tokens == phase 5's; launches {seen}")
@@ -2946,7 +2961,7 @@ def checkpoint(torch, params, cfg, want_tokens, b=8, n_text=60, then=None):
         tok = WordTokenizer()
         kw = dict(conv_mode="llava_v1", temperature=0.0, max_new_tokens=CKPT_MAX_NEW,
                   echo=lambda *a, **k: None)
-        answers, seen = traced(lambda: chat_loop(tok, runtime, processor, images[0],
+        answers, seen = counted(lambda: chat_loop(tok, runtime, processor, images[0],
                                                  CKPT_TURNS, **kw))
         ref_answers = chat_loop(tok, LlavaRuntime(params, cfg), processor, images[0],
                                 CKPT_TURNS, **kw)
@@ -2987,7 +3002,7 @@ def checkpoint(torch, params, cfg, want_tokens, b=8, n_text=60, then=None):
                 "--model-path", path, "--image-folder", root, "--question-file", qfile,
                 "--answers-file", answers_file, "--conv-mode", "llava_v1", "--temperature",
                 "0", "--max_new_tokens", str(CKPT_MAX_NEW), "--spec_k", str(k)])
-            _, seen = traced(lambda: model_vqa_loader.eval_model(
+            _, seen = counted(lambda: model_vqa_loader.eval_model(
                 args, loaded=(tok, runtime, processor, ctx)))
             with open(answers_file) as f:
                 texts[k] = [json.loads(line)["text"] for line in f]
@@ -2996,7 +3011,7 @@ def checkpoint(torch, params, cfg, want_tokens, b=8, n_text=60, then=None):
                 f"checkpoint: VQA answers plain {texts[0]} != spec_k={CKPT_SPEC_K} "
                 f"{texts[CKPT_SPEC_K]}")
         gens, gen_launches, scores = eval_generators(
-            root, path, (tok, runtime, processor, ctx), images, qfile, traced, layers)
+            root, path, (tok, runtime, processor, ctx), images, qfile, counted, layers)
         require(gens["model_vqa"]["texts"] == texts[0],
                 f"checkpoint: model_vqa's answers {gens['model_vqa']['texts']} != the VQA "
                 f"CLI's {texts[0]} (both build_prompt, greedy)")
@@ -5530,6 +5545,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from chip_launches import CountedPhases
+    from dynamic_llava_tpu_torch import kernel_cases as kc
     from dynamic_llava_tpu_torch import kernels
     from dynamic_llava_tpu_torch.config import (
         DENSE_SPARSE_CONFIG, LlamaConfig, LlavaConfig)
@@ -5647,6 +5664,10 @@ def main() -> int:
                  "q4_mlp": "q4_mlp_kernel"}
     launches, calls, results = {}, {}, {}
 
+    # phases whose main path is the whole phase: their launches on the card,
+    # counted over it (their wrapper calls are their own)
+    counted_phases = CountedPhases(kc, log)
+
     def drive(label, params, modes, **kw):
         need = ("flash_attention_fwd", "decode_attention_appended") + paths[label]
         results[label] = serve(torch, params, modes, counters, need, label, **kw)
@@ -5670,7 +5691,8 @@ def main() -> int:
     log(f"  params: {param_bytes(params) / 2**30:.2f} GiB "
         f"(decoder {param_bytes(params['llm']) / 2**30:.2f}) in "
         f"{time.perf_counter() - t0:.1f} s")
-    drive("bf16", params, both)
+    drive("bf16", params, both, hold_trace=True)
+    trace_hold = results["bf16"]["sparse"]["trace_hold"]
     # K1 once a tower layer and decoder layer per prefill (two batches, sparse
     # and dense): the differentiable tower costs serving no launch
     vis = cfg_sparse.vision
@@ -5737,16 +5759,17 @@ def main() -> int:
         phase("phase 5f: serving over HTTP at LLaVA-1.5-7B width on phase 5e's checkpoint: the "
               "controller, the model worker (plain, --spec-k), the batched worker (window, "
               "continuous)")
-        served = serving(torch, path, ckpt_sparse)
+        served = counted_phases.run("5f", lambda: serving(torch, path, ckpt_sparse))
         phase(f"phase 5g: the generation-quality probes at LLaVA-1.5-7B width, {CKPT_DEPTH} of "
               "32 layers, on phase 5e's checkpoint in fp32 (self-PPL, LVIS PPL sparse and dense, METEOR, "
               "multi-round, the keep mask), the bench core on the phase-5 weights")
-        tools = ppl_tools(torch, path, ckpt_params, ckpt_sparse)
+        tools = counted_phases.run("5g", lambda: ppl_tools(
+            torch, path, ckpt_params, ckpt_sparse))
         phase("phase 5i: the weights-drop golden (checkpoint -> chunked VQA answers -> GQA "
               "predictions) on its fixture, card against CPU, and on phase 5e's checkpoint at "
               "--chunks 2 and 1")
-        wdrop = weights_drop(torch, path, str(Path(path).parent),
-                             [f"q{i}.png" for i in range(CKPT_QUESTIONS)])
+        wdrop = counted_phases.run("5i", lambda: weights_drop(
+            torch, path, str(Path(path).parent), [f"q{i}.png" for i in range(CKPT_QUESTIONS)]))
         return served, tools, wdrop
 
     # the checkpoint path on the first CKPT_DEPTH layers: phase 5's sparse
@@ -5766,7 +5789,7 @@ def main() -> int:
     phase("phase 5h: high resolution and the other towers at LLaVA-1.5-7B width, 32 layers, on "
           "the phase-5 weights: generate_anyres at B=2 (672x672, 1008x336) dense and sparse, "
           "S2, TokenPacker, on-device preprocessing")
-    hires_r = hires(torch, params, cfg_sparse)
+    hires_r = counted_phases.run("5h", lambda: hires(torch, params, cfg_sparse))
 
     phase(f"phase 6: quantized serving at 7B width, the first {QUANT_DEPTH} of 32 layers")
     t0 = time.perf_counter()
@@ -5789,10 +5812,11 @@ def main() -> int:
     ], trace, holds=[("engine int8 fp8-KV", "window int8 fp8-KV")]))
     log(f"  phase 5d int8 fp8-KV arms: {time.perf_counter() - t0:.1f} s")
     phase(f"phase 5j: the root measurement harnesses' twins (tools/) at LLaVA-1.5-7B width, the "
-          f"first {SPEC_DEPTH} of the int8 decoder's 32 layers: spec_bench, spec_batch_bench, "
+          f"first {HARNESS_DEPTH} of the int8 decoder's 32 layers: spec_bench, spec_batch_bench, "
           "long_gen_bench, serve_bench, ladder_probe")
-    harn = harnesses(torch, cut_params(SPEC_DEPTH), SPEC_DEPTH)
-    # the engines' launches on the card (their traced passes) join each
+    harn = counted_phases.run("5j", lambda: harnesses(
+        torch, cut_params(HARNESS_DEPTH), HARNESS_DEPTH))
+    # the engines' launches on the card (their counted passes) join each
     # kernel's count
     engines = [r for r in cont.values() if r["kind"] == "engine"]
     for name, label in (("flash_attention_fwd", "flash_fwd"),
@@ -5806,23 +5830,23 @@ def main() -> int:
                         ("decode_attention_appended", "decode_kernel")):
         launches[name] += ckpt["device_launches"][label]
         calls[name] += ckpt["wrapper_calls"][label]
-    # K2-M's main paths: the chat's continuations and the traced speculative
+    # K2-M's main paths: the chat's continuations and the counted speculative
     # generations
-    traced = [r["k"][SPEC_KS[-1]] for r in spec.values()]
+    counted = [r["k"][SPEC_KS[-1]] for r in spec.values()]
     by_path = {"chat": sum(r["device_launches"]["extend_kernel"]
                            for r in results["chat"].values()),
-               "speculative": sum(t["device_launches"]["extend_kernel"] for t in traced),
+               "speculative": sum(t["device_launches"]["extend_kernel"] for t in counted),
                "continuous": sum(r["device_launches"]["extend_kernel"] for r in engines),
                "checkpoint": ckpt["device_launches"]["extend_kernel"]}
     kres["extend_attention_appended"]["launches_by_path"] = by_path
     launches["extend_attention_appended"] = sum(by_path.values())
     calls["extend_attention_appended"] = sum(
         r["launches"]["extend_kernel"] for r in results["chat"].values()) + sum(
-        t["launches"]["extend_kernel"] for t in traced) + sum(
+        t["launches"]["extend_kernel"] for t in counted) + sum(
         r["wrapper_calls"]["extend_kernel"] for r in engines) + ckpt["wrapper_calls"][
         "extend_kernel"]
-    # phase 5f's, 5g's, 5i's and 5h's wrapper calls (they take no trace: their
-    # graph replays are not counted)
+    # phase 5f's, 5g's, 5i's and 5h's wrapper calls (their launches on the
+    # card join below)
     for name, label in (("flash_attention_fwd", "flash_fwd"),
                         ("decode_attention_appended", "decode_kernel"),
                         ("extend_attention_appended", "extend_kernel")):
@@ -5948,12 +5972,15 @@ def main() -> int:
     phase(f"phase 10: the other families at 7B width, the first {FAMILY_DEPTH} of 32 layers, "
           f"random bf16 weights: Mistral-7B dense (prompts {MISTRAL_PROMPTS}, window 4096), "
           "MPT-7B (forward_multimodal, generate_greedy), the builder's MPT route")
-    fam = families(torch)
+    fam = counted_phases.run("10", lambda: families(torch))
     for name, label in (("flash_attention_fwd", "flash_fwd"),
                         ("decode_attention_appended", "decode_kernel")):
         calls[name] += fam["wrapper_calls"][label]
-    for name, n in harn["wrapper_calls"].items():  # phase 5j's (untraced)
+    for name, n in harn["wrapper_calls"].items():  # phase 5j's
         calls[name] += n
+    # the launches on the card of phases 5f-5j and 10, counted over each
+    kres["extend_attention_appended"]["launches_by_path"]["phases 5f-5j, 10"] = (
+        counted_phases.add_to(launches))
     require("jax" not in sys.modules and "dynamic_llava_tpu" not in sys.modules,
             "jax or the JAX package was imported")
     for label, runs in results.items():
@@ -6037,6 +6064,9 @@ def main() -> int:
                                  "round_decode_tok_s", "capture_ms", "peak_gib", "steps")}
         for mode, r in results["chat"].items()}))
     print("quality " + json.dumps(quality))
+    print("launch_trace " + json.dumps({
+        "call": "phase 5 sparse bf16, the first generate call", **trace_hold,
+        "counted_phases": counted_phases.seen, "trace_cost": kc.TRACE_COST}))
     print("deep_quality " + json.dumps(deep))
     print("kv_cosine " + json.dumps(cosine))
     print("remat " + json.dumps({

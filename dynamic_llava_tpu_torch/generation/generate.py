@@ -68,8 +68,11 @@ runner's ``admit``, written a slot at a time between chunks.
 
 Every kernel wrapper counts its host calls in ``<wrapper>.launches``: an
 eager launch, or the one launch a capture records into the graph. A
-graph's replays launch on the device without a host call, so their
-launches are counted in a profiler trace (``kernel_cases.device_launches``).
+graph's replays launch on the device without a host call, so the launches
+on the card are counted by ``kernels.counts``: a runner keeps the launches
+its capture recorded (``graph_launches``) and its replays (``replays``),
+and each replay (``DecodeRunner.replay``) counts the capture's launches
+once more.
 
 Lean-memory options, as in the JAX package: ``cache_dtype`` stores the KV
 cache in bf16 / fp32, scaled int8 (``"int8"``) or fp8
@@ -83,12 +86,14 @@ from __future__ import annotations
 import contextlib
 import gc as pygc  # `gc` names the generation configs here
 import time
+from collections import Counter
 from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..config import LlavaConfig
+from ..kernels import counts
 from ..models import dynamic
 from ..multimodal.fusion import FusionPlan, plan_batch
 from ..ops.kv_cache import TieredCache, init_tiered_cache, splice_tiered_slot
@@ -271,6 +276,8 @@ class DecodeRunner:
         self.chunks_run = 0
         self.eager_steps = 0  # steps run eagerly on a CUDA device (one before each capture)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.graph_launches: Counter = Counter()  # kernel launches recorded in the capture
+        self.replays = 0  # replays of this runner's graphs
         self.capture_ms: Optional[float] = None
 
     def _out_rows(self) -> int:
@@ -346,11 +353,18 @@ class DecodeRunner:
         if self._draws():
             graph.register_generator_state(self.generator)
         t0 = time.perf_counter()
-        with capturing(graph):
+        with capturing(graph), counts.capture() as launches:
             self.step()
         torch.cuda.synchronize()
         self.capture_ms = (time.perf_counter() - t0) * 1e3
-        self.graph = graph
+        self.graph, self.graph_launches = graph, launches
+
+    def replay(self) -> None:
+        """One replay of the captured step; the launches its capture
+        recorded count once more on the card (``kernels.counts``)."""
+        self.graph.replay()
+        self.replays += 1
+        counts.replayed(self.graph_launches)
 
     def run_chunk(self) -> PendingChunk:
         """Enqueue ``chunk`` steps and the copy of their tokens to the host;
@@ -365,7 +379,7 @@ class DecodeRunner:
                 self.eager_steps += 1
                 self._capture()
                 continue
-            self.graph.replay()
+            self.replay()
         index = self.chunks_run
         host = self.host[index % 2]
         self.chunks_run += 1
@@ -625,6 +639,7 @@ class SlotDecodeRunner(StopDecodeRunner):
         self.sampled = False  # the form of the chunk being run
         self.graphs = {}  # form -> its CUDA graph
         self.captures_ms = {}  # form -> its capture's ms
+        self.forms_launches = {}  # form -> the launches its capture recorded
 
     def admit(self, slot: int, limit: int, temperature: float, top_p: float) -> None:
         """Start slot ``slot``'s request (its state spliced in by
@@ -656,10 +671,12 @@ class SlotDecodeRunner(StopDecodeRunner):
         """``DecodeRunner.run_chunk`` in the greedy or the sampling form."""
         self.sampled = bool(sampled)
         self.graph = self.graphs.get(self.sampled)
+        self.graph_launches = self.forms_launches.get(self.sampled, Counter())
         pending = super().run_chunk()
         if self.graph is not None and self.sampled not in self.graphs:
             self.graphs[self.sampled] = self.graph
             self.captures_ms[self.sampled] = self.capture_ms
+            self.forms_launches[self.sampled] = self.graph_launches
         return pending
 
 

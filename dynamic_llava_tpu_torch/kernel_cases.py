@@ -11,10 +11,12 @@ with the same tolerances. Every case launches its kernel twice and asks for
 equal bits (the kernels sum in an order fixed by the shapes). Nothing here
 touches CUDA when the module is imported.
 
-``device_launches`` counts the serving path's kernels by the names the card
-reports, in a ``torch.profiler`` trace: the launches of a CUDA graph's
-replays, which no wrapper sees (``chip_smoke.py`` phases 5-8 and
-``tests/test_torch_card_graph.py``).
+``counted_launches`` counts the serving path's kernels on the card by the
+wrappers' launch counter (``kernels.counts``: eager launches, and a CUDA
+graph's captured launches once a replay); ``device_launches`` counts them by
+the names the card reports, in a ``torch.profiler`` trace, which sees a
+graph's replays without the counter (``chip_smoke.py`` holds the two equal
+on one run; ``tests/test_torch_card_graph.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .kernels import counts
 from .ops import flash_attention as fa
 from .ops import quant_matmul as qm
 from .ops.decode_attention import (
@@ -771,6 +774,17 @@ SERVING_KERNELS = {
 }
 
 
+# the C entry points (``kernels.counts`` names) behind each label
+COUNTED = {
+    "flash_fwd": ("flash_attention_fwd",),
+    "decode_kernel": ("decode_attention_appended",),
+    "extend_kernel": ("extend_attention_appended",),
+    "gemv int8": ("q8_gemv", "q8_gemv_group"),
+    "gemv int4": ("q4_gemv", "q4_gemv_group"),
+    "q4_mlp_kernel": ("q4_mlp",),
+}
+
+
 TRACE_MARGIN_S = 0.5
 # kernels that no count reads, at each end of a trace: a trace loses a few
 # records at its start (more the longer the process has run), and up to
@@ -801,6 +815,15 @@ def device_launches(fn: Callable):
         if label is not None:
             launches[label] += n
     return out, launches
+
+
+def counted_launches(fn: Callable):
+    """``(fn(), launches)``: the serving kernels' launches on the card while
+    ``fn`` runs, by ``SERVING_KERNELS`` label, from the wrappers' launch
+    counter (``kernels.counts``) without a trace."""
+    with counts.counting() as got:
+        out = fn()
+    return out, {label: sum(got[e] for e in entries) for label, entries in COUNTED.items()}
 
 
 def kernel_launches(fn: Callable):

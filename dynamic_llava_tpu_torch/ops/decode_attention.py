@@ -30,6 +30,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .. import kernels
+from ..kernels import counts
 from .attention import decode_attend_appended as decode_attention_plain
 from .attention import extend_attend_appended as extend_attention_plain
 from .attention import sliding_window_mask
@@ -208,6 +209,7 @@ def decode_attention(
         kernels.DTYPE_CODES[q.dtype], STORAGE_CODES[store], kernels.stream_of(q),
     )
     kernels.check(code, "decode_attention_appended")
+    counts.launched("decode_attention_appended")
     decode_attention.launches += 1
     return out
 
@@ -333,6 +335,7 @@ def extend_attention(
         kernels.DTYPE_CODES[q.dtype], STORAGE_CODES[store], kernels.stream_of(q),
     )
     kernels.check(code, "extend_attention_appended")
+    counts.launched("extend_attention_appended")
     extend_attention.launches += 1
     return out
 

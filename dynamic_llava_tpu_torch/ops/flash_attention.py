@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
+from ..kernels import counts
 from .attention import repeat_kv_heads
 
 NEG_INF = -1e30
@@ -185,6 +186,7 @@ def flash_attention(
         kernels.DTYPE_CODES[q.dtype], kernels.stream_of(q),
     )
     kernels.check(code, "flash_attention_fwd")
+    counts.launched("flash_attention_fwd")
     flash_attention.launches += 1
     return (out, lse) if return_lse else out
 
@@ -298,6 +300,7 @@ def flash_attention_bwd_delta(out: torch.Tensor, g: torch.Tensor) -> torch.Tenso
         kernels.DTYPE_CODES[out.dtype], kernels.stream_of(out),
     )
     kernels.check(code, "flash_attention_bwd_delta")
+    counts.launched("flash_attention_bwd_delta")
     flash_attention_bwd_delta.launches += 1
     return delta
 
@@ -323,6 +326,7 @@ def flash_attention_bwd_dq(q, k, v, g, lse, delta, *, kv_length=None,
         kernels.DTYPE_CODES[q.dtype], kernels.stream_of(q),
     )
     kernels.check(code, "flash_attention_bwd_dq")
+    counts.launched("flash_attention_bwd_dq")
     flash_attention_bwd_dq.launches += 1
     return dq
 
@@ -351,6 +355,7 @@ def flash_attention_bwd_dkv(q, k, v, g, lse, delta, *, kv_length=None,
         kernels.DTYPE_CODES[q.dtype], kernels.stream_of(q),
     )
     kernels.check(code, "flash_attention_bwd_dkv")
+    counts.launched("flash_attention_bwd_dkv")
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 

@@ -31,6 +31,7 @@ from typing import Optional
 import torch
 
 from .. import kernels
+from ..kernels import counts
 from .attention import attend_with_policy, blockwise_attend
 from .flash_attention import OP_RUNS, _check, check_qkv, kernel_head_dim, pad_head_dim
 
@@ -89,6 +90,7 @@ def flash_policy_attention(
         kernels.DTYPE_CODES[q.dtype], kernels.stream_of(q),
     )
     kernels.check(code, "flash_policy_attention_fwd")
+    counts.launched("flash_policy_attention_fwd")
     flash_policy_attention.launches += 1
     return out
 

@@ -39,6 +39,7 @@ from typing import NamedTuple, Sequence, Tuple
 import torch
 
 from .. import kernels
+from ..kernels import counts
 
 __all__ = [
     "MAX_ROWS", "q8_gemv", "q8_gemv_group", "q4_gemv", "q4_gemv_group",
@@ -274,6 +275,7 @@ def _launch(what: str, x, ws, ss, out_fp32: bool):
         kernels.ptr(x), *args, rows, k, *dtypes)
     kernels.check(code, f"{what} (rows {rows}, K {k}, N {ns}: see the shape "
                         "contract of csrc/quant_gemv.cu)")
+    counts.launched(what)
     return ys
 
 
@@ -363,6 +365,7 @@ def q4_mlp(x: torch.Tensor, gate: torch.Tensor, up: torch.Tensor,
         rows, k, f, d, *codes, kernels.stream_of(x))
     kernels.check(code, f"q4_mlp (rows {rows}, K {k}, F {f}, D {d}: see the shape contract "
                         "of csrc/quant_mlp.cu)")
+    counts.launched("q4_mlp")
     q4_mlp.launches += 1
     return y
 

@@ -116,8 +116,9 @@ def test_prefill_with_image_features_matches_jax(weights, cfg):
             plan.spans.image_start, plan.spans.last_instruct_start, plan.spans.last_instruct_end,
             plan.spans.has_image]
     jcache = jdyn.make_gen_cache(cfg, 2, plan.seq_len, 8, jnp.float32, all_have_image=False)
-    jstate, jinfo = jdyn.prefill(jp, cfg, *map(jnp.asarray, args), None, jcache,
-                                 jnp.asarray(feats))
+    # under one jit: one compile, not one an op
+    jstate, jinfo = jax.jit(jdyn.prefill, static_argnums=(1,))(
+        jp, cfg, *map(jnp.asarray, args), None, jcache, jnp.asarray(feats))
     tcfg = port_config(cfg)
     tcache = tdyn.make_gen_cache(tcfg, 2, plan.seq_len, 8, torch.float32, all_have_image=False,
                                  device="cpu")

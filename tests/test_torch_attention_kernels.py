@@ -16,6 +16,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -31,6 +32,14 @@ ATOL, RTOL = 1e-5, 1e-4
 
 def _np(shape, seed):
     return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+
+
+# the JAX functions under one jit each: one compile a shape, not one an op
+_jflash = jax.jit(jax_flash, static_argnames=(
+    "causal", "interpret", "save_residuals", "q_offset_static"))
+_jattend = jax.jit(lambda q, k, v, mask: attend(q, k, v, mask=mask))
+_jdecode = jax.jit(decode_attend_appended)
+_jflash_decode = jax.jit(flash_decode_attention, static_argnames=("block_k", "interpret"))
 
 
 K1_CASES = [
@@ -51,7 +60,7 @@ def test_k1_plain_matches_pallas_interpret(b, s, h, hkv, d, causal, lens):
         *map(torch.from_numpy, (q, k, v)),
         kv_length=None if kvl is None else torch.from_numpy(kvl),
         causal=causal, return_lse=True)
-    want, want_lse = jax_flash(
+    want, want_lse = _jflash(
         *map(jnp.asarray, (q, k, v)),
         kv_length=None if kvl is None else jnp.asarray(kvl),
         causal=causal, interpret=True, save_residuals=True)
@@ -68,7 +77,7 @@ def test_k1_plain_matches_attend_oracle(b, s, h, hkv, d, causal, lens):
     mask = make_attention_mask(
         s, s, causal=causal, batch=b,
         kv_length=None if kvl is None else jnp.asarray(kvl))
-    want = np.asarray(attend(*map(jnp.asarray, (q, k, v)), mask=mask))
+    want = np.asarray(_jattend(*map(jnp.asarray, (q, k, v)), mask))
     got = flash_attention(
         *map(torch.from_numpy, (q, k, v)),
         kv_length=None if kvl is None else torch.from_numpy(kvl),
@@ -82,7 +91,7 @@ def test_k1_q_offset_matches_pallas_interpret():
     b, sq, sk, h, d = 2, 16, 40, 2, 64
     q, k, v = _np((b, sq, h, d), 6), _np((b, sk, h, d), 7), _np((b, sk, h, d), 8)
     got = flash_attention_plain(*map(torch.from_numpy, (q, k, v)), q_offset=24)
-    want = jax_flash(*map(jnp.asarray, (q, k, v)), q_offset_static=24, interpret=True)
+    want = _jflash(*map(jnp.asarray, (q, k, v)), q_offset_static=24, interpret=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=RTOL)
 
 
@@ -102,7 +111,7 @@ def test_k2_plain_matches_decode_attend_appended(hkv, n_rep, d, max_len):
     kn, vn = _np((b, 1, hkv, d), 13), _np((b, 1, hkv, d), 14)
     length = np.array([0, max_len // 2, max_len - 1], np.int32)
     got = decode_attention(*map(torch.from_numpy, (q, kc, vc, kn, vn, length)))
-    want = decode_attend_appended(*map(jnp.asarray, (q, kc, vc, kn, vn, length)))
+    want = _jdecode(*map(jnp.asarray, (q, kc, vc, kn, vn, length)))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=RTOL)
 
 
@@ -119,8 +128,7 @@ def test_k2_plain_matches_pallas_decode_interpret(hkv, n_rep, d, max_len):
     for i, n in enumerate(length):
         kw[i, n], vw[i, n] = kn[i, 0], vn[i, 0]
     got = decode_attention_plain(*map(torch.from_numpy, (q, kc, vc, kn, vn, length)))
-    want = flash_decode_attention(*map(jnp.asarray, (q, kw, vw, length)),
-                                  block_k=128, interpret=True)
+    want = _jflash_decode(*map(jnp.asarray, (q, kw, vw, length)), block_k=128, interpret=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-5, rtol=3e-4)
 
 

@@ -550,9 +550,10 @@ def test_sample_per_slot_with_a_top_p_1_row():
         assert kept[r][draws[:, r]].all(), r
     assert len(set(draws[:, 1])) > 50  # the unmasked row spreads
     # the JAX function's own draws lie in the same nucleus
+    sample = jax.jit(jsample_per_slot)  # one compile for the 20 draws
     for s in range(20):
-        jd = np.asarray(jsample_per_slot(jax.random.key(s), jnp.asarray(logits),
-                                         jnp.asarray(temps), jnp.asarray(top_ps)))
+        jd = np.asarray(sample(jax.random.key(s), jnp.asarray(logits),
+                               jnp.asarray(temps), jnp.asarray(top_ps)))
         assert jd[0] == np.argmax(logits[0]) and all(kept[r][jd[r]] for r in (1, 2, 3))
     # the same draws from the same seed
     gen2 = torch.Generator().manual_seed(0)
@@ -610,6 +611,12 @@ def _image_batch(cfg, b=2):
     return ids, rng.normal(size=(b, size, size, 3)).astype(np.float32)
 
 
+# the JAX prefill and no-cache forward under one jit each: one compile a
+# shape, not one an op
+_jprefill = jax.jit(jdyn.prefill, static_argnums=(1,), static_argnames=("all_have_image",))
+_jnocache_eval = jax.jit(jdyn.forward_nocache_eval, static_argnums=(1,))
+
+
 def _both_prefill(weights, cfg, override=None, max_new=8):
     jp, tp = weights
     ids, pix = _image_batch(cfg)
@@ -617,7 +624,7 @@ def _both_prefill(weights, cfg, override=None, max_new=8):
     jcache = jdyn.make_gen_cache(cfg, plan.batch, plan.seq_len, max_new, jnp.float32)
     tcache = tdyn.make_gen_cache(port_config(cfg), plan.batch, plan.seq_len, max_new,
                                  torch.float32, device="cpu")
-    jstate, jinfo = jdyn.prefill(
+    jstate, jinfo = _jprefill(
         jp, cfg, *_plan_args(plan, "jax"), jnp.asarray(pix), jcache, all_have_image=True,
         vision_score_override=None if override is None else jnp.asarray(override))
     tstate, tinfo = tdyn.prefill(
@@ -697,7 +704,7 @@ def test_forward_nocache_eval_matches_jax(kind):
         plan = plan_batch(list(ids), cfg.num_image_tokens, labels_list=list(labels))
         size = cfg.vision.image_size
         pix = rng.normal(size=(2, size, size, 3)).astype(np.float32)
-    jl, jlen = jdyn.forward_nocache_eval(
+    jl, jlen = _jnocache_eval(
         jp, cfg, *_nocache_args(plan, "jax"), None if pix is None else jnp.asarray(pix))
     tl, tlen = tdyn.forward_nocache_eval(
         tp, port_config(cfg), *_nocache_args(plan, "torch"),

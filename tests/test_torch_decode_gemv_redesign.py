@@ -10,9 +10,12 @@ output rtol 8e-3 (one bf16 rounding of the same fp32 sum). The Pallas GEMV
 kernels run in interpret mode, as ``tests/test_torch_quant.py`` runs them.
 """
 
+import functools
+
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -53,6 +56,11 @@ ATTEND_CASES = [
 ]
 
 
+# the JAX functions under one jit each, so that a shape compiles once
+_jdecode = jax.jit(jattn.decode_attend_appended, static_argnames=("window", "scale"))
+_jquantize = jax.jit(jkv.quantize_kv)
+
+
 @pytest.mark.parametrize("store", ["own", "int8", "fp8"])
 @pytest.mark.parametrize("case", ATTEND_CASES, ids=[c[0] for c in ATTEND_CASES])
 def test_decode_attention_plain_path_matches_jax_at_the_edges(case, store):
@@ -61,8 +69,8 @@ def test_decode_attention_plain_path_matches_jax_at_the_edges(case, store):
     kf, vf = _np((b, max_len, hkv, d), 4), _np((b, max_len, hkv, d), 5)
     jkw, tkw = {}, {}
     if store == "int8":
-        jk, jkw["k_scale"] = jkv.quantize_kv(jnp.asarray(kf))
-        jv, jkw["v_scale"] = jkv.quantize_kv(jnp.asarray(vf))
+        jk, jkw["k_scale"] = _jquantize(jnp.asarray(kf))
+        jv, jkw["v_scale"] = _jquantize(jnp.asarray(vf))
         tk, tkw["k_scale"] = tkv.quantize_kv(torch.from_numpy(kf))
         tv, tkw["v_scale"] = tkv.quantize_kv(torch.from_numpy(vf))
     elif store == "fp8":
@@ -76,7 +84,7 @@ def test_decode_attention_plain_path_matches_jax_at_the_edges(case, store):
         q_pos = np.minimum(bound, max_len) + 3
         jkw.update(window=window, q_pos=jnp.asarray(q_pos))
         tkw.update(window=window, q_pos=torch.from_numpy(q_pos))
-    want = jattn.decode_attend_appended(
+    want = _jdecode(
         jnp.asarray(q), jk, jv, jnp.asarray(kn), jnp.asarray(vn), jnp.asarray(bound), **jkw)
     got = tda.decode_attention(
         torch.from_numpy(q), tk, tv, torch.from_numpy(kn), torch.from_numpy(vn),
@@ -161,32 +169,52 @@ GEMV_EDGES = [
 GEMV_ROWS = [1, 16, 17, 33, 64]
 
 
+# the Pallas wrappers under one jit each, so that a shape compiles once
+_PALLAS = {(bits, group): jax.jit(fn, static_argnames=("out_fp32", "interpret"))
+           for (bits, group), fn in {(8, False): jqm.matmul_q8_pallas,
+                                     (8, True): jqm.matmul_q8_multi_pallas,
+                                     (4, False): jqm.matmul_q4_pallas,
+                                     (4, True): jqm.matmul_q4_multi_pallas}.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_edge(label, bits, out_fp32):
+    """One Pallas run of ``GEMV_EDGES[label]`` at ``max(GEMV_ROWS)`` rows:
+    ``(x, weights, scales, outputs)``. A GEMV's output row depends on its x
+    row alone, so each rows case holds the port on the first rows of this x
+    against the first rows of these outputs: the rows cases share one run."""
+    _, k, ns = next(c for c in GEMV_EDGES if c[0] == label)
+    ws, ss = _weights(k, ns, bits, seed=bits + 2 * out_fp32)
+    x = _bf16_values(_np((max(GEMV_ROWS), k), 100 + bits + 2 * out_fp32))
+    jx = jnp.asarray(x, jnp.float32 if out_fp32 else jnp.bfloat16)
+    group = len(ns) > 1
+    pallas = _PALLAS[bits, group]
+    want = (pallas(jx, tuple(ws), tuple(ss), out_fp32=out_fp32, interpret=True) if group
+            else [pallas(jx, ws[0], ss[0], out_fp32=out_fp32, interpret=True)])
+    return x, ws, ss, [np.asarray(w, np.float32) for w in want]
+
+
 @pytest.mark.parametrize("rows", GEMV_ROWS)
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("case", GEMV_EDGES, ids=[c[0] for c in GEMV_EDGES])
 def test_gemv_plain_path_matches_pallas_at_the_edges(case, bits, rows):
-    _, k, ns = case
+    label, k, ns = case
     group = len(ns) > 1
-    ws, ss = _weights(k, ns, bits, seed=rows)
-    tw, ts = [_to_torch(w) for w in ws], [_to_torch(s) for s in ss]
     for out_fp32 in (False, True):
-        x = _bf16_values(_np((rows, k), 100 + rows))
-        jx = jnp.asarray(x, jnp.float32 if out_fp32 else jnp.bfloat16)
+        x, ws, ss, want = _pallas_edge(label, bits, out_fp32)
+        tw, ts = [_to_torch(w) for w in ws], [_to_torch(s) for s in ss]
+        x = x[:rows]
         tx = torch.from_numpy(x) if out_fp32 else torch.from_numpy(x).bfloat16()
         if group:
-            pallas = jqm.matmul_q4_multi_pallas if bits == 4 else jqm.matmul_q8_multi_pallas
             port = tqm.q4_gemv_group if bits == 4 else tqm.q8_gemv_group
-            want = pallas(jx, tuple(ws), tuple(ss), out_fp32=out_fp32, interpret=True)
             got = port(tx, tw, ts, out_fp32=out_fp32)
         else:
-            pallas = jqm.matmul_q4_pallas if bits == 4 else jqm.matmul_q8_pallas
             port = tqm.q4_gemv if bits == 4 else tqm.q8_gemv
-            want = [pallas(jx, ws[0], ss[0], out_fp32=out_fp32, interpret=True)]
             got = [port(tx, tw[0], ts[0], out_fp32=out_fp32)]
         assert len(got) == len(want) == len(ns)
         for g, w, n in zip(got, want, ns):
             assert tuple(g.shape) == (rows, n)
-            w = np.asarray(w, np.float32)
+            w = w[:rows]
             if out_fp32:
                 assert g.dtype == torch.float32
                 np.testing.assert_allclose(g.numpy(), w, atol=ATOL, rtol=RTOL)

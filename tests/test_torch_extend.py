@@ -22,6 +22,8 @@ a ragged batch then greedy decode, and an empty chunk as a no-op.
 
 import dataclasses
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -69,8 +71,10 @@ def _store(kind: str, x: np.ndarray):
             tq, ts)
 
 
+@functools.partial(jax.jit, static_argnums=(1, 2, 4), static_argnames=("max_len", "m", "window"))
 def jax_extend_mask(length0, max_len, m, chunk_attend=None, window=None, positions=None):
-    """The mask of the JAX ``run_layers_extend``, as it builds it."""
+    """The mask of the JAX ``run_layers_extend``, as it builds it (under one
+    jit: one compile a shape, not one an op)."""
     b = length0.shape[0]
     cache_cols = jnp.arange(max_len, dtype=jnp.int32)
     cache_mask = cache_cols[None, :] < jnp.minimum(length0, max_len)[:, None]
@@ -237,7 +241,8 @@ def test_run_layers_extend_matches_jax(decoder, store, chunk_attend):
     rng = np.random.default_rng(21)
     keep = rng.random((b, m)) < 0.7
     attend = rng.random((b, m)) < 0.5 if chunk_attend else None
-    jr = jllama.run_layers_extend(
+    # under one jit: one compile a form, not one an op
+    jr = jax.jit(jllama.run_layers_extend, static_argnums=(1,), static_argnames=("lo", "hi"))(
         jp, cfg, jnp.asarray(x), jnp.asarray(pos), jc, lo=lo, hi=hi, keep=jnp.asarray(keep),
         chunk_attend=None if attend is None else jnp.asarray(attend))
     tr = tllama.run_layers_extend(
@@ -295,6 +300,7 @@ def _cfg(**sparse_overrides):
 
 _jinit = jax.jit(jdyn.init_llava_params, static_argnums=(1,))
 _jcontinue = jax.jit(jdyn.prefill_continue, static_argnums=(1,))
+_jprefill = jax.jit(jdyn.prefill, static_argnums=(1,))
 _jdecode = jax.jit(jdyn.decode_step, static_argnums=(1,))
 
 
@@ -318,7 +324,7 @@ class Both:
         sl = self.jcfg.sparse.sparse_layer
         jc = jkv.init_tiered_cache(self.jcfg.text, sl, plan.batch, pre, post, self.jdt)
         tc = tkv.init_tiered_cache(self.tcfg.text, sl, plan.batch, pre, post, self.tdt)
-        js, _ = jdyn.prefill(self.jp, self.jcfg, *map(jnp.asarray, arrays), None, jc)
+        js, _ = _jprefill(self.jp, self.jcfg, *map(jnp.asarray, arrays), None, jc)
         tarr = [torch.from_numpy(np.asarray(a)) for a in arrays]
         for i in (0, 2, 3, 4, 5, 6):
             tarr[i] = tarr[i].to(torch.int32)

@@ -210,7 +210,8 @@ def test_decode_attend_appended_matches_jax(store, window):
     if window is not None:
         jkw.update(window=window, q_pos=jnp.asarray(q_pos))
         tkw.update(window=window, q_pos=torch.from_numpy(q_pos))
-    want = jattn.decode_attend_appended(
+    # under one jit: one compile a form, not one an op
+    want = jax.jit(jattn.decode_attend_appended, static_argnames=("window",))(
         jin["q"], jin["k_cache"], jin["v_cache"], jin["k_cur"], jin["v_cur"],
         jnp.asarray(bound), **jkw)
     args = (tin["q"], tin["k_cache"], tin["v_cache"], tin["k_cur"], tin["v_cur"],

@@ -197,7 +197,9 @@ def test_layer_nocache_with_adapters_matches_jax(bits):
     x, pos = _layer_inputs(cfg)
     jl = jax.tree.map(jnp.asarray, jp["llm"]["layers"])
     jlp = jax.tree.map(lambda t: t[1] if t.ndim else t, jl)
-    want = jllama.layer_nocache(jlp, cfg.text, jnp.asarray(x), jnp.asarray(pos), None)
+    # under one jit: one compile, not one an op
+    want = jax.jit(jllama.layer_nocache, static_argnums=(1,))(
+        jlp, cfg.text, jnp.asarray(x), jnp.asarray(pos), None)
     got = tllama.layer_nocache(tllama.layer_params(tp["llm"]["layers"], 1),
                                port_config(cfg).text, torch.from_numpy(x),
                                torch.from_numpy(pos))

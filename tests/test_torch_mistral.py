@@ -48,6 +48,13 @@ def decoder():
 # one compile a shape for the JAX decode loop
 _jdecode = jax.jit(lambda p, x, pos, c: jllama.run_layers_decode(p, CFG, x, pos, c))
 _jhead = jax.jit(lambda p, x: jllama.lm_head(p, CFG, x))
+# and for the no-cache forwards, the prefill and the extend
+_jnocache = jax.jit(lambda p, x, pos: jllama.run_layers_nocache(p, CFG, x, pos))
+_jdense = jax.jit(lambda p, ids: jllama.forward_dense(p, CFG, ids))
+_jprefill = jax.jit(lambda p, ids, pos, c, v: jllama.run_layers_prefill(
+    p, CFG, jllama.embed_tokens(p, ids), pos, c, v))
+_jextend = jax.jit(lambda p, ids, pos, c: jllama.run_layers_extend(
+    p, CFG, jllama.embed_tokens(p, ids), pos, c))
 
 
 def _ids(b, s, seed):
@@ -64,13 +71,13 @@ def test_nocache_forward_with_the_window_matches_jax(decoder, s):
     b = 2
     x = np.random.default_rng(s).normal(size=(b, s, CFG.hidden_size)).astype(np.float32)
     pos = np.broadcast_to(np.arange(s, dtype=np.int32)[None], (b, s))
-    want = np.asarray(jllama.run_layers_nocache(jp, CFG, jnp.asarray(x), jnp.asarray(pos)))
+    want = np.asarray(_jnocache(jp, jnp.asarray(x), jnp.asarray(pos)))
     got = tllama.run_layers_nocache(tp, tcfg, torch.from_numpy(x),
                                     torch.from_numpy(np.ascontiguousarray(pos)))
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
 
     ids = _ids(b, s, s + 1)
-    want = np.asarray(jllama.forward_dense(jp, CFG, jnp.asarray(ids)))
+    want = np.asarray(_jdense(jp, jnp.asarray(ids)))
     got = tllama.forward_dense(tp, tcfg, torch.from_numpy(ids)).numpy()
     np.testing.assert_allclose(got, want, atol=LOGIT_ATOL, rtol=LOGIT_RTOL)
     no_window = tllama.forward_dense(tp, dataclasses.replace(tcfg, sliding_window=None),
@@ -112,14 +119,13 @@ def test_prefill_past_the_window_then_decode_matches_jax_and_nocache(decoder, s)
     tc = tkv.init_cache(tcfg, b, max_len, torch.float32)
     pos = np.broadcast_to(np.arange(s, dtype=np.int32)[None], (b, s))
     valid = np.full((b,), s, np.int32)
-    jr = jllama.run_layers_prefill(jp, CFG, jllama.embed_tokens(jp, jnp.asarray(ids)),
-                                   jnp.asarray(pos), jc, jnp.asarray(valid))
+    jr = _jprefill(jp, jnp.asarray(ids), jnp.asarray(pos), jc, jnp.asarray(valid))
     tr = tllama.run_layers_prefill(tp, tcfg, tllama.embed_tokens(tp, torch.from_numpy(ids)),
                                    torch.from_numpy(np.ascontiguousarray(pos)), tc,
                                    torch.from_numpy(valid))
     np.testing.assert_allclose(tr.x.numpy(), np.asarray(jr.x), atol=ATOL, rtol=RTOL)
     jc, tc = jr.cache, tr.cache
-    jl = np.asarray(jllama.lm_head(jp, CFG, jr.x))[:, s - 1]
+    jl = np.asarray(_jhead(jp, jr.x))[:, s - 1]
     tl = tllama.lm_head(tp, tcfg, tr.x)[:, s - 1]
     seq = torch.from_numpy(ids)
     for step in range(n_decode):
@@ -155,19 +161,17 @@ def test_extend_across_the_window_matches_jax_and_nocache(decoder, s1):
     tc = tkv.init_cache(tcfg, b, max_len, torch.float32)
     pos1 = np.broadcast_to(np.arange(s1, dtype=np.int32)[None], (b, s1))
     valid = np.full((b,), s1, np.int32)
-    jr = jllama.run_layers_prefill(jp, CFG, jllama.embed_tokens(jp, jnp.asarray(ids[:, :s1])),
-                                   jnp.asarray(pos1), jc, jnp.asarray(valid))
+    jr = _jprefill(jp, jnp.asarray(ids[:, :s1]), jnp.asarray(pos1), jc, jnp.asarray(valid))
     tr = tllama.run_layers_prefill(tp, tcfg,
                                    tllama.embed_tokens(tp, torch.from_numpy(ids[:, :s1])),
                                    torch.from_numpy(np.ascontiguousarray(pos1)), tc,
                                    torch.from_numpy(valid))
     pos2 = np.broadcast_to((s1 + np.arange(m, dtype=np.int32))[None], (b, m))
-    je = jllama.run_layers_extend(jp, CFG, jllama.embed_tokens(jp, jnp.asarray(ids[:, s1:])),
-                                  jnp.asarray(pos2), jr.cache)
+    je = _jextend(jp, jnp.asarray(ids[:, s1:]), jnp.asarray(pos2), jr.cache)
     te = tllama.run_layers_extend(tp, tcfg, tllama.embed_tokens(tp, torch.from_numpy(ids[:, s1:])),
                                   torch.from_numpy(np.ascontiguousarray(pos2)), tr.cache)
     got = tllama.lm_head(tp, tcfg, te.x).numpy()
-    np.testing.assert_allclose(got, np.asarray(jllama.lm_head(jp, CFG, je.x)),
+    np.testing.assert_allclose(got, np.asarray(_jhead(jp, je.x)),
                                atol=LOGIT_ATOL, rtol=LOGIT_RTOL)
     ref = tllama.forward_dense(tp, tcfg, torch.from_numpy(ids)).numpy()[:, s1:]
     np.testing.assert_allclose(got, ref, atol=LOGIT_ATOL, rtol=LOGIT_RTOL)

@@ -64,9 +64,10 @@ def test_forward_dense_matches_jax(model):
     cfg, jp, tp = model
     ids = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(2, 17)).astype(np.int32)
     valid = np.array([17, 11], np.int32)
+    # under one jit a form (the weights closed over): one compile, not one an op
+    jfwd = jax.jit(lambda i, v: jmpt.forward_dense(jp, cfg, i, valid_len=v))
     for vl in (None, valid):
-        want = np.asarray(jmpt.forward_dense(jp, cfg, jnp.asarray(ids),
-                                             valid_len=None if vl is None else jnp.asarray(vl)))
+        want = np.asarray(jfwd(jnp.asarray(ids), None if vl is None else jnp.asarray(vl)))
         got = tmpt.forward_dense(tp, port_config(cfg), torch.from_numpy(ids),
                                  valid_len=None if vl is None else torch.from_numpy(vl))
         np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
@@ -84,8 +85,9 @@ def test_prefill_decode_matches_jax_and_nocache(model):
     tc = tmpt.init_cache(tcfg, b, s + n_decode + 1, torch.float32, device="cpu")
     pos = np.broadcast_to(np.arange(s, dtype=np.int32)[None], (b, s))
     valid = np.full((b,), s, np.int32)
-    jr = jmpt.run_layers_prefill(jp, cfg, jmpt.embed_tokens(jp, jnp.asarray(ids)),
-                                 jnp.asarray(pos), jc, jnp.asarray(valid))
+    jr = jax.jit(lambda i, p_, c, v: jmpt.run_layers_prefill(
+        jp, cfg, jmpt.embed_tokens(jp, i), p_, c, v))(
+        jnp.asarray(ids), jnp.asarray(pos), jc, jnp.asarray(valid))
     tr = tmpt.run_layers_prefill(tp, tcfg, tmpt.embed_tokens(tp, torch.from_numpy(ids)),
                                  torch.from_numpy(np.ascontiguousarray(pos)), tc,
                                  torch.from_numpy(valid))

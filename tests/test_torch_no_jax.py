@@ -137,7 +137,8 @@ print("jax loaded:", "jax" in sys.modules)
 print("jax package loaded:", "dynamic_llava_tpu" in sys.modules)
 """
 
-SOURCES = (sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "predict_torch.py"]
+SOURCES = (sorted(PACKAGE.rglob("*.py"))
+           + [ROOT / "chip_smoke.py", ROOT / "chip_launches.py", ROOT / "predict_torch.py"]
            + sorted((ROOT / "tools").glob("*.py")))
 # `import jax`, `from jax...`, `import dynamic_llava_tpu[.x]`, `from dynamic_llava_tpu[.x] ...`:
 # the word boundary keeps `dynamic_llava_tpu_torch` out

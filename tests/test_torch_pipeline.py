@@ -43,6 +43,12 @@ MESH = (1, 2, 1, 2)
 WORLD = 4
 SWEEPS = [(4, 2), (4, 1)]
 
+# the JAX functions under one jit each: one compile a shape, not one an op
+_jinit_llama = jax.jit(llama.init_llama_params, static_argnums=(1, 2))
+_jinit_llava = jax.jit(dynamic.init_llava_params, static_argnums=(1,))
+_jnocache = jax.jit(llama.run_layers_nocache, static_argnums=(1,),
+                    static_argnames=("lo", "hi", "training"))
+
 
 def _tcfg(layers=4):  # tests/test_pipeline.py
     return LlamaConfig(vocab_size=128, hidden_size=32, intermediate_size=64,
@@ -76,7 +82,7 @@ def ranks(tmp_path_factory):
     cases, jax_refs = {}, []
     for layers, sl in SWEEPS:
         cfg = _tcfg(layers)
-        params = llama.init_llama_params(jax.random.key(0), cfg)
+        params = _jinit_llama(jax.random.key(0), cfg, jnp.float32)
         x, positions, policy = _inputs(cfg, 4, 12, jnp.float32)
         cases[f"sweeps_{layers}_{sl}"] = ("sweeps", dict(
             text_cfg=port_config(cfg), params=np_tree(params), x=x, positions=positions,
@@ -84,11 +90,10 @@ def ranks(tmp_path_factory):
 
         def sweeps_ref(cfg=cfg, params=params, x=x, positions=positions, policy=policy,
                        layers=layers, sl=sl):
-            pre = llama.run_layers_nocache(params, cfg, jnp.asarray(x), jnp.asarray(positions),
-                                           lo=0, hi=sl, training=True)
-            post = llama.run_layers_nocache(params, cfg, pre, jnp.asarray(positions), lo=sl,
-                                            hi=layers, policy=jnp.asarray(policy),
-                                            training=True)
+            pre = _jnocache(params, cfg, jnp.asarray(x), jnp.asarray(positions),
+                            lo=0, hi=sl, training=True)
+            post = _jnocache(params, cfg, pre, jnp.asarray(positions), lo=sl,
+                             hi=layers, policy=jnp.asarray(policy), training=True)
             return np.asarray(pre), np.asarray(post)
         jax_refs.append((f"sweeps_{layers}_{sl}", sweeps_ref))
 
@@ -96,7 +101,7 @@ def ranks(tmp_path_factory):
     # and bf16 with one
     cfg = _tcfg(4)
     for name, dtype in (("grads", jnp.float32), ("bf16", jnp.bfloat16)):
-        params = llama.init_llama_params(jax.random.key(0), cfg, dtype)
+        params = _jinit_llama(jax.random.key(0), cfg, dtype)
         x, positions, policy = _inputs(cfg, 4, 10, dtype)
         policy = None if name == "grads" else policy
         cases[name] = ("sweeps", dict(
@@ -114,7 +119,7 @@ def ranks(tmp_path_factory):
 
     # a whole pipelined train step against the single-device JAX step
     lcfg = _train_cfg()
-    lparams = np_tree(dynamic.init_llava_params(jax.random.key(0), lcfg))
+    lparams = np_tree(_jinit_llava(jax.random.key(0), lcfg))
     plan, imgs, _, _ = train_batch(lcfg, 4)
     batch = batch_from_plan(plan, imgs)
     key = jax.random.key(7)

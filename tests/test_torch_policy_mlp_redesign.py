@@ -13,9 +13,12 @@ states them (the Pallas kernel sums K in windows, so an ``h`` may round to
 the neighbouring bf16 value). The Pallas kernels run in interpret mode.
 """
 
+import functools
+
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -43,6 +46,12 @@ def _policy(kind, b, s, seed):
     return {"zeros": np.zeros_like(u), "ones": np.ones_like(u), "soft": u}[kind]
 
 
+# the Pallas kernel under one jit, so that the three policies of a shape
+# compile once
+_jpolicy = jax.jit(jpolicy.flash_policy_attention,
+                   static_argnames=("block_q", "block_k", "interpret"))
+
+
 @pytest.mark.parametrize("kind", ["zeros", "ones", "soft"])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("s", [1, 63, 64, 65, 129])
@@ -55,7 +64,7 @@ def test_policy_plain_matches_pallas_at_the_tile_edges(s, d, kind):
     q, k, v = _np((b, s, h, d), s + d), _np((b, s, hkv, d), s + d + 1), \
         _np((b, s, hkv, d), s + d + 2)
     pol = _policy(kind, b, s, s + d + 3)
-    want = jpolicy.flash_policy_attention(
+    want = _jpolicy(
         *map(jnp.asarray, (q, k, v, pol)), block_q=64, block_k=64, interpret=True)
     ins = [torch.from_numpy(a) for a in (q, k, v, pol)]
     got = tpolicy.flash_policy_attention_plain(*ins)
@@ -84,8 +93,8 @@ def test_policy_edge_cases_cover_the_tile_edges():
 K_DIM, F_DIM, D_DIM = 384, 640, 320
 
 
-@pytest.fixture(scope="module")
-def mlp_leaves():
+@functools.lru_cache(maxsize=None)
+def _mlp_leaves():
     """JAX int4 leaves ``{"q4", "s"}`` of bf16 gate, up ``[K, F]`` and down
     ``[F, D]``, and their torch copies."""
     shapes = {"gate": (K_DIM, F_DIM), "up": (K_DIM, F_DIM), "down": (F_DIM, D_DIM)}
@@ -97,24 +106,39 @@ def mlp_leaves():
     return jl, tl
 
 
-@pytest.mark.parametrize("rows", [1, 7, 17, 64])
-def test_q4_mlp_plain_matches_pallas_off_256(mlp_leaves, rows):
-    jl, tl = mlp_leaves
+MLP_ROWS = [1, 7, 17, 64]
+
+
+@functools.lru_cache(maxsize=None)
+def _mlp_pallas(out_fp32):
+    """One Pallas run (interpret mode, under jit) of the MLP at
+    ``max(MLP_ROWS)`` rows of one x: ``(x, output)``. An output row depends
+    on its x row alone, so each rows case holds the port on the first rows
+    of this x against the first rows of this output."""
+    jl, _ = _mlp_leaves()
+    x = _np((max(MLP_ROWS), K_DIM), 200 + out_fp32)
+    jx = jnp.asarray(x, jnp.float32 if out_fp32 else jnp.bfloat16)
+    names = ("gate", "up", "down")
+    run = jax.jit(jqm.matmul_q4_mlp_pallas, static_argnames=("out_fp32", "interpret"))
+    want = run(jx, *(jl[n]["q4"] for n in names), *(jl[n]["s"] for n in names),
+               out_fp32=out_fp32, interpret=True)
+    return x, np.asarray(want, np.float32)
+
+
+@pytest.mark.parametrize("rows", MLP_ROWS)
+def test_q4_mlp_plain_matches_pallas_off_256(rows):
+    _, tl = _mlp_leaves()
     names = ("gate", "up", "down")
     assert F_DIM % 256 and D_DIM % 256
-    x = _np((rows, K_DIM), 200 + rows)
     for out_fp32, tol in ((False, 2e-2), (True, 2e-3)):
-        jx = jnp.asarray(x, jnp.float32 if out_fp32 else jnp.bfloat16)
+        x, want = _mlp_pallas(out_fp32)
+        x = x[:rows]
         tx = torch.from_numpy(x) if out_fp32 else torch.from_numpy(x).bfloat16()
-        want = jqm.matmul_q4_mlp_pallas(
-            jx, *(jl[n]["q4"] for n in names), *(jl[n]["s"] for n in names),
-            out_fp32=out_fp32, interpret=True)
         got = tqm.q4_mlp_plain(tx, *(tl[n]["q4"] for n in names), *(tl[n]["s"] for n in names),
                                out_fp32=out_fp32)
         assert got.dtype == (torch.float32 if out_fp32 else torch.bfloat16)
         assert tuple(got.shape) == (rows, D_DIM)
-        np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
-                                   atol=tol, rtol=tol)
+        np.testing.assert_allclose(got.float().numpy(), want[:rows], atol=tol, rtol=tol)
         # the wrapper takes the plain version for CPU tensors
         again = tqm.q4_mlp(tx, *(tl[n]["q4"] for n in names), *(tl[n]["s"] for n in names),
                            out_fp32=out_fp32)

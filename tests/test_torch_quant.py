@@ -17,6 +17,8 @@ bf16 rounding step (rtol 8e-3). The CUDA kernels are held against these
 plain versions on the card by ``chip_smoke.py``.
 """
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -40,6 +42,11 @@ from test_torch_config import port_config
 ATOL, RTOL = 1e-5, 1e-4
 CFG = LlamaConfig.tiny(num_key_value_heads=2)
 TCFG = port_config(CFG)  # the port's own dataclass, same field values
+
+# the JAX inits under one jit each: one compile, not one an op
+_jinit = jax.jit(jllama.init_llama_params, static_argnums=(1, 2))
+_jinit_quantized = jax.jit(jq.init_quantized_llama_params, static_argnums=(1,),
+                           static_argnames=("bits",))
 
 
 def _np(shape, seed, scale=1.0):
@@ -104,7 +111,7 @@ def test_quantize_weight_bit_identical_to_jax(bits, dtype, shape, axis):
 
 @pytest.mark.parametrize("bits", [8, 4])
 def test_quantize_llm_params_same_tree_as_jax(bits):
-    jp = jllama.init_llama_params(jax.random.key(3), CFG, jnp.float32)
+    jp = _jinit(jax.random.key(3), CFG, jnp.float32)
     want = jq.quantize_llm_params({"llm": jax.tree.map(jnp.array, jp)}, bits=bits)
     tp = {"llm": params_from_numpy(jax.tree.map(np.asarray, jp), "cpu", torch.float32)}
     got = tq.quantize_llm_params(tp, bits=bits)
@@ -122,7 +129,7 @@ def test_init_quantized_params_shapes_and_the_embed_scale_fault(bits):
     JAX ``embed_tokens`` gathers scale rows out of bounds (NaN) for every
     id >= 1 -- a fault of the reference that the port does not copy."""
     tp = tq.init_quantized_llama_params(TCFG, torch.Generator().manual_seed(0), "cpu", bits)
-    jp = jq.init_quantized_llama_params(jax.random.key(0), CFG, bits=bits)
+    jp = _jinit_quantized(jax.random.key(0), CFG, bits=bits)
     jshapes = {k: tuple(v.shape) for k, v in _leaves(jp)}
     tshapes = {k: tuple(v.shape) for k, v in _leaves(tp)}
     assert jshapes.pop("/embed/s") == (1, CFG.hidden_size)
@@ -178,27 +185,38 @@ KERNELS = {
 }
 
 
+@functools.lru_cache(maxsize=None)
+def _pallas_run(name, k, out_fp32):
+    """One Pallas run (interpret mode, under jit) of ``KERNELS[name]`` at
+    ``max(ROWS)`` rows of one x: ``(x, weights, scales, outputs)``. A GEMV's
+    output row depends on its x row alone, so each rows case holds the port
+    on the first rows of this x against the first rows of these outputs."""
+    bits, ns, pallas, _ = KERNELS[name]
+    ws, ss = _weights(k, ns, bits, seed=10 + k)
+    x = _bf16_values(_np((max(ROWS), k), k))
+    jx = jnp.asarray(x, jnp.float32 if out_fp32 else jnp.bfloat16)
+    run = jax.jit(pallas, static_argnames=("out_fp32", "interpret"))
+    want = (run(jx, tuple(ws), tuple(ss), out_fp32=out_fp32, interpret=True) if len(ns) > 1
+            else [run(jx, ws[0], ss[0], out_fp32=out_fp32, interpret=True)])
+    return x, ws, ss, [np.asarray(w, np.float32) for w in want]
+
+
 @pytest.mark.parametrize("rows", ROWS)
 @pytest.mark.parametrize("name", list(KERNELS))
 def test_plain_gemv_matches_pallas_interpret(name, rows):
-    bits, ns, pallas, port = KERNELS[name]
+    _, ns, _, port = KERNELS[name]
     group = len(ns) > 1
     for k, out_fp32 in K_OUT:
-        ws, ss = _weights(k, ns, bits, seed=10 + rows)
-        x = _bf16_values(_np((rows, k), rows))
-        jx = jnp.asarray(x, jnp.float32 if out_fp32 else jnp.bfloat16)
+        x, ws, ss, want = _pallas_run(name, k, out_fp32)
+        x = x[:rows]
         tx = torch.from_numpy(x) if out_fp32 else torch.from_numpy(x).bfloat16()
         tw, ts = [_to_torch(w) for w in ws], [_to_torch(s) for s in ss]
-        if group:
-            want = pallas(jx, tuple(ws), tuple(ss), out_fp32=out_fp32, interpret=True)
-            got = port(tx, tw, ts, out_fp32=out_fp32)
-        else:
-            want = [pallas(jx, ws[0], ss[0], out_fp32=out_fp32, interpret=True)]
-            got = [port(tx, tw[0], ts[0], out_fp32=out_fp32)]
+        got = port(tx, tw, ts, out_fp32=out_fp32) if group else \
+            [port(tx, tw[0], ts[0], out_fp32=out_fp32)]
         assert len(got) == len(want) == len(ns)
         for g, w, n in zip(got, want, ns):
             assert tuple(g.shape) == (rows, n)
-            _compare(g, w, out_fp32)
+            _compare(g, w[:rows], out_fp32)
 
 
 # ---------------------------------------------------------------------------
@@ -271,7 +289,7 @@ def test_wrappers_refuse_a_device_without_a_kernel(fn, int4):
 
 @pytest.fixture(scope="module", params=[8, 4], ids=["int8", "int4"])
 def quantized(request):
-    jp = jllama.init_llama_params(jax.random.key(5), CFG, jnp.float32)
+    jp = _jinit(jax.random.key(5), CFG, jnp.float32)
     jq.quantize_llm_params({"llm": jp}, bits=request.param)
     jp = jax.tree.map(np.asarray, jp)
     return jp, params_from_numpy(jp, "cpu", torch.float32)
@@ -287,8 +305,11 @@ def test_quantized_decoder_matches_jax(quantized):
     valid = np.array([10, 6], np.int32)
     jc = jinit_cache(CFG, b, 16, jnp.float32, num_layers=hi - lo)
     tc = tinit_cache(TCFG, b, 16, torch.float32, num_layers=hi - lo)
-    jr = jllama.run_layers_prefill(jp, CFG, jnp.asarray(x), jnp.asarray(pos), jc,
-                                   jnp.asarray(valid), lo=lo, hi=hi)
+    # the JAX prefill and decode under one jit each (the quantized weights
+    # closed over): one compile, not one an op
+    jr = jax.jit(lambda x_, pos_, c, v: jllama.run_layers_prefill(
+        jp, CFG, x_, pos_, c, v, lo=lo, hi=hi))(
+        jnp.asarray(x), jnp.asarray(pos), jc, jnp.asarray(valid))
     tr = tllama.run_layers_prefill(tp, TCFG, torch.from_numpy(x), torch.from_numpy(pos), tc,
                                    torch.from_numpy(valid), lo=lo, hi=hi)
     for i, n in enumerate(valid):
@@ -297,8 +318,8 @@ def test_quantized_decoder_matches_jax(quantized):
         np.testing.assert_allclose(tr.cache.k[:, i, :n].numpy(),
                                    np.asarray(jr.cache.k[:, i, :n]), atol=ATOL, rtol=RTOL)
     xd = _np((b, 1, CFG.hidden_size), 12)
-    jd = jllama.run_layers_decode(jp, CFG, jnp.asarray(xd), jnp.asarray(valid[:, None]),
-                                  jr.cache, lo=lo, hi=hi)
+    jd = jax.jit(lambda x_, pos_, c: jllama.run_layers_decode(
+        jp, CFG, x_, pos_, c, lo=lo, hi=hi))(jnp.asarray(xd), jnp.asarray(valid[:, None]), jr.cache)
     td = tllama.run_layers_decode(tp, TCFG, torch.from_numpy(xd),
                                   torch.from_numpy(valid[:, None]), tr.cache, lo=lo, hi=hi)
     np.testing.assert_allclose(td.x.numpy(), np.asarray(jd.x), atol=ATOL, rtol=RTOL)

@@ -57,7 +57,9 @@ def _jax_grads(jp, x, pol, pos, remat, policy):
             remat=remat, remat_policy=policy, training=True)
         return jnp.sum(y * y)
 
-    gp, gx = jax.grad(loss, argnums=(0, 1))(jax.tree.map(jnp.asarray, jp), jnp.asarray(x))
+    # under one jit: one compile a policy, not one an op
+    gp, gx = jax.jit(jax.grad(loss, argnums=(0, 1)))(
+        jax.tree.map(jnp.asarray, jp), jnp.asarray(x))
     return {n: np.asarray(gp["layers"][n]) for n in WEIGHTS}, np.asarray(gx)
 
 

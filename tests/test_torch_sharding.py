@@ -45,6 +45,13 @@ WORLD = 8
 OPT = dict(base_lr=1e-3, predictor_lr=1e-3)
 LORA_CHECKED = ("q", "up", "o", "down")  # column- and row-parallel adapters
 
+# the JAX functions under one jit each: one compile a shape, not one an op
+_jinit = jax.jit(dynamic.init_llava_params, static_argnums=(1,))
+_jprefill = jax.jit(dynamic.prefill, static_argnums=(1,))
+_jdecode = jax.jit(dynamic.decode_step, static_argnums=(1,))
+_jspec = jax.jit(dynamic.decode_speculative_step, static_argnums=(1,),
+                 static_argnames=("eos_token_id",))
+
 
 def _gen_cfg():  # tests/test_sharded_inference.py
     return LlavaConfig(
@@ -97,7 +104,7 @@ def np_noise(noise):
 
 def _gen_case(seed):
     cfg = _gen_cfg()
-    params = dynamic.init_llava_params(jax.random.key(seed), cfg)
+    params = _jinit(jax.random.key(seed), cfg)
     rng = np.random.default_rng(seed)
     ids = []
     for n in (12, 10):
@@ -114,7 +121,7 @@ def _gen_case(seed):
 
 def _jax_prefill(cfg, params, plan, args):
     cache = init_tiered_cache(cfg.text, 2, plan.batch, 64, 48, jnp.float32)
-    return dynamic.prefill(params, cfg, *[jnp.asarray(a) for a in args], cache)[0]
+    return _jprefill(params, cfg, *[jnp.asarray(a) for a in args], cache)[0]
 
 
 @pytest.fixture(scope="module")
@@ -133,7 +140,7 @@ def ranks(tmp_path_factory):
     def decode_ref(cfg=cfg, params=params, plan=plan, args=args):
         state = _jax_prefill(cfg, params, plan, args)
         for toks in decode:
-            state = dynamic.decode_step(params, cfg, jnp.asarray(toks), state)
+            state = _jdecode(params, cfg, jnp.asarray(toks), state)
         return np.asarray(state.last_logits), np.asarray(state.cache.post.length)
     jax_refs.append(("decode", decode_ref))
 
@@ -148,7 +155,7 @@ def ranks(tmp_path_factory):
         state = _jax_prefill(cfg, params, plan, args)
         accs = []
         for toks in spec:
-            state, n_acc, _ = dynamic.decode_speculative_step(
+            state, n_acc, _ = _jspec(
                 params, cfg, jnp.asarray(toks, jnp.int32), state, eos_token_id=999)
             accs.append(np.asarray(n_acc))
         return (np.asarray(state.last_logits), np.asarray(state.cache.post.length),
@@ -169,11 +176,11 @@ def ranks(tmp_path_factory):
     for ad in adapters.values():
         ad["b"] = (rng.normal(size=ad["b"].shape) * 0.02).astype(np.float32)
     runs = {  # name: (params, key, grad_accum_steps, optimizer kwargs)
-        "train": (np_tree(dynamic.init_llava_params(jax.random.key(0), cfg)),
+        "train": (np_tree(_jinit(jax.random.key(0), cfg)),
                   jax.random.key(7), 1, OPT),
-        "accum": (np_tree(dynamic.init_llava_params(jax.random.key(3), cfg)),
+        "accum": (np_tree(_jinit(jax.random.key(3), cfg)),
                   jax.random.key(9), 2, OPT),
-        "lora": (attach_lora(np_tree(dynamic.init_llava_params(jax.random.key(5), cfg)),
+        "lora": (attach_lora(np_tree(_jinit(jax.random.key(5), cfg)),
                              adapters), jax.random.key(7), 1, dict(OPT, lora_mode=True)),
     }
     for name, (params, key, accum, opt) in runs.items():

@@ -214,7 +214,8 @@ def test_device_prompt_lookup_matches_host_semantics():
     for g in (3, 1):
         got = device_prompt_lookup(torch.from_numpy(ctx), torch.from_numpy(lens), k,
                                    max_ngram=g).numpy()
-        want = np.asarray(jlookup(jnp.asarray(ctx), jnp.asarray(lens), k, max_ngram=g))
+        want = np.asarray(jax.jit(jlookup, static_argnums=(2,), static_argnames=(
+            "max_ngram",))(jnp.asarray(ctx), jnp.asarray(lens), k, max_ngram=g))
         np.testing.assert_array_equal(got, want)
         assert got.dtype == np.int32
         for i, c in enumerate(LOOKUP_CONTEXTS):
@@ -297,9 +298,11 @@ def test_one_round_state_matches_jax():
         toks[i, 3] = (greedy[i][3] + 1) % cfg.text.vocab_size  # rejected
     jstate, tstate = _prefill_both(pair, ids_list, 8 + m)
     tcfg = port_config(cfg)
+    # one compile a form of the round, not one an op
+    jround = jax.jit(jdyn.decode_speculative_step, static_argnums=(1, 4))
     with torch.inference_mode():
         for r, active in enumerate((None, np.array([True, False]))):
-            jstate, jn, jnext = jdyn.decode_speculative_step(
+            jstate, jn, jnext = jround(
                 pair.jp, cfg, jnp.asarray(toks), jstate, cfg.text.vocab_size + 7,
                 active=None if active is None else jnp.asarray(active))
             tstate, tn, tnext = tdyn.decode_speculative_step(

@@ -35,6 +35,12 @@ CFG = ClipVisionConfig(hidden_size=32, intermediate_size=64, num_hidden_layers=4
                        num_attention_heads=2, image_size=56, patch_size=14)
 
 
+# the JAX functions under one jit each: one compile a shape, not one an op
+_js2 = jax.jit(jtowers.s2_tower_features, static_argnums=(1,), static_argnames=("scales",))
+_jpacker = jax.jit(jtowers.tokenpacker_tower_features, static_argnums=(1,),
+                   static_argnames=("multi_layers",))
+
+
 def _bridge(tree):
     return params_from_numpy(jax.tree.map(np.asarray, tree), "cpu", torch.float32)
 
@@ -55,7 +61,7 @@ def test_s2_features_match_jax(tower, scales):
     block is the single-scale tower's (JAX ``tests/test_towers.py``)."""
     jp, tp = tower
     imgs = _images(2, 0)
-    want = np.asarray(jtowers.s2_tower_features(jp, CFG, jnp.asarray(imgs), scales=scales))
+    want = np.asarray(_js2(jp, CFG, jnp.asarray(imgs), scales=scales))
     got = ttowers.s2_tower_features(tp, port_config(CFG), torch.from_numpy(imgs),
                                     scales=scales).numpy()
     assert got.shape == (2, CFG.num_patches, CFG.hidden_size * len(scales))
@@ -70,8 +76,7 @@ def test_tokenpacker_tower_and_projector_match_jax(tower, multi_layers):
     scale factor 2, on the JAX ``init_tokenpacker_params`` weights."""
     jp, tp = tower
     imgs = _images(2, 1)
-    js, jm = jtowers.tokenpacker_tower_features(jp, CFG, jnp.asarray(imgs),
-                                                multi_layers=multi_layers)
+    js, jm = _jpacker(jp, CFG, jnp.asarray(imgs), multi_layers=multi_layers)
     ts, tm = ttowers.tokenpacker_tower_features(tp, port_config(CFG), torch.from_numpy(imgs),
                                                 multi_layers=multi_layers)
     np.testing.assert_allclose(ts.numpy(), np.asarray(js), atol=ATOL, rtol=RTOL)
@@ -80,7 +85,9 @@ def test_tokenpacker_tower_and_projector_match_jax(tower, multi_layers):
     jpk = jtowers.init_tokenpacker_params(jax.random.key(2), kv_dim=32, multi_dim=multi_dim,
                                           embed_dim=32, hidden_size=64, num_heads=2)
     tpk = _bridge(jpk)
-    want = np.asarray(jtowers.tokenpacker_project(jpk, js, jm, raw_grid=4, scale_factor=2))
+    # under one jit; the weights (with their head count) are closed over
+    want = np.asarray(jax.jit(lambda s_, m_: jtowers.tokenpacker_project(
+        jpk, s_, m_, raw_grid=4, scale_factor=2))(js, jm))
     got = ttowers.tokenpacker_project(tpk, ts, tm, raw_grid=4, scale_factor=2).numpy()
     assert got.shape == (2, 4, 64)
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)

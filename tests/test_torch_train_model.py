@@ -123,9 +123,13 @@ def test_run_layers_nocache_matches_jax_with_and_without_remat(with_policy):
             llm, cfg.text, x_, jnp.asarray(pos), lo=1, hi=4, policy=pol_,
             remat=True, training=True)
 
-    want, vjp = jax.vjp(jfn, jp["llm"], jnp.asarray(x),
-                        None if pol is None else jnp.asarray(pol))
-    jg_llm, jg_x, jg_pol = vjp(jnp.asarray(cot))
+    @jax.jit  # one compile, not one an op and shape
+    def forward_and_grads(llm, x_, pol_, cot_):
+        out, vjp = jax.vjp(jfn, llm, x_, pol_)
+        return out, vjp(cot_)
+
+    want, (jg_llm, jg_x, jg_pol) = forward_and_grads(
+        jp["llm"], jnp.asarray(x), None if pol is None else jnp.asarray(pol), jnp.asarray(cot))
 
     tcfg = port_config(cfg.text)
     outs = []
@@ -165,15 +169,29 @@ def test_run_layers_nocache_rejects_other_remat_policies():
 # -- forward_train -------------------------------------------------------------------
 
 
-def _forward_both(cfg, jp, tp, plan, images, return_hidden, tau=0.7, seed=5):
+# the JAX forward under one jit (one compile a config and form, not one an
+# op and shape), and its result for each ``setup`` config, by (config name,
+# return_hidden): the tests of one config share one JAX run a form
+_jforward = jax.jit(jdyn.forward_train, static_argnums=(1,), static_argnames=("return_hidden",))
+_JAX_FORWARD = {}
+
+
+def _forward_both(cfg, jp, tp, plan, images, return_hidden, tau=0.7, seed=5, memo=None):
+    """The port's and the JAX package's ``forward_train`` on the same batch
+    and noise; ``memo`` (the ``setup`` config's name) keeps the JAX run for
+    the next test of that config."""
     jb = jstep.batch_from_plan(plan, images)
     tb = tstep.batch_from_plan(plan, images, "cpu")
     key = jax.random.key(seed)
-    want = jdyn.forward_train(
-        jp, cfg, jb.token_ids, jb.is_image, jb.image_slot, jb.valid_len,
-        jb.image_start, jb.answer_start, jb.answer_end, jb.last_instruct_start,
-        jb.last_instruct_end, jb.has_image, jb.pixel_values, key, jnp.float32(tau),
-        return_hidden=return_hidden)
+    want = _JAX_FORWARD.get((memo, return_hidden)) if memo is not None else None
+    if want is None:
+        want = _jforward(
+            jp, cfg, jb.token_ids, jb.is_image, jb.image_slot, jb.valid_len,
+            jb.image_start, jb.answer_start, jb.answer_end, jb.last_instruct_start,
+            jb.last_instruct_end, jb.has_image, jb.pixel_values, key, jnp.float32(tau),
+            return_hidden=return_hidden)
+        if memo is not None:
+            _JAX_FORWARD[memo, return_hidden] = want
     noise = shared_noise(cfg, key, plan.batch, plan.seq_len)
     with torch.no_grad():
         got = tdyn.forward_train(
@@ -187,7 +205,7 @@ def _forward_both(cfg, jp, tp, plan, images, return_hidden, tau=0.7, seed=5):
 @pytest.mark.parametrize("return_hidden", [False, True])
 def test_forward_train_every_field_matches_jax(setup, return_hidden):
     name, cfg, jp, tp, plan, images = setup
-    got, want, _, _ = _forward_both(cfg, jp, tp, plan, images, return_hidden)
+    got, want, _, _ = _forward_both(cfg, jp, tp, plan, images, return_hidden, memo=name)
     assert got._fields == want._fields
     for field in want._fields:
         g, w = getattr(got, field), getattr(want, field)
@@ -236,7 +254,7 @@ def test_forward_train_with_a_generator_is_reproducible():
 def test_total_loss_and_metrics_match_jax(setup):
     name, cfg, jp, tp, plan, images = setup
     for return_hidden in (False, True):
-        got, want, tb, jb = _forward_both(cfg, jp, tp, plan, images, return_hidden)
+        got, want, tb, jb = _forward_both(cfg, jp, tp, plan, images, return_hidden, memo=name)
         jl, jm = jlosses.total_loss(want, jb.labels, cfg.sparse, llm_params=jp["llm"],
                                     tcfg=cfg.text)
         with torch.no_grad():
@@ -305,9 +323,9 @@ def test_blockwise_ce_equals_dense_ce_and_jax(block_s):
     (g_dense,) = torch.autograd.grad(dense, th)
     _close(blockwise, dense.detach().numpy(), 1e-6, 1e-6)
     _close(g_block, g_dense.numpy(), 1e-7, 1e-5)
-    jl, jg = jax.value_and_grad(
+    jl, jg = jax.jit(jax.value_and_grad(
         lambda h: jlosses.lm_cross_entropy_blockwise(
-            jp["llm"], cfg.text, h, jnp.asarray(labels), block_s=block_s))(jnp.asarray(hidden))
+            jp["llm"], cfg.text, h, jnp.asarray(labels), block_s=block_s)))(jnp.asarray(hidden))
     _close(blockwise, jl)
     _close(g_block, jg, 1e-7, 1e-4)
     # all labels ignored: a zero loss, not a division by zero

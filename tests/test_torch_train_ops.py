@@ -11,6 +11,8 @@ fp32 throughout. Tolerances: forward and gradients atol 1e-5 / rtol 1e-4
 unless a test says otherwise (sums over up to 70 keys in another order).
 """
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -58,14 +60,14 @@ def test_gumbel_softmax_on_shared_noise(tau, hard):
     key = jax.random.key(7)
     w = _np((3, 11, 2), 1)  # a fixed cotangent
 
-    want, vjp = jax.vjp(lambda x: jgumbel.gumbel_softmax(key, x, tau, hard=hard),
-                        jnp.asarray(logits))
+    want, (j_grad,) = jax_vjp(lambda x: jgumbel.gumbel_softmax(key, x, tau, hard=hard),
+                              (logits,), w)
     x = _t(logits, grad=True)
     got = tgumbel.gumbel_softmax(_t(jax_uniform(key, logits.shape)), x, tau, hard=hard)
     np.testing.assert_array_equal(got.detach().numpy() > 0.5, np.asarray(want) > 0.5)
     _close(got, want, atol=1e-6)
     got.backward(_t(w))
-    _close(x.grad, vjp(jnp.asarray(w))[0], atol=1e-6)
+    _close(x.grad, j_grad, atol=1e-6)
 
 
 def test_gumbel_keep_mask_and_ste_argmax():
@@ -106,12 +108,21 @@ def _qkvp(b, s, h, hkv, d, seed, soft=True):
     return q, k, v, pol
 
 
+def jax_vjp(j_fn, j_inputs, cot):
+    """``(j_fn(*j_inputs), its input gradients under cot)``, the JAX side
+    under one jit: one compile, not one an op and shape."""
+    def run(inputs, cot_):
+        out, vjp = jax.vjp(j_fn, *inputs)
+        return out, vjp(cot_)
+    return jax.jit(run)(tuple(map(jnp.asarray, j_inputs)), jnp.asarray(cot))
+
+
 def _grads_close(t_out, t_inputs, j_fn, j_inputs, cot, atol=ATOL, rtol=RTOL):
     """Forward and the gradients of every input under the cotangent ``cot``."""
-    want, vjp = jax.vjp(j_fn, *map(jnp.asarray, j_inputs))
+    want, j_grads = jax_vjp(j_fn, j_inputs, cot)
     _close(t_out, want, atol, rtol)
     t_grads = torch.autograd.grad(t_out, t_inputs, _t(cot))
-    for tg, jg in zip(t_grads, vjp(jnp.asarray(cot))):
+    for tg, jg in zip(t_grads, j_grads):
         _close(tg, jg, atol, rtol)
 
 
@@ -171,6 +182,16 @@ K3_CASES = [
 ]
 
 
+@functools.partial(jax.jit, static_argnames=("causal",))
+def _pallas_k3(q, k, v, g, kv_length, causal):
+    """The JAX package's Pallas forward and backward (interpret mode) under
+    one jit: one compile a case, not one a kernel and an op."""
+    out, lse = jflash.flash_attention(q, k, v, kv_length=kv_length, causal=causal, block_q=32,
+                                      block_k=32, interpret=True, save_residuals=True)
+    return jflash.flash_attention_bwd(q, k, v, out, lse, g, kv_length=kv_length, causal=causal,
+                                      block_q=32, block_k=32, interpret=True)
+
+
 @pytest.mark.parametrize("b,s,h,hkv,d,causal,lens", K3_CASES)
 def test_k3_plain_matches_pallas_interpret(b, s, h, hkv, d, causal, lens):
     q, k, v, g = (_np((b, s, h, d), 30), _np((b, s, hkv, d), 31), _np((b, s, hkv, d), 32),
@@ -178,12 +199,7 @@ def test_k3_plain_matches_pallas_interpret(b, s, h, hkv, d, causal, lens):
     kvl = None if lens is None else np.asarray(lens, np.int32)
     jkvl = None if kvl is None else jnp.asarray(kvl)
     tkvl = None if kvl is None else _t(kvl)
-    jout, jlse = jflash.flash_attention(
-        *map(jnp.asarray, (q, k, v)), kv_length=jkvl, causal=causal, block_q=32,
-        block_k=32, interpret=True, save_residuals=True)
-    want = jflash.flash_attention_bwd(
-        *map(jnp.asarray, (q, k, v)), jout, jlse, jnp.asarray(g), kv_length=jkvl,
-        causal=causal, block_q=32, block_k=32, interpret=True)
+    want = _pallas_k3(*map(jnp.asarray, (q, k, v, g)), jkvl, causal=causal)
     tout, tlse = tflash.flash_attention_plain(
         *map(_t, (q, k, v)), kv_length=tkvl, causal=causal, return_lse=True)
     got = tflash.flash_attention_bwd_plain(
@@ -210,8 +226,7 @@ def test_k3_plain_matches_grad_of_attend(h, hkv, causal):
     kvl = np.asarray([29, 18], np.int32)
     g[1, 18:] = 0.0  # rows past the valid length are padding in both
     jmask = jattn.make_attention_mask(s, s, causal=causal, batch=b, kv_length=jnp.asarray(kvl))
-    _, vjp = jax.vjp(lambda *a: jattn.attend(*a, mask=jmask), *map(jnp.asarray, (q, k, v)))
-    want = vjp(jnp.asarray(g))
+    _, want = jax_vjp(lambda *a: jattn.attend(*a, mask=jmask), (q, k, v), g)
     tout, tlse = tflash.flash_attention_plain(
         *map(_t, (q, k, v)), kv_length=_t(kvl), causal=causal, return_lse=True)
     got = tflash.flash_attention_bwd_plain(
@@ -265,16 +280,23 @@ def test_self_attend_routes_and_padding_is_not_masked():
 # -- K4: policy attention ----------------------------------------------------------
 
 
+@jax.jit
+def _jax_k4(q, k, v, pol):
+    """The Pallas kernel (interpret mode) and the plain oracle under one jit."""
+    s = q.shape[1]
+    mask = jattn.make_attention_mask(s, s, causal=True, batch=q.shape[0])
+    return (jpolicy.flash_policy_attention(q, k, v, pol, block_q=16, block_k=16, interpret=True),
+            jattn.attend_with_policy(q, k, v, pol, mask=mask))
+
+
 @pytest.mark.parametrize("h,hkv,s", [(2, 2, 48), (4, 2, 37)])
 @pytest.mark.parametrize("soft", [False, True])
 def test_k4_plain_matches_pallas_interpret(h, hkv, s, soft):
     q, k, v, pol = _qkvp(2, s, h, hkv, 16, 70, soft=soft)
-    want = jpolicy.flash_policy_attention(
-        *map(jnp.asarray, (q, k, v, pol)), block_q=16, block_k=16, interpret=True)
+    want, oracle = _jax_k4(*map(jnp.asarray, (q, k, v, pol)))
     got = tpolicy.flash_policy_attention_plain(*map(_t, (q, k, v, pol)))
     _close(got, want, atol=3e-5, rtol=3e-4)  # the JAX test's own tolerance
-    jmask = jattn.make_attention_mask(s, s, causal=True, batch=2)
-    _close(got, jattn.attend_with_policy(*map(jnp.asarray, (q, k, v, pol)), mask=jmask))
+    _close(got, oracle)
     # the dispatcher takes the plain version for CPU tensors
     assert torch.equal(got, tpolicy.flash_policy_attention(*map(_t, (q, k, v, pol))))
 

@@ -134,8 +134,8 @@ def test_decoder_prefill_and_decode_match_jax(both):
     valid = np.array([12, 7], np.int32)
     jc = jinit_cache(tcfg, b, 16, jnp.float32, num_layers=hi - lo)
     tc = tinit_cache(TCFG.text, b, 16, torch.float32, num_layers=hi - lo)
-    jr = jllama.run_layers_prefill(jp["llm"], tcfg, jnp.asarray(x), jnp.asarray(pos), jc,
-                                   jnp.asarray(valid), lo=lo, hi=hi)
+    jr = jax.jit(jllama.run_layers_prefill, static_argnums=(1,), static_argnames=("lo", "hi"))(
+        jp["llm"], tcfg, jnp.asarray(x), jnp.asarray(pos), jc, jnp.asarray(valid), lo=lo, hi=hi)
     tr = tllama.run_layers_prefill(tp["llm"], TCFG.text, torch.from_numpy(x),
                                    torch.from_numpy(pos), tc, torch.from_numpy(valid),
                                    lo=lo, hi=hi)
@@ -147,8 +147,8 @@ def test_decoder_prefill_and_decode_match_jax(both):
 
     xd = _np((b, 1, tcfg.hidden_size), 3)
     posd = valid[:, None]
-    jd = jllama.run_layers_decode(jp["llm"], tcfg, jnp.asarray(xd), jnp.asarray(posd),
-                                  jr.cache, lo=lo, hi=hi)
+    jd = jax.jit(jllama.run_layers_decode, static_argnums=(1,), static_argnames=("lo", "hi"))(
+        jp["llm"], tcfg, jnp.asarray(xd), jnp.asarray(posd), jr.cache, lo=lo, hi=hi)
     td = tllama.run_layers_decode(tp["llm"], TCFG.text, torch.from_numpy(xd),
                                   torch.from_numpy(posd), tr.cache, lo=lo, hi=hi)
     _close(td.x, jd.x)
@@ -161,7 +161,8 @@ def test_clip_tower_matches_jax(both):
     jp, tp = both
     pix = _np((2, CFG.vision.image_size, CFG.vision.image_size, 3), 4)
     got = tclip.vision_tower_features(tp["vision_tower"], TCFG.vision, torch.from_numpy(pix))
-    want = jclip.vision_tower_features(jp["vision_tower"], CFG.vision, jnp.asarray(pix))
+    want = jax.jit(jclip.vision_tower_features, static_argnums=(1,))(
+        jp["vision_tower"], CFG.vision, jnp.asarray(pix))
     assert got.shape == (2, CFG.vision.num_patches, CFG.vision.hidden_size)
     _close(got, want)
 
@@ -184,13 +185,14 @@ def test_vision_predictor_matches_jax(both):
     x = _np((2, CFG.num_image_tokens, CFG.text.hidden_size), 7)
     pol = (np.random.default_rng(8).random((2, CFG.num_image_tokens, 1)) > 0.3)
     pol = pol.astype(np.float32)
+    # under one jit a form (the weights closed over): one compile, not one an op
+    jfn = jax.jit(lambda x_, pol_: jpred.vision_predictor(
+        jp["predictors"]["image_score_predictor"], x_, CFG.sparse, pol_))
     for policy in (None, pol):
         got = tpred.vision_predictor(
             tp["predictors"]["image_score_predictor"], torch.from_numpy(x), TCFG.sparse,
             None if policy is None else torch.from_numpy(policy))
-        want = jpred.vision_predictor(
-            jp["predictors"]["image_score_predictor"], jnp.asarray(x), CFG.sparse,
-            None if policy is None else jnp.asarray(policy))
+        want = jfn(jnp.asarray(x), None if policy is None else jnp.asarray(policy))
         _close(got, want)
 
 

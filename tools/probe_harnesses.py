@@ -5,7 +5,7 @@
 
 It builds the kernels, makes the bench's LLaVA-1.5-7B weights with an
 int8 decoder directly (``eval.bench.build_bench_params``, seed 0), cuts the
-decoder to its first ``chip_smoke.SPEC_DEPTH`` layers (views) and runs
+decoder to its first ``chip_smoke.HARNESS_DEPTH`` layers (views) and runs
 ``chip_smoke.harnesses`` on them: the five measurement harnesses' twins in
 ``tools/`` at the phase's horizons, their holds, and the wrapper calls. It
 prints the card's name and power limit, the phase's lines, and the
@@ -42,11 +42,11 @@ def main() -> int:
     kernels.load_library()
     print(f"build {time.perf_counter() - t0:.1f} s", flush=True)
     cfg = bench_cfg("7b")
-    cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text,
-                                                            num_hidden_layers=cs.SPEC_DEPTH))
+    cfg = dataclasses.replace(cfg, text=dataclasses.replace(
+        cfg.text, num_hidden_layers=cs.HARNESS_DEPTH))
     params = build_bench_params(cfg, "int8", "cuda")
     torch.cuda.synchronize()
-    out = cs.harnesses(torch, params, cs.SPEC_DEPTH)
+    out = cs.harnesses(torch, params, cs.HARNESS_DEPTH)
     print(json.dumps(out))
     return 0
 

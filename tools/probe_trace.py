@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Repeat a traced serving mode of ``chip_smoke.py`` and report whether the
-profiler counted every launch.
+"""Repeat a serving mode of ``chip_smoke.py`` with its first call traced and
+report whether the profiler counted every launch the launch counter did.
 
     KINETO_LOG_LEVEL=1 python3 tools/probe_trace.py --runs 5 2>&1 | \\
         grep -E "GPU records|Max GPU buffer|run [0-9]|fails"
@@ -12,8 +12,10 @@ an int4 decoder (random weights from a seed) with the fused MLP and an int8
 KV cache: B=8, 256 new tokens, whose ``Generator.generate`` calls make the
 largest traces of ``chip_smoke.py``; ``--mode bf16`` is phase 5's sparse and
 dense bf16 serving (B=8, 64 new tokens). Each run is ``chip_smoke.serve`` on
-the mode (two traced calls a mode, each held to an eager loop's wrapper
-calls), so a run fails where a trace lost launches. kineto reads ``chip_smoke.py``'s config (its
+the mode (two counted calls a mode, each held to an eager loop's wrapper
+calls; the first mode's first call also traced, and the trace's launches held
+equal to the counter's: ``chip_launches.counted_against_trace``), so a run
+fails where a trace lost launches. kineto reads ``chip_smoke.py``'s config (its
 cap on one trace's records raised to 1 GB) unless ``--default-cap``. With
 ``KINETO_LOG_LEVEL=1`` kineto writes each trace's record volume and its cap
 to standard error. It needs one card.
@@ -73,7 +75,7 @@ def main() -> int:
     for i in range(args.runs):
         t0 = time.perf_counter()
         try:
-            cs.serve(torch, params, modes, counters, need, args.mode, **kw)
+            cs.serve(torch, params, modes, counters, need, args.mode, hold_trace=True, **kw)
             print(f"run {i}: ok ({time.perf_counter() - t0:.1f} s)", flush=True)
         except RuntimeError as e:
             fails += 1
